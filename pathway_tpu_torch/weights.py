@@ -1,0 +1,86 @@
+"""Weight bridge between the reference's flax parameter tree and the
+port's TextEncoder state dict.
+
+The mapping is the one ``pathway_tpu/models/encoder.py::load_hf_weights``
+encodes, read in the other direction:
+
+* a Dense ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
+* ``qkv`` stays one concatenated q | k | v projection;
+* embeddings (``embedding`` -> ``weight``) and LayerNorm (``scale`` ->
+  ``weight``, ``bias`` -> ``bias``) map one to one;
+* flax ``layer_{i}`` is ``layers.{i}``.
+
+The tree is plain nested dicts of numpy arrays (unboxed), with or without
+the top-level ``"params"`` key. Values are copied exactly; the round trip
+gives back the same arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_DENSE = ("attention/qkv", "attention/out", "mlp_in", "mlp_out")
+_NORMS = ("ln_att", "ln_mlp")
+
+
+def _get(tree: dict, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
+    """flax TextEncoder params (numpy) -> TextEncoder state dict (CPU)."""
+    p = tree["params"] if "params" in tree else tree
+    t = lambda a: torch.from_numpy(np.array(a, order="C", copy=True))  # noqa: E731
+    sd = {
+        "tok_embed.weight": t(p["tok_embed"]["embedding"]),
+        "pos_embed.weight": t(p["pos_embed"]["embedding"]),
+    }
+    if "type_embed" in p:
+        sd["type_embed.weight"] = t(p["type_embed"]["embedding"])
+    sd["ln_embed.weight"] = t(p["ln_embed"]["scale"])
+    sd["ln_embed.bias"] = t(p["ln_embed"]["bias"])
+    i = 0
+    while f"layer_{i}" in p:
+        layer = p[f"layer_{i}"]
+        pre = f"layers.{i}."
+        for path in _DENSE:
+            dense = _get(layer, path)
+            name = pre + path.replace("/", ".")
+            sd[name + ".weight"] = t(np.asarray(dense["kernel"]).T)
+            sd[name + ".bias"] = t(dense["bias"])
+        for ln in _NORMS:
+            sd[pre + ln + ".weight"] = t(layer[ln]["scale"])
+            sd[pre + ln + ".bias"] = t(layer[ln]["bias"])
+        i += 1
+    return sd
+
+
+def to_jax_params(state_dict: dict) -> dict:
+    """TextEncoder state dict -> flax-layout params tree of numpy arrays."""
+    a = lambda key: state_dict[key].detach().cpu().numpy().copy()  # noqa: E731
+    p: dict = {
+        "tok_embed": {"embedding": a("tok_embed.weight")},
+        "pos_embed": {"embedding": a("pos_embed.weight")},
+    }
+    if "type_embed.weight" in state_dict:
+        p["type_embed"] = {"embedding": a("type_embed.weight")}
+    p["ln_embed"] = {"scale": a("ln_embed.weight"), "bias": a("ln_embed.bias")}
+    i = 0
+    while f"layers.{i}.attention.qkv.weight" in state_dict:
+        pre = f"layers.{i}."
+        layer: dict = {"attention": {}}
+        for path in _DENSE:
+            name = pre + path.replace("/", ".")
+            dense = {"kernel": np.ascontiguousarray(a(name + ".weight").T), "bias": a(name + ".bias")}
+            if path.startswith("attention/"):
+                layer["attention"][path.split("/")[1]] = dense
+            else:
+                layer[path] = dense
+        for ln in _NORMS:
+            layer[ln] = {"scale": a(pre + ln + ".weight"), "bias": a(pre + ln + ".bias")}
+        p[f"layer_{i}"] = layer
+        i += 1
+    return {"params": p}

@@ -1,0 +1,180 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card, at the main path's widths (MiniLM-L6: d 384, 12
+heads of 32, FFN 1536). Every test here needs a CUDA device and skips
+inside its fixture when there is none; run them on the card with
+``pytest -m gpu tests/test_torch_*.py``.
+
+Tolerances: kernel and plain version sum in different orders in f32, so
+bf16 outputs may differ by one bf16 rounding step (rtol 1.6e-2, the
+default bf16 tolerance of torch.testing, with atol 1e-2); f32 outputs by
+1e-4; top-k scores by 1e-5 relative, indices equal up to near-ties."""
+
+from __future__ import annotations
+
+import math
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+BF16 = dict(rtol=1.6e-2, atol=1e-2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("n,act", [(1152, False), (1536, True), (384, False)])
+def test_gemm_bias_act_matches_plain(cuda, n, act):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_layer import gemm_bias_act, gemm_bias_act_reference
+
+    g = _gen(n)
+    m, k = 4096 + 37, 384
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (0.05 * torch.randn(n, k, device=cuda, generator=g)).bfloat16()
+    b = 0.1 * torch.randn(n, device=cuda, generator=g)
+    before = _build.LAUNCHES["gemm_bias_act"]
+    got = gemm_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gemm_bias_act"] == before + 1
+    torch.testing.assert_close(got.float(), gemm_bias_act_reference(x, w, b, act).float(), **BF16)
+
+
+@pytest.mark.parametrize("k,res_f32", [(384, False), (1536, True)])
+def test_gemm_residual_layernorm_matches_plain(cuda, k, res_f32):
+    from pathway_tpu_torch.ops.fused_layer import (
+        gemm_bias_residual_layernorm,
+        gemm_bias_residual_layernorm_reference,
+    )
+
+    g = _gen(k)
+    m, n = 4096 + 19, 384
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (0.05 * torch.randn(n, k, device=cuda, generator=g)).bfloat16()
+    b = 0.1 * torch.randn(n, device=cuda, generator=g)
+    r = torch.randn(m, n, device=cuda, generator=g)
+    r = r if res_f32 else r.bfloat16()
+    gamma = 1.0 + 0.1 * torch.randn(n, device=cuda, generator=g)
+    beta = 0.1 * torch.randn(n, device=cuda, generator=g)
+    yf, yb = gemm_bias_residual_layernorm(x, w, b, r, gamma, beta, 1e-12)
+    rf, rb = gemm_bias_residual_layernorm_reference(x, w, b, r, gamma, beta, 1e-12)
+    torch.testing.assert_close(yf, rf, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(yb.float(), rb.float(), **BF16)
+
+
+@pytest.mark.parametrize("b,s,zero_empty", [(64, 160, True), (48, 128, False), (4, 512, False), (9, 37, True)])
+def test_masked_attention_matches_plain(cuda, b, s, zero_empty):
+    from pathway_tpu_torch.ops.fused_attention import masked_attention, masked_attention_reference
+
+    g = _gen(s)
+    qkv = torch.randn(b, s, 3 * 384, device=cuda, generator=g).bfloat16()
+    lens = torch.randint(s // 2, s + 1, (b,), device=cuda, generator=g)
+    lens[0] = 0  # a fully masked row
+    lens[-1] = s
+    mask = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    got = masked_attention(qkv, mask, 12, zero_empty)
+    want = masked_attention_reference(qkv, mask, 12, zero_empty)
+    assert torch.isfinite(got.float()).all()
+    # every query row, padded ones included
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    if zero_empty:
+        assert (got[0] == 0).all()
+    else:  # a fully masked row averages V uniformly
+        mean_v = qkv[0, :, 2 * 384 :].float().mean(dim=0).expand(s, -1)
+        torch.testing.assert_close(got[0].float(), mean_v, **BF16)
+
+
+@pytest.mark.parametrize("metric,k", [("cos", 16), ("cos", 64), ("l2", 10), ("cos", 1)])
+def test_knn_topk_matches_plain(cuda, metric, k):
+    from pathway_tpu_torch.ops.knn import _pallas_bias
+    from pathway_tpu_torch.ops.knn_topk import NEG, knn_topk, knn_topk_reference, topk_agreement
+
+    g = _gen(k)
+    n, d = 200_003, 384
+    docs = torch.nn.functional.normalize(torch.randn(n, d, device=cuda, generator=g), dim=1)
+    docs[100:110] = docs[5]  # exact ties
+    valid = torch.rand(n, device=cuda, generator=g) > 0.1
+    q = torch.nn.functional.normalize(torch.randn(77, d, device=cuda, generator=g), dim=1)
+    q[0] = docs[5]
+    bias = _pallas_bias(metric, docs, valid)
+    factor = 2.0 if metric == "l2" else 1.0
+    vals, idx = knn_topk(q, docs, k=k, bias=bias, factor=factor)
+    rv, ri = knn_topk_reference(q, docs, k=k, bias=bias, factor=factor)
+    share, ok = topk_agreement(vals, idx, rv, ri, atol=1e-5, rtol=1e-5)
+    assert ok, share
+    dead = (~valid).nonzero().flatten()
+    assert not set(idx.flatten().tolist()) & set(dead.tolist())
+    assert (vals > NEG / 2).all()
+
+
+def test_knn_topk_fewer_live_docs_than_k(cuda):
+    from pathway_tpu_torch.ops.knn_topk import NEG, knn_topk, knn_topk_reference
+
+    g = _gen(3)
+    docs = torch.randn(5000, 64, device=cuda, generator=g)
+    bias = torch.full((5000,), NEG, device=cuda)
+    bias[[7, 4000, 4999]] = 0.0
+    q = torch.randn(3, 64, device=cuda, generator=g)
+    vals, idx = knn_topk(q, docs, k=40, bias=bias)
+    rv, ri = knn_topk_reference(q, docs, k=40, bias=bias)
+    assert torch.equal(idx, ri)
+    torch.testing.assert_close(vals, rv, rtol=1e-5, atol=1e-5)
+    assert (idx[:, 3:] == -1).all() and (vals[:, 3:] == NEG).all()
+
+
+def test_encoder_forward_kernels_match_plain(cuda):
+    import dataclasses
+
+    from pathway_tpu_torch.models.encoder import EncoderConfig, init_params
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_layer import encoder_forward
+
+    cfg = EncoderConfig.minilm_l6()
+    params = {k: v.to(cuda) for k, v in init_params(cfg, seed=0).items()}
+    g = _gen(0)
+    b, s = 96, 160
+    ids = torch.randint(999, 29000, (b, s), device=cuda, generator=g, dtype=torch.int32)
+    lens = torch.randint(80, s + 1, (b,), device=cuda, generator=g, dtype=torch.int32)
+    lens[-5:] = 0
+    mask = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    _build.reset_launches()
+    got = encoder_forward(params, cfg, ids, mask, lens=lens)
+    assert _build.LAUNCHES["masked_attention"] == cfg.num_layers
+    assert _build.LAUNCHES["gemm_bias_act"] == 2 * cfg.num_layers
+    assert _build.LAUNCHES["gemm_bias_residual_layernorm"] == 2 * cfg.num_layers
+    want = encoder_forward(params, dataclasses.replace(cfg, layer_impl="plain"), ids, mask, lens=lens)
+    assert torch.isfinite(got).all()
+    assert (got[-5:] == 0).all()
+    err = (got - want).abs().max().item()
+    cos = (got[:-5] * want[:-5]).sum(dim=1).min().item()
+    assert err < 3e-2 and cos > 0.999, (err, cos)
+
+
+def test_index_search_kernel_matches_plain_path(cuda):
+    import numpy as np
+
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    rng = np.random.default_rng(0)
+    for metric in ("cos", "l2", "ip"):
+        index = DeviceKnnIndex(dim=48, metric=metric, reserved_space=512, device="cuda")
+        index.add_batch_arrays([f"k{i}" for i in range(3000)], rng.normal(size=(3000, 48)))
+        for i in range(0, 3000, 7):
+            index.remove(f"k{i}")
+        q = rng.normal(size=(9, 48)).astype(np.float32)
+        got = index.search_batch(q, 10)  # kernel (fetch 16)
+        wide = index.search_batch(q, 100)  # torch.topk (fetch 128)
+        for g_row, w_row in zip(got, wide):
+            assert [key for key, _ in g_row] == [key for key, _ in w_row[:10]]
+            assert math.isclose(g_row[0][1], w_row[0][1], rel_tol=1e-5, abs_tol=1e-5)

@@ -1,0 +1,124 @@
+"""Guards of the PyTorch port: it imports nothing of JAX, flax or
+pathway_tpu; its entry points never fall back to the CPU; its kernels are
+built only at first use on a CUDA tensor; ``chip_smoke.py`` refuses to run
+without a card."""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pathway_tpu_torch")
+
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu)(?:\.|\s|$)", re.M)
+
+_PROBE = r"""
+import sys
+before = set(sys.modules)
+import numpy as np
+import pathway_tpu_torch as pt
+from pathway_tpu_torch.models.encoder import EncoderConfig
+from pathway_tpu_torch.models.tokenizer import WordPieceTokenizer
+cfg = EncoderConfig(vocab_size=2048, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64, max_position=32)
+enc = pt.SentenceEncoder(config=cfg, max_seq_len=16, max_batch=8, device="cpu")
+enc.tokenizer = WordPieceTokenizer(vocab_size=2048)
+index = pt.DeviceKnnIndex(dim=32, device="cpu")
+index.add_batch_device(list(range(5)), enc.encode_device(["a b", "c d", "e f", "g h", "i j"]))
+index.attach_encoder(enc)
+assert index.search_batch(enc.encode(["a b"]), 2)[0][0][0] == 0
+assert index.search_texts_batch(["c d"], 2)[0][0][0] == 1
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
+print("BAD", bad)
+"""
+
+
+def test_port_run_imports_no_jax_flax_or_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_port_sources_and_chip_smoke_have_no_forbidden_imports():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            hits = _FORBIDDEN.findall(f.read())
+        assert not hits, (path, hits)
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    import pathway_tpu_torch as pt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: pt.resolve_device(None),
+        lambda: pt.resolve_device("cuda"),
+        lambda: pt.DeviceKnnIndex(dim=4),
+        lambda: pt.SentenceEncoder(config=pt.EncoderConfig(vocab_size=2048, hidden_size=32, num_layers=1,
+                                                           num_heads=2, intermediate_size=64)),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert pt.resolve_device("cpu").type == "cpu"
+
+
+def test_cpu_tensors_never_launch_kernels_and_build_is_lazy(monkeypatch):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_attention import masked_attention
+    from pathway_tpu_torch.ops.fused_layer import gemm_bias_act
+    from pathway_tpu_torch.ops.knn_topk import knn_topk
+
+    _build.reset_launches()
+    masked_attention(torch.randn(2, 16, 96), torch.ones(2, 16, dtype=torch.bool), 2)
+    gemm_bias_act(torch.randn(4, 8), torch.randn(3, 8), torch.zeros(3))
+    knn_topk(torch.randn(2, 8), torch.randn(30, 8), k=4)
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert _build._LIBS == {}
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+
+
+def test_every_kernel_source_names_its_tpu_counterpart():
+    sources = {
+        "gemm_epilogue.cu": "pathway_tpu/ops/fused_layer.py::fused_layer_tokens",
+        "masked_attention.cu": "pathway_tpu/ops/fused_attention.py::_fused_call",
+        "knn_topk.cu": "pathway_tpu/ops/pallas_knn.py::knn_topk",
+    }
+    from pathway_tpu_torch.ops import _build
+
+    assert set(_build.SOURCES) == set(sources)
+    for name, counterpart in sources.items():
+        with open(os.path.join(PKG, "csrc", name), encoding="utf-8") as f:
+            text = f.read()
+        assert "Replaces" in text and counterpart in text, name
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        with open(script, encoding="utf-8") as f:
+            (tmp_path / "chip_smoke.py").write_text(f.read(), encoding="utf-8")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    out = subprocess.run(
+        [sys.executable, script], cwd=cwd, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

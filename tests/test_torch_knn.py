@@ -1,0 +1,206 @@
+"""Kernel B2 (fused KNN top-k) and ``DeviceKnnIndex`` of the PyTorch port
+against the JAX package, on the CPU. ``knn_topk_reference`` (the plain
+version the port's wrapper takes for CPU tensors) is held to the Pallas
+kernel in interpret mode; the index is driven through the same add/remove
+churn as the JAX ``DeviceKnnIndex``.
+
+Tolerances: scores rtol 1e-5 (f32 sums in another order), indices and
+keys equal."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pathway_tpu.ops import knn as jknn
+from pathway_tpu.ops.pallas_knn import NEG as JNEG
+from pathway_tpu.ops.pallas_knn import knn_topk as jknn_topk
+from pathway_tpu_torch.ops import knn as tknn
+from pathway_tpu_torch.ops.knn_topk import NEG, knn_topk, knn_topk_reference, topk_agreement
+
+
+def _run_both(q, d, k, bias=None, factor=1.0, block_n=256):
+    jv, ji = jknn_topk(q, d, k=k, bias=bias, factor=factor, block_q=8, block_n=block_n, interpret=True)
+    tb = torch.from_numpy(bias) if bias is not None else None
+    tv, ti = knn_topk(torch.from_numpy(q), torch.from_numpy(d), k=k, bias=tb, factor=factor)
+    return np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy()
+
+
+def _check(jv, ji, tv, ti):
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=1e-5)
+
+
+def test_constants_match():
+    assert NEG == JNEG and tknn._NEG == jknn._NEG
+
+
+def test_dot_topk_matches_kernel():
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(13, 32)).astype(np.float32)
+    d = rng.normal(size=(700, 32)).astype(np.float32)
+    _check(*_run_both(q, d, 5))
+
+
+def test_bias_masks_dead_slots():
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(4, 16)).astype(np.float32)
+    d = rng.normal(size=(100, 16)).astype(np.float32)
+    valid = np.ones(100, bool)
+    valid[::3] = False
+    bias = np.where(valid, 0.0, NEG).astype(np.float32)
+    jv, ji, tv, ti = _run_both(q, d, 8, bias=bias, block_n=64)
+    _check(jv, ji, tv, ti)
+    assert not set(ti.ravel().tolist()) & set(np.nonzero(~valid)[0].tolist())
+
+
+def test_l2_bias_and_factor():
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(6, 24)).astype(np.float32)
+    d = rng.normal(size=(300, 24)).astype(np.float32)
+    bias = -(d * d).sum(axis=1).astype(np.float32)
+    _check(*_run_both(q, d, 4, bias=bias, factor=2.0, block_n=128))
+
+
+def test_k_beyond_live_docs_gives_minus_one():
+    """k = 40 over 37 docs: padding never surfaces, the tail is (NEG, -1)."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(3, 8)).astype(np.float32)
+    d = -np.abs(rng.normal(size=(37, 8))).astype(np.float32)
+    jv, ji, tv, ti = _run_both(q, d, 40, block_n=64)
+    _check(jv, ji, tv, ti)
+    assert (ti[:, 37:] == -1).all() and (tv[:, 37:] == NEG).all()
+
+
+def test_exact_ties_go_to_lower_index():
+    rng = np.random.default_rng(4)
+    base = rng.normal(size=(8, 16)).astype(np.float32)
+    d = np.concatenate([base, base, base])  # every score appears three times
+    q = rng.normal(size=(5, 16)).astype(np.float32)
+    jv, ji, tv, ti = _run_both(q, d, 9, block_n=8)
+    _check(jv, ji, tv, ti)
+    best = np.argmax(q @ base.T, axis=1)
+    assert (ti[:, 0] == best).all() and (ti[:, 1] == best + 8).all() and (ti[:, 2] == best + 16).all()
+
+
+def test_k128_matches_kernel_fori_merge():
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(5, 16)).astype(np.float32)
+    d = rng.normal(size=(900, 16)).astype(np.float32)
+    _check(*_run_both(q, d, 128))
+
+
+def test_topk_agreement_accepts_boundary_ties_only():
+    v = torch.tensor([[3.0, 2.0, 1.0]])
+    assert topk_agreement(v, torch.tensor([[0, 1, 2]]), v, torch.tensor([[0, 1, 3]]), atol=1e-5)[1]
+    assert not topk_agreement(v, torch.tensor([[0, 1, 2]]), v + 0.1, torch.tensor([[0, 1, 2]]), atol=1e-5)[1]
+    far = torch.tensor([[3.0, 2.0, 1.0]]), torch.tensor([[3.0, 2.5, 1.0]])
+    assert not topk_agreement(far[0], torch.tensor([[0, 5, 2]]), far[1], torch.tensor([[0, 1, 2]]), atol=1e-5)[1]
+
+
+def _churn(index, rng, n=120, dim=16):
+    vecs = rng.normal(size=(n, dim)).astype(np.float32)
+    for i in range(n // 2):
+        index.add(f"k{i}", vecs[i], metadata={"i": i})
+    index.add_batch_arrays([f"k{i}" for i in range(n // 2, n)], vecs[n // 2 :], [{"i": i} for i in range(n // 2, n)])
+    for i in range(0, n, 9):
+        index.remove(f"k{i}")
+    index.add("k3", vecs[5] + 0.25)  # re-add replaces
+    return vecs
+
+
+def _compare(expected, got, rtol=1e-5):
+    assert len(expected) == len(got)
+    for e_row, g_row in zip(expected, got):
+        assert [k for k, _ in e_row] == [k for k, _ in g_row]
+        np.testing.assert_allclose([s for _, s in e_row], [s for _, s in g_row], rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2", "ip"])
+def test_index_churn_parity(metric):
+    rng_j, rng_t = np.random.default_rng(7), np.random.default_rng(7)
+    ji = jknn.DeviceKnnIndex(dim=16, metric=metric, reserved_space=64)
+    ti = tknn.DeviceKnnIndex(dim=16, metric=metric, reserved_space=64, device="cpu")
+    _churn(ji, rng_j)
+    _churn(ti, rng_t)  # 120 rows into 64: capacity grows twice
+    assert ti.capacity == ji.capacity == 128 and len(ti) == len(ji)
+    q = np.random.default_rng(8).normal(size=(4, 16)).astype(np.float32)
+    _compare(ji.search_batch(q, 5), ti.search_batch(q, 5))
+    flt = [lambda m: m["i"] % 2 == 0] * 4  # filters starve the first fetch
+    _compare(ji.search_batch(q, 6, flt), ti.search_batch(q, 6, flt))
+    # churn after the first sync goes through the pending scatter path
+    ji.remove("k1")
+    ti.remove("k1")
+    ji.add("new", q[0])
+    ti.add("new", q[0])
+    _compare(ji.search_batch(q, 7), ti.search_batch(q, 7))
+    jv, jx = ji.search_dispatch(q, 3)
+    tv, tx = ti.search_dispatch(q, 3)
+    _compare(ji.search_resolve(jv, jx, 3), ti.search_resolve(tv, tx, 3))
+    _compare([ji.search_one(q[1], 4)], [ti.search_one(q[1], 4)])
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2"])
+def test_index_kernel_route_matches_pallas_formula(metric):
+    """The fused route (_pallas_topk) on both sides, the JAX kernel in
+    interpret mode: the same (key, score) lists as the plain route."""
+    rng = np.random.default_rng(9)
+    vecs = rng.normal(size=(50, 16)).astype(np.float32)
+    ji = jknn.DeviceKnnIndex(dim=16, metric=metric)
+    ti = tknn.DeviceKnnIndex(dim=16, metric=metric, device="cpu")
+    for i, v in enumerate(vecs):
+        ji.add(f"k{i}", v)
+        ti.add(f"k{i}", v)
+    ji.remove("k7")
+    ti.remove("k7")
+    q = rng.normal(size=(2, 16)).astype(np.float32)
+    if metric == "cos":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    ji._sync()
+    ti._sync()
+    jv, jx = jknn._pallas_topk(metric, ji._dev_matrix, ji._dev_valid, q, 8)
+    tv, tx = tknn._pallas_topk(metric, ti._dev_matrix, ti._dev_valid, torch.from_numpy(q), 8)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2", "ip"])
+def test_add_batch_device_parity_with_growth(metric):
+    rng = np.random.default_rng(11)
+    vecs = rng.normal(size=(150, 24)).astype(np.float32)
+    ji = jknn.DeviceKnnIndex(dim=24, metric=metric, reserved_space=64)
+    ti = tknn.DeviceKnnIndex(dim=24, metric=metric, reserved_space=64, device="cpu")
+    keys = [f"d{i}" for i in range(100)]
+    # 8 pad rows past the keys drop, as for bucket-padded encoder output
+    ji.add_batch_device(keys, jnp.asarray(vecs[:108]))
+    ti.add_batch_device(keys, torch.from_numpy(vecs[:108]))
+    ji.add_batch_device([f"e{i}" for i in range(50)], jnp.asarray(vecs[100:]))  # grows past 128
+    ti.add_batch_device([f"e{i}" for i in range(50)], torch.from_numpy(vecs[100:]))
+    ji.remove("d3")
+    ti.remove("d3")
+    assert ti.capacity == ji.capacity == 256
+    q = rng.normal(size=(3, 24)).astype(np.float32)
+    _compare(ji.search_batch(q, 10), ti.search_batch(q, 10))
+    _compare(ji.search_batch(q, 100), ti.search_batch(q, 100))  # fetch 128: plain top-k route
+
+
+def test_fence_rejects_writes():
+    ti = tknn.DeviceKnnIndex(dim=4, device="cpu")
+    ti.add("a", np.ones(4))
+    ti.fence(3)
+    with pytest.raises(tknn.StaleGeneration):
+        ti.add("b", np.ones(4))
+    assert ti.search_batch(np.ones((1, 4)), 1)[0][0][0] == "a"
+
+
+def test_k_bucket_matches_reference():
+    for k in (1, 8, 9, 40, 64, 65, 1000):
+        assert tknn._k_bucket(k) == jknn._k_bucket(k)
+
+
+def test_reference_pads_past_doc_count():
+    v, i = knn_topk_reference(torch.ones(2, 4), torch.ones(3, 4), k=5)
+    assert v.shape == (2, 5) and (i[:, 3:] == -1).all() and (v[:, 3:] == NEG).all()
+    assert i[:, :3].tolist() == [[0, 1, 2], [0, 1, 2]]

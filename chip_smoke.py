@@ -3,18 +3,31 @@
     python chip_smoke.py
 
 Builds the port's kernels from ``pathway_tpu_torch/csrc`` with nvcc, holds
-every kernel against its plain PyTorch version at the main path's shapes
-(with times, bounds and a PyTorch yardstick), then runs the main path at
-MiniLM-L6 width: 16,384 synthetic documents -> ``SentenceEncoder.encode_device``
--> ``DeviceKnnIndex.add_batch_device`` (filled to 1,048,576 rows) -> text
-queries -> ``search_batch`` / ``search_texts_batch``. Each phase prints one
-JSON line. The last three lines are the card's name and power limit, the
-``kernels`` line and ``{"ok": true, ...}``. Any failure exits non-zero;
-with no CUDA device it exits 2 and prints no result. Imports no JAX.
+every kernel against its plain PyTorch version at the main paths' shapes
+(with times, bounds and a PyTorch yardstick), times the index's tie-ordered
+top-k beside ``torch.topk``, then drives three paths, each with the launch
+counters set to 0 just before it and read just after:
+
+* ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
+  ``SentenceEncoder.encode_device`` -> ``DeviceKnnIndex.add_batch_device``
+  (filled to 1,048,576 rows) -> text queries -> ``search_batch`` /
+  ``search_texts_batch``;
+* ``rag_path``: ``FusedRagPipeline`` over MiniLM-L6 and a cross_encoder_l6
+  reranker: 16 long-tailed epochs of 1,024 chunks through the segment
+  packer (kernel B4), 512 single queries, one batch of 512, and
+  ``answer_batch`` of 64 with the default decoder;
+* ``decode_path``: ``DecodeEngine`` (kernel B5) serving 64 prompts with
+  continuous batching, each arrival preceded by a ``DeviceReranker.order``.
+
+Each phase prints one JSON line. The last three lines are the card's name
+and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
+exits non-zero; with no CUDA device it exits 2 and prints no result.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -35,6 +48,13 @@ LAYER_TOL = dict(rtol=1.6e-2, atol=3e-2)
 # a whole encoder against its plain version: the bound the JAX package holds
 # between its own kernel and module (max abs error, min cosine)
 ENCODER_TOL = (3e-2, 0.999)
+# cross-encoder logits through six bf16 layers against the same scorer with
+# plain attention: a whole layer's tolerance
+RERANK_TOL = dict(rtol=1.6e-2, atol=3e-2)
+# kernel and plain decode engines may part only where the plain logits' top
+# two lie closer than this (the two attentions sum in other orders)
+NEAR_TIE = 1e-4
+DEV = "cuda"
 
 
 def emit(phase: str, **kw) -> None:
@@ -147,7 +167,7 @@ def phase_kernels(torch) -> list[dict]:
     from pathway_tpu_torch.ops.knn import _pallas_bias
     from pathway_tpu_torch.ops.knn_topk import knn_topk, knn_topk_reference, topk_agreement
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(SEED)
     cfg = EncoderConfig.minilm_l6()
     d, h, ffn, eps = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, cfg.layer_norm_eps
@@ -291,7 +311,108 @@ def phase_kernels(torch) -> list[dict]:
             ))
     del docs, valid, queries
     torch.cuda.empty_cache()
+    entries.append(segment_attention_entry(torch, g))
+    entries.append(paged_decode_attention_entry(torch, g))
     return entries
+
+
+def segment_attention_entry(torch, g, rows: int = 256) -> dict:
+    """B4 at the packed ingest's shapes: qkv [rows, 512, 1152] bf16, segment
+    ids laid out by the port's own packer from seeded lengths of 64-256."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.models.sentence_encoder import shelf_pack
+    from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
+
+    L, SEGS, d, h = 512, 8, 384, 12
+    hd = d // h
+    rng = np.random.default_rng(SEED + 2)
+    lens = rng.integers(64, 257, rows * 3)
+    while True:  # enough chunks for ``rows`` packed rows
+        order, lns, row_of, off_of, slot_of = shelf_pack(lens, L, SEGS)
+        if row_of[-1] + 1 >= rows:
+            break
+        lens = np.concatenate([lens, rng.integers(64, 257, rows)])
+    keep = row_of < rows
+    seg = np.full((rows, L), -1, np.int32)
+    for ln, r, off, slot in zip(lns[keep], row_of[keep], off_of[keep], slot_of[keep]):
+        seg[r, off : off + ln] = r * SEGS + slot
+    seg_d = torch.from_numpy(seg).to(DEV)
+    qkv = torch.randn(rows, L, 3 * d, device=DEV, generator=g).bfloat16()
+    got = segment_attention(qkv, seg_d, h)
+    want = segment_attention_reference(qkv, seg_d, h)
+    live = seg_d >= 0
+    err = held("segment_attention[B4] live rows", got[live], want[live], **BF16_TOL)
+    if not (got[~live].isfinite().all() and (got[~live] == 0).all()):
+        raise AssertionError("segment_attention[B4]: padding rows must be finite (the kernel writes zeros)")
+    q, k, v = (t.reshape(rows, L, h, hd).transpose(1, 2).contiguous() for t in qkv.split(d, dim=-1))
+    same = seg_d[:, None, :, None] == seg_d[:, None, None, :]  # the library call's mask, built outside its timing
+    flops = 4.0 * h * hd * float((lns[keep].astype(np.float64) ** 2).sum())
+    nbytes = 2 * rows * L * 3 * d + 2 * rows * L * d + 4 * rows * L
+    return _entry(
+        "segment_attention[B4]", "pathway_tpu_torch/csrc/segment_attention.cu",
+        "pathway_tpu/ops/fused_attention.py:244", "segment_attention", err,
+        cuda_ms(lambda: segment_attention(qkv, seg_d, h)),
+        cuda_ms(lambda: segment_attention_reference(qkv, seg_d, h), reps=2, warmup=1),
+        flops, nbytes, PEAK_BF16, cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same)),
+        shape=[rows, L, 3 * d], segments=int(keep.sum()), live_tokens=int(live.sum()),
+    )
+
+
+def paged_decode_attention_entry(torch, g) -> dict:
+    """B5 at the decode engine's shapes: 8 lanes, d 256 (4 heads of 64), a
+    pool of 512 pages x 16, page tables of 10, lengths 1-160 with one lane
+    at 0, shuffled tables and shared prefix pages."""
+    from pathway_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
+
+    lanes, d, n_pages, page, pps, h = 8, 256, 512, 16, 10, 4
+    q = torch.randn(lanes, d, device=DEV, generator=g)
+    kp = torch.randn(n_pages, page, d, device=DEV, generator=g)
+    vp = torch.randn(n_pages, page, d, device=DEV, generator=g)
+    tables = torch.stack([torch.randperm(n_pages, device=DEV, generator=g)[:pps] for _ in range(lanes)]).int()
+    tables[1, :4] = tables[0, :4]  # shared prefix pages
+    lens = torch.randint(1, pps * page + 1, (lanes,), device=DEV, generator=g, dtype=torch.int32)
+    lens[3] = 0
+    got = paged_decode_attention(q, kp, vp, tables, lens, n_heads=h)
+    err = held("paged_decode_attention[B5]", got, paged_attention_reference(q, kp, vp, tables, lens, n_heads=h),
+               **F32_TOL)
+    if not (got[3] == 0).all():
+        raise AssertionError("paged_decode_attention[B5]: a length-0 lane must give exact zeros")
+    ctx = float(lens.double().sum())
+    nbytes = 4 * lanes * d + 2 * 4 * d * ctx + 4 * lanes * pps + 4 * lanes + 4 * lanes * d
+    return _entry(
+        "paged_decode_attention[B5]", "pathway_tpu_torch/csrc/paged_decode_attention.cu",
+        "pathway_tpu/ops/paged_attention.py:255", "paged_decode_attention", err,
+        cuda_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens, n_heads=h), reps=50),
+        cuda_ms(lambda: paged_attention_reference(q, kp, vp, tables, lens, n_heads=h), reps=20),
+        4.0 * d * ctx, nbytes, PEAK_F32, None, shape=[lanes, d, n_pages, page, pps], context_tokens=int(ctx),
+    )
+
+
+def phase_tie_helper(torch, g, nq: int = 512, n: int = 1 << 20, k: int = 128) -> None:
+    """The index's plain top-k with exact ties in ascending index order
+    (``ops/knn._topk_lower_index``) at q 512 x 2^20, fetch 128 (the plain
+    route just above the kernel's k <= 64), beside ``torch.topk`` (no tie
+    order) and a stable full sort (the simple exact form). Gate: equal to
+    the stable sort on a tie group of 200 that straddles k."""
+    from pathway_tpu_torch.ops.knn import _topk_lower_index
+
+    scores = torch.randn(nq, n, device=DEV, generator=g)
+    scores[:, 1000:1200] = 8.0  # exact ties above every other score
+    _, idx = _topk_lower_index(scores, k)
+    _, si = torch.sort(scores, dim=1, descending=True, stable=True)
+    if not torch.equal(idx, si[:, :k]):
+        raise AssertionError("_topk_lower_index disagrees with the stable sort on exact ties")
+    del si
+    emit(
+        "tie_helper", shape=[nq, n], k=k,
+        ms=cuda_ms(lambda: _topk_lower_index(scores, k), reps=5),
+        torch_topk_ms=cuda_ms(lambda: torch.topk(scores, k, dim=1), reps=5),
+        stable_sort_ms=cuda_ms(lambda: torch.sort(scores, dim=1, descending=True, stable=True), reps=2, warmup=1),
+    )
+    del scores
+    torch.cuda.empty_cache()
 
 
 def device_ops(torch, fn) -> tuple[dict | None, float | None]:
@@ -335,7 +456,7 @@ def phase_main_path(torch) -> dict:
     from pathway_tpu_torch.ops import _build
     from pathway_tpu_torch.ops.knn_topk import knn_topk_reference, topk_agreement
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     rng = np.random.default_rng(SEED)
     n_docs, capacity, dim = 16_384, 1 << 20, 384
     docs = _synthetic_texts(rng, n_docs, 20, 220)
@@ -446,6 +567,229 @@ def phase_main_path(torch) -> dict:
     return launches
 
 
+def _long_tailed_texts(rng, n: int, vocab: list[str]) -> list[str]:
+    """``n`` chunks of seeded made-up words (one wordpiece each under the
+    hashed tokenizer): about 95 % at 64-128 wordpieces, the rest at 129-256,
+    [CLS] and [SEP] included."""
+    import numpy as np
+
+    lens = np.where(rng.random(n) < 0.95, rng.integers(64, 129, n), rng.integers(129, 257, n)) - 2
+    zipf = 1.0 / np.arange(1, len(vocab) + 1)
+    words = np.asarray(vocab)[rng.choice(len(vocab), int(lens.sum()), p=zipf / zipf.sum())]
+    ends = np.cumsum(lens)
+    return [" ".join(words[e - ln : e]) for e, ln in zip(ends, lens)]
+
+
+def _percentiles(ms: list[float]) -> dict:
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def phase_rag_path(torch) -> tuple[dict, object]:
+    """The RAG answer plane at full width: MiniLM-L6 embedder, cross_encoder_l6
+    reranker, ``FusedRagPipeline(reserved_space=16_384, doc_seq_len=128)``
+    with the default decoder. Returns the path's launch counts and its
+    cross-encoder scorer."""
+    import numpy as np
+
+    from pathway_tpu_torch import CrossEncoderScorer, DecoderConfig, FusedRagPipeline, SentenceEncoder
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import topk_agreement
+
+    rng = np.random.default_rng(SEED + 3)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, rng.integers(3, 10))) for _ in range(8000)]
+    n_epochs, per_epoch = 16, 1024
+    epochs = [_long_tailed_texts(rng, per_epoch, vocab) for _ in range(n_epochs)]
+    fresh = _synthetic_texts(rng, 256, 5, 40)
+    own = [" ".join(epochs[i % n_epochs][i].split()[:40]) for i in range(256)]  # a document's opening words
+    queries = own + fresh
+
+    enc = SentenceEncoder(max_seq_len=256, max_batch=1024, seed=SEED, device=DEV)
+    cross = CrossEncoderScorer(seed=SEED, device=DEV)
+    pipe = FusedRagPipeline(enc, cross, reserved_space=16_384, doc_seq_len=128)
+    pipe.set_decoder(DecoderConfig(), seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    b4_by_epoch = []
+    t0 = time.perf_counter()
+    for e, texts in enumerate(epochs):
+        before = _build.LAUNCHES["segment_attention"]
+        pipe.add_docs(list(range(e * per_epoch, (e + 1) * per_epoch)), texts)
+        b4_by_epoch.append(_build.LAUNCHES["segment_attention"] - before)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ingest_launches = dict(_build.LAUNCHES)
+    lat = []
+    for text in queries:
+        t0 = time.perf_counter()
+        hits = pipe.query(text, k=5, k_retrieve=20)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if len(hits) != 5:
+            raise AssertionError(f"a fused query returned {len(hits)} hits, not 5")
+    t0 = time.perf_counter()
+    batch = pipe.query_batch(queries, k=5, k_retrieve=20)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    answers = pipe.answer_batch(queries[:64], k=5, k_retrieve=20, max_new=16)
+    answer_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+
+    # ---- gates, outside the counted run
+    if len(pipe) != n_epochs * per_epoch or min(b4_by_epoch) == 0:
+        raise AssertionError(f"the segment packer did not engage on every epoch: B4 launches {b4_by_epoch}")
+    if any(len(r) != 5 for r in batch):
+        raise AssertionError("query_batch returned fewer than 5 hits")
+    if any(len(a["tokens"]) != 16 or not all(0 <= t < 32000 for t in a["tokens"]) for a in answers):
+        raise AssertionError("an answer does not hold 16 in-vocabulary tokens")
+    for key in ("segment_attention", "masked_attention"):
+        if launches.get(key, 0) == 0:
+            raise AssertionError(f"rag_path never launched {key}")
+    # one epoch packed (B4) against the same texts with the packer declined (B1)
+    ids, lens = enc._tokenize_matrix(epochs[0])
+    order, embs = enc._pack_segments(ids, lens)
+    packed = np.zeros((per_epoch, enc.dim), np.float32)
+    keep = order < per_epoch
+    packed[order[keep]] = embs.cpu().numpy()[keep]
+    pack_err, pack_cos = held_embeddings("packed ingest (B4)", packed, enc._encode_matrix(ids, lens))
+    # the cross-encoder (B3) against the same scorer with plain attention
+    cross_plain = CrossEncoderScorer(
+        config=dataclasses.replace(cross.cfg, attention_impl="plain"), seed=SEED, device=DEV
+    )
+    pairs = [(queries[i], epochs[1][i]) for i in range(128)]
+    cross_err = held(
+        "cross-encoder scores (B3)", torch.from_numpy(cross.score(pairs)), torch.from_numpy(cross_plain.score(pairs)),
+        **RERANK_TOL,
+    )
+    # the final hits of the same candidates, reranked with plain attention
+    q_ids, q_lens, kr = pipe._padded_queries(queries, 20)
+    fs, fv, _, _ = pipe._fused(q_ids, q_lens, kr, 5)
+    pipe.cross = cross_plain
+    ps, pv, _, _ = pipe._fused(q_ids, q_lens, kr, 5)
+    pipe.cross = cross
+    share, ok = topk_agreement(fv, fs, pv, ps, atol=RERANK_TOL["atol"], rtol=RERANK_TOL["rtol"])
+    if not ok:
+        raise AssertionError(f"fused hits with B3 disagree with plain-attention reranking beyond boundary ties ({share})")
+    # seeded random weights score the candidates of a query nearly alike: how
+    # far apart the final five lie says how much of the agreement is ties
+    spread = (fv[:, 0] - fv[:, -1]).double().cpu()
+    query_ops, query_device_ms = device_ops(torch, lambda: pipe.query(queries[0], k=5, k_retrieve=20))
+    emit(
+        "rag_path", docs=len(pipe), epochs=n_epochs, ingest_seconds=ingest_s, ingest_docs_per_s=len(pipe) / ingest_s,
+        b4_launches_by_epoch=b4_by_epoch, ingest_launches=ingest_launches,
+        query=_percentiles(lat), queries=len(queries), query_batch_512_ms=batch_ms, answer_batch_64_ms=answer_ms,
+        answer_tokens=16, packed_vs_unpacked_max_abs_err=pack_err, packed_vs_unpacked_min_cos=pack_cos,
+        cross_vs_plain_max_abs_err=cross_err, hits_vs_plain_rerank_agreement=share,
+        final_score_spread_median=float(spread.median()), final_score_spread_max=float(spread.max()),
+        single_query_device_ops=query_ops, single_query_device_ms=query_device_ms,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+    )
+    return launches, cross
+
+
+def _first_split(torch, params, cfg, prompt, got, want):
+    """Where two token streams of one prompt first part, and the top-2 gap
+    of the plain model's logits there (recomputed by a prefill over the
+    prompt and the shared prefix); (None, None) when they agree."""
+    from pathway_tpu_torch.decode.engine import _prefill_logits_math
+
+    for t, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            ids = torch.tensor([prompt + want[:t]], device=DEV)
+            with torch.no_grad():
+                _, _, logits = _prefill_logits_math(params, cfg, ids, torch.tensor([ids.shape[1]], device=DEV))
+            top = torch.topk(logits[0], 2).values
+            return t, float(top[0] - top[1])
+    return None, None
+
+
+def phase_decode_path(torch, cross) -> dict:
+    """The decode plane as ``bench.py``'s decode-serving suite drives it: 64
+    seeded prompts of 4-63 tokens, each submitted after a
+    ``DeviceReranker.order`` over 8 candidates at cross_encoder_l6 width,
+    one engine step per arrival, then drain."""
+    import numpy as np
+
+    from pathway_tpu_torch import DecodeConfig, DecodeEngine, DecoderConfig, DeviceReranker
+    from pathway_tpu_torch.ops import _build
+
+    mcfg = DecoderConfig()
+    dcfg = DecodeConfig(pages=512, page_size=16, lanes=8, max_new_tokens=32, degrade_max_new_tokens=8, max_seq=160)
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [rng.integers(1, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(4, 64, 64)]
+    cand_docs = [f"candidate document {i} about topic {i % 7}" for i in range(8)]
+    engine = DecodeEngine(mcfg, dcfg, seed=SEED, device=DEV)
+    reranker = DeviceReranker(scorer=cross)
+    engine.generate(prompts[:2])  # warm-up: cuBLAS handles and the first launches
+    reranker.order("warmup", cand_docs)
+    steps0 = engine.steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    tickets, done_at = [], {}
+
+    def poll() -> None:
+        now = time.monotonic()
+        for i, (_, tk) in enumerate(tickets):
+            if i not in done_at and tk.done.is_set():
+                done_at[i] = now
+
+    t0 = time.perf_counter()
+    for qi, prompt in enumerate(prompts):
+        reranker.order(f"query {qi}", cand_docs)
+        tickets.append((time.monotonic(), engine.submit(prompt)))
+        engine.step()  # arrivals interleave with in-flight decoding
+        poll()
+    while engine.busy():
+        engine.step()
+        poll()
+    poll()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    streams = [tk.tokens for _, tk in tickets]
+    completion = [(done_at[i] - tickets[i][0]) * 1e3 for i in range(len(tickets))]
+
+    # ---- gates, outside the counted run
+    if launches.get("paged_decode_attention", 0) == 0:
+        raise AssertionError("decode_path never launched paged_decode_attention (B5)")
+    if any(len(s) != dcfg.max_new_tokens for s in streams):
+        raise AssertionError("a decode stream is short")
+    plain = DecodeEngine(mcfg, dataclasses.replace(dcfg, impl="xla"), seed=SEED, device=DEV).generate(prompts)
+    splits = []
+    for prompt, got, want in zip(prompts, streams, plain):
+        t, gap = _first_split(torch, engine.params, mcfg, prompt, got, want)
+        if t is not None:
+            splits.append({"step": t, "top2_gap": gap})
+            if gap >= NEAR_TIE:
+                raise AssertionError(f"kernel and plain decode part at step {t} with a top-2 gap of {gap}")
+    alone = DecodeEngine(mcfg, dcfg, seed=SEED, device=DEV).generate([prompts[0]])[0]
+    together = DecodeEngine(mcfg, dcfg, seed=SEED, device=DEV).generate(prompts[:8])[0]
+    if alone != together:
+        raise AssertionError("a prompt decodes differently alone and among seven others")
+    # one full-width step of a fresh engine with 8 live lanes: wall vs device time
+    probe = DecodeEngine(mcfg, dcfg, seed=SEED, device=DEV)
+    for prompt in prompts[:8]:
+        probe.submit(prompt)
+    probe.step()  # admits (prefills) all eight, then steps
+    t0 = time.perf_counter()
+    probe.step()
+    step_wall_ms = (time.perf_counter() - t0) * 1e3
+    step_ops, step_device_ms = device_ops(torch, probe.step)
+    tokens = sum(len(s) for s in streams)
+    emit(
+        "decode_path", step_wall_ms=step_wall_ms, step_device_ops=step_ops, step_device_ms=step_device_ms, prompts=len(prompts), tokens=tokens, wall_seconds=wall, tokens_per_s=tokens / wall,
+        completion=_percentiles(completion), steps=engine.steps - steps0, streams_equal_plain=len(prompts) - len(splits),
+        near_tie_splits=splits, alone_equals_batched=True, max_memory_allocated=peak, launches=launches,
+    )
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -462,8 +806,12 @@ def main() -> int:
     env = phase_env(torch)
     phase_build()
     entries = phase_kernels(torch)
-    launches = phase_main_path(torch)
-    for e in entries:
+    phase_tie_helper(torch, torch.Generator(device=DEV).manual_seed(SEED + 4))
+    launches = collections.Counter(phase_main_path(torch))
+    rag_launches, cross = phase_rag_path(torch)
+    launches.update(rag_launches)
+    launches.update(phase_decode_path(torch, cross))
+    for e in entries:  # launches summed over the three paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -1,12 +1,13 @@
 """BERT-style transformer encoder as PyTorch modules.
 
 Port of ``pathway_tpu/models/encoder.py``: ``EncoderConfig`` and the
-``SelfAttention`` / ``EncoderLayer`` / ``TextEncoder`` modules, with the
-same names and state layout (``weights.py`` maps the reference's flax
-tree onto these modules' state dicts and back). Parameters are kept in
-float32 and cast to ``cfg.dtype`` where they are used, as flax does with
-``dtype=bf16`` modules. The attention step is ``ops/fused_attention``
-(kernel B3 on CUDA tensors).
+``SelfAttention`` / ``EncoderLayer`` / ``TextEncoder`` / ``CrossEncoderHead``
+modules, with the same names and state layout (``weights.py`` maps the
+reference's flax trees onto these modules' state dicts and back).
+Parameters are kept in float32 and cast to ``cfg.dtype`` where they are
+used, as flax does with ``dtype=bf16`` modules. The attention step is
+``ops/fused_attention``: kernel B3 on CUDA tensors, or kernel B4 when the
+call is sequence-packed (``position_ids`` + ``segment_ids``).
 """
 
 from __future__ import annotations
@@ -77,11 +78,11 @@ class SelfAttention(nn.Module):
         self.out = nn.Linear(d, d)
 
     def forward(self, x, mask, segment_ids=None):
-        if segment_ids is not None:
-            raise NotImplementedError("sequence packing: next slice")
         cfg = self.cfg
         qkv = _linear(x, self.qkv, cfg.dtype)
-        ctx = attention(qkv.contiguous(), mask, n_heads=cfg.num_heads, impl=cfg.attention_impl)
+        ctx = attention(
+            qkv.contiguous(), mask, n_heads=cfg.num_heads, impl=cfg.attention_impl, segment_ids=segment_ids
+        )
         return _linear(ctx, self.out, cfg.dtype)
 
 
@@ -126,21 +127,24 @@ class TextEncoder(nn.Module):
         position_ids=None,
         segment_ids=None,
     ):
-        if segment_ids is not None or position_ids is not None:
-            raise NotImplementedError("sequence packing: next slice")
+        """``position_ids``/``segment_ids`` [B, S] enable SEQUENCE PACKING:
+        several chunks share one row, positions restart per chunk and
+        attention stays inside each segment (kernel B4). A packed call
+        returns token states; the caller pools per segment."""
         cfg = self.cfg
         dt = cfg.dtype
         ids = ids.long()
         x = self.tok_embed.weight.to(dt)[ids]
-        x = x + self.pos_embed.weight.to(dt)[: ids.shape[1]][None]
+        pos = self.pos_embed.weight.to(dt)
+        x = x + (pos[position_ids.long()] if position_ids is not None else pos[: ids.shape[1]][None])
         if self.type_embed is not None:
             tt = token_type_ids.long() if token_type_ids is not None else torch.zeros_like(ids)
             x = x + self.type_embed.weight.to(dt)[tt]
         x = _layer_norm(x, self.ln_embed, dt)
         mask = mask.bool()
         for layer in self.layers:
-            x = layer(x, mask)
-        if return_tokens:
+            x = layer(x, mask, segment_ids)
+        if return_tokens or segment_ids is not None:
             return x
         if cfg.pooling == "cls":
             pooled = x[:, 0]
@@ -163,6 +167,29 @@ class TextEncoder(nn.Module):
         return self
 
 
+class CrossEncoderHead(nn.Module):
+    """(query, doc) pair -> relevance score: the TextEncoder's token
+    states, the CLS state in f32, an f32 ``Linear(d, 1)``."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = TextEncoder(cfg)
+        self.classifier = nn.Linear(cfg.hidden_size, 1)
+
+    def forward(self, ids, mask, token_type_ids):
+        x = self.encoder(ids, mask, token_type_ids, return_tokens=True)
+        cls = x[:, 0].float()
+        w, b = self.classifier.weight.float(), self.classifier.bias.float()
+        return nn.functional.linear(cls, w, b)[:, 0]
+
+    def cast_for_inference(self) -> "CrossEncoderHead":
+        """The encoder's weights in ``cfg.dtype`` (the classifier stays f32);
+        results do not change."""
+        self.encoder.cast_for_inference()
+        return self
+
+
 def _is_layer_norm(name: str) -> bool:
     return name.split(".")[-2].startswith("ln_")
 
@@ -182,4 +209,15 @@ def init_params(cfg: EncoderConfig, seed: int = 0) -> dict[str, torch.Tensor]:
             out[name] = torch.zeros(shape)
         else:
             out[name] = torch.empty(shape).normal_(0.0, 0.02, generator=gen)
+    return out
+
+
+def init_cross_encoder_params(cfg: EncoderConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded float32 weights as a CrossEncoderHead state dict on the CPU:
+    the encoder's from :func:`init_params`, a normal(0.02) classifier with
+    a zero bias."""
+    out = {f"encoder.{k}": v for k, v in init_params(cfg, seed).items()}
+    gen = torch.Generator().manual_seed(seed + 1)
+    out["classifier.weight"] = torch.empty(1, cfg.hidden_size).normal_(0.0, 0.02, generator=gen)
+    out["classifier.bias"] = torch.zeros(1)
     return out

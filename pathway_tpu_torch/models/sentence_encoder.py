@@ -9,9 +9,17 @@ hand-written kernels per layer) with the key mask built on the device from
 the lengths; ``encode_tokens`` runs the ``TextEncoder`` module, whose
 attention is kernel B3.
 
+Sequence packing (``_pack_segments``): when a batch is long-tailed enough
+that bucketed padding would waste most of the tokens, chunks are packed
+back to back into 512-token rows with per-chunk positions and segment ids,
+run through the ``TextEncoder`` module (kernel B4 for attention) and
+mean-pooled per segment; ``_dispatch_tokenized`` tries it first, as the
+reference does. ``CrossEncoderScorer`` scores (query, doc) text pairs
+through ``CrossEncoderHead`` (kernel B3).
+
 The reference's donated device ring for the id/length uploads becomes a
-pinned host tensor and a ``non_blocking`` copy. Sequence packing
-(``_pack_segments``, kernel B4) and the mesh path come with later slices.
+pinned host tensor and a ``non_blocking`` copy. The mesh path comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -30,8 +38,35 @@ from .batching import (
     chunks,
     pad_token_batch,
 )
-from .encoder import EncoderConfig, TextEncoder, init_params
+from .encoder import CrossEncoderHead, EncoderConfig, TextEncoder, init_cross_encoder_params, init_params
 from .tokenizer import default_tokenizer
+
+
+def shelf_pack(lens: np.ndarray, row_len: int, max_segs: int):
+    """Shelf packing of chunks into rows, in descending length order (the
+    same as first-fit here, since lengths only shrink): a chunk opens a new
+    row when it would overflow ``row_len`` tokens or ``max_segs`` chunks.
+    Returns (chunk order, their lengths, and the row, token offset and slot
+    in its row of each, all in that order)."""
+    n = len(lens)
+    order = np.argsort(lens, kind="stable")[::-1].astype(np.int64)
+    lns = lens[order].astype(np.int64)
+    row_of = np.empty(n, np.int64)
+    off_of = np.empty(n, np.int64)
+    slot_of = np.empty(n, np.int64)
+    r = off = s_i = 0
+    for j in range(n):
+        ln = int(lns[j])
+        if off + ln > row_len or s_i == max_segs:
+            r += 1
+            off = 0
+            s_i = 0
+        row_of[j] = r
+        off_of[j] = off
+        slot_of[j] = s_i
+        off += ln
+        s_i += 1
+    return order, lns, row_of, off_of, slot_of
 
 
 class SentenceEncoder:
@@ -182,13 +217,14 @@ class SentenceEncoder:
         return out
 
     def _dispatch_tokenized(self, texts, m, pad_to: int | None = None) -> torch.Tensor:
-        """Device tail of :meth:`encode_device`. The reference tries its
-        segment packer (``_pack_segments``) first and takes these paths when
-        it declines; the packer comes with a later slice, so this goes
-        straight to ``_pack_uniform`` and then ``_matrix_groups``."""
+        """Device tail of :meth:`encode_device`: the segment packer first,
+        then ``_pack_uniform``, then ``_matrix_groups``, as the reference
+        tries them."""
         ids_mat, lens = m
         n_out = pad_to or len(lens)
-        packed = self._pack_uniform(ids_mat, lens)
+        packed = self._pack_segments(ids_mat, lens)
+        if packed is None:
+            packed = self._pack_uniform(ids_mat, lens)
         if packed is None:
             pending = self._matrix_groups(ids_mat, lens)
             embs = torch.cat([emb[:ng] for _, ng, emb in pending], dim=0)
@@ -201,6 +237,88 @@ class SentenceEncoder:
         src = embs if keep.all() else embs[torch.as_tensor(np.nonzero(keep)[0], device=self.device)]
         out[rows] = src.float()
         return out
+
+    #: packed-row geometry: chunks concatenate back to back into rows of
+    #: PACK_L tokens, at most PACK_SEGS chunks per row; at most PACK_ROWS
+    #: rows per forward
+    PACK_L = 512
+    PACK_SEGS = 8
+    PACK_ROWS = 1024
+
+    def _pack_segments(self, ids_mat: np.ndarray, lens: np.ndarray):
+        """SEQUENCE PACKING: concatenate chunks back to back into PACK_L-token
+        rows with per-chunk positions and segment ids (attention stays
+        inside a segment: kernel B4), and mean-pool per segment on the
+        device. Returns (slot -> chunk map, [R * PACK_SEGS, dim] embeddings)
+        or None when packing would not pay; the engage and decline rules and
+        the shelf packing are the reference's. The R real rows run in groups
+        of at most PACK_ROWS (the reference pads to a multiple of PACK_ROWS
+        for its fixed scan shape). Pooling is a segment sum with
+        ``index_add_`` in f32."""
+        if self.cfg.vocab_size >= 32768:
+            return None
+        if not self.cfg.normalize or self.cfg.pooling != "mean":
+            return None  # packed pooling bakes mean + normalize in
+        n = len(lens)
+        L, SEGS, ROWS = self.PACK_L, self.PACK_SEGS, self.PACK_ROWS
+        if self.cfg.max_position < L:
+            return None
+        if int(lens.max()) > L:
+            return None  # a chunk longer than a row would overflow it
+        # short chunks would need many segments per row; the bucketed paths
+        # handle those with bounded pad waste
+        if n < 512 or float(lens.mean()) < L / SEGS:
+            return None
+        # engage only when the bucketed paths would spend over 55 % of their
+        # tokens on padding
+        sorted_lens = np.sort(lens)
+        B = self.max_batch
+        bucketed_tokens = sum(
+            len(g) * bucket(int(g[-1]), DEFAULT_SEQ_BUCKETS)
+            for g in (sorted_lens[i : i + B] for i in range(0, n, B))
+        )
+        if float(lens.sum()) / max(bucketed_tokens, 1) > 0.45:
+            return None
+        order, lns, row_of, off_of, slot_of = shelf_pack(lens, L, SEGS)
+        R = int(row_of[-1]) + 1
+        ids = np.zeros((R * L,), np.int16)
+        pos = np.zeros((R * L,), np.int16)
+        seg = np.full((R * L,), -1, np.int32)
+        # slot (row, seg_in_row) -> chunk index; empty slots point one past
+        # the real chunks, so the final scatter drops them
+        slot_to_chunk = np.full((R * SEGS,), n, np.int64)
+        counts = np.zeros((R * SEGS,), np.float32)
+        slot_index = row_of * SEGS + slot_of
+        slot_to_chunk[slot_index] = order
+        counts[slot_index] = lns
+        total = int(lns.sum())
+        within = np.arange(total) - np.repeat(np.cumsum(lns) - lns, lns)
+        flat_pos = np.repeat(row_of * L + off_of, lns) + within
+        ids[flat_pos] = ids_mat[np.repeat(order, lns), within]
+        pos[flat_pos] = within.astype(np.int16)
+        seg[flat_pos] = np.repeat(slot_index, lns).astype(np.int32)
+        ids, pos, seg = ids.reshape(R, L), pos.reshape(R, L), seg.reshape(R, L)
+        embs = torch.empty((R * SEGS, self.dim), dtype=torch.float32, device=self.device)
+        for r0 in range(0, R, ROWS):
+            r1 = min(R, r0 + ROWS)
+            local = np.where(seg[r0:r1] >= 0, seg[r0:r1] - r0 * SEGS, -1).astype(np.int32)
+            embs[r0 * SEGS : r1 * SEGS] = self._run_packed(ids[r0:r1], pos[r0:r1], local, counts[r0 * SEGS : r1 * SEGS])
+        return slot_to_chunk, embs
+
+    def _run_packed(self, ids: np.ndarray, pos: np.ndarray, seg: np.ndarray, counts: np.ndarray) -> torch.Tensor:
+        """One packed forward over [rows, PACK_L] (segment ids local to these
+        rows) -> per-slot embeddings [rows * PACK_SEGS, dim], mean-pooled and
+        L2-normalised; empty slots give zeros."""
+        slots = counts.shape[0]
+        ids_d, pos_d, seg_d, counts_d = (self._wire(a) for a in (ids, pos, seg, counts))
+        with torch.no_grad():
+            toks = self.module(ids_d, seg_d >= 0, position_ids=pos_d, segment_ids=seg_d)
+            # padding tokens sum into one extra row, dropped below
+            dest = torch.where(seg_d >= 0, seg_d, slots).reshape(-1).long()
+            sums = torch.zeros((slots + 1, self.dim), dtype=torch.float32, device=self.device)
+            sums.index_add_(0, dest, toks.reshape(-1, self.dim).float())
+            pooled = sums[:slots] / torch.clamp(counts_d, min=1.0)[:, None]
+            return pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
 
     def _pack_uniform(self, ids_mat: np.ndarray, lens: np.ndarray):
         """Length-sorted fast path: rows sort by length once and split into
@@ -226,3 +344,62 @@ class SentenceEncoder:
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         return self.encode(texts)
+
+
+class CrossEncoderScorer:
+    """Batched (query, doc) text pairs -> relevance scores [n], through
+    ``CrossEncoderHead`` (cross_encoder_l6 geometry: CLS pooling, no
+    normalisation); its attention is kernel B3 on CUDA tensors."""
+
+    def __init__(
+        self,
+        model: str = "ms-marco-MiniLM-L-6-v2",
+        *,
+        config: EncoderConfig | None = None,
+        checkpoint_dir: str | None = None,
+        max_seq_len: int = 256,
+        max_batch: int = 256,
+        seed: int = 0,
+        device=None,
+        params: dict | None = None,
+    ):
+        """``params``: a CrossEncoderHead state dict (e.g. from
+        ``weights.from_jax_cross_encoder_params``); default:
+        ``init_cross_encoder_params(config, seed)``. ``checkpoint_dir``
+        supplies ``vocab.txt`` for the tokenizer."""
+        self.device = resolve_device(device)
+        self.cfg = config or EncoderConfig.cross_encoder_l6()
+        self.model_name = model
+        self.max_seq_len = max_seq_len
+        self.max_batch = max_batch
+        self.module = CrossEncoderHead(self.cfg)
+        self.module.load_state_dict(params if params is not None else init_cross_encoder_params(self.cfg, seed))
+        self.module.to(self.device).eval()
+        self.module.cast_for_inference()
+        self.tokenizer = default_tokenizer(checkpoint_dir)
+
+    def score(self, pairs: Sequence[tuple[str, str]]) -> np.ndarray:
+        if not len(pairs):
+            return np.zeros((0,), np.float32)
+        enc = [self.tokenizer.encode_pair(a or "", b or "", self.max_seq_len) for a, b in pairs]
+        toks = [e[0] for e in enc]
+        tts = [e[1] for e in enc]
+        order = sorted(range(len(toks)), key=lambda i: len(toks[i]))
+        pending = []
+        for group in chunks(order, self.max_batch):
+            ids, mask, tt, n = pad_token_batch(
+                [toks[i] for i in group],
+                pad_id=self.tokenizer.pad_id,
+                max_batch=self.max_batch,
+                token_type_lists=[tts[i] for i in group],
+            )
+            with torch.no_grad():
+                scores = self.module(*(torch.from_numpy(a).to(self.device) for a in (ids, mask, tt)))
+            pending.append((group, n, scores))
+        out = np.empty((len(toks),), np.float32)
+        for group, n, scores in pending:
+            out[np.asarray(group)] = scores[:n].cpu().numpy()
+        return out
+
+    def __call__(self, pairs):
+        return self.score(pairs)

@@ -12,6 +12,14 @@ same kernel serves the attention step of the whole-layer path
 
 Padded keys get the finite additive ``KEY_OFF``: a row whose keys are all
 masked averages V uniformly and never gives NaN.
+
+Sequence packing (kernel B4, ``_packed_call`` / ``_seg_kernel``): with
+``segment_ids`` several chunks share one row and a token attends exactly
+the tokens that carry its id; ``segment_attention``
+(``csrc/segment_attention.cu``) gives each (row, head, query tile) a block
+and skips the key tiles whose id range cannot match. Query rows with id -1
+are padding that no caller reads: the kernel and its plain version write
+zeros there.
 """
 
 from __future__ import annotations
@@ -105,6 +113,53 @@ def masked_attention(
     return out
 
 
+def segment_attention_reference(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Plain version of the ``segment_attention`` kernel, with its rounding
+    points: f32 scores, keys of other segments excluded, f32 softmax,
+    probabilities rounded to the working dtype, f32 P.V, ctx in the working
+    dtype; query rows with segment -1 give 0."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // n_heads
+    dt = qkv.dtype
+    q, k, v = (_split_heads(t, n_heads).float() for t in qkv.split(d, dim=-1))
+    seg = segment_ids.to(torch.int32)
+    same = seg[:, None, :, None] == seg[:, None, None, :]  # a -1 row matches itself: no NaN
+    scores = ((q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))).masked_fill(~same, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx = (probs.float() @ v).transpose(1, 2).reshape(b, s, d)
+    return torch.where((seg >= 0)[:, :, None], ctx, 0.0).to(dt)
+
+
+def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """qkv [B, S, 3D], segment_ids [B, S] int (-1 = padding) -> ctx [B, S, D].
+    CUDA tensors launch the kernel (bf16, head dim 32, S <= 512) or raise;
+    CPU tensors take :func:`segment_attention_reference`."""
+    if not qkv.is_cuda:
+        return segment_attention_reference(qkv, segment_ids, n_heads)
+    _build.require(qkv, dtype=torch.bfloat16, ndim=3, name="qkv")
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    if three_d % 3 or d % n_heads or d % 8:
+        raise ValueError(f"qkv width {three_d} does not split into 3 x {n_heads} heads")
+    hd = d // n_heads
+    if hd not in _HEAD_DIMS or s > 512:
+        raise ValueError(f"segment_attention takes head dim {_HEAD_DIMS} and S <= 512, got {hd}, {s}")
+    if tuple(segment_ids.shape) != (b, s) or segment_ids.device != qkv.device:
+        raise ValueError(f"segment_ids must be [{b}, {s}] on {qkv.device}")
+    seg = segment_ids.to(torch.int32).contiguous()
+    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
+    if b == 0 or s == 0:
+        return out
+    err = _build.library("segment_attention.cu").pt_segment_attention(
+        qkv.data_ptr(), seg.data_ptr(), out.data_ptr(), b, s, d, hd, 1.0 / math.sqrt(hd),
+        _build.stream_handle(qkv),
+    )
+    _build.check(err, "segment_attention")
+    _build.LAUNCHES["segment_attention"] += 1
+    return out
+
+
 def attention(
     qkv: torch.Tensor,
     key_mask: torch.Tensor,
@@ -117,13 +172,20 @@ def attention(
 
     impl: "auto" (the kernel on a CUDA tensor, its plain version on a CPU
     tensor), "kernel" (CUDA only; raises on a CPU tensor), or "plain"
-    (:func:`attention_reference` on any device)."""
-    if segment_ids is not None:
-        raise NotImplementedError("sequence packing: next slice")
-    if impl == "plain":
-        return attention_reference(qkv, key_mask, n_heads)
+    (:func:`attention_reference`, or :func:`segment_attention_reference`
+    when packed, on any device).
+
+    ``segment_ids`` [B, S] int: SEQUENCE PACKING, kernel B4. A token
+    attends exactly the tokens with its segment id (-1 marks padding);
+    ``key_mask`` is ignored in this mode."""
     if impl == "kernel" and not qkv.is_cuda:
         raise ValueError("attention impl='kernel' needs a CUDA tensor")
-    if impl not in ("auto", "kernel"):
+    if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if segment_ids is not None:
+        if impl == "plain":
+            return segment_attention_reference(qkv, segment_ids, n_heads)
+        return segment_attention(qkv, segment_ids, n_heads)
+    if impl == "plain":
+        return attention_reference(qkv, key_mask, n_heads)
     return masked_attention(qkv, key_mask, n_heads)

@@ -10,7 +10,8 @@ donates and replaces its arrays; here the slab is mutated where it lies).
 
 Search at fetch <= 64 on a CUDA slab runs the fused top-k kernel
 (``ops/knn_topk.py``, kernel B2); wider fetches and CPU slabs use the
-plain score matrix + ``torch.topk``, as the reference uses ``lax.top_k``.
+plain score matrix + :func:`_topk_lower_index`, which orders exact ties by
+ascending slot as the reference's ``lax.top_k`` does.
 ``cos`` rows are normalised on add and queries on search; ``l2`` scores
 are ``-|q - x|^2``; dead slots never surface.
 
@@ -49,11 +50,31 @@ class StaleGeneration(RuntimeError):
         self.generation = generation
 
 
+def _topk_lower_index(scores: torch.Tensor, k: int):
+    """Top-k along dim 1, best first, with exactly equal scores in
+    ascending index order (the k-th boundary included), as ``lax.top_k``
+    orders them; ``torch.topk`` makes no such promise.
+
+    Exact without a full sort: each score maps to an int32 that orders as
+    the float does (-0.0 folded into +0.0), widened to int64 with the
+    complement of its index in the low 32 bits. The keys are then unique,
+    so one ``torch.topk`` over them has no ties to order."""
+    s = scores.float() + 0.0  # -0.0 + 0.0 == +0.0
+    bits = s.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    key.mul_(1 << 32).add_(
+        (0xFFFFFFFF - torch.arange(s.shape[1], device=s.device, dtype=torch.int64))[None, :]
+    )
+    _, idx = torch.topk(key, k, dim=1)
+    del key
+    return scores.gather(1, idx), idx
+
+
 def _topk_dot(matrix, valid, queries, k):
     # cos: rows pre-normalised so cosine == dot; ip: raw dot
     scores = queries @ matrix.T
     scores = torch.where(valid[None, :], scores, _NEG)
-    return torch.topk(scores, k, dim=1)
+    return _topk_lower_index(scores, k)
 
 
 def _topk_l2(matrix, valid, queries, k):
@@ -61,7 +82,7 @@ def _topk_l2(matrix, valid, queries, k):
     sq = (matrix * matrix).sum(dim=1)
     scores = 2.0 * (queries @ matrix.T) - sq[None, :]
     scores = torch.where(valid[None, :], scores, _NEG)
-    neg_d2, idx = torch.topk(scores, k, dim=1)
+    neg_d2, idx = _topk_lower_index(scores, k)
     qq = (queries * queries).sum(dim=1, keepdim=True)
     return neg_d2 - qq, idx
 
@@ -470,7 +491,8 @@ class DeviceKnnIndex:
         filter_fns: list[Callable | None] | None = None,
     ) -> list[list[tuple[Any, float]]]:
         """Raw text queries -> (key, score) lists: tokenize, encode through
-        the whole-layer path, score with a plain product + ``torch.topk``."""
+        the whole-layer path, score with a plain product + the tie-ordered
+        top-k (:func:`_topk_lower_index`)."""
         from ..models.batching import DEFAULT_SEQ_BUCKETS, bucket
         from .fused_layer import encoder_forward, use_fused_encoder
 
@@ -504,7 +526,7 @@ class DeviceKnnIndex:
             scores = torch.where(self._dev_valid[None, :], scores, _NEG)
 
         def dispatch(todo, fetch):
-            vals, idx = torch.topk(scores, min(fetch, self.capacity), dim=1)
+            vals, idx = _topk_lower_index(scores, min(fetch, self.capacity))
             sel = torch.as_tensor(todo, device=self.device)
             return vals[sel], idx[sel]
 

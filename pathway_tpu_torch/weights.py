@@ -1,5 +1,9 @@
-"""Weight bridge between the reference's flax parameter tree and the
-port's TextEncoder state dict.
+"""Weight bridges between the reference's parameter trees and the port's:
+the flax ``TextEncoder`` tree and the port's TextEncoder state dict, the
+flax ``CrossEncoderHead`` tree (``encoder/...`` + ``classifier``) and the
+port's ``CrossEncoderHead`` state dict, and the decoder's weight dict
+(``decode/engine.py::init_decoder_params``), which both packages keep in
+one layout (``x @ w``).
 
 The mapping is the one ``pathway_tpu/models/encoder.py::load_hf_weights``
 encodes, read in the other direction:
@@ -11,8 +15,8 @@ encodes, read in the other direction:
 * flax ``layer_{i}`` is ``layers.{i}``.
 
 The tree is plain nested dicts of numpy arrays (unboxed), with or without
-the top-level ``"params"`` key. Values are copied exactly; the round trip
-gives back the same arrays.
+the top-level ``"params"`` key. Values are copied exactly; every round
+trip gives back the same arrays.
 """
 
 from __future__ import annotations
@@ -84,3 +88,48 @@ def to_jax_params(state_dict: dict) -> dict:
         p[f"layer_{i}"] = layer
         i += 1
     return {"params": p}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C", copy=True))
+
+
+def _a(t) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def from_jax_cross_encoder_params(tree: dict) -> dict[str, torch.Tensor]:
+    """flax CrossEncoderHead params -> CrossEncoderHead state dict (CPU)."""
+    p = tree["params"] if "params" in tree else tree
+    sd = {f"encoder.{k}": v for k, v in from_jax_params(p["encoder"]).items()}
+    sd["classifier.weight"] = _t(np.asarray(p["classifier"]["kernel"]).T)
+    sd["classifier.bias"] = _t(p["classifier"]["bias"])
+    return sd
+
+
+def to_jax_cross_encoder_params(state_dict: dict) -> dict:
+    """CrossEncoderHead state dict -> flax-layout params tree of numpy arrays."""
+    enc = {k[len("encoder.") :]: v for k, v in state_dict.items() if k.startswith("encoder.")}
+    p = {
+        "encoder": to_jax_params(enc)["params"],
+        "classifier": {
+            "kernel": np.ascontiguousarray(_a(state_dict["classifier.weight"]).T),
+            "bias": _a(state_dict["classifier.bias"]),
+        },
+    }
+    return {"params": p}
+
+
+def from_jax_decoder_params(params: dict) -> dict:
+    """The JAX decoder's weight dict (jax or numpy arrays) -> the same dict
+    of CPU tensors."""
+    out = {k: _t(np.asarray(v)) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: _t(np.asarray(v)) for k, v in lp.items()} for lp in params["layers"]]
+    return out
+
+
+def to_jax_decoder_params(params: dict) -> dict:
+    """The port's decoder weight dict -> the same dict of numpy arrays."""
+    out = {k: _a(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: _a(v) for k, v in lp.items()} for lp in params["layers"]]
+    return out

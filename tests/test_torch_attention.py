@@ -82,11 +82,14 @@ def test_zero_empty_writes_zeros_for_empty_sequences():
 
 
 def test_cpu_kernel_impl_raises_and_packing_is_next_slice():
+    """``impl="kernel"`` needs a card; packing (kernel B4, ported in the
+    second slice) dispatches to its plain version on a CPU tensor."""
     qkv, mask = _case(2, 16, 32)
     with pytest.raises(ValueError):
         tfa.attention(torch.from_numpy(qkv), torch.from_numpy(mask), n_heads=2, impl="kernel")
-    with pytest.raises(NotImplementedError):
-        tfa.attention(torch.from_numpy(qkv), torch.from_numpy(mask), n_heads=2, segment_ids=torch.zeros(2, 16))
+    seg = torch.zeros(2, 16, dtype=torch.int32)
+    got = tfa.attention(torch.from_numpy(qkv), torch.from_numpy(mask), n_heads=2, segment_ids=seg)
+    assert torch.equal(got, tfa.segment_attention_reference(torch.from_numpy(qkv), seg, 2))
 
 
 @pytest.mark.parametrize(

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card, at the main path's widths (MiniLM-L6: d 384, 12
-heads of 32, FFN 1536). Every test here needs a CUDA device and skips
+heads of 32, FFN 1536; the decoder: d 256, 4 heads of 64). Every test here needs a CUDA device and skips
 inside its fixture when there is none; run them on the card with
 ``pytest -m gpu tests/test_torch_*.py``.
 
@@ -178,3 +178,68 @@ def test_index_search_kernel_matches_plain_path(cuda):
         for g_row, w_row in zip(got, wide):
             assert [key for key, _ in g_row] == [key for key, _ in w_row[:10]]
             assert math.isclose(g_row[0][1], w_row[0][1], rel_tol=1e-5, abs_tol=1e-5)
+
+
+def _packed_segments(g, rows, length, lo, hi, device):
+    """Segment ids of ``rows`` rows of ``length`` tokens filled back to back
+    with chunks of lo..hi tokens (ids unique across rows), -1 in the tail."""
+    seg = torch.full((rows, length), -1, dtype=torch.int32)
+    sizes = torch.randint(lo, hi + 1, (rows * length // lo,), generator=torch.Generator().manual_seed(g))
+    k = 0
+    for r in range(rows):
+        off, s = 0, 0
+        while s < 8 and off + int(sizes[k]) <= length:
+            seg[r, off : off + int(sizes[k])] = r * 8 + s
+            off += int(sizes[k])
+            s += 1
+            k += 1
+    return seg.to(device)
+
+
+@pytest.mark.parametrize("rows,contiguous", [(64, True), (7, False)])
+def test_segment_attention_matches_plain(cuda, rows, contiguous):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
+
+    g = _gen(rows)
+    s = 512
+    qkv = torch.randn(rows, s, 3 * 384, device=cuda, generator=g).bfloat16()
+    if contiguous:
+        seg = _packed_segments(rows, rows, s, 64, 256, cuda)
+    else:  # ids scattered through the row: the kernel is exact for any ids
+        seg = torch.randint(-1, 5, (rows, s), device=cuda, generator=g, dtype=torch.int32)
+        seg = torch.where(seg >= 0, seg + 5 * torch.arange(rows, device=cuda, dtype=torch.int32)[:, None], seg)
+    before = _build.LAUNCHES["segment_attention"]
+    got = segment_attention(qkv, seg, 12)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["segment_attention"] == before + 1
+    want = segment_attention_reference(qkv, seg, 12)
+    assert torch.isfinite(got.float()).all()
+    live = seg >= 0
+    torch.testing.assert_close(got[live].float(), want[live].float(), **BF16)
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("hd", [64, 32, 128])
+def test_paged_decode_attention_matches_plain(cuda, hd):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
+
+    g = _gen(hd)
+    lanes, d, n_pages, page, pps = 8, 256, 512, 16, 10
+    q = torch.randn(lanes, d, device=cuda, generator=g)
+    kp = torch.randn(n_pages, page, d, device=cuda, generator=g)
+    vp = torch.randn(n_pages, page, d, device=cuda, generator=g)
+    tables = torch.stack([torch.randperm(n_pages, device=cuda, generator=g)[:pps] for _ in range(lanes)]).int()
+    tables[1, :4] = tables[0, :4]  # shared prefix pages
+    tables[2, -1] = n_pages + 3  # out of range: clamped, and past the length
+    lens = torch.randint(1, pps * page + 1, (lanes,), device=cuda, generator=g, dtype=torch.int32)
+    lens[2] = (pps - 1) * page
+    lens[3] = 0
+    before = _build.LAUNCHES["paged_decode_attention"]
+    got = paged_decode_attention(q, kp, vp, tables, lens, n_heads=d // hd)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_decode_attention"] == before + 1
+    want = paged_attention_reference(q, kp, vp, tables, lens, n_heads=d // hd)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert (got[3] == 0).all()

@@ -33,6 +33,16 @@ index.add_batch_device(list(range(5)), enc.encode_device(["a b", "c d", "e f", "
 index.attach_encoder(enc)
 assert index.search_batch(enc.encode(["a b"]), 2)[0][0][0] == 0
 assert index.search_texts_batch(["c d"], 2)[0][0][0] == 1
+ccfg = EncoderConfig.cross_encoder_l6(vocab_size=2048, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64, max_position=64)
+cross = pt.CrossEncoderScorer(config=ccfg, max_seq_len=32, device="cpu")
+cross.tokenizer = enc.tokenizer
+rag = pt.FusedRagPipeline(enc, pt.as_reranker(cross), reserved_space=64, doc_seq_len=8,
+                          decoder=pt.DecoderConfig(vocab_size=2048, hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32, max_position=48))
+rag.add_docs(list(range(5)), ["a b", "c d", "e f", "g h", "i j"])
+assert len(rag.answer("c d", k=2, max_new=3)["tokens"]) == 3
+dec = pt.DecodeEngine(pt.DecoderConfig(vocab_size=97, hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32, max_position=32),
+                      pt.DecodeConfig(pages=16, page_size=4, lanes=2, max_new_tokens=3, degrade_max_new_tokens=1, max_seq=16), device="cpu")
+assert [len(s) for s in dec.generate([[1, 2, 3], [4]])] == [3, 3]
 added = set(sys.modules) - before
 bad = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
 print("BAD", bad)
@@ -69,6 +79,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: pt.DeviceKnnIndex(dim=4),
         lambda: pt.SentenceEncoder(config=pt.EncoderConfig(vocab_size=2048, hidden_size=32, num_layers=1,
                                                            num_heads=2, intermediate_size=64)),
+        lambda: pt.CrossEncoderScorer(config=pt.EncoderConfig(vocab_size=2048, hidden_size=32, num_layers=1,
+                                                              num_heads=2, intermediate_size=64)),
+        lambda: pt.DecodeEngine(pt.DecoderConfig(vocab_size=97, hidden_size=16, num_layers=1, num_heads=2,
+                                                 intermediate_size=32, max_position=32)),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
@@ -77,14 +91,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 def test_cpu_tensors_never_launch_kernels_and_build_is_lazy(monkeypatch):
     from pathway_tpu_torch.ops import _build
-    from pathway_tpu_torch.ops.fused_attention import masked_attention
+    from pathway_tpu_torch.ops.fused_attention import masked_attention, segment_attention
     from pathway_tpu_torch.ops.fused_layer import gemm_bias_act
     from pathway_tpu_torch.ops.knn_topk import knn_topk
+    from pathway_tpu_torch.ops.paged_attention import paged_decode_attention
 
     _build.reset_launches()
     masked_attention(torch.randn(2, 16, 96), torch.ones(2, 16, dtype=torch.bool), 2)
+    segment_attention(torch.randn(2, 16, 96), torch.zeros(2, 16, dtype=torch.int32), 2)
     gemm_bias_act(torch.randn(4, 8), torch.randn(3, 8), torch.zeros(3))
     knn_topk(torch.randn(2, 8), torch.randn(30, 8), k=4)
+    paged_decode_attention(torch.randn(2, 8), torch.randn(3, 4, 8), torch.randn(3, 4, 8),
+                           torch.zeros(2, 2, dtype=torch.int32), torch.tensor([3, 0], dtype=torch.int32), n_heads=2)
     assert sum(_build.LAUNCHES.values()) == 0
     assert _build._LIBS == {}
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -98,6 +116,8 @@ def test_every_kernel_source_names_its_tpu_counterpart():
         "gemm_epilogue.cu": "pathway_tpu/ops/fused_layer.py::fused_layer_tokens",
         "masked_attention.cu": "pathway_tpu/ops/fused_attention.py::_fused_call",
         "knn_topk.cu": "pathway_tpu/ops/pallas_knn.py::knn_topk",
+        "segment_attention.cu": "pathway_tpu/ops/fused_attention.py::_packed_call",
+        "paged_decode_attention.cu": "pathway_tpu/ops/paged_attention.py::paged_decode_attention",
     }
     from pathway_tpu_torch.ops import _build
 

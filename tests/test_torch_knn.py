@@ -204,3 +204,38 @@ def test_reference_pads_past_doc_count():
     v, i = knn_topk_reference(torch.ones(2, 4), torch.ones(3, 4), k=5)
     assert v.shape == (2, 5) and (i[:, 3:] == -1).all() and (v[:, 3:] == NEG).all()
     assert i[:, :3].tolist() == [[0, 1, 2], [0, 1, 2]]
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2"])
+@pytest.mark.parametrize("k", [5, 70], ids=["fetch8", "fetch128"])
+def test_exact_ties_keep_reference_key_order(metric, k):
+    """Duplicated vectors score exactly equal; ``lax.top_k`` puts the lower
+    slot first, also where the tie group straddles the fetch boundary
+    (12 copies at fetch 8, 90 copies at fetch 128)."""
+    rng = np.random.default_rng(12)
+    base = rng.normal(size=(3000, 16)).astype(np.float32)
+    dup = [rng.normal(size=16).astype(np.float32) for _ in range(2)]
+    slots = rng.permutation(3000)
+    base[slots[:12]] = dup[0]
+    base[slots[12:102]] = dup[1]
+    keys = [f"k{i}" for i in range(3000)]
+    ji = jknn.DeviceKnnIndex(dim=16, metric=metric, reserved_space=4096)
+    ti = tknn.DeviceKnnIndex(dim=16, metric=metric, reserved_space=4096, device="cpu")
+    ji.add_batch_arrays(keys, base)
+    ti.add_batch_arrays(keys, base)
+    q = np.stack(dup)
+    want, got = ji.search_batch(q, k), ti.search_batch(q, k)
+    assert [[key for key, _ in r] for r in got] == [[key for key, _ in r] for r in want]
+    ranks = {key: int(key[1:]) for key in keys}
+    assert [ranks[key] for key, _ in got[0][: min(k, 12)]] == sorted(int(s) for s in slots[:12])[: min(k, 12)]
+
+
+def test_topk_lower_index_matches_stable_sort():
+    rng = np.random.default_rng(13)
+    scores = torch.from_numpy(rng.integers(-3, 4, size=(6, 500)).astype(np.float32))
+    scores[0, ::2] = -0.0  # -0.0 and 0.0 tie, as they do under lax.top_k
+    scores[1] = NEG
+    for k in (1, 7, 64, 200):
+        vals, idx = tknn._topk_lower_index(scores, k)
+        sv, si = torch.sort(scores, dim=1, descending=True, stable=True)
+        assert torch.equal(idx, si[:, :k]) and torch.equal(vals, sv[:, :k])

@@ -23,6 +23,13 @@ Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
 exits non-zero; with no CUDA device it exits 2 and prints no result.
 Imports no JAX.
+
+    python chip_smoke.py --kernels [TREE]
+
+runs only the build and the kernel phase (every kernel held and timed, no
+path, launches 0) and ends with the card's line and the ``kernels`` line;
+with TREE, against the port of that checkout (another commit unpacked with
+``git archive``), so two versions' kernels compare on one card in turns.
 """
 
 from __future__ import annotations
@@ -110,6 +117,38 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph and replayed, so no host launch cost sits between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5, warmup=1) / reps
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time of one call of ``fn``: the rate at which calls are enqueued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def nvidia_smi_line() -> str:
@@ -209,20 +248,29 @@ def phase_kernels(torch) -> list[dict]:
     )
     mid = fl.gemm_bias_act(h1b, w["mlp_in.weight"], lp["mlp_in.bias"], True)
 
+    # the main path's shapes: a batch of 1024 x 160 and the single-query
+    # embed, one query at seq bucket 32; a call that small is host-bound, so
+    # its host time and its device time alone (CUDA-graph replay) are kept too
     for tag, xin, wk, bk, act in (("qkv", tokens, "attention.qkv.weight", "attention.qkv.bias", False),
-                                  ("mlp_in", h1b, "mlp_in.weight", "mlp_in.bias", True)):
+                                  ("mlp_in", h1b, "mlp_in.weight", "mlp_in.bias", True),
+                                  ("qkv,single_query", tokens[:32].contiguous(), "attention.qkv.weight",
+                                   "attention.qkv.bias", False)):
         ww, bb = w[wk], lp[bk]
         n, k = ww.shape
+        m = xin.shape[0]
         name = f"gemm_bias_act[{tag}]"
         err = held(name, fl.gemm_bias_act(xin, ww, bb, act), fl.gemm_bias_act_reference(xin, ww, bb, act), **BF16_TOL)
         bb16 = bb.bfloat16()
         lib = (lambda: F.gelu(F.linear(xin, ww, bb16), approximate="tanh")) if act else (lambda: F.linear(xin, ww, bb16))
+        kern = lambda: fl.gemm_bias_act(xin, ww, bb, act)  # noqa: E731
+        single = m < 1024
+        extra = {"host_ms": host_ms(kern), "graph_ms": graph_ms(kern), "library_graph_ms": graph_ms(lib)} if single else {}
         entries.append(_entry(
             name, src_gemm, b1, "gemm_bias_act", err,
-            cuda_ms(lambda: fl.gemm_bias_act(xin, ww, bb, act)),
+            cuda_ms(kern, reps=200 if single else 10),
             cuda_ms(lambda: fl.gemm_bias_act_reference(xin, ww, bb, act), reps=3),
-            2.0 * M * n * k, 2 * M * k + 2 * n * k + 4 * n + 2 * M * n, PEAK_BF16, cuda_ms(lib),
-            shape=[M, k, n],
+            2.0 * m * n * k, 2 * m * k + 2 * n * k + 4 * n + 2 * m * n, PEAK_BF16, cuda_ms(lib, reps=200 if single else 10),
+            shape=[m, k, n], **extra,
         ))
 
     for tag, xin, wk, bk, res, lnk, out_f32 in (
@@ -790,7 +838,7 @@ def phase_decode_path(torch, cross) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     try:
         import torch
     except ImportError as exc:
@@ -799,13 +847,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 2
+    if argv[:1] not in ([], ["--kernels"]) or len(argv) > 2:
+        print("usage: chip_smoke.py [--kernels [TREE]]", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if len(argv) == 2:  # the port of another checkout (A/B of two versions)
+        sys.path.insert(0, os.path.abspath(argv[1]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     env = phase_env(torch)
     phase_build()
     entries = phase_kernels(torch)
+    if argv:
+        for e in entries:
+            e.pop("kernel_key")
+        print(env["nvidia_smi"])
+        print(json.dumps({"kernels": entries}))
+        return 0
     phase_tie_helper(torch, torch.Generator(device=DEV).manual_seed(SEED + 4))
     launches = collections.Counter(phase_main_path(torch))
     rag_launches, cross = phase_rag_path(torch)
@@ -823,4 +882,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

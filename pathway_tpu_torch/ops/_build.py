@@ -4,7 +4,10 @@ Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, under ``build/pathway_tpu_torch/``
 at the repository root, and is bound through ``ctypes``. A library is built
 at first use on a CUDA tensor (never at import) and cached by the hash of
-its source, so a rebuilt checkout reuses nothing stale. ``build_all``
+its source, of every ``csrc/*.cuh`` header and of the flags, so an edited
+source or header never reuses a stale library. No source links anything
+beyond the CUDA runtime: ``gemm_epilogue.cu`` fetches the driver's
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint*``. ``build_all``
 starts one ``nvcc`` per source at once. Every C entry point returns its
 ``cudaError_t``; :func:`check` raises when it is not 0.
 
@@ -83,9 +86,15 @@ def nvcc_path() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{source[:-3]}-{digest}.so")
+    """The library's path, keyed by the source, every header in ``csrc/``
+    (a source may include any of them) and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{source[:-3]}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(source: str) -> tuple[subprocess.Popen, str, str] | None:
@@ -155,10 +164,10 @@ def stream_handle(t) -> int:
 
 
 def require(t, *, dtype, ndim: int, name: str) -> None:
-    """Wrapper-side checks for a kernel operand: CUDA, dtype, rank,
-    contiguity and 16-byte alignment (the kernels load 16 bytes at a time)."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
+    """Wrapper-side checks for a kernel operand: dtype, rank, contiguity and
+    16-byte alignment (the kernels load 16 bytes at a time). The device is
+    the wrapper's to check: it launches only for a CUDA first operand and
+    raises unless every other operand lies on that device."""
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:

@@ -16,10 +16,11 @@ masked averages V uniformly and never gives NaN.
 Sequence packing (kernel B4, ``_packed_call`` / ``_seg_kernel``): with
 ``segment_ids`` several chunks share one row and a token attends exactly
 the tokens that carry its id; ``segment_attention``
-(``csrc/segment_attention.cu``) gives each (row, head, query tile) a block
-and skips the key tiles whose id range cannot match. Query rows with id -1
-are padding that no caller reads: the kernel and its plain version write
-zeros there.
+(``csrc/segment_attention.cu``) gives each (row, head, 64-query tile) a
+block that walks only the key tiles whose id range can match, with an
+online softmax in registers (FlashAttention-2 style). Query rows with id
+-1 are padding that no caller reads: the kernel and its plain version
+write zeros there.
 """
 
 from __future__ import annotations
@@ -131,12 +132,11 @@ def segment_attention_reference(qkv: torch.Tensor, segment_ids: torch.Tensor, n_
     return torch.where((seg >= 0)[:, :, None], ctx, 0.0).to(dt)
 
 
-def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """qkv [B, S, 3D], segment_ids [B, S] int (-1 = padding) -> ctx [B, S, D].
-    CUDA tensors launch the kernel (bf16, head dim 32, S <= 512) or raise;
-    CPU tensors take :func:`segment_attention_reference`."""
-    if not qkv.is_cuda:
-        return segment_attention_reference(qkv, segment_ids, n_heads)
+def segment_attention_operands(qkv, segment_ids, n_heads: int) -> tuple[int, int, int, int]:
+    """The kernel's operand checks -> (b, s, d, head dim). Raises
+    ValueError on what the kernel does not take: a dtype, rank or layout
+    other than contiguous bf16 [B, S, 3D], a head dim other than 32, S >
+    512, or segment ids of another shape or device."""
     _build.require(qkv, dtype=torch.bfloat16, ndim=3, name="qkv")
     b, s, three_d = qkv.shape
     d = three_d // 3
@@ -147,6 +147,16 @@ def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int
         raise ValueError(f"segment_attention takes head dim {_HEAD_DIMS} and S <= 512, got {hd}, {s}")
     if tuple(segment_ids.shape) != (b, s) or segment_ids.device != qkv.device:
         raise ValueError(f"segment_ids must be [{b}, {s}] on {qkv.device}")
+    return b, s, d, hd
+
+
+def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """qkv [B, S, 3D], segment_ids [B, S] int (-1 = padding) -> ctx [B, S, D].
+    CUDA tensors launch the kernel (bf16, head dim 32, S <= 512) or raise;
+    CPU tensors take :func:`segment_attention_reference`."""
+    if not qkv.is_cuda:
+        return segment_attention_reference(qkv, segment_ids, n_heads)
+    b, s, d, hd = segment_attention_operands(qkv, segment_ids, n_heads)
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or s == 0:

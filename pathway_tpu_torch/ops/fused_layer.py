@@ -100,25 +100,35 @@ def gemm_bias_act_reference(x, w, b, act: bool = False):
     return y.to(x.dtype)
 
 
+def gemm_bias_act_operands(x, w, b) -> tuple[int, int, int]:
+    """The kernel's operand checks -> (m, n, k). Raises ValueError on a
+    dtype, rank, layout, shape or device the kernel does not take: K and N
+    must be multiples of 8 (the 16-byte row strides of its TMA loads and
+    store), and w and b must lie on x's device."""
+    if w.device != x.device or b.device != x.device:
+        raise ValueError(f"gemm_bias_act operands must all lie on {x.device}")
+    _build.require(x, dtype=torch.bfloat16, ndim=2, name="x")
+    _build.require(w, dtype=torch.bfloat16, ndim=2, name="w")
+    _build.require(b, dtype=torch.float32, ndim=1, name="b")
+    m, k = x.shape
+    n = w.shape[0]
+    if w.shape[1] != k or b.shape[0] != n or k % 8 or n % 8:
+        raise ValueError(f"gemm_bias_act shapes x{tuple(x.shape)} w{tuple(w.shape)} b{tuple(b.shape)}")
+    return m, n, k
+
+
 def gemm_bias_act(x, w, b, act: bool = False):
     """x [M, K] bf16, w [N, K] bf16, b [N] f32 -> act(x w^T + b) [M, N]
     bf16. CUDA tensors launch the kernel or raise; CPU tensors take the
     plain version."""
     if not x.is_cuda:
         return gemm_bias_act_reference(x, w, b, act)
-    _build.require(x, dtype=torch.bfloat16, ndim=2, name="x")
-    _build.require(w, dtype=torch.bfloat16, ndim=2, name="w")
-    _build.require(b, dtype=torch.float32, ndim=1, name="b")
-    m, k = x.shape
-    n = w.shape[0]
-    if w.shape[1] != k or b.shape[0] != n or k % 8:
-        raise ValueError(f"gemm_bias_act shapes x{tuple(x.shape)} w{tuple(w.shape)} b{tuple(b.shape)}")
+    m, n, k = gemm_bias_act_operands(x, w, b)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
     err = _build.library("gemm_epilogue.cu").pt_gemm_bias_act(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, int(act),
-        _build.stream_handle(x),
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, int(act), _build.stream_handle(x),
     )
     _build.check(err, "gemm_bias_act")
     _build.LAUNCHES["gemm_bias_act"] += 1
@@ -142,6 +152,8 @@ def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, 
     version. ``out_f32``: also return the f32 rows (the next residual)."""
     if not x.is_cuda:
         return gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps, out_f32=out_f32)
+    if any(t.device != x.device for t in (w, b, residual, gamma, beta)):
+        raise ValueError(f"gemm_bias_residual_layernorm operands must all lie on {x.device}")
     _build.require(x, dtype=torch.bfloat16, ndim=2, name="x")
     _build.require(w, dtype=torch.bfloat16, ndim=2, name="w")
     if residual.dtype not in (torch.bfloat16, torch.float32):

@@ -34,13 +34,22 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-@pytest.mark.parametrize("n,act", [(1152, False), (1536, True), (384, False)])
-def test_gemm_bias_act_matches_plain(cuda, n, act):
+@pytest.mark.parametrize(
+    "m,n,k,act",
+    [
+        (4096 + 37, 1152, 384, False), (4096 + 37, 1536, 384, True), (4096 + 37, 384, 384, False),
+        # M from one token (the single-query embed is 32) to the main path's 1024 x 160, ragged M tails
+        (1, 1152, 384, False), (17, 1536, 384, True), (32, 1152, 384, False), (64, 384, 384, False),
+        (129, 1152, 384, False), (163_840, 1152, 384, False), (163_840, 1536, 384, True),
+        # K deeper than the ring, and K not a multiple of the 64-deep stage (TMA zero-fills the tail)
+        (4096 + 37, 384, 1536, False), (129, 1536, 1536, True), (4096 + 37, 1152, 40, False), (17, 384, 40, True),
+    ],
+)
+def test_gemm_bias_act_matches_plain(cuda, m, n, k, act):
     from pathway_tpu_torch.ops import _build
     from pathway_tpu_torch.ops.fused_layer import gemm_bias_act, gemm_bias_act_reference
 
-    g = _gen(n)
-    m, k = 4096 + 37, 384
+    g = _gen(m * 7 + n + k)
     x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
     w = (0.05 * torch.randn(n, k, device=cuda, generator=g)).bfloat16()
     b = 0.1 * torch.randn(n, device=cuda, generator=g)
@@ -184,7 +193,7 @@ def _packed_segments(g, rows, length, lo, hi, device):
     """Segment ids of ``rows`` rows of ``length`` tokens filled back to back
     with chunks of lo..hi tokens (ids unique across rows), -1 in the tail."""
     seg = torch.full((rows, length), -1, dtype=torch.int32)
-    sizes = torch.randint(lo, hi + 1, (rows * length // lo,), generator=torch.Generator().manual_seed(g))
+    sizes = torch.randint(lo, hi + 1, (rows * (length // lo + 1),), generator=torch.Generator().manual_seed(g))
     k = 0
     for r in range(rows):
         off, s = 0, 0
@@ -196,19 +205,29 @@ def _packed_segments(g, rows, length, lo, hi, device):
     return seg.to(device)
 
 
-@pytest.mark.parametrize("rows,contiguous", [(64, True), (7, False)])
-def test_segment_attention_matches_plain(cuda, rows, contiguous):
+@pytest.mark.parametrize(
+    "rows,s,lo,hi",
+    [
+        (64, 512, 64, 256),  # the packed ingest's rows
+        (7, 512, 0, 0),  # ids scattered through the row: the kernel is exact for any ids
+        (5, 37, 5, 20),  # S not a multiple of the 64-key tile
+        (6, 100, 10, 40),
+        (3, 512, 512, 512),  # one 512-token segment per row
+        (8, 512, 20, 90),  # short segments that straddle 64-key tiles
+    ],
+)
+def test_segment_attention_matches_plain(cuda, rows, s, lo, hi):
     from pathway_tpu_torch.ops import _build
     from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
 
-    g = _gen(rows)
-    s = 512
+    g = _gen(rows * 1000 + s)
     qkv = torch.randn(rows, s, 3 * 384, device=cuda, generator=g).bfloat16()
-    if contiguous:
-        seg = _packed_segments(rows, rows, s, 64, 256, cuda)
-    else:  # ids scattered through the row: the kernel is exact for any ids
+    if lo:
+        seg = _packed_segments(rows, rows, s, lo, hi, cuda)
+    else:  # non-contiguous ids, -1 mixed in
         seg = torch.randint(-1, 5, (rows, s), device=cuda, generator=g, dtype=torch.int32)
         seg = torch.where(seg >= 0, seg + 5 * torch.arange(rows, device=cuda, dtype=torch.int32)[:, None], seg)
+    seg[-1] = -1  # an all-padding row
     before = _build.LAUNCHES["segment_attention"]
     got = segment_attention(qkv, seg, 12)
     torch.cuda.synchronize()

@@ -273,55 +273,70 @@ def phase_kernels(torch) -> list[dict]:
             shape=[m, k, n], **extra,
         ))
 
-    for tag, xin, wk, bk, res, lnk, out_f32 in (
-        ("out_ln1", ctx, "attention.out.weight", "attention.out.bias", tokens, "ln_att", True),
-        ("mlp_out_ln2", mid, "mlp_out.weight", "mlp_out.bias", h1, "ln_mlp", False),
-    ):
-        ww, bb, gam, bet = w[wk], lp[bk], lp[lnk + ".weight"], lp[lnk + ".bias"]
-        n, k = ww.shape
+    def ln_entry(name, xin, ww, bb, res, gam, bet, out_f32):
+        m_, k_ = xin.shape
+        n = ww.shape[0]
         kern = lambda: fl.gemm_bias_residual_layernorm(xin, ww, bb, res, gam, bet, eps, out_f32=out_f32)  # noqa: E731
         plain = lambda: fl.gemm_bias_residual_layernorm_reference(xin, ww, bb, res, gam, bet, eps, out_f32=out_f32)  # noqa: E731
-        name = f"gemm_bias_residual_layernorm[{tag}]"
         (gf, gb), (pf, pb) = kern(), plain()
         err = held(name, gb, pb, **BF16_TOL)
         if out_f32:
             err = max(err, held(name + " f32", gf, pf, **F32_TOL))
         bb16 = bb.bfloat16()
         lib = lambda: F.layer_norm((res + F.linear(xin, ww, bb16)).float(), (n,), gam, bet, eps)  # noqa: E731
-        out_bytes = M * n * (6 if out_f32 else 2)
-        entries.append(_entry(
+        out_bytes = m_ * n * (6 if out_f32 else 2)
+        return _entry(
             name, src_gemm, b1, "gemm_bias_residual_layernorm", err,
-            cuda_ms(kern), cuda_ms(plain, reps=3), 2.0 * M * n * k,
-            2 * M * k + 2 * n * k + 12 * n + res.element_size() * M * n + out_bytes, PEAK_BF16, cuda_ms(lib),
-            shape=[M, k, n],
-        ))
+            cuda_ms(kern), cuda_ms(plain, reps=3), 2.0 * m_ * n * k_,
+            2 * m_ * k_ + 2 * n * k_ + 12 * n + res.element_size() * m_ * n + out_bytes, PEAK_BF16, cuda_ms(lib),
+            shape=[m_, k_, n],
+        )
 
-    def attention_entry(name, replaces, qkv3, key_mask, zero_empty):
+    for tag, xin, wk, bk, res, lnk, out_f32 in (
+        ("out_ln1", ctx, "attention.out.weight", "attention.out.bias", tokens, "ln_att", True),
+        ("mlp_out_ln2", mid, "mlp_out.weight", "mlp_out.bias", h1, "ln_mlp", False),
+    ):
+        entries.append(ln_entry(f"gemm_bias_residual_layernorm[{tag}]", xin, w[wk], lp[bk], res,
+                                lp[lnk + ".weight"], lp[lnk + ".bias"], out_f32))
+    # BERT-base width (N 768): out projection (K 768, bf16 residual, f32 rows
+    # out) and FFN out (K 3072, f32 residual, bf16 out) over 32,768 rows
+    for k_in, res_dt, out_f32 in ((768, torch.bfloat16, True), (3072, torch.float32, False)):
+        xin = torch.randn(32_768, k_in, device=dev, generator=g).bfloat16()
+        ww = (0.03 * torch.randn(768, k_in, device=dev, generator=g)).bfloat16()
+        res = (1.0 + torch.randn(32_768, 768, device=dev, generator=g)).to(res_dt)
+        bb, gam, bet = (0.1 * torch.randn(768, device=dev, generator=g) for _ in range(3))
+        entries.append(ln_entry(f"gemm_bias_residual_layernorm[N768,K{k_in}]", xin, ww, bb, res, 1.0 + gam, bet,
+                                out_f32))
+        del xin, ww, res
+
+    def attention_entry(name, replaces, qkv3, key_mask, zero_empty, heads=h):
         """Every query row is held, padded ones and those of sequences
         with no live key included: B1 (``zero_empty``) writes zeros there,
         B3 averages V uniformly."""
         b_, s_ = key_mask.shape
-        got = masked_attention(qkv3, key_mask, h, zero_empty)
-        err = held(name, got, masked_attention_reference(qkv3, key_mask, h, zero_empty), **BF16_TOL)
+        d_ = qkv3.shape[-1] // 3
+        hd_ = d_ // heads
+        got = masked_attention(qkv3, key_mask, heads, zero_empty)
+        err = held(name, got, masked_attention_reference(qkv3, key_mask, heads, zero_empty), **BF16_TOL)
         empty = ~key_mask.any(dim=1)
         if zero_empty and not (got[empty] == 0).all():
             raise AssertionError(f"{name}: a sequence with no live key must give zeros")
         if not zero_empty:
-            uniform = qkv3[empty][:, :, 2 * d:].float().mean(dim=1, keepdim=True).expand(-1, s_, -1)
+            uniform = qkv3[empty][:, :, 2 * d_:].float().mean(dim=1, keepdim=True).expand(-1, s_, -1)
             held(name + " fully masked rows vs mean of V", got[empty], uniform, **BF16_TOL)
         kl = key_mask.sum(dim=1).double()
-        flops = 4.0 * h * hd * float((kl**2).sum())
-        nbytes = 2 * 3 * d * s_ * float((kl > 0).sum()) + b_ * s_ + 2 * b_ * s_ * d
-        q_, k_, v_ = (t.view(b_, s_, h, hd).transpose(1, 2) for t in qkv3.split(d, dim=-1))
+        flops = 4.0 * heads * hd_ * float((kl**2).sum())
+        nbytes = 2 * 3 * d_ * s_ * float((kl > 0).sum()) + b_ * s_ + 2 * b_ * s_ * d_
+        q_, k_, v_ = (t.view(b_, s_, heads, hd_).transpose(1, 2) for t in qkv3.split(d_, dim=-1))
         q_, k_, v_ = q_.contiguous(), k_.contiguous(), v_.contiguous()
         amask = key_mask[:, None, None, :]
         return _entry(
             name, src_attn, replaces, "masked_attention", err,
-            cuda_ms(lambda: masked_attention(qkv3, key_mask, h, zero_empty)),
-            cuda_ms(lambda: masked_attention_reference(qkv3, key_mask, h, zero_empty), reps=3),
+            cuda_ms(lambda: masked_attention(qkv3, key_mask, heads, zero_empty)),
+            cuda_ms(lambda: masked_attention_reference(qkv3, key_mask, heads, zero_empty), reps=3),
             flops, nbytes, PEAK_BF16,
             cuda_ms(lambda: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=amask)),
-            shape=[b_, s_, 3 * d],
+            shape=[b_, s_, 3 * d_], heads=heads,
         )
 
     entries.append(attention_entry("masked_attention[B1 layer]", b1, qkv.view(-1, S, 3 * d), mask, True))
@@ -332,6 +347,13 @@ def phase_kernels(torch) -> list[dict]:
     kl3[7] = 0
     km3 = torch.arange(128, device=dev)[None, :] < kl3[:, None]
     entries.append(attention_entry("masked_attention[B3]", "pathway_tpu/ops/fused_attention.py:117", qkv3, km3, False))
+    # B3 at BERT-base geometry (12 heads of 64) and at head dim 128 (8 heads, d 1024), same lengths
+    for tag, width, heads in (("hd64", 768, 12), ("hd128", 1024, 8)):
+        qkv_h = torch.randn(256, 128, 3 * width, device=dev, generator=g).bfloat16()
+        entries.append(attention_entry(f"masked_attention[{tag}]", "pathway_tpu/ops/fused_attention.py:117",
+                                       qkv_h, km3, False, heads=heads))
+        del qkv_h
+    phase_b1_layer_hd64(torch, g)
 
     # ---- B2: q = 256 against 1,048,576 x 384 f32 docs, 10% dead slots
     N, Q = 1 << 20, 256
@@ -360,20 +382,59 @@ def phase_kernels(torch) -> list[dict]:
     del docs, valid, queries
     torch.cuda.empty_cache()
     entries.append(segment_attention_entry(torch, g))
+    entries.append(segment_attention_entry(torch, g, rows=128, d=768, h=12, tag="hd64"))
     entries.append(paged_decode_attention_entry(torch, g))
     return entries
 
 
-def segment_attention_entry(torch, g, rows: int = 256) -> dict:
-    """B4 at the packed ingest's shapes: qkv [rows, 512, 1152] bf16, segment
-    ids laid out by the port's own packer from seeded lengths of 64-256."""
+def phase_b1_layer_hd64(torch, g) -> None:
+    """B1 at BERT-base width (d 768, 12 heads of 64, FFN 3072): two layers
+    of random weights over 256 sequences at S = 128, lengths 32-128 with
+    four of them 0, held to the plain layers at the whole-layer tolerance."""
+    from pathway_tpu_torch.models.encoder import EncoderConfig, init_params
+    from pathway_tpu_torch.ops import fused_layer as fl
+
+    cfg = EncoderConfig(hidden_size=768, num_layers=2, num_heads=12, intermediate_size=3072)
+    d, h, ffn, eps = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, cfg.layer_norm_eps
+    params = fl.prepare_params({k: v.to(DEV) for k, v in init_params(cfg, seed=SEED).items()}, cfg)
+    layers = [fl.layer_params(params, i) for i in range(cfg.num_layers)]
+    B, S = 256, 128
+    tokens = torch.randn(B * S, d, device=DEV, generator=g).bfloat16()
+    lens = torch.randint(32, S + 1, (B,), device=DEV, generator=g, dtype=torch.int32)
+    lens[-4:] = 0
+
+    def run(layer):
+        x = tokens
+        for lp in layers:
+            x = layer(x, lens, lp, n_heads=h, seq=S, eps=eps)
+        return x
+
+    err = held("B1 layer[hd64]", run(fl.fused_layer_tokens), run(fl.fused_layer_tokens_reference), **LAYER_TOL)
+    live_lens = lens.double()
+    n_live = int((live_lens > 0).sum())
+    flops = cfg.num_layers * (
+        2 * n_live * S * (3 * d * d + d * d + 2 * d * ffn) + 4 * h * (d // h) * float((live_lens**2).sum())
+    )
+    nbytes = cfg.num_layers * (2 * (2 * B * S * d) + 2 * (4 * d * d + 2 * d * ffn))
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+    emit(
+        "b1_layer[hd64]", shape=[B * S, d], seq=S, heads=h, layers=cfg.num_layers, live_sequences=n_live,
+        max_abs_err=err, ms=cuda_ms(lambda: run(fl.fused_layer_tokens)),
+        plain_ms=cuda_ms(lambda: run(fl.fused_layer_tokens_reference), reps=3), bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def segment_attention_entry(torch, g, rows: int = 256, d: int = 384, h: int = 12, tag: str = "B4") -> dict:
+    """B4 at the packed ingest's shapes: qkv [rows, 512, 3d] bf16 (MiniLM:
+    d 384, 12 heads), segment ids laid out by the port's own packer from
+    seeded lengths of 64-256."""
     import numpy as np
     import torch.nn.functional as F
 
     from pathway_tpu_torch.models.sentence_encoder import shelf_pack
     from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
 
-    L, SEGS, d, h = 512, 8, 384, 12
+    L, SEGS = 512, 8
     hd = d // h
     rng = np.random.default_rng(SEED + 2)
     lens = rng.integers(64, 257, rows * 3)
@@ -391,20 +452,21 @@ def segment_attention_entry(torch, g, rows: int = 256) -> dict:
     got = segment_attention(qkv, seg_d, h)
     want = segment_attention_reference(qkv, seg_d, h)
     live = seg_d >= 0
-    err = held("segment_attention[B4] live rows", got[live], want[live], **BF16_TOL)
+    name = f"segment_attention[{tag}]"
+    err = held(name + " live rows", got[live], want[live], **BF16_TOL)
     if not (got[~live].isfinite().all() and (got[~live] == 0).all()):
-        raise AssertionError("segment_attention[B4]: padding rows must be finite (the kernel writes zeros)")
+        raise AssertionError(f"{name}: padding rows must be finite (the kernel writes zeros)")
     q, k, v = (t.reshape(rows, L, h, hd).transpose(1, 2).contiguous() for t in qkv.split(d, dim=-1))
     same = seg_d[:, None, :, None] == seg_d[:, None, None, :]  # the library call's mask, built outside its timing
     flops = 4.0 * h * hd * float((lns[keep].astype(np.float64) ** 2).sum())
     nbytes = 2 * rows * L * 3 * d + 2 * rows * L * d + 4 * rows * L
     return _entry(
-        "segment_attention[B4]", "pathway_tpu_torch/csrc/segment_attention.cu",
+        name, "pathway_tpu_torch/csrc/segment_attention.cu",
         "pathway_tpu/ops/fused_attention.py:244", "segment_attention", err,
         cuda_ms(lambda: segment_attention(qkv, seg_d, h)),
         cuda_ms(lambda: segment_attention_reference(qkv, seg_d, h), reps=2, warmup=1),
         flops, nbytes, PEAK_BF16, cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same)),
-        shape=[rows, L, 3 * d], segments=int(keep.sum()), live_tokens=int(live.sum()),
+        shape=[rows, L, 3 * d], heads=h, segments=int(keep.sum()), live_tokens=int(live.sum()),
     )
 
 

@@ -29,59 +29,38 @@
 //   * the grid is persistent (one 128 x 128 tile block per SM) and walks the
 //     tiles n-fastest: the producer loads the next tile while the consumers
 //     do this one's epilogue (bias, tanh-GELU, bf16, TMA store).
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py): qkv 0.260 ms against a
-// 0.151 ms bound and 0.256 ms for cuBLAS (F.linear); FFN-in with GELU
-// 0.539 ms against 0.195 ms and 0.667 ms (F.linear + F.gelu); the plain
-// versions 4.094 and 11.342 ms.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py): qkv 0.257 ms against a
+// 0.151 ms bound and 0.255 ms for cuBLAS (F.linear); FFN-in with GELU
+// 0.541-0.549 ms against 0.195 ms and 0.669 ms (F.linear + F.gelu).
 //
-// gemm_bias_residual_layernorm is a shared-memory tiled WMMA loop with no
-// TMA, no wgmma and no multi-stage pipeline. It gives one block whole rows
-// (all N columns), so the row statistics are computed in the epilogue.
-// Both kernels keep their epilogues fused (bias, GELU, residual and
-// LayerNorm never make a separate pass over device memory).
+// gemm_bias_residual_layernorm reuses that mainloop with an output tile that
+// spans whole rows (N up to 768; N = 1024 in two column chunks), so the
+// LayerNorm statistics come from the accumulators in the epilogue: bias,
+// residual, LayerNorm and the f32 and bf16 stores never make a separate
+// pass over device memory. At the main path's shapes (M = 163,840, N = 384,
+// K = 384 or 1536) it reads X and the residual and writes the rows once,
+// which bounds it by bytes; the weight tile is re-read from L2 by every
+// 128-row tile. On an H100 80GB HBM3 at 700 W (chip_smoke.py): out
+// projection + LN1 (K 384) 0.455-0.458 ms against a 0.188 ms bound and
+// 0.749 ms for F.linear + F.layer_norm; FFN out + LN2 (K 1536) 0.681-0.682
+// ms against 0.263 and 0.854 ms.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int BK = 32;        // depth of one K step
-constexpr int LDS = BK + 8;   // bf16 row stride of a staged tile (keeps WMMA alignment)
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   // tanh-approximate GELU, as jax.nn.gelu(approximate=True)
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage rows [r0, r0 + rows) x cols [k0, k0 + BK) of a row-major [R, K] bf16
-// matrix into shared memory, 16 bytes per load; out-of-range rows are zero.
-// K % 8 == 0 is checked by the caller, so a 16-byte chunk is in range whole.
-__device__ __forceinline__ void stage_tile(bf16* s, const bf16* __restrict__ g, int R, int K,
-                                           int r0, int k0, int rows, int tid, int nthreads) {
-  for (int c = tid; c < rows * (BK / 8); c += nthreads) {
-    const int r = c / (BK / 8);
-    const int kc = (c % (BK / 8)) * 8;
-    const int gr = r0 + r;
-    const int gk = k0 + kc;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < R && gk < K) v = *reinterpret_cast<const uint4*>(g + (int64_t)gr * K + gk);
-    *reinterpret_cast<uint4*>(s + r * LDS + kc) = v;
-  }
 }
 
 // ---------------------------------------------------------------- bias + act
@@ -179,26 +158,66 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// D[64, 128] (+)= A[64, 16] B[16, 128]^T, both from shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
-      "1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
-        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// wgmma.m64nNk16 for the widths the kernels issue, accumulators in registers
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<128> {
+  // D[64, 128] (+)= A[64, 16] B[16, 128]^T, both from shared memory
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+          "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  // D[64, 192] (+)= A[64, 16] B[16, 192]^T, both from shared memory
+  __device__ __forceinline__ static void run(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+          "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+          "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <int ACT>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
@@ -268,7 +287,7 @@ gemm_bias_act_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_co
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < TBK / 16; ++kk)  // +32 bytes along K = +2 in the descriptor
-          wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);
+          Wgmma<TBN>::run(d, da + 2 * kk, db + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);
         wgmma_commit();
         wgmma_wait<1>();  // the previous step's group is done: its stage is free
         if (prev >= 0 && lt == 0) mbar_arrive(empty(prev));
@@ -405,105 +424,355 @@ cudaError_t launch_tma(const bf16* X, const bf16* W, const float* bias, bf16* Y,
 }
 
 // ------------------------------------------------- residual + LayerNorm rows
-constexpr int LBM = 32;  // rows per block; 8 warps
+// The same TMA ring and wgmma mainloop, with an output tile that spans whole
+// rows, so the LayerNorm statistics are taken in the epilogue, from the
+// accumulators, without a second pass over memory. Two consumer warpgroups
+// (256 threads, no separate producer: thread 0 issues the TMA loads for the
+// step STAGES ahead as soon as both warpgroups have freed a stage, so at
+// most 255 registers a thread hold up to 192 f32 accumulators). A tile is
+// BM = 64 RG rows x the chunk's CN columns; warpgroup (rg, cs) owns rows
+// [64 rg, 64 rg + 64) and columns [CW cs, CW cs + CW) of it, issued as NP
+// wgmma of width PN. With CS = 2 the two warpgroups split the columns and
+// exchange each row's sum and sum of squared deviations through shared
+// memory. Widths whose row does not fit the registers (N = 1024) run in
+// NCH = 2 column chunks: each chunk's pre-LayerNorm rows go to the f32
+// output, its statistics merge into the row's (Chan's pairwise update),
+// and a last pass normalises the rows from there (L2-resident).
+//   N     RG CS NCH  per warpgroup      stages
+//   256   2  1  1    64 x 256 (2 x 128)  4
+//   384   2  1  1    64 x 384 (2 x 192)  3
+//   512   1  2  1    64 x 256 (2 x 128)  2
+//   768   1  2  1    64 x 384 (2 x 192)  2
+//   1024  1  2  2    64 x 256 (2 x 128)  3
+// The grid is persistent (one block per SM: ring and staging take 150-226
+// KB) and the loads of the next tile run under this tile's epilogue. The
+// residual is read in bf16 or f32 (a template parameter: no branch in the
+// loop); LayerNorm is mean((x - mu)^2) in f32, as the plain version
+// computes it. The epilogue works on the accumulator registers in place
+// (v, then v - mean): at N = 384 a thread holds 192 of them, and any copy
+// would spill. The rows leave through a [16, 32] f32 tile per warp in
+// shared memory, so that every store writes whole row segments.
 
-template <int N>
-__global__ void __launch_bounds__(256)
-gemm_res_ln_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W,
-                   const float* __restrict__ bias, const void* __restrict__ R, int r_is_f32,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   float* __restrict__ Yf, bf16* __restrict__ Yb, int M, int K, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [LBM, LDS]
-  bf16* Bs = As + LBM * LDS;                 // [N, LDS]
-  float* Cs = reinterpret_cast<float*>(smem);  // [LBM, N + 4], reused after the K loop
-  constexpr int LDC = N + 4;
-  constexpr int CPW = N / 16 / 8;  // 16-wide column fragments per warp
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the residual's two columns of a thread, in f32, as its type reads them
+__device__ __forceinline__ float2 load2(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+template <int N, int RG, int CS, int NCH, int STAGES>
+struct LnTile {
+  static constexpr int BM = 64 * RG;   // rows per tile
+  static constexpr int CN = N / NCH;   // columns per chunk
+  static constexpr int CW = CN / CS;   // columns per warpgroup
+  static constexpr int PN = CW > 256 ? CW / 2 : (CW == 256 ? 128 : CW);  // width of one wgmma
+  static constexpr int NP = CW / PN;
+  static constexpr int BOX = 128;      // W rows per TMA box
+  static constexpr int A_BYTES = BM * TBK * 2;
+  static constexpr int STAGE = A_BYTES + CN * TBK * 2;
+  static constexpr int TILE = 16 * 32 * 4;              // a warp's [16, 32] f32 output tile
+  static constexpr int STAGING = NCH == 1 ? 8 * TILE : 0;  // (N = 1024 writes its rows directly)
+  static constexpr int SMEM = STAGES * STAGE + STAGING + 2 * STAGES * 8 + 2 * CS * BM * 4 + 1024;
+  static_assert(RG * CS == 2, "two consumer warpgroups");
+  static_assert(CN % BOX == 0 && CW % PN == 0 && NP * PN == CW, "column split");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+template <int N, int RG, int CS, int NCH, int STAGES, typename RT>
+__global__ void __launch_bounds__(256, 1)
+gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                       const float* __restrict__ bias, const RT* __restrict__ R, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, float* __restrict__ Yf, bf16* __restrict__ Yb, int M, int K,
+                       float eps) {
+  using T = LnTile<N, RG, CS, NCH, STAGES>;
+  constexpr int PN = T::PN, NP = T::NP, CW = T::CW, CN = T::CN, BM = T::BM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte swizzle wants 1024-byte aligned tiles
+  const uint32_t staging = base + STAGES * T::STAGE;
+  const uint32_t bars = staging + T::STAGING;
+  float* red = reinterpret_cast<float*>(smem_raw + (bars - raw) + 2 * STAGES * 8);  // [2][CS][BM]
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m0 = blockIdx.x * LBM;
+  const int wg = tid / 128, lt = tid % 128, w = lt / 32, lane = tid % 32, g = lane / 4;
+  const int rg = wg / CS, cs = wg % CS;
+  const int tiles = (M + BM - 1) / BM;
+  const int ksteps = (K + TBK - 1) / TBK;
+  const int per_tile = NCH * ksteps;
+  const int my_tiles = tiles > (int)blockIdx.x ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int total = my_tiles * per_tile;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][CPW];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < CPW; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_tile(As, X, M, K, m0, k0, LBM, tid, 256);
-    stage_tile(Bs, W, N, K, 0, k0, N, tid, 256);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + 16 * i * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < CPW; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Bs + (warp * CPW + j) * 16 * LDS + kk, LDS);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < CPW; ++j)
-      wmma::store_matrix_sync(Cs + 16 * i * LDC + (warp * CPW + j) * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
   __syncthreads();
 
-  // epilogue: one warp per row, N / 32 columns per lane
-  constexpr int PER = N / 32;
-  for (int rr = 0; rr < LBM / 8; ++rr) {
-    const int r = warp * (LBM / 8) + rr;
-    const int64_t gr = m0 + r;
-    if (gr >= M) break;  // warp-uniform
-    float v[PER];
-    float s = 0.0f;
+  // step i of this block (tile, chunk, k) into stage i % STAGES; thread 0 only
+  auto issue = [&](int i) {
+    const int s = i % STAGES;
+    mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1u);
+    const int tile = blockIdx.x + (i / per_tile) * gridDim.x;
+    const int ch = (i % per_tile) / ksteps, k = i % ksteps;
+    const uint32_t a = base + s * T::STAGE;
+    mbar_expect_tx(full(s), T::STAGE);  // out-of-range box parts count too (zero-filled)
+    tma_load_2d(a, &tx, k * TBK, tile * BM, full(s));
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + 32 * j;
-      const float res = r_is_f32 ? reinterpret_cast<const float*>(R)[gr * N + c]
-                                 : __bfloat162float(reinterpret_cast<const bf16*>(R)[gr * N + c]);
-      v[j] = res + (Cs[r * LDC + c] + bias[c]);
-      s += v[j];
+    for (int bx = 0; bx < CN / T::BOX; ++bx)
+      tma_load_2d(a + T::A_BYTES + bx * T::BOX * 128, &tw, k * TBK, ch * CN + bx * T::BOX, full(s));
+  };
+  // a warpgroup is done with step i: free its stage, and refill it STAGES ahead
+  auto release = [&](int i) {
+    if (lt == 0) mbar_arrive(empty(i % STAGES));
+    if (tid == 0 && i + STAGES < total) issue(i + STAGES);
+  };
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tx)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tw)) : "memory");
+    for (int i = 0; i < STAGES && i < total; ++i) issue(i);
+  }
+
+  // a row statistic of this thread's two rows (g, g + 8 of its warp's 16),
+  // summed over the warpgroup's columns and, with CS = 2, over both
+  // warpgroups through shared memory buffer `buf`
+  auto row_total = [&](float (&x)[2], int buf) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      x[r] += __shfl_xor_sync(0xffffffffu, x[r], 1);
+      x[r] += __shfl_xor_sync(0xffffffffu, x[r], 2);
     }
-    const float mu = warp_sum(s) / N;
-    float q = 0.0f;
+    if (CS > 1) {
+      const int rl = rg * 64 + w * 16 + g;
+      if (lane % 4 == 0) {
+        red[(buf * CS + cs) * BM + rl] = x[0];
+        red[(buf * CS + cs) * BM + rl + 8] = x[1];
+      }
+      __syncthreads();
 #pragma unroll
-    for (int j = 0; j < PER; ++j) q += (v[j] - mu) * (v[j] - mu);
-    const float inv = rsqrtf(warp_sum(q) / N + eps);
+      for (int r = 0; r < 2; ++r) {
+        x[r] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + 32 * j;
-      const float y = (v[j] - mu) * inv * gamma[c] + beta[c];
-      if (Yf) Yf[gr * N + c] = y;
-      // kept conditional although callers always pass Yb: the unconditional
-      // store compiles to more registers and one block per SM instead of two
-      if (Yb) Yb[gr * N + c] = __float2bfloat16(y);
+        for (int c = 0; c < CS; ++c) x[r] += red[(buf * CS + c) * BM + rl + 8 * r];
+      }
+    }
+  };
+
+  float d[NP][PN / 2];
+  int c = 0;  // steps consumed
+  for (int t = 0; t < my_tiles; ++t) {
+    const int64_t row0 = (int64_t)(blockIdx.x + t * gridDim.x) * BM + rg * 64 + w * 16 + g;
+    float mean[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+    for (int ch = 0; ch < NCH; ++ch) {
+      for (int k = 0; k < ksteps; ++k, ++c) {
+        const int s = c % STAGES;
+        mbar_wait(full(s), (c / STAGES) & 1);
+        const uint32_t a = base + s * T::STAGE + rg * 64 * TBK * 2;
+        const uint32_t bt = base + s * T::STAGE + T::A_BYTES + cs * CW * TBK * 2;
+        const uint64_t da = sw128_desc(a);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TBK / 16; ++kk)  // +32 bytes along K = +2 in the descriptor
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            Wgmma<PN>::run(d[p], da + 2 * kk, sw128_desc(bt + p * PN * TBK * 2) + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's group is done: its stage is free
+        if (k > 0) release(c - 1);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < PN / 2; ++i) asm volatile("" : "+f"(d[p][i])::"memory");
+      release(c - 1);
+
+      // epilogue of the chunk: v = residual + (acc + bias), its row statistics
+      const int col0 = ch * CN + cs * CW + 2 * (lane % 4);
+      const bool ok[2] = {row0 < M, row0 + 8 < M};
+      const RT* res[2] = {R + row0 * N + col0, R + (row0 + 8) * N + col0};  // read only where ok
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < PN / 8; ++j) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col0 + p * PN + 8 * j));
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 rv = ok[hh] ? load2(res[hh] + p * PN + 8 * j) : make_float2(0.0f, 0.0f);
+            float& a0 = d[p][4 * j + 2 * hh];
+            float& a1 = d[p][4 * j + 2 * hh + 1];
+            a0 = rv.x + (a0 + bb.x);
+            a1 = rv.y + (a1 + bb.y);
+            sum[hh] += a0 + a1;
+          }
+        }
+      row_total(sum, 0);
+      const float cmean[2] = {sum[0] / CN, sum[1] / CN};
+      // centred in place: the registers hold v - mean from here on (a
+      // separate copy of the 192 differences would not fit and spill)
+      float sq[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < PN / 2; ++i) {
+          d[p][i] -= cmean[(i >> 1) & 1];
+          sq[(i >> 1) & 1] += d[p][i] * d[p][i];
+        }
+      row_total(sq, 1);
+      if (NCH == 1) {
+        mean[0] = cmean[0];
+        mean[1] = cmean[1];
+        m2[0] = sq[0];
+        m2[1] = sq[1];
+        const float inv[2] = {rsqrtf(m2[0] / N + eps), rsqrtf(m2[1] / N + eps)};
+        // y = (v - mean) * inv * gamma + beta, stored as f32 (when asked) and
+        // bf16 through the warp's [16, 32] staging tile, 32 columns at a
+        // time: the accumulator layout puts 8 rows x 32 bytes in one warp
+        // store, the tile lets every store write whole 128- and 64-byte row
+        // segments. Column c of tile row r sits at c ^ 8 (r % 4): no bank
+        // conflicts either way.
+        float* tile = reinterpret_cast<float*>(smem_raw + (staging - raw)) + (wg * 4 + w) * (T::TILE / 4);
+        const int64_t wrow = row0 - g;  // the warp's first row
+        auto write = [&](auto with_f32) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int cc = 0; cc < PN / 32; ++cc) {
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const int j = 4 * cc + jj;
+                const int col = col0 + p * PN + 8 * j;
+                const float2 ga = __ldg(reinterpret_cast<const float2*>(gamma + col));
+                const float2 be = __ldg(reinterpret_cast<const float2*>(beta + col));
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                  const int r = g + 8 * hh;
+                  *reinterpret_cast<float2*>(tile + r * 32 + ((8 * jj + 2 * (lane % 4)) ^ ((r & 3) << 3))) =
+                      make_float2(d[p][4 * j + 2 * hh] * inv[hh] * ga.x + be.x,
+                                  d[p][4 * j + 2 * hh + 1] * inv[hh] * ga.y + be.y);
+                }
+              }
+              __syncwarp();
+              const int cbase = ch * CN + cs * CW + p * PN + 32 * cc;
+              if constexpr (decltype(with_f32)::value) {
+#pragma unroll
+                for (int it = 0; it < 4; ++it) {  // 16 rows x 8 float4
+                  const int r = (32 * it + lane) >> 3, k = lane & 7;
+                  if (wrow + r < M)
+                    *reinterpret_cast<float4*>(Yf + (wrow + r) * N + cbase + 4 * k) =
+                        *reinterpret_cast<const float4*>(tile + r * 32 + ((4 * k) ^ ((r & 3) << 3)));
+                }
+              }
+#pragma unroll
+              for (int it = 0; it < 2; ++it) {  // 16 rows x 4 x 8 bf16
+                const int r = (32 * it + lane) >> 2, k = lane & 3;
+                if (wrow + r < M) {
+                  const float4 a = *reinterpret_cast<const float4*>(tile + r * 32 + ((8 * k) ^ ((r & 3) << 3)));
+                  const float4 b = *reinterpret_cast<const float4*>(tile + r * 32 + ((8 * k + 4) ^ ((r & 3) << 3)));
+                  uint4 o;
+                  o.x = pack_bf16x2(a.x, a.y);
+                  o.y = pack_bf16x2(a.z, a.w);
+                  o.z = pack_bf16x2(b.x, b.y);
+                  o.w = pack_bf16x2(b.z, b.w);
+                  *reinterpret_cast<uint4*>(Yb + (wrow + r) * N + cbase + 8 * k) = o;
+                }
+              }
+              __syncwarp();  // the tile is read before the next chunk overwrites it
+            }
+        };
+        if (Yf)
+          write(std::true_type{});
+        else
+          write(std::false_type{});
+      } else {
+        const float na = (float)(ch * CN), nn = (float)((ch + 1) * CN);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float delta = cmean[r] - mean[r];
+          mean[r] += delta * (CN / nn);
+          m2[r] += sq[r] + delta * delta * (na * CN / nn);
+        }
+        // the pre-LayerNorm rows wait in the f32 output
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < PN / 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              if (ok[hh])
+                *reinterpret_cast<float2*>(Yf + (row0 + 8 * hh) * N + col0 + p * PN + 8 * j) =
+                    make_float2(d[p][4 * j + 2 * hh] + cmean[hh], d[p][4 * j + 2 * hh + 1] + cmean[hh]);
+      }
+    }
+    if (NCH > 1) {  // normalise the staged rows: each thread reads back what it wrote
+      const float inv[2] = {rsqrtf(m2[0] / N + eps), rsqrtf(m2[1] / N + eps)};
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll 4
+          for (int j = 0; j < PN / 8; ++j) {
+            const int col = ch * CN + cs * CW + 2 * (lane % 4) + p * PN + 8 * j;
+            const float2 ga = __ldg(reinterpret_cast<const float2*>(gamma + col));
+            const float2 be = __ldg(reinterpret_cast<const float2*>(beta + col));
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int64_t row = row0 + 8 * hh;
+              if (row >= M) continue;
+              float2* yf = reinterpret_cast<float2*>(Yf + row * N + col);
+              const float2 v = *yf;
+              const float y0 = (v.x - mean[hh]) * inv[hh] * ga.x + be.x;
+              const float y1 = (v.y - mean[hh]) * inv[hh] * ga.y + be.y;
+              *yf = make_float2(y0, y1);
+              *reinterpret_cast<__nv_bfloat162*>(Yb + row * N + col) = __floats2bfloat162_rn(y0, y1);
+            }
+          }
     }
   }
 }
 
-template <int N>
-cudaError_t launch_res_ln(const bf16* X, const bf16* W, const float* bias, const void* R,
-                          int r_is_f32, const float* gamma, const float* beta, float* Yf,
-                          bf16* Yb, int M, int K, float eps, cudaStream_t stream) {
-  const size_t stage = (size_t)(LBM + N) * LDS * sizeof(bf16);
-  const size_t epi = (size_t)LBM * (N + 4) * sizeof(float);
-  const size_t bytes = stage > epi ? stage : epi;
-  cudaError_t err = cudaFuncSetAttribute(gemm_res_ln_kernel<N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + LBM - 1) / LBM);
-  gemm_res_ln_kernel<N><<<grid, 256, bytes, stream>>>(X, W, bias, R, r_is_f32, gamma, beta, Yf,
-                                                      Yb, M, K, eps);
+template <int N, int RG, int CS, int NCH, int STAGES, typename RT>
+cudaError_t launch_res_ln(const bf16* X, const bf16* W, const float* bias, const RT* R, const float* gamma,
+                          const float* beta, float* Yf, bf16* Yb, int M, int K, float eps, cudaStream_t stream) {
+  using T = LnTile<N, RG, CS, NCH, STAGES>;
+  static int max_grid = 0;  // resident blocks on the whole card, found once
+  auto kernel = gemm_res_ln_tma_kernel<N, RG, CS, NCH, STAGES, RT>;
+  if (NCH > 1 && !Yf) return cudaErrorInvalidValue;  // the rows are staged in Yf
+  if (!max_grid) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, T::SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    max_grid = sms * per_sm;
+  }
+  CUtensorMap tx, tw;
+  if (!tensor_map(&tx, X, M, K, T::BM) || !tensor_map(&tw, W, N, K, T::BOX)) return cudaErrorInvalidValue;
+  const int tiles = (M + T::BM - 1) / T::BM;
+  const int grid = tiles < max_grid ? tiles : max_grid;
+  kernel<<<grid, 256, T::SMEM, stream>>>(tx, tw, bias, R, gamma, beta, Yf, Yb, M, K, eps);
   return cudaGetLastError();
+}
+
+// the launch for a bf16 or an f32 residual
+template <int N, int RG, int CS, int NCH, int STAGES>
+cudaError_t launch_res_ln_any(const bf16* X, const bf16* W, const float* bias, const void* R, int r_is_f32,
+                              const float* gamma, const float* beta, float* Yf, bf16* Yb, int M, int K, float eps,
+                              cudaStream_t stream) {
+  if (r_is_f32)
+    return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const float*)R, gamma, beta, Yf, Yb, M, K, eps, stream);
+  return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const bf16*)R, gamma, beta, Yf, Yb, M, K, eps, stream);
 }
 
 }  // namespace
@@ -520,20 +789,26 @@ int pt_gemm_bias_act(const void* X, const void* W, const void* bias, void* Y, in
   return (int)launch_tma<0>(x, w, (const float*)bias, (bf16*)Y, M, N, K, s);
 }
 
-// N = 384 (MiniLM width); Yf (and Yb) may be null. Returns the launch's
+// N in {256, 384, 512, 768, 1024}, K % 8 == 0; Yf may be null except at
+// N = 1024, where the rows are staged there. Returns the launch's
 // cudaError_t, or cudaErrorInvalidValue for another N.
 int pt_gemm_bias_residual_layernorm(const void* X, const void* W, const void* bias,
                                     const void* R, int r_is_f32, const void* gamma,
                                     const void* beta, void* Yf, void* Yb, int M, int N, int K,
                                     float eps, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define PT_RES_LN(NN)                                                                         \
-  case NN:                                                                                    \
-    return (int)launch_res_ln<NN>((const bf16*)X, (const bf16*)W, (const float*)bias, R,      \
-                                  r_is_f32, (const float*)gamma, (const float*)beta,          \
-                                  (float*)Yf, (bf16*)Yb, M, K, eps, s);
+#define PT_RES_LN(NN, RG, CS, NCH, ST)                                                         \
+  case NN:                                                                                     \
+    return (int)launch_res_ln_any<NN, RG, CS, NCH, ST>((const bf16*)X, (const bf16*)W, (const float*)bias, R, \
+                                                   r_is_f32, (const float*)gamma, (const float*)beta, \
+                                                   (float*)Yf, (bf16*)Yb, M, K, eps, s);
+  if (K % 8) return (int)cudaErrorInvalidValue;
   switch (N) {
-    PT_RES_LN(384)
+    PT_RES_LN(256, 2, 1, 1, 4)
+    PT_RES_LN(384, 2, 1, 1, 3)
+    PT_RES_LN(512, 1, 2, 1, 2)
+    PT_RES_LN(768, 1, 2, 1, 2)
+    PT_RES_LN(1024, 1, 2, 2, 3)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,89 +6,59 @@
 //   pathway_tpu/ops/fused_layer.py::fused_layer_tokens, the attention
 //   step of _layer_kernel                                               -- B1
 //
-// One block per (query tile of 32 rows, head, sequence). Scores are taken
-// against that sequence's own keys only: the TPU packs p sequences into one
-// block and masks the cross-sequence tiles with BLOCK_OFF purely to feed its
-// 128-wide matrix unit; here no cross-sequence work exists. Keys whose mask
-// is false get the additive KEY_OFF = -1e9 (finite: a row whose keys are all
-// masked averages V uniformly and never gives NaN). Softmax runs in f32, the
-// probabilities are rounded to bf16 and multiplied with V accumulating in f32,
-// and ctx is written in bf16 -- the TPU kernel's rounding points.
-// With zero_empty set (the B1 path), a sequence with no live key writes zeros
-// and does no work, as the TPU layer kernel's dead blocks do.
+// The TPU packs several sequences into one block and masks the cross-
+// sequence tiles with BLOCK_OFF purely to feed its 128-wide matrix unit;
+// here a block of 4 warps owns (64-query tile, head, sequence) and runs the
+// FlashAttention-2 loop of flash_tile.cuh (mma.sync m16n8k16, K and V
+// double-buffered with cp.async, an f32 online softmax in registers, P fed
+// straight into P.V), so no cross-sequence work exists. The key mask is the
+// loop's special case where a whole 64-key tile is live or dead by key
+// index:
 //
-// Bound on this card: at the main path's shapes (S = 160, head dim 32) the
-// work is small against the reads of qkv, but each block re-reads its
-// sequence's K and V (from L2) and the scores pass through shared memory,
-// so it is bound by on-chip traffic and latency rather than either roofline.
-// The design keeps scores and probabilities in shared memory (never in
-// device memory) and uses the tensor cores (WMMA bf16) for both products.
+//   * the block loads the sequence's mask once and marks each key tile as
+//     holding a live key, and as holding only live keys;
+//   * tiles with no live key are skipped: their keys would get exp(-1e9 -
+//     m) = 0 against any live score. For B1 (lengths) that is every tile
+//     past the sequence's length;
+//   * inside a live tile a masked key gets the finite additive KEY_OFF =
+//     -1e9, as the TPU kernel adds it; a tile of only live keys adds
+//     nothing; keys past S (the zero-filled tail of the last tile) are not
+//     keys at all and get -inf;
+//   * a sequence with no live key: with zero_empty (the B1 path) it writes
+//     zeros and does no work, as the TPU layer kernel's dead blocks do;
+//     without it (B3) every tile is visited, every score is -1e9 and the
+//     row averages V uniformly, never NaN;
+//   * a warp whose 16 rows all lie past S does no math.
+//
+// Rounding: scores, the softmax statistics and P.V in f32; P is rounded to
+// bf16 before normalisation (the plain version follows); ctx in bf16.
+// Templated on the head dim (32, 64, 128); the wrapper zero-pads any other
+// head dim up to 128 to the next of these and passes the true scale.
+//
+// Bound on this card: at the main path's shapes (S = 160, head dim 32, the
+// B1 layer) the work is small against the reads of qkv and the writes of
+// ctx, so the kernel is bytes-bound; the loop keeps every intermediate on
+// chip and re-reads a live key tile from L2 once per query tile. On an
+// H100 80GB HBM3 at 700 W (chip_smoke.py): the B1 layer's attention
+// (qkv [1024, 160, 1152]) 0.377-0.386 ms against a 0.149 ms bound and
+// 0.999 ms for SDPA; B3 (qkv [256, 128, 1152]) 0.069 ms against 0.030 and
+// 0.098 ms.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int QT = 32;           // query rows per block (4 warps)
+using namespace flash;
+
 constexpr float KEY_OFF = -1.0e9f;
 
-__host__ __device__ __forceinline__ size_t align128(size_t x) { return (x + 127) & ~(size_t)127; }
-
-struct Layout {
-  size_t q, k, v, sc, p, o, kb, total;
-};
-
 template <int HD>
-__host__ __device__ __forceinline__ Layout layout_for(int Sp) {
-  constexpr int LDH = HD + 8;
-  Layout L;
-  size_t off = 0;
-  L.q = off;  off = align128(off + (size_t)QT * LDH * sizeof(bf16));
-  L.k = off;  off = align128(off + (size_t)Sp * LDH * sizeof(bf16));
-  L.v = off;  off = align128(off + (size_t)Sp * LDH * sizeof(bf16));
-  L.sc = off; off = align128(off + (size_t)QT * (Sp + 4) * sizeof(float));
-  L.p = off;  off = align128(off + (size_t)QT * (Sp + 8) * sizeof(bf16));
-  L.o = off;  off = align128(off + (size_t)QT * (HD + 4) * sizeof(float));
-  L.kb = off; off = align128(off + (size_t)Sp * sizeof(float));
-  L.total = off;
-  return L;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(NT)
 masked_attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ key_mask,
                         bf16* __restrict__ out, int S, int D, float scale, int zero_empty) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = HD + 8;
-  constexpr int LDO = HD + 4;
-  const int Sp = (S + 15) & ~15;
-  const int LDSC = Sp + 4;
-  const int LDP = Sp + 8;
-  const Layout L = layout_for<HD>(Sp);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
-  float* Sc = reinterpret_cast<float*>(smem + L.sc);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L.p);
-  float* Os = reinterpret_cast<float*>(smem + L.o);
-  float* kb = reinterpret_cast<float*>(smem + L.kb);
+  __shared__ float kbias[MAX_S];  // 0 live, KEY_OFF masked, -inf past S
+  __shared__ int tile_live[MAX_KT], tile_plain[MAX_KT];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -98,115 +68,96 @@ masked_attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict_
   const int64_t b = blockIdx.z;
   const int64_t row_stride = 3LL * D;
   const bf16* base = qkv + b * S * row_stride;
+  const int n_kt = (S + KT - 1) / KT;
 
-  int live = 0;
-  for (int j = tid; j < Sp; j += 128) {
-    const bool on = j < S && key_mask[b * S + j];
-    kb[j] = on ? 0.0f : KEY_OFF;
-    live |= on;
-  }
-  live = __syncthreads_or(live);
-  if (zero_empty && !live) {
-    for (int e = tid; e < QT * HD; e += 128) {
-      const int q = q0 + e / HD;
-      if (q < S) out[(b * S + q) * D + h * HD + e % HD] = __float2bfloat16(0.0f);
-    }
-    return;
-  }
-
-  // stage Q tile and all of this sequence's K, V for head h (16 bytes per load)
-  constexpr int CH = HD / 8;
-  for (int c = tid; c < QT * CH; c += 128) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S) v = *reinterpret_cast<const uint4*>(base + (q0 + r) * row_stride + h * HD + cc);
-    *reinterpret_cast<uint4*>(Qs + r * LDH + cc) = v;
-  }
-  for (int c = tid; c < Sp * CH; c += 128) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-    if (r < S) {
-      kv = *reinterpret_cast<const uint4*>(base + r * row_stride + D + h * HD + cc);
-      vv = *reinterpret_cast<const uint4*>(base + r * row_stride + 2 * D + h * HD + cc);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * LDH + cc) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * LDH + cc) = vv;
-  }
-  __syncthreads();
-
-  // scores = Q K^T  ([QT, Sp] f32)
-  const int nf = 2 * (Sp / 16);
-  for (int f = warp; f < nf; f += 4) {
-    const int i = f % 2, j = f / 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+  // the mask, once: each key's bias and each tile's live / all-live flags
+  for (int t = warp; t < n_kt; t += WARPS) {
+    bool all = true, any = false;
 #pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-      wmma::load_matrix_sync(a, Qs + 16 * i * LDH + kk, LDH);
-      wmma::load_matrix_sync(bm, Ks + 16 * j * LDH + kk, LDH);
-      wmma::mma_sync(acc, a, bm, acc);
+    for (int half = 0; half < 2; ++half) {
+      const int j = t * KT + half * 32 + lane;
+      const bool in = j < S;
+      const bool on = in && key_mask[b * S + j];
+      kbias[j] = on ? 0.0f : (in ? KEY_OFF : -CUDART_INF_F);
+      all &= on;
+      any |= on;
     }
-    wmma::store_matrix_sync(Sc + 16 * i * LDSC + 16 * j, acc, LDSC, wmma::mem_row_major);
+    all = __all_sync(0xffffffffu, all);
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) {
+      tile_live[t] = any;
+      tile_plain[t] = all;
+    }
   }
   __syncthreads();
+  uint32_t todo = 0;
+  for (int t = 0; t < n_kt; ++t) todo |= (uint32_t)tile_live[t] << t;
+  if (!todo) {
+    if (zero_empty) {  // a sequence with no live key: zeros, no work
+      store_zeros<HD>(out, b * S, q0, S, D, h, tid);
+      return;
+    }
+    todo = (1u << n_kt) - 1;  // every key at KEY_OFF: a uniform average of V
+  }
 
-  // stable f32 softmax per query row; probabilities rounded to bf16
-  for (int r = warp; r < QT; r += 4) {
-    float* srow = Sc + r * LDSC;
-    float m = -3.0e38f;
-    for (int j = lane; j < S; j += 32) {
-      const float s = srow[j] * scale + kb[j];
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    bf16* prow = Ps + r * LDP;
-    for (int j = lane; j < Sp; j += 32)
-      prow[j] = __float2bfloat16(j < S ? srow[j] / sum : 0.0f);
-  }
-  __syncthreads();
+  bf16* Qs = Tiles<HD>::q(smem);
+  load_rows<HD>(Qs, base, row_stride, h * HD, q0, S, tid);
+  auto load_kv = [&](int t, int buf) {
+    load_rows<HD>(Tiles<HD>::k(smem, buf), base, row_stride, D + h * HD, t * KT, S, tid);
+    load_rows<HD>(Tiles<HD>::v(smem, buf), base, row_stride, 2 * D + h * HD, t * KT, S, tid);
+  };
+  int cur = __ffs(todo) - 1;
+  todo &= todo - 1;
+  load_kv(cur, 0);
+  cp_async_commit();
 
-  // ctx = P V  ([QT, HD] f32)
-  for (int f = warp; f < 2 * (HD / 16); f += 4) {
-    const int i = f % 2, j = f / 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < Sp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-      wmma::load_matrix_sync(a, Ps + 16 * i * LDP + kk, LDP);
-      wmma::load_matrix_sync(bm, Vs + kk * LDH + 16 * j, LDH);
-      wmma::mma_sync(acc, a, bm, acc);
+  const bool active = q0 + warp * 16 < S;  // warp-uniform
+  const int g = lane / 4, cq = lane % 4;
+  const float sl = scale * LOG2E;
+  Rows<HD> rows;
+  rows.init();
+  int buf = 0;
+  bool first = true;
+  while (cur >= 0) {
+    const int nxt = todo ? __ffs(todo) - 1 : -1;
+    todo &= todo - 1;
+    if (nxt >= 0) load_kv(nxt, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    if (active) {
+      if (first) rows.load_q(Qs, warp, lane);
+      float s[KT / 8][4];
+      rows.scores(Tiles<HD>::k(smem, buf), lane, s);
+      if (tile_plain[cur]) {
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= sl;
+      } else {
+        const float* kb = kbias + cur * KT + 2 * cq;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = (s[j][e] * scale + kb[j * 8 + (e & 1)]) * LOG2E;
+      }
+      rows.update(s, Tiles<HD>::v(smem, buf), lane);
     }
-    wmma::store_matrix_sync(Os + 16 * i * LDO + 16 * j, acc, LDO, wmma::mem_row_major);
+    first = false;
+    __syncthreads();  // every warp is done with buf before it is refilled
+    cur = nxt;
+    buf ^= 1;
   }
-  __syncthreads();
-  for (int e = tid; e < QT * HD; e += 128) {
-    const int r = e / HD, c = e % HD;
-    if (q0 + r < S) out[(b * S + q0 + r) * D + h * HD + c] = __float2bfloat16(Os[r * LDO + c]);
-  }
+  if (active) rows.store(out, b * S, q0 + warp * 16 + g, S, D, h, lane, true, true);
 }
 
 template <int HD>
-cudaError_t launch(const bf16* qkv, const uint8_t* mask, bf16* out, int B, int S, int D,
-                   float scale, int zero_empty, cudaStream_t stream) {
-  const int Sp = (S + 15) & ~15;
-  const size_t bytes = layout_for<HD>(Sp).total;
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+cudaError_t launch(const bf16* qkv, const uint8_t* mask, bf16* out, int B, int S, int D, float scale,
+                   int zero_empty, cudaStream_t stream) {
+  static const cudaError_t opt_in = allow_smem(masked_attention_kernel<HD>, Tiles<HD>::BYTES);
+  if (opt_in != cudaSuccess) return opt_in;
   dim3 grid((S + QT - 1) / QT, D / HD, B);
-  masked_attention_kernel<HD><<<grid, 128, bytes, stream>>>(qkv, mask, out, S, D, scale,
-                                                            zero_empty);
+  masked_attention_kernel<HD><<<grid, NT, Tiles<HD>::BYTES, stream>>>(qkv, mask, out, S, D, scale, zero_empty);
   return cudaGetLastError();
 }
 
@@ -214,16 +165,20 @@ cudaError_t launch(const bf16* qkv, const uint8_t* mask, bf16* out, int B, int S
 
 extern "C" {
 
-// qkv [B, S, 3D] bf16, key_mask [B, S] uint8, out [B, S, D] bf16; head_dim 32
-// (MiniLM), S <= 512. Returns the launch's cudaError_t.
+// qkv [B, S, 3D] bf16, key_mask [B, S] uint8, out [B, S, D] bf16; head_dim
+// 32, 64 or 128 (D = heads * head_dim), S <= 512. Returns the launch's
+// cudaError_t.
 int pt_masked_attention(const void* qkv, const void* key_mask, void* out, int B, int S, int D,
                         int head_dim, float scale, int zero_empty, void* stream) {
+  if (S > MAX_S || D % head_dim) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bf16* q = reinterpret_cast<const bf16*>(qkv);
   const uint8_t* m = reinterpret_cast<const uint8_t*>(key_mask);
   bf16* o = reinterpret_cast<bf16*>(out);
   switch (head_dim) {
     case 32: return (int)launch<32>(q, m, o, B, S, D, scale, zero_empty, s);
+    case 64: return (int)launch<64>(q, m, o, B, S, D, scale, zero_empty, s);
+    case 128: return (int)launch<128>(q, m, o, B, S, D, scale, zero_empty, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

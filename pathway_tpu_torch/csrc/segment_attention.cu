@@ -24,8 +24,8 @@
 //   * scores and probabilities stay in registers: f32 running max and sum
 //     per query row (online softmax in the exp2 domain), P converted to
 //     bf16 straight into the A fragment of the P.V product. No buffer is
-//     sized to the row's keys: a block takes about 22 KB of shared memory,
-//     so many blocks are resident per SM;
+//     sized to the row's keys: a block takes about 28 KB of shared memory
+//     at head dim 32, so many blocks are resident per SM;
 //   * the mask seg_q == seg_k is applied inside each loaded tile, so the
 //     result is exact for any ids, contiguous or not. A query row whose
 //     segment has no key in a tile keeps its max at -inf there; the rescale
@@ -34,9 +34,14 @@
 //     garbage that no caller reads), and a tile of only such rows does no
 //     work at all.
 //
+// The loop itself (mma.sync tiles, cp.async double buffer, online softmax,
+// P into P.V) is flash_tile.cuh's, shared with masked_attention.cu.
+// Templated on the head dim (32, 64, 128); the wrapper zero-pads any other
+// head dim up to 128 to the next of these and passes the true scale.
+//
 // Rounding: scores and softmax statistics in f32; P is rounded to bf16
-// before normalisation (the plain version rounds after it), one bf16 step;
-// P.V accumulates in f32; ctx is written in bf16.
+// before normalisation (the plain version rounds at the same point); P.V
+// accumulates in f32; ctx is written in bf16.
 //
 // Bound on this card: at the packed ingest's shapes (rows of 512, head dim
 // 32, segments of 64-256 tokens) the work that must be done is
@@ -44,76 +49,17 @@
 // which is bytes-bound. The loop keeps every intermediate on chip and
 // re-reads a live key tile from L2 once per query tile that needs it. On an
 // H100 80GB HBM3 at 700 W (chip_smoke.py, qkv [256, 512, 1152], 630
-// segments): 0.510 ms against a 0.120 ms bound, 1.098 ms for SDPA with the
-// equality mask; the plain version takes 18.820 ms.
+// segments): 0.521-0.523 ms against a 0.120 ms bound, 1.100 ms for SDPA
+// with the equality mask.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int HD = 32;          // head dim (MiniLM)
-constexpr int QT = 64;          // query rows per block, 16 per warp
-constexpr int WARPS = QT / 16;
-constexpr int NT = WARPS * 32;  // threads per block
-constexpr int KT = 64;          // keys per tile
-constexpr int LDH = HD + 8;     // bf16 row stride in shared memory: conflict-free ldmatrix
-constexpr int MAX_S = 512;
-constexpr int MAX_KT = MAX_S / KT;
+using namespace flash;
+
 constexpr int NO_SEG_LO = 0x7fffffff;
 constexpr int NO_SEG_HI = -0x7fffffff - 1;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ int warp_min_i(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_max_i(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Bit t set when key tile t's id range [tmin[t], tmax[t]] meets [lo, hi].
 __device__ __forceinline__ uint32_t live_tiles(const int* tmin, const int* tmax, int n_kt, int lo, int hi) {
@@ -123,14 +69,13 @@ __device__ __forceinline__ uint32_t live_tiles(const int* tmin, const int* tmax,
   return mask;
 }
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg_ids,
                          bf16* __restrict__ out, int S, int D, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(16) int seg[MAX_S];
   __shared__ int tmin[MAX_KT], tmax[MAX_KT];
-  __shared__ __align__(128) bf16 Qs[QT * LDH];
-  __shared__ __align__(128) bf16 Ks[2][KT * LDH];
-  __shared__ __align__(128) bf16 Vs[2][KT * LDH];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -157,12 +102,7 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
   lo = warp_min_i(lo);
   hi = warp_max_i(hi);
   if (lo > hi) {  // no live query row: zeros, no work
-    for (int c = tid; c < QT * (HD / 8); c += NT) {
-      const int q = q0 + c / (HD / 8);
-      if (q < S)
-        *reinterpret_cast<uint4*>(out + (b * S + q) * D + h * HD + (c % (HD / 8)) * 8) =
-            make_uint4(0u, 0u, 0u, 0u);
-    }
+    store_zeros<HD>(out, b * S, q0, S, D, h, tid);
     return;
   }
   // each key tile's id range, once per block
@@ -191,21 +131,11 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
   }
 
   // stage Q (once) and the first live tile's K, V; rows past S are zero-filled
-  for (int c = tid; c < QT * (HD / 8); c += NT) {
-    const int r = c / (HD / 8), part = (c % (HD / 8)) * 8;
-    const bool in = q0 + r < S;
-    cp_async16(smem_u32(Qs + r * LDH + part), base + (in ? (q0 + r) * row_stride : 0) + h * HD + part,
-               in ? 16 : 0);
-  }
+  bf16* Qs = Tiles<HD>::q(smem);
+  load_rows<HD>(Qs, base, row_stride, h * HD, q0, S, tid);
   auto load_kv = [&](int t, int buf) {
-    for (int c = tid; c < KT * (HD / 8); c += NT) {
-      const int r = c / (HD / 8), part = (c % (HD / 8)) * 8;
-      const int key = t * KT + r;
-      const bool in = key < S;
-      const bf16* src = base + (in ? key * row_stride : 0) + h * HD + part;
-      cp_async16(smem_u32(Ks[buf] + r * LDH + part), src + D, in ? 16 : 0);
-      cp_async16(smem_u32(Vs[buf] + r * LDH + part), src + 2 * D, in ? 16 : 0);
-    }
+    load_rows<HD>(Tiles<HD>::k(smem, buf), base, row_stride, D + h * HD, t * KT, S, tid);
+    load_rows<HD>(Tiles<HD>::v(smem, buf), base, row_stride, 2 * D + h * HD, t * KT, S, tid);
   };
   int cur = __ffs(todo) - 1;
   todo &= todo - 1;
@@ -213,13 +143,8 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
   cp_async_commit();
 
   const float sl = scale * LOG2E;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_run[2] = {0.0f, 0.0f};
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  uint32_t qa[HD / 16][4];
-
+  Rows<HD> rows;
+  rows.init();
   int buf = 0;
   bool first = true;
   while (cur >= 0) {
@@ -230,108 +155,41 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
     cp_async_wait_1();
     __syncthreads();
     if (first) {
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks)
-        ldsm_x4(qa[ks], smem_u32(Qs + (warp * 16 + (lane % 16)) * LDH + ks * 16 + (lane / 16) * 8));
+      rows.load_q(Qs, warp, lane);
       first = false;
     }
     if (mine & (1u << cur)) {
-      // S = Q K^T for this warp's 16 rows x 64 keys
+      // mask to the row's own segment, in the exp2 domain
       float s[KT / 8][4];
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-        uint32_t kb[4];
-        ldsm_x4(kb, smem_u32(Ks[buf] + (j * 8 + (lane % 8)) * LDH + (lane / 8) * 8));
-        mma16816(s[j], qa[0], kb[0], kb[1]);
-        mma16816(s[j], qa[1], kb[2], kb[3]);
-      }
-      // mask to the row's own segment; running max in the exp2 domain
+      rows.scores(Tiles<HD>::k(smem, buf), lane, s);
       const int kbase = cur * KT;
-      float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
       for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int sk = seg[kbase + j * 8 + 2 * cq + (e & 1)];
           const int sq = (e < 2) ? sq0 : sq1;
-          const float v = (sq >= 0 && sk == sq) ? s[j][e] * sl : -CUDART_INF_F;
-          s[j][e] = v;
-          mt[e >> 1] = fmaxf(mt[e >> 1], v);
+          s[j][e] = (sq >= 0 && sk == sq) ? s[j][e] * sl : -CUDART_INF_F;
         }
       }
-      float alpha[2], m_use[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-        const float m_new = fmaxf(m_run[r], mt[r]);
-        // no matching key so far: nothing to rescale, and never exp(-inf - (-inf));
-        // a masked score (-inf) then gives exp2(-inf) = 0 against any finite m_use
-        alpha[r] = (m_new == -CUDART_INF_F) ? 1.0f : exp2f(m_run[r] - m_new);
-        m_use[r] = (m_new == -CUDART_INF_F) ? 0.0f : m_new;
-        m_run[r] = m_new;
-      }
-      float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[j][e] - m_use[e >> 1]);
-          s[j][e] = p;
-          rs[e >> 1] += p;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
-      // O += P V: P (bf16) from the score registers, V through ldmatrix.trans
-#pragma unroll
-      for (int t = 0; t < KT / 16; ++t) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-        pa[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-        pa[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-        pa[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
-#pragma unroll
-        for (int d0 = 0; d0 < HD; d0 += 16) {
-          uint32_t vb[4];
-          ldsm_x4_t(vb, smem_u32(Vs[buf] + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDH + d0 +
-                                 (lane / 16) * 8));
-          mma16816(o[d0 / 8], pa, vb[0], vb[1]);
-          mma16816(o[d0 / 8 + 1], pa, vb[2], vb[3]);
-        }
-      }
+      rows.update(s, Tiles<HD>::v(smem, buf), lane);
     }
     __syncthreads();  // every warp is done with buf before it is refilled
     cur = nxt;
     buf ^= 1;
   }
-
   // normalise and write ctx; -1 rows get zeros
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = r0 + 8 * r;
-    if (q >= S) continue;
-    const int sq = r ? sq1 : sq0;
-    const float inv = (sq >= 0 && l_run[r] > 0.0f) ? 1.0f / l_run[r] : 0.0f;
-    bf16* dst = out + (b * S + q) * D + h * HD + 2 * cq;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-  }
+  rows.store(out, b * S, r0, S, D, h, lane, sq0 >= 0, sq1 >= 0);
+}
+
+template <int HD>
+cudaError_t launch(const bf16* qkv, const int* seg, bf16* out, int B, int S, int D, float scale,
+                   cudaStream_t stream) {
+  static const cudaError_t opt_in = allow_smem(segment_attention_kernel<HD>, Tiles<HD>::BYTES);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid((S + QT - 1) / QT, D / HD, B);
+  segment_attention_kernel<HD><<<grid, NT, Tiles<HD>::BYTES, stream>>>(qkv, seg, out, S, D, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -339,15 +197,21 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
 extern "C" {
 
 // qkv [B, S, 3D] bf16, segment_ids [B, S] int32 (-1 = padding), out [B, S, D]
-// bf16; head_dim 32 (MiniLM), S <= 512. Returns the launch's cudaError_t.
+// bf16; head_dim 32, 64 or 128 (D = heads * head_dim), S <= 512. Returns the
+// launch's cudaError_t.
 int pt_segment_attention(const void* qkv, const void* segment_ids, void* out, int B, int S, int D,
                          int head_dim, float scale, void* stream) {
-  if (head_dim != HD || S > MAX_S) return (int)cudaErrorInvalidValue;
-  dim3 grid((S + QT - 1) / QT, D / HD, B);
-  segment_attention_kernel<<<grid, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const int*>(segment_ids),
-      reinterpret_cast<bf16*>(out), S, D, scale);
-  return (int)cudaGetLastError();
+  if (S > MAX_S || D % head_dim) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bf16* q = reinterpret_cast<const bf16*>(qkv);
+  const int* seg = reinterpret_cast<const int*>(segment_ids);
+  bf16* o = reinterpret_cast<bf16*>(out);
+  switch (head_dim) {
+    case 32: return (int)launch<32>(q, seg, o, B, S, D, scale, s);
+    case 64: return (int)launch<64>(q, seg, o, B, S, D, scale, s);
+    case 128: return (int)launch<128>(q, seg, o, B, S, D, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ later slice.
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
@@ -31,6 +32,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.fused_layer import encoder_forward, prepare_params, use_fused_encoder
+from ..weights import load_hf_weights
 from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_SEQ_BUCKETS,
@@ -40,6 +42,18 @@ from .batching import (
 )
 from .encoder import CrossEncoderHead, EncoderConfig, TextEncoder, init_cross_encoder_params, init_params
 from .tokenizer import default_tokenizer
+
+
+def _init_or_checkpoint(init: dict, checkpoint_dir: str | None) -> dict:
+    """``init`` with a local HF checkpoint's weights laid over it, as the
+    reference's constructors load one: a directory without a checkpoint, or
+    one that lacks a name, leaves ``init`` as it is."""
+    if checkpoint_dir and os.path.isdir(checkpoint_dir):
+        try:
+            return load_hf_weights(init, checkpoint_dir)
+        except (FileNotFoundError, KeyError):
+            pass
+    return init
 
 
 def shelf_pack(lens: np.ndarray, row_len: int, max_segs: int):
@@ -85,8 +99,10 @@ class SentenceEncoder:
         params: dict | None = None,
     ):
         """``params``: a TextEncoder state dict (e.g. from
-        ``weights.from_jax_params``); default: ``init_params(config, seed)``.
-        ``checkpoint_dir`` supplies ``vocab.txt`` for the tokenizer."""
+        ``weights.from_jax_params``); without it, ``init_params(config,
+        seed)`` overlaid with a local HF checkpoint in ``checkpoint_dir`` (or
+        ``PATHWAY_TPU_CKPT``) when it holds one. That directory also
+        supplies ``vocab.txt`` for the tokenizer."""
         if config is None:
             config = EncoderConfig.minilm_l12() if "l12" in model.lower() else EncoderConfig.minilm_l6()
         self.device = resolve_device(device)
@@ -95,7 +111,9 @@ class SentenceEncoder:
         self.max_seq_len = max_seq_len
         self.max_batch = max_batch
         self.module = TextEncoder(config)
-        self.module.load_state_dict(params if params is not None else init_params(config, seed))
+        checkpoint_dir = checkpoint_dir or os.environ.get("PATHWAY_TPU_CKPT")
+        self.module.load_state_dict(params if params is not None else _init_or_checkpoint(
+            init_params(config, seed), checkpoint_dir))
         self.module.to(self.device).eval()
         # the whole-layer path's weights, cast once (biases stay f32 there)
         self.params = prepare_params(self.module.state_dict(), config)
@@ -364,16 +382,20 @@ class CrossEncoderScorer:
         params: dict | None = None,
     ):
         """``params``: a CrossEncoderHead state dict (e.g. from
-        ``weights.from_jax_cross_encoder_params``); default:
-        ``init_cross_encoder_params(config, seed)``. ``checkpoint_dir``
-        supplies ``vocab.txt`` for the tokenizer."""
+        ``weights.from_jax_cross_encoder_params``); without it,
+        ``init_cross_encoder_params(config, seed)`` overlaid with a local HF
+        checkpoint in ``checkpoint_dir`` (or ``PATHWAY_TPU_XENC_CKPT``) when
+        it holds one. That directory also supplies ``vocab.txt`` for the
+        tokenizer."""
         self.device = resolve_device(device)
         self.cfg = config or EncoderConfig.cross_encoder_l6()
         self.model_name = model
         self.max_seq_len = max_seq_len
         self.max_batch = max_batch
         self.module = CrossEncoderHead(self.cfg)
-        self.module.load_state_dict(params if params is not None else init_cross_encoder_params(self.cfg, seed))
+        checkpoint_dir = checkpoint_dir or os.environ.get("PATHWAY_TPU_XENC_CKPT")
+        self.module.load_state_dict(params if params is not None else _init_or_checkpoint(
+            init_cross_encoder_params(self.cfg, seed), checkpoint_dir))
         self.module.to(self.device).eval()
         self.module.cast_for_inference()
         self.tokenizer = default_tokenizer(checkpoint_dir)

@@ -16,7 +16,11 @@ hand-written kernels (``csrc/gemm_epilogue.cu``, ``csrc/masked_attention.cu``):
 2. ``masked_attention``: per (sequence, head, query tile), keys at or past
    the sequence's length masked, a length-0 sequence writes zeros;
 3. ``gemm_bias_residual_layernorm``: out projection + residual + LN1 and
-   ``mlp_out`` + residual + LN2, one block owning whole rows.
+   ``mlp_out`` + residual + LN2 on the same TMA + wgmma mainloop, with an
+   output tile that spans whole rows (N in ``_LN_WIDTHS``), so the row
+   statistics come from the accumulators.
+
+Attention takes head dims up to 128 (``ops/fused_attention.py``).
 
 Rounding points follow the TPU kernel: qkv rounded to bf16 after its bias;
 ctx in bf16; ``att`` stays f32 into ``LN1(x + att)``; ``h1`` stays f32 as
@@ -39,7 +43,10 @@ import torch
 from . import _build
 from .fused_attention import masked_attention, masked_attention_reference
 
-_LN_WIDTHS = (384,)  # row widths the LayerNorm-epilogue kernel is built for (MiniLM)
+# row widths the LayerNorm-epilogue kernel is built for: the decoder (256),
+# MiniLM (384), BERT-small (512), BERT-base (768), BERT-large (1024)
+_LN_WIDTHS = (256, 384, 512, 768, 1024)
+_LN_STAGED = (1024,)  # widths whose rows pass through f32 device memory before the LayerNorm
 
 
 def _pack_rows(s: int) -> int:
@@ -145,13 +152,11 @@ def gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps: 
     return (y if out_f32 else None), y.to(x.dtype)
 
 
-def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, out_f32: bool = True):
-    """x [M, K] bf16, w [N, K] bf16, residual [M, N] bf16 or f32, b/gamma/
-    beta [N] f32 -> (LN f32 [M, N] or None, its bf16 copy). CUDA tensors
-    launch the kernel (N = 384) or raise; CPU tensors take the plain
-    version. ``out_f32``: also return the f32 rows (the next residual)."""
-    if not x.is_cuda:
-        return gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps, out_f32=out_f32)
+def gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta) -> tuple[int, int, int]:
+    """The kernel's operand checks -> (m, n, k). Raises ValueError on a
+    dtype, rank, layout, shape or device the kernel does not take: N must
+    be one of ``_LN_WIDTHS`` and K a multiple of 8 (the 16-byte row stride
+    of its TMA loads)."""
     if any(t.device != x.device for t in (w, b, residual, gamma, beta)):
         raise ValueError(f"gemm_bias_residual_layernorm operands must all lie on {x.device}")
     _build.require(x, dtype=torch.bfloat16, ndim=2, name="x")
@@ -172,21 +177,32 @@ def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, 
     ):
         raise ValueError(
             f"gemm_bias_residual_layernorm shapes x{tuple(x.shape)} w{tuple(w.shape)} "
-            f"residual{tuple(residual.shape)}; N must be one of {_LN_WIDTHS}"
+            f"residual{tuple(residual.shape)}; N must be one of {_LN_WIDTHS} and K a multiple of 8"
         )
-    yf = torch.empty((m, n), dtype=torch.float32, device=x.device) if out_f32 else None
+    return m, n, k
+
+
+def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, out_f32: bool = True):
+    """x [M, K] bf16, w [N, K] bf16, residual [M, N] bf16 or f32, b/gamma/
+    beta [N] f32 -> (LN f32 [M, N] or None, its bf16 copy). CUDA tensors
+    launch the kernel (N in ``_LN_WIDTHS``) or raise; CPU tensors take the
+    plain version. ``out_f32``: also return the f32 rows (the next
+    residual); at N = 1024 the kernel stages the rows there either way."""
+    if not x.is_cuda:
+        return gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps, out_f32=out_f32)
+    m, n, k = gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta)
+    yf = torch.empty((m, n), dtype=torch.float32, device=x.device) if out_f32 or n in _LN_STAGED else None
     yb = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    if m == 0:
-        return yf, yb
-    err = _build.library("gemm_epilogue.cu").pt_gemm_bias_residual_layernorm(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), residual.data_ptr(),
-        int(residual.dtype == torch.float32), gamma.data_ptr(), beta.data_ptr(),
-        yf.data_ptr() if yf is not None else None, yb.data_ptr(),
-        m, n, k, float(eps), _build.stream_handle(x),
-    )
-    _build.check(err, "gemm_bias_residual_layernorm")
-    _build.LAUNCHES["gemm_bias_residual_layernorm"] += 1
-    return yf, yb
+    if m:
+        err = _build.library("gemm_epilogue.cu").pt_gemm_bias_residual_layernorm(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), residual.data_ptr(),
+            int(residual.dtype == torch.float32), gamma.data_ptr(), beta.data_ptr(),
+            yf.data_ptr() if yf is not None else None, yb.data_ptr(),
+            m, n, k, float(eps), _build.stream_handle(x),
+        )
+        _build.check(err, "gemm_bias_residual_layernorm")
+        _build.LAUNCHES["gemm_bias_residual_layernorm"] += 1
+    return (yf if out_f32 else None), yb
 
 
 # ------------------------------------------------------------ whole layer

@@ -133,3 +133,96 @@ def to_jax_decoder_params(params: dict) -> dict:
     out = {k: _a(v) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: _a(v) for k, v in lp.items()} for lp in params["layers"]]
     return out
+
+
+# ------------------------------------------------------ HF checkpoints
+
+_SAFETENSORS_NP = {
+    "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
+    "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
+}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A ``model.safetensors`` file -> {name: CPU tensor}, without the
+    ``safetensors`` package: an 8-byte little-endian header length, a JSON
+    header of dtype, shape and data offsets, then the raw bytes. Tensors
+    are read through numpy (bf16 through ``torch.frombuffer``) and copied."""
+    import json
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    n = int.from_bytes(blob[:8], "little")
+    header = json.loads(blob[8 : 8 + n])
+    data = memoryview(blob)[8 + n :]
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = meta["data_offsets"]
+        shape = tuple(meta["shape"])
+        if meta["dtype"] == "BF16":
+            t = torch.frombuffer(bytearray(data[start:end]), dtype=torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.frombuffer(data[start:end], dtype=_SAFETENSORS_NP[meta["dtype"]]).copy())
+        out[name] = t.reshape(shape)
+    return out
+
+
+def _read_checkpoint(checkpoint_dir: str) -> dict[str, torch.Tensor]:
+    """``model.safetensors`` first, then ``pytorch_model.bin``, as the
+    reference's ``load_hf_weights`` looks for them."""
+    import os
+
+    st_path = os.path.join(checkpoint_dir, "model.safetensors")
+    pt_path = os.path.join(checkpoint_dir, "pytorch_model.bin")
+    if os.path.exists(st_path):
+        return read_safetensors(st_path)
+    if os.path.exists(pt_path):
+        return torch.load(pt_path, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+
+
+def load_hf_weights(state_dict: dict, checkpoint_dir: str) -> dict[str, torch.Tensor]:
+    """A HuggingFace BERT-named checkpoint in ``checkpoint_dir`` mapped onto
+    a TextEncoder state dict, or a CrossEncoderHead one (``encoder.``
+    names and a ``classifier``). Port of
+    ``pathway_tpu/models/encoder.py::load_hf_weights``: names may carry the
+    prefix ``""``, ``"bert."`` or ``"model."``; q, k and v are concatenated
+    into one qkv projection. Returns a new state dict (``state_dict`` is
+    left as it is); raises FileNotFoundError without a checkpoint and
+    KeyError on a missing name, before anything is replaced."""
+    ckpt = _read_checkpoint(checkpoint_dir)
+
+    def g(name: str) -> torch.Tensor:
+        for pfx in ("", "bert.", "model."):
+            if pfx + name in ckpt:
+                return ckpt[pfx + name]
+        raise KeyError(name)
+
+    enc = "encoder." if "encoder.tok_embed.weight" in state_dict else ""
+    new = {
+        enc + "tok_embed.weight": g("embeddings.word_embeddings.weight"),
+        enc + "pos_embed.weight": g("embeddings.position_embeddings.weight"),
+        enc + "ln_embed.weight": g("embeddings.LayerNorm.weight"),
+        enc + "ln_embed.bias": g("embeddings.LayerNorm.bias"),
+    }
+    if enc + "type_embed.weight" in state_dict:
+        new[enc + "type_embed.weight"] = g("embeddings.token_type_embeddings.weight")
+    i = 0
+    while f"{enc}layers.{i}.attention.qkv.weight" in state_dict:
+        pre, hf = f"{enc}layers.{i}.", f"encoder.layer.{i}."
+        for part in ("weight", "bias"):
+            new[pre + "attention.qkv." + part] = torch.cat(
+                [g(f"{hf}attention.self.{p}.{part}") for p in ("query", "key", "value")]
+            )
+            new[pre + "attention.out." + part] = g(hf + "attention.output.dense." + part)
+            new[pre + "ln_att." + part] = g(hf + "attention.output.LayerNorm." + part)
+            new[pre + "mlp_in." + part] = g(hf + "intermediate.dense." + part)
+            new[pre + "mlp_out." + part] = g(hf + "output.dense." + part)
+            new[pre + "ln_mlp." + part] = g(hf + "output.LayerNorm." + part)
+        i += 1
+    if "classifier.weight" in state_dict:
+        new["classifier.weight"] = g("classifier.weight")
+        new["classifier.bias"] = g("classifier.bias")
+    return {**state_dict, **{k: v.to(state_dict[k].dtype) for k, v in new.items()}}

@@ -123,3 +123,22 @@ def test_text_encoder_module_matches_flax_apply(kw):
     rn = ref / np.linalg.norm(ref, axis=1, keepdims=True)
     gn = got / np.linalg.norm(got, axis=1, keepdims=True)
     assert (rn * gn).sum(axis=1).min() > 0.999
+
+
+@pytest.mark.parametrize("h,d", [(2, 128), (2, 96), (1, 128)], ids=["hd64", "hd48", "hd128"])
+def test_head_dims_other_than_32_match_the_reference(h, d):
+    """Head dims the CUDA kernel takes (64, 128) or zero-pads (48): the
+    plain version against the Pallas kernel in interpret mode (bf16, live
+    rows and the fully masked row within 5e-2) and against ``_xla_reference``
+    in float32 (1e-5)."""
+    qkv, mask = _case(3, 40, d, seed=d + h)
+    jq = jnp.asarray(qkv).astype(jnp.bfloat16)
+    ref = np.asarray(jattention(jq, jnp.asarray(mask), n_heads=h, impl="interpret").astype(jnp.float32))
+    got = tfa.attention(torch.from_numpy(qkv).bfloat16(), torch.from_numpy(mask), n_heads=h).float().numpy()
+    live = mask[:, :, None]
+    assert np.isfinite(got).all()
+    assert np.max(np.abs(ref - got) * live) < 5e-2
+    assert np.abs(ref[-1] - got[-1]).max() < 5e-2
+    ref32 = np.asarray(_xla_reference(jnp.asarray(qkv), jnp.asarray(mask), h))
+    got32 = tfa.masked_attention_reference(torch.from_numpy(qkv), torch.from_numpy(mask), h).numpy()
+    assert np.max(np.abs(ref32 - got32) * live) < 1e-5

@@ -190,3 +190,24 @@ def test_prepared_params_change_no_result(tiny):
     assert module.layers[0].mlp_in.weight.dtype == tcfg.dtype
     assert module.ln_embed.weight.dtype == torch.float32
     assert torch.equal(before, after)
+
+
+@pytest.mark.parametrize("hidden,heads", [(128, 2), (96, 2)], ids=["hd64", "hd48"])
+def test_encoder_head_dims_other_than_32(hidden, heads):
+    """The whole encoder at head dim 64 (a kernel's own) and 48 (zero-padded
+    to 64 on the card), against the Pallas layer kernel in interpret mode.
+    The port's seeded weights go to the JAX side through ``weights.py``."""
+    from pathway_tpu_torch.models.encoder import init_params as tinit
+    from pathway_tpu_torch.weights import to_jax_params
+
+    kw = dict(TINY, hidden_size=hidden, num_heads=heads, intermediate_size=2 * hidden, num_layers=1)
+    tcfg = TCfg(**kw)
+    tparams = tinit(tcfg, seed=hidden)
+    pair = (JCfg(**kw), tcfg, to_jax_params(tparams), tparams)
+    rng = np.random.default_rng(hidden)
+    ids, lens, mask = _inputs(rng, 3, 16, TINY["vocab_size"])
+    ref, got = _both(pair, ids, lens, mask)
+    live = lens > 0
+    assert np.abs(ref[live] - got[live]).max() < 3e-2
+    assert (ref[live] * got[live]).sum(axis=1).min() > 0.999
+    assert np.all(got[~live] == 0.0)

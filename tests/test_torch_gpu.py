@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card, at the main path's widths (MiniLM-L6: d 384, 12
-heads of 32, FFN 1536; the decoder: d 256, 4 heads of 64). Every test here needs a CUDA device and skips
+heads of 32, FFN 1536; the decoder: d 256, 4 heads of 64) and at the other
+head dims (64, 128, and 48 zero-padded to 64) and LayerNorm widths (256 to
+1024) the kernels take. Every test here needs a CUDA device and skips
 inside its fixture when there is none; run them on the card with
 ``pytest -m gpu tests/test_torch_*.py``.
 
@@ -102,6 +104,104 @@ def test_masked_attention_matches_plain(cuda, b, s, zero_empty):
     else:  # a fully masked row averages V uniformly
         mean_v = qkv[0, :, 2 * 384 :].float().mean(dim=0).expand(s, -1)
         torch.testing.assert_close(got[0].float(), mean_v, **BF16)
+
+
+@pytest.mark.parametrize("zero_empty", [True, False])
+@pytest.mark.parametrize("s", [1, 37, 128, 160, 512])
+@pytest.mark.parametrize("hd", [32, 64, 128, 48])
+def test_masked_attention_head_dims_match_plain(cuda, hd, s, zero_empty):
+    """Every query row against the plain version, with a length-0 sequence,
+    a scattered (non-prefix) mask and a full one; 48 runs zero-padded to 64."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_attention import masked_attention, masked_attention_reference
+
+    heads, b = 4, 6
+    g = _gen(hd * 1000 + s)
+    qkv = torch.randn(b, s, 3 * heads * hd, device=cuda, generator=g).bfloat16()
+    lens = torch.randint(0, s + 1, (b,), device=cuda, generator=g)
+    lens[0], lens[-1] = 0, s
+    mask = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    mask[1] = torch.rand(s, device=cuda, generator=g) < 0.5
+    before = _build.LAUNCHES["masked_attention"]
+    got = masked_attention(qkv, mask, heads, zero_empty)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["masked_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), masked_attention_reference(qkv, mask, heads, zero_empty).float(), **BF16)
+    if zero_empty:
+        assert (got[0] == 0).all()
+    else:  # a fully masked row averages V uniformly
+        mean_v = qkv[0, :, 2 * heads * hd :].float().mean(dim=0).expand(s, -1)
+        torch.testing.assert_close(got[0].float(), mean_v, **BF16)
+
+
+def _ln_case(cuda, m, n, k, res_f32, seed):
+    g = _gen(seed)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (0.05 * torch.randn(n, k, device=cuda, generator=g)).bfloat16()
+    b = 0.1 * torch.randn(n, device=cuda, generator=g)
+    r = 1.0 + torch.randn(m, n, device=cuda, generator=g)  # a mean away from 0
+    r = r if res_f32 else r.bfloat16()
+    gamma = 1.0 + 0.1 * torch.randn(n, device=cuda, generator=g)
+    beta = 0.1 * torch.randn(n, device=cuda, generator=g)
+    return x, w, b, r, gamma, beta
+
+
+def _check_ln(cuda, m, n, k, res_f32, out_f32):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_layer import (
+        gemm_bias_residual_layernorm,
+        gemm_bias_residual_layernorm_reference,
+    )
+
+    args = _ln_case(cuda, m, n, k, res_f32, seed=m * 7 + n + k)
+    before = _build.LAUNCHES["gemm_bias_residual_layernorm"]
+    yf, yb = gemm_bias_residual_layernorm(*args, 1e-12, out_f32=out_f32)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gemm_bias_residual_layernorm"] == before + 1
+    rf, rb = gemm_bias_residual_layernorm_reference(*args, 1e-12, out_f32=True)
+    assert (yf is None) == (not out_f32)
+    if out_f32:
+        torch.testing.assert_close(yf, rf, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(yb.float(), rb.float(), **BF16)
+
+
+@pytest.mark.parametrize("res_f32,out_f32", [(False, False), (True, True)])
+@pytest.mark.parametrize("k", [40, 384, 1536])
+@pytest.mark.parametrize("m", [1, 17, 129, 4096 + 19])
+@pytest.mark.parametrize("n", [256, 384, 512, 768, 1024])
+def test_gemm_residual_layernorm_widths_match_plain(cuda, n, m, k, res_f32, out_f32):
+    """Every LayerNorm width, M tails (one row, part of a 64- or 128-row
+    tile, many tiles per persistent block) and K tails (40: one zero-filled
+    stage), with a bf16 or an f32 residual."""
+    _check_ln(cuda, m, n, k, res_f32, out_f32)
+
+
+@pytest.mark.parametrize("res_f32", [False, True])
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("n", [384, 1024])
+def test_gemm_residual_layernorm_outputs_and_residuals(cuda, n, res_f32, out_f32):
+    _check_ln(cuda, 129, n, 384, res_f32, out_f32)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 48])
+def test_segment_attention_head_dims_match_plain(cuda, hd):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
+
+    rows, s, heads = 16, 512, 4
+    g = _gen(hd)
+    qkv = torch.randn(rows, s, 3 * heads * hd, device=cuda, generator=g).bfloat16()
+    seg = _packed_segments(hd, rows, s, 64, 256, cuda)
+    seg[-1] = -1  # an all-padding row
+    before = _build.LAUNCHES["segment_attention"]
+    got = segment_attention(qkv, seg, heads)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["segment_attention"] == before + 1
+    want = segment_attention_reference(qkv, seg, heads)
+    live = seg >= 0
+    torch.testing.assert_close(got[live].float(), want[live].float(), **BF16)
+    assert (got[~live] == 0).all()
 
 
 @pytest.mark.parametrize("metric,k", [("cos", 16), ("cos", 64), ("l2", 10), ("cos", 1)])
@@ -262,3 +362,31 @@ def test_paged_decode_attention_matches_plain(cuda, hd):
     want = paged_attention_reference(q, kp, vp, tables, lens, n_heads=d // hd)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert (got[3] == 0).all()
+
+
+def test_encoder_forward_at_head_dim_64_matches_plain(cuda):
+    """BERT-base width (d 768, 12 heads of 64, FFN 3072), two layers: the
+    whole-layer kernels against their plain versions."""
+    import dataclasses
+
+    from pathway_tpu_torch.models.encoder import EncoderConfig, init_params
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_layer import encoder_forward
+
+    cfg = EncoderConfig(hidden_size=768, num_layers=2, num_heads=12, intermediate_size=3072)
+    params = {k: v.to(cuda) for k, v in init_params(cfg, seed=0).items()}
+    g = _gen(1)
+    b, s = 32, 128
+    ids = torch.randint(999, 29000, (b, s), device=cuda, generator=g, dtype=torch.int32)
+    lens = torch.randint(1, s + 1, (b,), device=cuda, generator=g, dtype=torch.int32)
+    lens[-2:] = 0
+    mask = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    _build.reset_launches()
+    got = encoder_forward(params, cfg, ids, mask, lens=lens)
+    assert _build.LAUNCHES["masked_attention"] == cfg.num_layers
+    assert _build.LAUNCHES["gemm_bias_residual_layernorm"] == 2 * cfg.num_layers
+    want = encoder_forward(params, dataclasses.replace(cfg, layer_impl="plain"), ids, mask, lens=lens)
+    assert torch.isfinite(got).all() and (got[-2:] == 0).all()
+    err = (got - want).abs().max().item()
+    cos = (got[:-2] * want[:-2]).sum(dim=1).min().item()
+    assert err < 3e-2 and cos > 0.999, (err, cos)

@@ -128,6 +128,26 @@ def test_every_kernel_source_names_its_tpu_counterpart():
         assert "Replaces" in text and counterpart in text, name
 
 
+def test_every_csrc_file_is_a_built_source_or_a_header_one_includes():
+    """A header is hashed into every library's cache key; each one in
+    ``csrc/`` is included by a kernel source and names the kernels it
+    serves, and nothing else sits there unbuilt."""
+    from pathway_tpu_torch.ops import _build
+
+    csrc = os.path.join(PKG, "csrc")
+    names = sorted(os.listdir(csrc))
+    sources = {n: open(os.path.join(csrc, n), encoding="utf-8").read() for n in _build.SOURCES}
+    for name in names:
+        if name in _build.SOURCES:
+            continue
+        assert name.endswith(".cuh"), name
+        users = [s for s, text in sources.items() if f'#include "{name}"' in text]
+        assert users, f"{name} is included by no kernel source"
+        with open(os.path.join(csrc, name), encoding="utf-8") as f:
+            head = f.read(2000)
+        assert all(u in head for u in users), (name, users)
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     script = os.path.join(REPO, "chip_smoke.py")

@@ -130,3 +130,21 @@ def test_packed_text_encoder_matches_flax_apply(dtype):
     scale = max(1.0, float(np.abs(ref * live).max()))
     tol = 1e-4 if dtype == "float32" else 3e-2
     assert np.max(np.abs(ref - got) * live) < tol * scale
+
+
+@pytest.mark.parametrize("h,d", [(2, 128), (2, 96), (1, 128)], ids=["hd64", "hd48", "hd128"])
+def test_head_dims_other_than_32_match_the_reference(h, d):
+    """Head dims the CUDA kernel takes (64, 128) or zero-pads (48): the
+    plain version against ``_packed_call`` in interpret mode (bf16, live
+    rows within 5e-2) and against ``_xla_packed_reference`` in float32
+    (1e-5)."""
+    qkv, seg = _case(3, 64, d, seed=d + h, lo=4, hi=24)
+    live = (seg >= 0)[:, :, None]
+    jq = jnp.asarray(qkv).astype(jnp.bfloat16)
+    ref = np.asarray(_packed_call(jq, jnp.asarray(seg), h, True).astype(jnp.float32))
+    got = tfa.segment_attention(torch.from_numpy(qkv).bfloat16(), torch.from_numpy(seg), h).float().numpy()
+    assert np.isfinite(got).all() and (got[seg < 0] == 0).all()
+    assert np.max(np.abs(ref - got) * live) < 5e-2
+    ref32 = np.asarray(_xla_packed_reference(jnp.asarray(qkv), jnp.asarray(seg), h))
+    got32 = tfa.segment_attention_reference(torch.from_numpy(qkv), torch.from_numpy(seg), h).numpy()
+    assert np.max(np.abs(ref32 - got32) * live) < 1e-5

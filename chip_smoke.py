@@ -4,20 +4,24 @@
 
 Builds the port's kernels from ``pathway_tpu_torch/csrc`` with nvcc, holds
 every kernel against its plain PyTorch version at the main paths' shapes
-(with times, bounds and a PyTorch yardstick), times the index's tie-ordered
-top-k beside ``torch.topk``, then drives three paths, each with the launch
-counters set to 0 just before it and read just after:
+(with times, bounds and a PyTorch yardstick; B2 at 1, 16 and 256 queries,
+both of its partial passes timed at 16; B5 at head dims 64, 128 and 48),
+times the index's tie-ordered top-k beside ``torch.topk``, then drives
+three paths, each with the launch counters set to 0 just before it and
+read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
   ``SentenceEncoder.encode_device`` -> ``DeviceKnnIndex.add_batch_device``
   (filled to 1,048,576 rows) -> text queries -> ``search_batch`` /
-  ``search_texts_batch``;
+  ``search_texts_batch`` (single queries take B2's streaming pass, the
+  batch of 512 its tensor-core pass; both must launch);
 * ``rag_path``: ``FusedRagPipeline`` over MiniLM-L6 and a cross_encoder_l6
   reranker: 16 long-tailed epochs of 1,024 chunks through the segment
   packer (kernel B4), 512 single queries, one batch of 512, and
   ``answer_batch`` of 64 with the default decoder;
-* ``decode_path``: ``DecodeEngine`` (kernel B5) serving 64 prompts with
-  continuous batching, each arrival preceded by a ``DeviceReranker.order``.
+* ``decode_path``: ``DecodeEngine`` (kernel B5: its split and combine
+  kernels must both launch) serving 64 prompts with continuous batching,
+  each arrival preceded by a ``DeviceReranker.order``.
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -44,6 +48,7 @@ import time
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_BYTES = 3.35e12  # H100 SXM device-memory bytes/s
 SEED = 0
 # kernel vs plain version: both sum in f32 but in other orders, so a bf16
@@ -62,6 +67,7 @@ RERANK_TOL = dict(rtol=1.6e-2, atol=3e-2)
 # two lie closer than this (the two attentions sum in other orders)
 NEAR_TIE = 1e-4
 DEV = "cuda"
+ALT_TREE = False  # set by --kernels TREE: the kernels of another checkout
 
 
 def emit(phase: str, **kw) -> None:
@@ -355,35 +361,66 @@ def phase_kernels(torch) -> list[dict]:
         del qkv_h
     phase_b1_layer_hd64(torch, g)
 
-    # ---- B2: q = 256 against 1,048,576 x 384 f32 docs, 10% dead slots
-    N, Q = 1 << 20, 256
-    docs = F.normalize(torch.randn(N, d, device=dev, generator=g), dim=1)
-    valid = torch.rand(N, device=dev, generator=g) >= 0.1
-    queries = F.normalize(torch.randn(Q, d, device=dev, generator=g), dim=1)
-    for metric in ("cos", "l2"):
-        bias = _pallas_bias(metric, docs, valid)
-        factor = 2.0 if metric == "l2" else 1.0
-        for k in (16, 64):
-            vk, ik = knn_topk(queries, docs, k=k, bias=bias, factor=factor)
-            vp, ip = knn_topk_reference(queries, docs, k=k, bias=bias, factor=factor)
-            share, ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
-            if not ok:
-                raise AssertionError(f"knn_topk {metric} k={k} disagrees with its plain version ({share})")
-            lib = lambda: torch.topk(torch.addmm(bias, queries, docs.T, alpha=factor), k, dim=1)  # noqa: E731
-            entries.append(_entry(
-                f"knn_topk[{metric},k={k}]", "pathway_tpu_torch/csrc/knn_topk.cu",
-                "pathway_tpu/ops/pallas_knn.py:113", "knn_topk_partial",
-                (vk - vp).abs().max().item(),
-                cuda_ms(lambda: knn_topk(queries, docs, k=k, bias=bias, factor=factor), reps=5),
-                cuda_ms(lambda: knn_topk_reference(queries, docs, k=k, bias=bias, factor=factor), reps=2, warmup=1),
-                2.0 * Q * N * d, 4 * N * d + 4 * N + 4 * Q * d + 8 * Q * k, PEAK_F32, cuda_ms(lib, reps=5),
-                index_agreement=share, shape=[Q, N, d],
-            ))
-    del docs, valid, queries
-    torch.cuda.empty_cache()
+    entries.extend(knn_entries(torch, g, d))
     entries.append(segment_attention_entry(torch, g))
     entries.append(segment_attention_entry(torch, g, rows=128, d=768, h=12, tag="hd64"))
-    entries.append(paged_decode_attention_entry(torch, g))
+    for hd, heads in ((64, 4), (128, 2), (48, 4)):
+        entry = paged_decode_attention_entry(torch, g, hd, heads)
+        if entry is not None:
+            entries.append(entry)
+    return entries
+
+
+def knn_entries(torch, g, d: int, N: int = 1 << 20) -> list[dict]:
+    """B2 against ``N`` (1,048,576) x ``d`` f32 docs with 10 % dead slots, at the
+    main path's shapes: one query (the index's single-query search, the
+    streaming kernel), 16 (the regime boundary, where the tensor-core kernel
+    is timed beside it) and 256 (batch search, the tensor-core kernel)."""
+    import inspect
+
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops.knn import _pallas_bias
+    from pathway_tpu_torch.ops.knn_topk import knn_topk, knn_topk_reference, topk_agreement
+
+    forced = "regime" in inspect.signature(knn_topk).parameters  # an older tree has one regime
+    docs = F.normalize(torch.randn(N, d, device=DEV, generator=g), dim=1)
+    valid = torch.rand(N, device=DEV, generator=g) >= 0.1
+    queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
+    entries = []
+    for Q, metric, k in ((1, "cos", 16), (1, "cos", 64), (1, "l2", 16), (16, "cos", 16),
+                         (256, "cos", 16), (256, "cos", 64), (256, "l2", 16), (256, "l2", 64)):
+        q = queries[:Q].contiguous()
+        bias = _pallas_bias(metric, docs, valid)
+        factor = 2.0 if metric == "l2" else 1.0
+        vk, ik = knn_topk(q, docs, k=k, bias=bias, factor=factor)
+        vp, ip = knn_topk_reference(q, docs, k=k, bias=bias, factor=factor)
+        share, ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
+        if not ok:
+            raise AssertionError(f"knn_topk {metric} k={k} q={Q} disagrees with its plain version ({share})")
+        single = Q <= 16
+        reps = 20 if single else 5
+        lib = lambda: torch.topk(torch.addmm(bias, q, docs.T, alpha=factor), k, dim=1)  # noqa: E731
+        flops, nbytes = 2.0 * Q * N * d, 4 * N * d + 4 * N + 4 * Q * d + 8 * Q * k
+        extra = {}
+        if Q == 16 and forced:  # the other partial pass at the boundary
+            other = lambda: knn_topk(q, docs, k=k, bias=bias, factor=factor, regime="tc")  # noqa: E731
+            vo, io = other()
+            if not topk_agreement(vo, io, vp, ip, atol=1e-5, rtol=1e-5)[1]:
+                raise AssertionError("knn_topk's tensor-core pass at q 16 disagrees with the plain version")
+            extra["tc_regime_ms"] = cuda_ms(other, reps=reps)
+        if not single:  # the tensor cores' bound: bytes, or 3 TF32 products per f32 one at 495 TF/s
+            extra["bound_3xtf32_ms"] = max(nbytes / HBM_BYTES, 3 * flops / PEAK_TF32) * 1e3
+        entries.append(_entry(
+            f"knn_topk[{metric},k={k}]" if Q == 256 else f"knn_topk[{metric},k={k},q={Q}]",
+            "pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/pallas_knn.py:113",
+            "knn_topk_stream" if single else "knn_topk_tc", (vk - vp).abs().max().item(),
+            cuda_ms(lambda: knn_topk(q, docs, k=k, bias=bias, factor=factor), reps=reps),
+            cuda_ms(lambda: knn_topk_reference(q, docs, k=k, bias=bias, factor=factor), reps=2, warmup=1),
+            flops, nbytes, PEAK_F32, cuda_ms(lib, reps=reps), index_agreement=share, shape=[Q, N, d], **extra,
+        ))
+    del docs, valid, queries
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -470,13 +507,18 @@ def segment_attention_entry(torch, g, rows: int = 256, d: int = 384, h: int = 12
     )
 
 
-def paged_decode_attention_entry(torch, g) -> dict:
-    """B5 at the decode engine's shapes: 8 lanes, d 256 (4 heads of 64), a
-    pool of 512 pages x 16, page tables of 10, lengths 1-160 with one lane
-    at 0, shuffled tables and shared prefix pages."""
+def paged_decode_attention_entry(torch, g, hd: int = 64, h: int = 4) -> dict | None:
+    """B5 at the decode engine's shapes: 8 lanes, ``h`` heads of ``hd`` (the
+    decoder: 4 of 64), a pool of 512 pages x 16, page tables of 10, lengths
+    1-160 with one lane at 0, shuffled tables and shared prefix pages. Its
+    time is device time (CUDA-graph replay: a call this small is host-bound,
+    its enqueue rate kept as ``enqueue_ms``). None when an older tree
+    (``--kernels TREE``) does not take the head dim."""
     from pathway_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
 
-    lanes, d, n_pages, page, pps, h = 8, 256, 512, 16, 10, 4
+    lanes, n_pages, page, pps = 8, 512, 16, 10
+    d = h * hd
+    name = "paged_decode_attention[B5]" if hd == 64 else f"paged_decode_attention[hd{hd}]"
     q = torch.randn(lanes, d, device=DEV, generator=g)
     kp = torch.randn(n_pages, page, d, device=DEV, generator=g)
     vp = torch.randn(n_pages, page, d, device=DEV, generator=g)
@@ -484,19 +526,25 @@ def paged_decode_attention_entry(torch, g) -> dict:
     tables[1, :4] = tables[0, :4]  # shared prefix pages
     lens = torch.randint(1, pps * page + 1, (lanes,), device=DEV, generator=g, dtype=torch.int32)
     lens[3] = 0
-    got = paged_decode_attention(q, kp, vp, tables, lens, n_heads=h)
-    err = held("paged_decode_attention[B5]", got, paged_attention_reference(q, kp, vp, tables, lens, n_heads=h),
-               **F32_TOL)
+    kern = lambda: paged_decode_attention(q, kp, vp, tables, lens, n_heads=h)  # noqa: E731
+    try:
+        got = kern()
+    except ValueError:
+        if ALT_TREE:
+            emit("kernel_skipped", name=name, reason="the other tree's kernel does not take this head dim")
+            return None
+        raise
+    err = held(name, got, paged_attention_reference(q, kp, vp, tables, lens, n_heads=h), **F32_TOL)
     if not (got[3] == 0).all():
-        raise AssertionError("paged_decode_attention[B5]: a length-0 lane must give exact zeros")
+        raise AssertionError(f"{name}: a length-0 lane must give exact zeros")
     ctx = float(lens.double().sum())
     nbytes = 4 * lanes * d + 2 * 4 * d * ctx + 4 * lanes * pps + 4 * lanes + 4 * lanes * d
     return _entry(
-        "paged_decode_attention[B5]", "pathway_tpu_torch/csrc/paged_decode_attention.cu",
-        "pathway_tpu/ops/paged_attention.py:255", "paged_decode_attention", err,
-        cuda_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens, n_heads=h), reps=50),
+        name, "pathway_tpu_torch/csrc/paged_decode_attention.cu",
+        "pathway_tpu/ops/paged_attention.py:255", "paged_decode_attention", err, graph_ms(kern),
         cuda_ms(lambda: paged_attention_reference(q, kp, vp, tables, lens, n_heads=h), reps=20),
-        4.0 * d * ctx, nbytes, PEAK_F32, None, shape=[lanes, d, n_pages, page, pps], context_tokens=int(ctx),
+        4.0 * d * ctx, nbytes, PEAK_F32, None, enqueue_ms=cuda_ms(kern, reps=50),
+        shape=[lanes, d, n_pages, page, pps], heads=h, context_tokens=int(ctx),
     )
 
 
@@ -654,7 +702,8 @@ def phase_main_path(torch) -> dict:
     vk, ik = index.search_dispatch(q_emb, 10)
     vp, ip = knn_topk_reference(qn, index._dev_matrix, k=16, bias=index._dev_bias)
     share, ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
-    needed = ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention", "knn_topk_partial", "knn_topk_merge")
+    needed = ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention", "knn_topk_stream", "knn_topk_tc",
+              "knn_topk_merge")
     missing = [k for k in needed if launches.get(k, 0) == 0]
     if missing or b3_launches == 0:
         raise AssertionError(f"main path never launched {missing} (B3 module launches: {b3_launches})")
@@ -866,8 +915,9 @@ def phase_decode_path(torch, cross) -> dict:
     completion = [(done_at[i] - tickets[i][0]) * 1e3 for i in range(len(tickets))]
 
     # ---- gates, outside the counted run
-    if launches.get("paged_decode_attention", 0) == 0:
-        raise AssertionError("decode_path never launched paged_decode_attention (B5)")
+    for key in ("paged_decode_attention", "paged_decode_combine"):
+        if launches.get(key, 0) == 0:
+            raise AssertionError(f"decode_path never launched {key} (B5)")
     if any(len(s) != dcfg.max_new_tokens for s in streams):
         raise AssertionError("a decode stream is short")
     plain = DecodeEngine(mcfg, dataclasses.replace(dcfg, impl="xla"), seed=SEED, device=DEV).generate(prompts)
@@ -901,6 +951,7 @@ def phase_decode_path(torch, cross) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    global ALT_TREE
     try:
         import torch
     except ImportError as exc:
@@ -914,6 +965,7 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if len(argv) == 2:  # the port of another checkout (A/B of two versions)
+        ALT_TREE = True
         sys.path.insert(0, os.path.abspath(argv[1]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -54,10 +54,11 @@ SOURCES: dict[str, dict[str, tuple]] = {
         "pt_segment_attention": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "paged_decode_attention.cu": {
-        "pt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        "pt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "knn_topk.cu": {
-        "pt_knn_topk_partial": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+        "pt_knn_topk_stream": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+        "pt_knn_topk_tc": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         "pt_knn_topk_merge": (_P, _P, _I, _I, _I, _P, _P, _P),
     },
 }

@@ -8,14 +8,20 @@ lower doc index; candidates scored at or below ``NEG / 2`` return index -1
 and score ``NEG``.
 
 The TPU carries a running top-k across a sequential doc axis; Hopper has
-no such axis, so ``csrc/knn_topk.cu`` runs a split-N pass (each block
-scores a doc range in f32 and keeps per-query top-k lists in registers)
-and a merge pass over the ``[q, splits, k]`` partials. The kernel takes
-k <= 64, the widths the index sends it (``ops/knn.py``); wider k on a
-CUDA tensor raises.
+no such axis, so ``csrc/knn_topk.cu`` runs a split-N partial pass (each
+block scores one doc range and keeps per-query top-k lists) and a merge
+pass over the ``[q, splits, k]`` partials. :func:`launch_plan` picks the
+partial pass from the number of queries: up to ``SMALL_Q_MAX`` the
+bytes-bound streaming kernel (f32 FMAs, the queries held on chip, the
+docs streamed once through a ``cp.async`` ring, one block per SM), above
+it the tensor-core kernel (3xTF32 ``wgmma`` fed by TMA, 64 queries x 128
+docs a tile). The kernels take k <= 64, the widths the index sends them
+(``ops/knn.py``); wider k on a CUDA tensor raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -24,9 +30,14 @@ from . import _build
 NEG = -3.0e38  # sentinel below any real score
 
 KERNEL_MAX_K = 64
-_TQ = 64  # queries per block of the partial pass
-_TN = 64  # docs per tile of the partial pass
-_BLOCKS_PER_SM = 8  # partial-pass blocks to aim for per SM
+# Queries up to which the streaming kernel runs; above it the tensor-core
+# kernel. At q = 16 the two were timed side by side on the card (PERF.md).
+SMALL_Q_MAX = 16
+_SMEM_MAX = 232_448  # dynamic shared memory a block may take on Hopper
+_ST_TN = 32  # docs per tile of the streaming kernel
+_ST_STAGES = 4  # most ring tiles of the streaming kernel
+_TC_BQ = 64  # queries per block of the tensor-core kernel
+_TC_BN = 128  # docs per tile of the tensor-core kernel
 
 
 def knn_topk_reference(queries, docs, *, k: int, bias=None, factor: float = 1.0):
@@ -76,18 +87,62 @@ def topk_agreement(vals_a, idx_a, vals_b, idx_b, *, atol: float, rtol: float = 0
     return same, True
 
 
-def _splits(nq: int, nd: int, device) -> tuple[int, int]:
-    tiles = max(1, -(-nd // _TN))
-    qtiles = max(1, -(-nq // _TQ))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, -(-(_BLOCKS_PER_SM * sms) // qtiles))
-    per = -(-tiles // min(want, tiles))
-    return -(-tiles // per), per
+@dataclasses.dataclass(frozen=True)
+class KnnPlan:
+    """How one call splits its work: the partial pass (``"stream"`` or
+    ``"tc"``), its doc tile, and ``splits`` blocks' worth of doc ranges of
+    ``tiles_per_split`` tiles each (the last one shorter, none empty);
+    ``stages`` is the streaming kernel's ring depth (0 for ``"tc"``)."""
+
+    regime: str
+    tile: int
+    splits: int
+    tiles_per_split: int
+    stages: int
 
 
-def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0):
+def _stream_stages(nq: int, dim: int) -> int:
+    """Ring tiles the streaming kernel fits in shared memory next to its
+    queries (held as the next power of two) and candidate buffers; below
+    2 it cannot run at this width. Mirrors ``launch_stream`` in the source."""
+    nqt = 1 << (max(nq, 1) - 1).bit_length()
+    fixed = 4 * (nqt * dim + 2 * nqt * _ST_TN + 2 * nqt)
+    return min(_ST_STAGES, (_SMEM_MAX - fixed) // (4 * _ST_TN * (dim + 1)))
+
+
+def launch_plan(nq: int, nd: int, sm_count: int, *, dim: int = 384, regime: str | None = None) -> KnnPlan:
+    """The partial pass and its splits for ``nq`` queries against ``nd``
+    docs of width ``dim`` on a card of ``sm_count`` SMs. Up to
+    ``SMALL_Q_MAX`` queries (and a width whose ring fits) the streaming
+    kernel runs one block per SM; above, the tensor-core kernel runs a grid
+    of (query tiles of 64, splits) with at most one block per SM, so each
+    query merges few, long splits. Its TMA loads need a width that is a
+    multiple of 4; at any other width the streaming kernel takes every
+    query count, ``SMALL_Q_MAX`` queries a launch. ``regime`` forces one of
+    the two (the card's tests and the chip script time both at the
+    boundary)."""
+    stages = _stream_stages(min(nq, SMALL_Q_MAX), dim)
+    if regime is None:
+        regime = "stream" if stages >= 2 and (nq <= SMALL_Q_MAX or dim % 4) else "tc"
+    if regime == "stream":
+        if stages < 2:
+            raise ValueError(f"the streaming knn_topk kernel cannot hold {SMALL_Q_MAX} queries of width {dim}")
+        tile, want = _ST_TN, sm_count
+    elif regime == "tc":
+        if dim % 4:
+            raise ValueError(f"the tensor-core knn_topk kernel takes widths that are multiples of 4, got {dim}")
+        tile, want, stages = _TC_BN, max(1, sm_count // -(-nq // _TC_BQ)), 0
+    else:
+        raise ValueError(f"unknown knn_topk regime {regime!r}")
+    tiles = max(1, -(-nd // tile))
+    per = -(-tiles // min(max(1, want), tiles))
+    return KnnPlan(regime, tile, -(-tiles // per), per, stages)
+
+
+def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0, regime: str | None = None):
     """queries [Q, D] x docs [N, D] (+ bias [N]) -> (scores [Q, k] f32,
-    indices [Q, k] int32). CUDA tensors launch the two-pass kernel (f32,
+    indices [Q, k] int32). CUDA tensors launch a partial pass chosen by
+    :func:`launch_plan` (``regime`` forces one) and the merge pass (f32,
     k <= 64) or raise; CPU tensors take :func:`knn_topk_reference`."""
     if not queries.is_cuda:
         return knn_topk_reference(queries, docs, k=k, bias=bias, factor=factor)
@@ -108,19 +163,31 @@ def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0):
     out_i = torch.empty((nq, k), dtype=torch.int32, device=queries.device)
     if nq == 0:
         return out_s, out_i
-    splits, per = _splits(nq, nd, queries.device)
-    part_s = torch.empty((nq, splits, k), dtype=torch.float32, device=queries.device)
-    part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=queries.device)
+    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    plan = launch_plan(nq, nd, sms, dim=dim, regime=regime)
+    part_s = torch.empty((nq, plan.splits, k), dtype=torch.float32, device=queries.device)
+    part_i = torch.empty((nq, plan.splits, k), dtype=torch.int32, device=queries.device)
     lib = _build.library("knn_topk.cu")
     stream = _build.stream_handle(queries)
-    err = lib.pt_knn_topk_partial(
-        queries.data_ptr(), docs.data_ptr(), bias.data_ptr(), float(factor), nq, nd, dim, k,
-        splits, per, part_s.data_ptr(), part_i.data_ptr(), stream,
-    )
-    _build.check(err, "knn_topk_partial")
-    _build.LAUNCHES["knn_topk_partial"] += 1
+    name = f"knn_topk_{plan.regime}"
+    if plan.regime == "tc":
+        err = lib.pt_knn_topk_tc(
+            queries.data_ptr(), docs.data_ptr(), bias.data_ptr(), float(factor), nq, nd, dim, k, plan.splits,
+            plan.tiles_per_split, part_s.data_ptr(), part_i.data_ptr(), stream,
+        )
+        _build.check(err, name)
+        _build.LAUNCHES[name] += 1
+    for g0 in range(0, nq, SMALL_Q_MAX) if plan.regime == "stream" else ():
+        g1 = min(nq, g0 + SMALL_Q_MAX)  # past one group only at a width TMA cannot take
+        err = lib.pt_knn_topk_stream(
+            queries[g0:g1].data_ptr(), docs.data_ptr(), bias.data_ptr(), float(factor), g1 - g0, nd, dim, k,
+            plan.splits, plan.tiles_per_split, plan.stages, part_s[g0:g1].data_ptr(), part_i[g0:g1].data_ptr(),
+            stream,
+        )
+        _build.check(err, name)
+        _build.LAUNCHES[name] += 1
     err = lib.pt_knn_topk_merge(
-        part_s.data_ptr(), part_i.data_ptr(), nq, splits, k, out_s.data_ptr(), out_i.data_ptr(), stream
+        part_s.data_ptr(), part_i.data_ptr(), nq, plan.splits, k, out_s.data_ptr(), out_i.data_ptr(), stream
     )
     _build.check(err, "knn_topk_merge")
     _build.LAUNCHES["knn_topk_merge"] += 1

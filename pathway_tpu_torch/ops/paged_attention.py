@@ -7,9 +7,13 @@ and owns a page table, the pool slots that hold its context in order; a
 decode step attends one query token per sequence against that context.
 
 On a CUDA tensor ``paged_decode_attention`` launches
-``csrc/paged_decode_attention.cu``: one block per (sequence, head) that
-reads its own table row and length and visits only the live positions,
-so the TPU kernel's gather buffer and zero-fill are gone. Its plain
+``csrc/paged_decode_attention.cu``, split over the context
+(flash-decoding): one block per (sequence, head, split of
+:func:`decode_split_plan`'s ``chunk`` positions) that reads its own table
+row and length, loads only live rows (all of them in flight at once) and
+keeps an unnormalised softmax, then, when the context spans more than one
+split, a log-sum-exp combine launch. The TPU kernel's gather buffer and
+zero-fill are gone. It takes any head dim up to ``MAX_HEAD_DIM``. Its plain
 version, :func:`paged_attention_reference`, gathers the pages into a
 contiguous context and runs :func:`dense_decode_attention`. Positions at
 or past a sequence's length get the additive ``KEY_OFF``, whose softmax
@@ -30,12 +34,25 @@ from ..device import resolve_device
 from . import _build
 from .fused_attention import KEY_OFF
 
-_HEAD_DIMS = (32, 64, 128)  # head dims the kernel takes
+MAX_HEAD_DIM = 256  # widest head the kernel takes
+_SPLIT_POSITIONS = 64  # context positions a split covers (whole pages up to this page size)
 
 
 def pages_for(length: int, page_size: int) -> int:
     """Number of fixed-size pages covering ``length`` context tokens."""
     return max(0, (int(length) + page_size - 1) // page_size)
+
+
+def decode_split_plan(pages_per_seq: int, page_size: int) -> tuple[int, int]:
+    """(positions per split, splits) of the kernel's context split: whole
+    pages, as many as fit in 64 positions (64 positions when a page is
+    larger, so such a page spans splits), over a context of
+    ``pages_per_seq`` pages."""
+    if page_size <= _SPLIT_POSITIONS:
+        chunk = page_size * (_SPLIT_POSITIONS // page_size)
+    else:
+        chunk = _SPLIT_POSITIONS
+    return chunk, max(1, -(-(pages_per_seq * page_size) // chunk))
 
 
 def dense_decode_attention(q, k_ctx, v_ctx, lens, *, n_heads: int, scale=None):
@@ -77,8 +94,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lens, *, n_heads: i
     [n_pages, page_size, d] (one layer of the pool) · ``page_tables``: [B, P]
     int32 (entries past ``pages_for(lens[b])`` are never read) · ``lens``:
     [B] int32. Returns [B, d] float32. CUDA tensors launch the kernel (f32,
-    head dim 32/64/128) or raise; CPU tensors take
-    :func:`paged_attention_reference`."""
+    head dim up to 256) and, past one split, its combine, or raise; CPU
+    tensors take :func:`paged_attention_reference`."""
     if not q.is_cuda:
         return paged_attention_reference(q, k_pages, v_pages, page_tables, lens, n_heads=n_heads, scale=scale)
     _build.require(q, dtype=torch.float32, ndim=2, name="q")
@@ -89,8 +106,11 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lens, *, n_heads: i
     b, d = q.shape
     n_pages, page_size, dk = k_pages.shape
     pages_per_seq = page_tables.shape[1]
-    if d % n_heads or d // n_heads not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention takes head dims {_HEAD_DIMS}, got d {d} / {n_heads} heads")
+    if n_heads < 1 or d % n_heads or d // n_heads > MAX_HEAD_DIM:
+        raise ValueError(
+            f"paged_decode_attention takes head dims up to {MAX_HEAD_DIM} (d divisible by the heads), "
+            f"got d {d} / {n_heads} heads"
+        )
     if (
         dk != d
         or tuple(v_pages.shape) != tuple(k_pages.shape)
@@ -103,13 +123,18 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lens, *, n_heads: i
     out = torch.empty((b, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
+    chunk, splits = decode_split_plan(pages_per_seq, page_size)
+    partials = torch.empty((b * n_heads * splits * (hd + 2) if splits > 1 else 1,), dtype=torch.float32,
+                           device=q.device)
     err = _build.library("paged_decode_attention.cu").pt_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_tables.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, d, n_pages, page_size, pages_per_seq, hd,
+        out.data_ptr(), partials.data_ptr(), b, d, n_pages, page_size, pages_per_seq, hd, chunk,
         float(1.0 / math.sqrt(hd) if scale is None else scale), _build.stream_handle(q),
     )
     _build.check(err, "paged_decode_attention")
     _build.LAUNCHES["paged_decode_attention"] += 1
+    if splits > 1:  # the entry point launched the combine after the splits
+        _build.LAUNCHES["paged_decode_combine"] += 1
     return out
 
 

@@ -74,6 +74,47 @@ def test_paged_attention_plain_matches_jax_reference(seed, h):
     np.testing.assert_array_equal(got[2], got[3])  # a shared page reads the same bytes in both tables
 
 
+@pytest.mark.parametrize("hd,h", [(48, 2), (256, 1), (256, 2)])
+def test_paged_attention_wide_heads_match_jax_reference(hd, h):
+    """Head dims the CUDA kernel now takes beyond 32 / 64 / 128, through the
+    same cases: an empty row, aliased pages, an out-of-range entry past the
+    length."""
+    q, kp, vp, tables, lens = _paged_case(10 + hd + h, d=hd * h)
+    want, got, plain = _both(q, kp, vp, tables, lens, h)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got, plain)
+    assert (got[1] == 0).all()
+    np.testing.assert_array_equal(got[2], got[3])
+
+
+@pytest.mark.parametrize("page_size,pps", [(16, 10), (4, 6), (48, 5), (100, 3)])
+@pytest.mark.parametrize("length", [0, 1, 15, 16, 17, 160])
+def test_decode_split_plan_visits_every_live_position_once(length, page_size, pps):
+    """The context split of the CUDA kernel: every position below the
+    length is read by exactly one split, none past it; a page of at most 64
+    positions lies within one split."""
+    chunk, splits = tpa.decode_split_plan(pps, page_size)
+    assert chunk <= 64 and (splits - 1) * chunk < pps * page_size <= splits * chunk
+    live = min(length, pps * page_size)
+    # split s reads positions [s * chunk, min((s + 1) * chunk, length)), as the kernel does
+    ranges = [range(s * chunk, max(s * chunk, min((s + 1) * chunk, live))) for s in range(splits)]
+    assert sorted(j for r in ranges for j in r) == list(range(live))
+    if page_size <= 64:
+        owner = {}
+        for s, r in enumerate(ranges):
+            for j in r:
+                assert owner.setdefault(j // page_size, s) == s
+        assert sorted(owner) == list(range(tpa.pages_for(live, page_size)))
+
+
+def test_paged_attention_head_dim_limit_names_it(monkeypatch):
+    t = [torch.zeros(2, 514), torch.zeros(3, 4, 514), torch.zeros(3, 4, 514), torch.zeros(2, 2, dtype=torch.int32),
+         torch.ones(2, dtype=torch.int32)]
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(ValueError, match="up to 256"):
+        tpa.paged_decode_attention(*t, n_heads=2)
+
+
 def test_dense_decode_attention_matches_jax():
     rng = np.random.default_rng(3)
     q = rng.standard_normal((4, 24)).astype(np.float32)

@@ -242,6 +242,72 @@ def test_knn_topk_fewer_live_docs_than_k(cuda):
     assert (idx[:, 3:] == -1).all() and (vals[:, 3:] == NEG).all()
 
 
+def _knn_case(cuda, nq, metric, seed, n=70_001, d=384):
+    """``n`` docs (not a multiple of either kernel's tile), 10 % dead, ten
+    exact copies of doc 5 (a tie group straddling k), query 0 on doc 5."""
+    from pathway_tpu_torch.ops.knn import _pallas_bias
+
+    g = _gen(seed)
+    docs = torch.nn.functional.normalize(torch.randn(n, d, device=cuda, generator=g), dim=1)
+    docs[60_000:60_010] = docs[5]
+    valid = torch.rand(n, device=cuda, generator=g) > 0.1
+    valid[5] = True
+    valid[60_000:60_010] = True
+    q = torch.nn.functional.normalize(torch.randn(nq, d, device=cuda, generator=g), dim=1)
+    q[0] = docs[5]
+    return q, docs, valid, _pallas_bias(metric, docs, valid), 2.0 if metric == "l2" else 1.0
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2"])
+@pytest.mark.parametrize("k", [1, 16, 33, 64])
+@pytest.mark.parametrize(
+    "nq,regime",
+    [(1, "stream"), (5, "stream"), (16, "stream"), (1, "tc"), (16, "tc"), (17, "tc"), (64, "tc"), (256, "tc")],
+)
+def test_knn_topk_regimes_match_plain(cuda, nq, regime, k, metric):
+    """Both partial passes (the streaming kernel up to 16 queries, the
+    3xTF32 tensor-core kernel at any count) against the plain version; the
+    launch counters rise for the partial pass and the merge."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import NEG, knn_topk, knn_topk_reference, topk_agreement
+
+    q, docs, valid, bias, factor = _knn_case(cuda, nq, metric, nq * 100 + k)
+    before = dict(_build.LAUNCHES)
+    vals, idx = knn_topk(q, docs, k=k, bias=bias, factor=factor, regime=regime)
+    torch.cuda.synchronize()
+    for key in (f"knn_topk_{regime}", "knn_topk_merge"):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1, key
+    rv, ri = knn_topk_reference(q, docs, k=k, bias=bias, factor=factor)
+    share, ok = topk_agreement(vals, idx, rv, ri, atol=1e-5, rtol=1e-5)
+    assert ok, share
+    assert not set(idx.flatten().tolist()) & set((~valid).nonzero().flatten().tolist())
+    assert (vals > NEG / 2).all()
+    # the exact copies of doc 5 score alike and come in ascending index order
+    assert idx[0, : min(k, 11)].tolist() == [5, *range(60_000, 60_010)][: min(k, 11)]
+
+
+@pytest.mark.parametrize(
+    "regime,nq,dim",
+    [("stream", 3, 64), ("stream", 16, 64), ("tc", 3, 64), ("tc", 70, 64), ("stream", 3, 50), ("stream", 40, 50)],
+)
+def test_knn_topk_regimes_fewer_live_docs_than_k(cuda, regime, nq, dim):
+    """Three live docs among 5,000 at k 40: the tail is (NEG, -1); a width
+    not a multiple of 4 takes the streaming kernel's 4-byte copies, 16
+    queries a launch."""
+    from pathway_tpu_torch.ops.knn_topk import NEG, knn_topk, knn_topk_reference
+
+    g = _gen(nq + dim)
+    docs = torch.randn(5000, dim, device=cuda, generator=g)
+    bias = torch.full((5000,), NEG, device=cuda)
+    bias[[7, 4000, 4999]] = 0.0
+    q = torch.randn(nq, dim, device=cuda, generator=g)
+    vals, idx = knn_topk(q, docs, k=40, bias=bias, regime=regime)
+    rv, ri = knn_topk_reference(q, docs, k=40, bias=bias)
+    assert torch.equal(idx, ri)
+    torch.testing.assert_close(vals, rv, rtol=1e-5, atol=1e-5)
+    assert (idx[:, 3:] == -1).all() and (vals[:, 3:] == NEG).all()
+
+
 def test_encoder_forward_kernels_match_plain(cuda):
     import dataclasses
 
@@ -390,3 +456,39 @@ def test_encoder_forward_at_head_dim_64_matches_plain(cuda):
     err = (got - want).abs().max().item()
     cos = (got[:-2] * want[:-2]).sum(dim=1).min().item()
     assert err < 3e-2 and cos > 0.999, (err, cos)
+
+
+@pytest.mark.parametrize("page,pps", [(16, 10), (16, 2), (48, 5), (100, 3)])
+@pytest.mark.parametrize("hd", [32, 48, 64, 128, 256, 50])
+def test_paged_decode_attention_head_dims_and_splits_match_plain(cuda, hd, page, pps):
+    """Every head dim up to 256 (50: rows of 4-byte copies), one split or
+    several, pages larger than a split: lengths 0, 1, a page boundary and
+    the full context, an out-of-range entry past the length; the split
+    kernel launches once and the combine once when the context spans more
+    than one split."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.paged_attention import (
+        decode_split_plan,
+        paged_attention_reference,
+        paged_decode_attention,
+    )
+
+    heads, lanes, n_pages = 2, 6, 64
+    d = heads * hd
+    g = _gen(hd * 1000 + page + pps)
+    q = torch.randn(lanes, d, device=cuda, generator=g)
+    kp = torch.randn(n_pages, page, d, device=cuda, generator=g)
+    vp = torch.randn(n_pages, page, d, device=cuda, generator=g)
+    tables = torch.stack([torch.randperm(n_pages, device=cuda, generator=g)[:pps] for _ in range(lanes)]).int()
+    tables[1, : pps // 2] = tables[0, : pps // 2]  # shared prefix pages
+    lens = torch.tensor([0, 1, page, pps * page, pps * page - 1, (pps - 1) * page], dtype=torch.int32, device=cuda)
+    tables[5, -1] = n_pages + 3  # out of range: clamped, and past the length
+    before = dict(_build.LAUNCHES)
+    got = paged_decode_attention(q, kp, vp, tables, lens, n_heads=heads)
+    torch.cuda.synchronize()
+    _, splits = decode_split_plan(pps, page)
+    assert _build.LAUNCHES["paged_decode_attention"] == before.get("paged_decode_attention", 0) + 1
+    assert _build.LAUNCHES["paged_decode_combine"] == before.get("paged_decode_combine", 0) + (splits > 1)
+    want = paged_attention_reference(q, kp, vp, tables, lens, n_heads=heads)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert (got[0] == 0).all()

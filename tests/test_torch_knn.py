@@ -239,3 +239,76 @@ def test_topk_lower_index_matches_stable_sort():
         vals, idx = tknn._topk_lower_index(scores, k)
         sv, si = torch.sort(scores, dim=1, descending=True, stable=True)
         assert torch.equal(idx, si[:, :k]) and torch.equal(vals, sv[:, :k])
+
+
+# ---------------------------------------------------------------- B2 launch plan and small-q parity
+
+
+@pytest.mark.parametrize("nd", [1, 63, 64, 65, 1 << 20])
+@pytest.mark.parametrize("nq", [1, 2, 16, 17, 64, 256, 512])
+def test_launch_plan_covers_every_tile_once(nq, nd):
+    """The wrapper's plan at 132 SMs: the streaming kernel up to
+    ``SMALL_Q_MAX`` queries, the tensor-core kernel above; every doc tile
+    lies in exactly one split and no split is empty."""
+    from pathway_tpu_torch.ops.knn_topk import SMALL_Q_MAX, launch_plan
+
+    plan = launch_plan(nq, nd, 132)
+    assert plan.regime == ("stream" if nq <= SMALL_Q_MAX else "tc")
+    tiles = max(1, -(-nd // plan.tile))
+    # split s scores tiles [s * tiles_per_split, min((s + 1) * tiles_per_split, tiles)), as the kernels do
+    ranges = [range(s * plan.tiles_per_split, min((s + 1) * plan.tiles_per_split, tiles)) for s in range(plan.splits)]
+    assert [t for r in ranges for t in r] == list(range(tiles))  # each tile once, in split order
+    assert all(len(r) > 0 for r in ranges)
+    blocks = plan.splits * (1 if plan.regime == "stream" else -(-nq // 64))
+    assert blocks <= max(132, -(-nq // 64))  # about one block per SM: no more than a wave
+    if plan.regime == "stream":
+        assert 2 <= plan.stages <= 4
+        assert plan.splits <= min(132, tiles)
+
+
+def test_launch_plan_routes_wide_rows_and_rejects_unknown_regimes():
+    from pathway_tpu_torch.ops.knn_topk import launch_plan
+
+    assert launch_plan(1, 1000, 132, dim=384).regime == "stream"
+    assert launch_plan(16, 1000, 132, dim=8192).regime == "tc"  # 16 queries' rows and a 2-deep ring do not fit
+    assert launch_plan(2, 1000, 132, regime="tc").regime == "tc"
+    assert launch_plan(70, 1000, 132, dim=50).regime == "stream"  # TMA needs rows of a multiple of 16 bytes
+    assert launch_plan(17, 1000, 132, regime="stream").regime == "stream"  # 16 queries a launch
+    with pytest.raises(ValueError, match="multiples of 4"):
+        launch_plan(70, 1000, 132, dim=50, regime="tc")
+    with pytest.raises(ValueError, match="multiples of 4"):  # too wide for the ring, odd for TMA
+        launch_plan(1, 1000, 132, dim=50_001)
+    with pytest.raises(ValueError, match="cannot hold"):
+        launch_plan(1, 1000, 132, dim=50_001, regime="stream")
+    with pytest.raises(ValueError, match="unknown"):
+        launch_plan(1, 1000, 132, regime="simt")
+
+
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("metric", ["cos", "l2"])
+@pytest.mark.parametrize("nq", [1, 16])
+def test_small_q_matches_kernel_with_ties_and_dead_slots(nq, metric, k):
+    """The streaming regime's shapes (one query, and 16 at the boundary)
+    through the plain version and the Pallas kernel in interpret mode:
+    dead slots never surface, duplicated doc rows tie exactly and go to
+    the lower index."""
+    rng = np.random.default_rng(20 + nq + k)
+    d = rng.normal(size=(300, 24)).astype(np.float32)
+    d[200:210] = d[3]  # ten exact copies of doc 3
+    q = rng.normal(size=(nq, 24)).astype(np.float32)
+    q[0] = d[3]
+    if metric == "cos":
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    valid = np.ones(300, bool)
+    valid[::7] = False
+    valid[3] = valid[200:210] = True
+    bias = np.where(valid, 0.0, NEG).astype(np.float32)
+    factor = 1.0
+    if metric == "l2":
+        bias = (bias - (d * d).sum(axis=1)).astype(np.float32)
+        factor = 2.0
+    jv, ji, tv, ti = _run_both(q, d, k, bias=bias, factor=factor, block_n=128)
+    _check(jv, ji, tv, ti)
+    assert not set(ti.ravel().tolist()) & set(np.nonzero(~valid)[0].tolist())
+    assert ti[0, :11].tolist() == [3, *range(200, 210)]  # the tie group in ascending index order

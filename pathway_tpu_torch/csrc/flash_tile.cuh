@@ -9,7 +9,10 @@
 // fragment of the P.V product -- before normalisation, which happens once at
 // the end. What a key counts for (excluded, masked, live) is the caller's:
 // it hands `update` scores already scaled into the exp2 domain, with -inf
-// for keys the row may not attend. Templated on the head dim (32, 64, 128).
+// for keys the row may not attend. Templated on the head dim (32, 64, 128,
+// 256). At 256 a warp's output tile alone is 128 f32 registers a thread, so
+// the Q fragments are read from shared memory at each key tile instead of
+// being held in registers, which keeps the loop inside 255 registers.
 
 #pragma once
 
@@ -119,9 +122,11 @@ __device__ __forceinline__ void store_zeros(bf16* out, int64_t row0, int q0, int
 // g and g + 8 of the warp's 16, g = lane / 4), and the f32 output tile.
 template <int HD>
 struct Rows {
+  static constexpr bool Q_REGS = HD <= 128;  // Q fragments held in registers
   float m_run[2], l_run[2];
   float o[HD / 8][4];
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[Q_REGS ? HD / 16 : 1][4];
+  uint32_t q_addr;  // this lane's ldmatrix address of Q in shared memory (HD > 128)
 
   __device__ __forceinline__ void init() {
     m_run[0] = m_run[1] = -CUDART_INF_F;
@@ -131,23 +136,43 @@ struct Rows {
   }
 
   __device__ __forceinline__ void load_q(const bf16* Qs, int warp, int lane) {
+    q_addr = smem_u32(Qs + (warp * 16 + (lane % 16)) * Tiles<HD>::LDH + (lane / 16) * 8);
+    if constexpr (Q_REGS) {
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      ldsm_x4(qa[ks], smem_u32(Qs + (warp * 16 + (lane % 16)) * Tiles<HD>::LDH + ks * 16 + (lane / 16) * 8));
+      for (int ks = 0; ks < HD / 16; ++ks) ldsm_x4(qa[ks], q_addr + ks * 16 * (int)sizeof(bf16));
+    }
   }
 
   // s = Q K^T for the warp's 16 rows x KT keys; s[j][e] is key 8 j + 2 (lane % 4) + (e & 1)
   // of row g + 8 (e >> 1)
   __device__ __forceinline__ void scores(const bf16* Ks, int lane, float (&s)[KT / 8][4]) const {
+    if constexpr (Q_REGS) {
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      for (int j = 0; j < KT / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
+        for (int c = 0; c < HD / 32; ++c) {
+          uint32_t kb[4];
+          ldsm_x4(kb, smem_u32(Ks + (j * 8 + (lane % 8)) * Tiles<HD>::LDH + c * 32 + (lane / 8) * 8));
+          mma16816(s[j], qa[2 * c], kb[0], kb[1]);
+          mma16816(s[j], qa[2 * c + 1], kb[2], kb[3]);
+        }
+      }
+    } else {  // Q's 32 columns at a time from shared memory; each s[j] sums c in the same order
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll 1
       for (int c = 0; c < HD / 32; ++c) {
-        uint32_t kb[4];
-        ldsm_x4(kb, smem_u32(Ks + (j * 8 + (lane % 8)) * Tiles<HD>::LDH + c * 32 + (lane / 8) * 8));
-        mma16816(s[j], qa[2 * c], kb[0], kb[1]);
-        mma16816(s[j], qa[2 * c + 1], kb[2], kb[3]);
+        uint32_t a0[4], a1[4];
+        ldsm_x4(a0, q_addr + c * 32 * (int)sizeof(bf16));
+        ldsm_x4(a1, q_addr + (c * 32 + 16) * (int)sizeof(bf16));
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          uint32_t kb[4];
+          ldsm_x4(kb, smem_u32(Ks + (j * 8 + (lane % 8)) * Tiles<HD>::LDH + c * 32 + (lane / 8) * 8));
+          mma16816(s[j], a0, kb[0], kb[1]);
+          mma16816(s[j], a1, kb[2], kb[3]);
+        }
       }
     }
   }

@@ -375,6 +375,13 @@ cudaError_t launch_tma(const bf16* X, const bf16* W, const float* bias, bf16* Y,
 // (v, then v - mean): at N = 384 a thread holds 192 of them, and any copy
 // would spill. The rows leave through a [16, 32] f32 tile per warp in
 // shared memory, so that every store writes whole row segments.
+//
+// Other widths: the wrapper pads a row of width n (any n up to 1024) to the
+// next width above with zero weight rows, bias, gamma, beta and residual
+// columns, and passes n as n_live. Columns at or past n_live hold exactly 0
+// before the LayerNorm; they are left out of the row's mean and variance
+// (each chunk counts its live columns) and leave as 0, which the wrapper
+// slices off.
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -410,7 +417,7 @@ __global__ void __launch_bounds__(256, 1)
 gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                        const float* __restrict__ bias, const RT* __restrict__ R, const float* __restrict__ gamma,
                        const float* __restrict__ beta, float* __restrict__ Yf, bf16* __restrict__ Yb, int M, int K,
-                       float eps) {
+                       int n_live, float eps) {
   using T = LnTile<N, RG, CS, NCH, STAGES>;
   constexpr int PN = T::PN, NP = T::NP, CW = T::CW, CN = T::CN, BM = T::BM;
   extern __shared__ unsigned char smem_raw[];
@@ -539,24 +546,38 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
           }
         }
       row_total(sum, 0);
-      const float cmean[2] = {sum[0] / CN, sum[1] / CN};
+      // the chunk's live columns (all CN unless the row is padded), and the live ones before it
+      const int done = min(ch * CN, n_live);
+      const int cnt = min(CN, n_live - done);
+      const float cmean[2] = {cnt > 0 ? sum[0] / cnt : 0.0f, cnt > 0 ? sum[1] / cnt : 0.0f};
       // centred in place: the registers hold v - mean from here on (a
       // separate copy of the 192 differences would not fit and spill)
       float sq[2] = {0.0f, 0.0f};
+      if (cnt == CN) {
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int i = 0; i < PN / 2; ++i) {
-          d[p][i] -= cmean[(i >> 1) & 1];
-          sq[(i >> 1) & 1] += d[p][i] * d[p][i];
-        }
+          for (int i = 0; i < PN / 2; ++i) {
+            d[p][i] -= cmean[(i >> 1) & 1];
+            sq[(i >> 1) & 1] += d[p][i] * d[p][i];
+          }
+      } else {  // a padded row: its pad columns stay 0 and add nothing
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int i = 0; i < PN / 2; ++i) {
+            const bool live = col0 + p * PN + 8 * (i >> 2) + (i & 1) < n_live;
+            d[p][i] = live ? d[p][i] - cmean[(i >> 1) & 1] : 0.0f;
+            sq[(i >> 1) & 1] += d[p][i] * d[p][i];
+          }
+      }
       row_total(sq, 1);
       if (NCH == 1) {
         mean[0] = cmean[0];
         mean[1] = cmean[1];
         m2[0] = sq[0];
         m2[1] = sq[1];
-        const float inv[2] = {rsqrtf(m2[0] / N + eps), rsqrtf(m2[1] / N + eps)};
+        const float inv[2] = {rsqrtf(m2[0] / n_live + eps), rsqrtf(m2[1] / n_live + eps)};
         // y = (v - mean) * inv * gamma + beta, stored as f32 (when asked) and
         // bf16 through the warp's [16, 32] staging tile, 32 columns at a
         // time: the accumulator layout puts 8 rows x 32 bytes in one warp
@@ -617,12 +638,13 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
         else
           write(std::false_type{});
       } else {
-        const float na = (float)(ch * CN), nn = (float)((ch + 1) * CN);
+        const float na = (float)done, nc = (float)cnt, nn = (float)(done + cnt);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          if (cnt <= 0) break;
           const float delta = cmean[r] - mean[r];
-          mean[r] += delta * (CN / nn);
-          m2[r] += sq[r] + delta * delta * (na * CN / nn);
+          mean[r] += delta * (nc / nn);
+          m2[r] += sq[r] + delta * delta * (na * nc / nn);
         }
         // the pre-LayerNorm rows wait in the f32 output
 #pragma unroll
@@ -637,7 +659,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
       }
     }
     if (NCH > 1) {  // normalise the staged rows: each thread reads back what it wrote
-      const float inv[2] = {rsqrtf(m2[0] / N + eps), rsqrtf(m2[1] / N + eps)};
+      const float inv[2] = {rsqrtf(m2[0] / n_live + eps), rsqrtf(m2[1] / n_live + eps)};
       for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
         for (int p = 0; p < NP; ++p)
@@ -664,7 +686,8 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
 
 template <int N, int RG, int CS, int NCH, int STAGES, typename RT>
 cudaError_t launch_res_ln(const bf16* X, const bf16* W, const float* bias, const RT* R, const float* gamma,
-                          const float* beta, float* Yf, bf16* Yb, int M, int K, float eps, cudaStream_t stream) {
+                          const float* beta, float* Yf, bf16* Yb, int M, int K, int n_live, float eps,
+                          cudaStream_t stream) {
   using T = LnTile<N, RG, CS, NCH, STAGES>;
   static int max_grid = 0;  // resident blocks on the whole card, found once
   auto kernel = gemm_res_ln_tma_kernel<N, RG, CS, NCH, STAGES, RT>;
@@ -684,18 +707,20 @@ cudaError_t launch_res_ln(const bf16* X, const bf16* W, const float* bias, const
   if (!tensor_map(&tx, X, M, K, T::BM) || !tensor_map(&tw, W, N, K, T::BOX)) return cudaErrorInvalidValue;
   const int tiles = (M + T::BM - 1) / T::BM;
   const int grid = tiles < max_grid ? tiles : max_grid;
-  kernel<<<grid, 256, T::SMEM, stream>>>(tx, tw, bias, R, gamma, beta, Yf, Yb, M, K, eps);
+  kernel<<<grid, 256, T::SMEM, stream>>>(tx, tw, bias, R, gamma, beta, Yf, Yb, M, K, n_live, eps);
   return cudaGetLastError();
 }
 
 // the launch for a bf16 or an f32 residual
 template <int N, int RG, int CS, int NCH, int STAGES>
 cudaError_t launch_res_ln_any(const bf16* X, const bf16* W, const float* bias, const void* R, int r_is_f32,
-                              const float* gamma, const float* beta, float* Yf, bf16* Yb, int M, int K, float eps,
-                              cudaStream_t stream) {
+                              const float* gamma, const float* beta, float* Yf, bf16* Yb, int M, int K, int n_live,
+                              float eps, cudaStream_t stream) {
   if (r_is_f32)
-    return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const float*)R, gamma, beta, Yf, Yb, M, K, eps, stream);
-  return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const bf16*)R, gamma, beta, Yf, Yb, M, K, eps, stream);
+    return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const float*)R, gamma, beta, Yf, Yb, M, K, n_live, eps,
+                                                 stream);
+  return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const bf16*)R, gamma, beta, Yf, Yb, M, K, n_live, eps,
+                                               stream);
 }
 
 }  // namespace
@@ -712,20 +737,21 @@ int pt_gemm_bias_act(const void* X, const void* W, const void* bias, void* Y, in
   return (int)launch_tma<0>(x, w, (const float*)bias, (bf16*)Y, M, N, K, s);
 }
 
-// N in {256, 384, 512, 768, 1024}, K % 8 == 0; Yf may be null except at
-// N = 1024, where the rows are staged there. Returns the launch's
+// N in {256, 384, 512, 768, 1024}, K % 8 == 0; the first n_live (0 <
+// n_live <= N) columns are the row, the rest zero padding; Yf may be null
+// except at N = 1024, where the rows are staged there. Returns the launch's
 // cudaError_t, or cudaErrorInvalidValue for another N.
 int pt_gemm_bias_residual_layernorm(const void* X, const void* W, const void* bias,
                                     const void* R, int r_is_f32, const void* gamma,
-                                    const void* beta, void* Yf, void* Yb, int M, int N, int K,
-                                    float eps, void* stream) {
+                                    const void* beta, void* Yf, void* Yb, int M, int N, int n_live,
+                                    int K, float eps, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define PT_RES_LN(NN, RG, CS, NCH, ST)                                                         \
   case NN:                                                                                     \
     return (int)launch_res_ln_any<NN, RG, CS, NCH, ST>((const bf16*)X, (const bf16*)W, (const float*)bias, R, \
                                                    r_is_f32, (const float*)gamma, (const float*)beta, \
-                                                   (float*)Yf, (bf16*)Yb, M, K, eps, s);
-  if (K % 8) return (int)cudaErrorInvalidValue;
+                                                   (float*)Yf, (bf16*)Yb, M, K, n_live, eps, s);
+  if (K % 8 || n_live <= 0 || n_live > N) return (int)cudaErrorInvalidValue;
   switch (N) {
     PT_RES_LN(256, 2, 1, 1, 4)
     PT_RES_LN(384, 2, 1, 1, 3)

@@ -32,8 +32,8 @@
 //
 // Rounding: scores, the softmax statistics and P.V in f32; P is rounded to
 // bf16 before normalisation (the plain version follows); ctx in bf16.
-// Templated on the head dim (32, 64, 128); the wrapper zero-pads any other
-// head dim up to 128 to the next of these and passes the true scale.
+// Templated on the head dim (32, 64, 128, 256); the wrapper zero-pads any
+// other head dim up to 256 to the next of these and passes the true scale.
 //
 // Bound on this card: at the main path's shapes (S = 160, head dim 32, the
 // B1 layer) the work is small against the reads of qkv and the writes of
@@ -166,7 +166,7 @@ cudaError_t launch(const bf16* qkv, const uint8_t* mask, bf16* out, int B, int S
 extern "C" {
 
 // qkv [B, S, 3D] bf16, key_mask [B, S] uint8, out [B, S, D] bf16; head_dim
-// 32, 64 or 128 (D = heads * head_dim), S <= 512. Returns the launch's
+// 32, 64, 128 or 256 (D = heads * head_dim), S <= 512. Returns the launch's
 // cudaError_t.
 int pt_masked_attention(const void* qkv, const void* key_mask, void* out, int B, int S, int D,
                         int head_dim, float scale, int zero_empty, void* stream) {
@@ -179,6 +179,7 @@ int pt_masked_attention(const void* qkv, const void* key_mask, void* out, int B,
     case 32: return (int)launch<32>(q, m, o, B, S, D, scale, zero_empty, s);
     case 64: return (int)launch<64>(q, m, o, B, S, D, scale, zero_empty, s);
     case 128: return (int)launch<128>(q, m, o, B, S, D, scale, zero_empty, s);
+    case 256: return (int)launch<256>(q, m, o, B, S, D, scale, zero_empty, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,8 +36,8 @@
 //
 // The loop itself (mma.sync tiles, cp.async double buffer, online softmax,
 // P into P.V) is flash_tile.cuh's, shared with masked_attention.cu.
-// Templated on the head dim (32, 64, 128); the wrapper zero-pads any other
-// head dim up to 128 to the next of these and passes the true scale.
+// Templated on the head dim (32, 64, 128, 256); the wrapper zero-pads any
+// other head dim up to 256 to the next of these and passes the true scale.
 //
 // Rounding: scores and softmax statistics in f32; P is rounded to bf16
 // before normalisation (the plain version rounds at the same point); P.V
@@ -197,7 +197,7 @@ cudaError_t launch(const bf16* qkv, const int* seg, bf16* out, int B, int S, int
 extern "C" {
 
 // qkv [B, S, 3D] bf16, segment_ids [B, S] int32 (-1 = padding), out [B, S, D]
-// bf16; head_dim 32, 64 or 128 (D = heads * head_dim), S <= 512. Returns the
+// bf16; head_dim 32, 64, 128 or 256 (D = heads * head_dim), S <= 512. Returns the
 // launch's cudaError_t.
 int pt_segment_attention(const void* qkv, const void* segment_ids, void* out, int B, int S, int D,
                          int head_dim, float scale, void* stream) {
@@ -210,6 +210,7 @@ int pt_segment_attention(const void* qkv, const void* segment_ids, void* out, in
     case 32: return (int)launch<32>(q, seg, o, B, S, D, scale, s);
     case 64: return (int)launch<64>(q, seg, o, B, S, D, scale, s);
     case 128: return (int)launch<128>(q, seg, o, B, S, D, scale, s);
+    case 256: return (int)launch<256>(q, seg, o, B, S, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,13 @@
-"""WordPiece tokenizer (host-side, pure Python/NumPy).
+"""WordPiece tokenizer (host-side).
 
 The port's own copy of ``pathway_tpu/models/tokenizer.py``: a standard
 BERT ``vocab.txt`` when one is available locally, else deterministic
 hashing of whitespace/punctuation tokens into the vocab id space. Ids
 are identical to the reference's ``encode``. ``batch_encode_matrix``
-always builds the ``(ids, lens)`` matrix from the Python ``encode``
-here, so the encoder always takes its matrix path; the native batched
-tokenizer binding comes with a later slice.
+runs ASCII rows through the C++ batched tokenizer
+(``pathway_tpu_torch/native.py``, ``pn_tok_encode_batch``, the same ids
+as ``encode``); other rows, and every row under
+``PATHWAY_DISABLE_NATIVE=1``, take the Python ``encode``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class WordPieceTokenizer:
         self.lowercase = lowercase
         self.max_chars = max_input_chars_per_word
         self.vocab: dict[str, int] | None = None
+        self._native = None  # NativeTokenizer, made at the first batch
         self._vocab_file = vocab_file if vocab_file and os.path.exists(vocab_file) else None
         if self._vocab_file:
             with open(self._vocab_file, encoding="utf-8") as f:
@@ -83,13 +85,24 @@ class WordPieceTokenizer:
     def batch_encode_matrix(self, texts, max_len: int = 128):
         """-> (ids [n, max_len] int32, lens [n] int32). Rows are
         pad_id-filled past their length, ready for the encoder's
-        bucketed batching."""
+        bucketed batching. ASCII rows go through the native batched
+        tokenizer (its scanner is ASCII-only); the others, and all rows
+        when native is disabled, through the Python ``encode``."""
+        from .. import native
+
         texts = list(texts)
         n = len(texts)
+        native_rows = [i for i, t in enumerate(texts) if t.isascii()] if native.is_available() else []
+        if native_rows and self._native is None:
+            self._native = native.NativeTokenizer(self._vocab_file, self.vocab_size, self.lowercase, self.max_chars)
+        if len(native_rows) == n and n:
+            return self._native.encode_batch(texts, max_len)
         ids = np.full((n, max_len), self.pad_id, np.int32)
         lens = np.zeros(n, np.int32)
-        for i, t in enumerate(texts):
-            row = self.encode(t, max_len=max_len)
+        if native_rows:
+            ids[native_rows], lens[native_rows] = self._native.encode_batch([texts[i] for i in native_rows], max_len)
+        for i in sorted(set(range(n)) - set(native_rows)):
+            row = self.encode(texts[i], max_len=max_len)
             ids[i, : len(row)] = row
             lens[i] = len(row)
         return ids, lens

@@ -44,7 +44,7 @@ SOURCES: dict[str, dict[str, tuple]] = {
     "gemm_epilogue.cu": {
         "pt_gemm_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         "pt_gemm_bias_residual_layernorm": (
-            _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P,
+            _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
         ),
     },
     "masked_attention.cu": {

@@ -24,8 +24,8 @@ version write zeros there.
 
 Both kernels run the same FlashAttention-2 loop (``csrc/flash_tile.cuh``:
 an online softmax in registers, P rounded to bf16 before normalisation),
-templated on head dims 32, 64 and 128; the wrappers zero-pad any other
-head dim up to 128 to the next of these.
+templated on head dims 32, 64, 128 and 256; the wrappers zero-pad any
+other head dim up to 256 to the next of these.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from . import _build
 BLOCK_OFF = -1.0e30  # additive bias outside the block diagonal (TPU packing)
 KEY_OFF = -1.0e9  # additive bias on padded keys
 
-_HEAD_DIMS = (32, 64, 128)  # head dims the kernels are built for
+_HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are built for
 _MAX_HEAD_DIM = _HEAD_DIMS[-1]  # any other head dim up to this is zero-padded to the next one
 _MAX_S = 512
 
@@ -99,7 +99,7 @@ def _attention_operands(qkv, other, n_heads: int, name: str, other_name: str) ->
     """The attention kernels' operand checks -> (b, s, d, head dim, the
     kernel's head dim). Raises ValueError on what they do not take: a
     dtype, rank or layout other than contiguous bf16 [B, S, 3D], a width
-    that does not split into heads, a head dim over 128, S > 512, or a
+    that does not split into heads, a head dim over 256, S > 512, or a
     ``other`` of another shape or device."""
     _build.require(qkv, dtype=torch.bfloat16, ndim=3, name="qkv")
     b, s, three_d = qkv.shape
@@ -166,7 +166,7 @@ def masked_attention(
 ) -> torch.Tensor:
     """qkv [B, S, 3D] (q | k | v, heads minor within each), key_mask
     [B, S] bool -> ctx [B, S, D]. CUDA tensors launch the kernel (bf16,
-    head dim up to 128, S <= 512) or raise; CPU tensors take
+    head dim up to 256, S <= 512) or raise; CPU tensors take
     :func:`masked_attention_reference`."""
     if not qkv.is_cuda:
         return masked_attention_reference(qkv, key_mask, n_heads, zero_empty)
@@ -196,7 +196,7 @@ def segment_attention_reference(qkv: torch.Tensor, segment_ids: torch.Tensor, n_
 
 def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
     """qkv [B, S, 3D], segment_ids [B, S] int (-1 = padding) -> ctx [B, S, D].
-    CUDA tensors launch the kernel (bf16, head dim up to 128, S <= 512) or
+    CUDA tensors launch the kernel (bf16, head dim up to 256, S <= 512) or
     raise; CPU tensors take :func:`segment_attention_reference`."""
     if not qkv.is_cuda:
         return segment_attention_reference(qkv, segment_ids, n_heads)

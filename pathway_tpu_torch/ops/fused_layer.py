@@ -20,7 +20,16 @@ hand-written kernels (``csrc/gemm_epilogue.cu``, ``csrc/masked_attention.cu``):
    output tile that spans whole rows (N in ``_LN_WIDTHS``), so the row
    statistics come from the accumulators.
 
-Attention takes head dims up to 128 (``ops/fused_attention.py``).
+Attention takes head dims up to 256 (``ops/fused_attention.py``).
+
+The kernels load rows with a 16-byte stride (K and N multiples of 8) and
+the LayerNorm kernel is built for the widths in ``_LN_WIDTHS``. The
+wrappers take any other K and N (up to 1024 for the LayerNorm) by zero
+padding: a parameter (weight, bias, gamma, beta) is padded once, when
+``prepare_params`` lays it out or at its first use, and kept beside it; an
+activation is padded per call; the result is sliced back. Zero columns of
+K add nothing to a product, and the LayerNorm kernel leaves columns past
+the true width out of the row's statistics.
 
 Rounding points follow the TPU kernel: qkv rounded to bf16 after its bias;
 ctx in bf16; ``att`` stays f32 into ``LN1(x + att)``; ``h1`` stays f32 as
@@ -37,6 +46,8 @@ the [B*S, d] rows and per-sequence lengths as they are.
 from __future__ import annotations
 
 import math
+import threading
+import weakref
 
 import torch
 
@@ -85,6 +96,42 @@ def unpack_tokens(tokens: torch.Tensor, b: int, s: int) -> torch.Tensor:
     return tokens.reshape(-1, s, tokens.shape[1])[:b]
 
 
+_PADDED: dict[tuple, tuple] = {}  # (id(param), shape) -> (weakref to param, its version, padded copy)
+_PAD_LOCK = threading.Lock()
+
+
+def _pad_to(t: torch.Tensor, shape: tuple[int, ...], *, keep: bool = False) -> torch.Tensor:
+    """``t`` zero-padded at the end of each dim to ``shape``. ``keep``: ``t``
+    is a parameter, so the copy is made once and kept while ``t`` lives and
+    is not written to."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return t
+    key = (id(t), shape)
+    if keep:
+        hit = _PADDED.get(key)
+        if hit is not None and hit[0]() is t and hit[1] == t._version:
+            return hit[2]
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    if keep:
+        with _PAD_LOCK:
+            _PADDED[key] = (weakref.ref(t, lambda _, key=key: _PADDED.pop(key, None)), t._version, out)
+    return out
+
+
+def _up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _ln_width(n: int) -> int:
+    """The LayerNorm kernel's width for a row of ``n`` columns."""
+    for width in _LN_WIDTHS:
+        if width >= n:
+            return width
+    raise ValueError(f"gemm_bias_residual_layernorm takes rows up to {_LN_WIDTHS[-1]} columns, got {n}")
+
+
 def _gelu_tanh(x32: torch.Tensor) -> torch.Tensor:
     c = math.sqrt(2.0 / math.pi)
     return 0.5 * x32 * (1.0 + torch.tanh(c * (x32 + 0.044715 * x32**3)))
@@ -127,9 +174,17 @@ def gemm_bias_act_operands(x, w, b) -> tuple[int, int, int]:
 def gemm_bias_act(x, w, b, act: bool = False):
     """x [M, K] bf16, w [N, K] bf16, b [N] f32 -> act(x w^T + b) [M, N]
     bf16. CUDA tensors launch the kernel or raise; CPU tensors take the
-    plain version."""
+    plain version. K or N not a multiple of 8 runs zero-padded to one."""
     if not x.is_cuda:
         return gemm_bias_act_reference(x, w, b, act)
+    n_true, k_true = w.shape[0], x.shape[-1]
+    if x.dim() == 2 and w.dim() == 2 and (k_true % 8 or n_true % 8):
+        kp, np_ = _up8(k_true), _up8(n_true)
+        y = gemm_bias_act(
+            _pad_to(x, (x.shape[0], kp)), _pad_to(w, (np_, kp), keep=True),
+            _pad_to(b, (np_,), keep=True), act,
+        )
+        return y[:, :n_true].contiguous()
     m, n, k = gemm_bias_act_operands(x, w, b)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
@@ -185,11 +240,20 @@ def gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta) -> tup
 def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, out_f32: bool = True):
     """x [M, K] bf16, w [N, K] bf16, residual [M, N] bf16 or f32, b/gamma/
     beta [N] f32 -> (LN f32 [M, N] or None, its bf16 copy). CUDA tensors
-    launch the kernel (N in ``_LN_WIDTHS``) or raise; CPU tensors take the
+    launch the kernel (N up to 1024; a width not in ``_LN_WIDTHS`` and a K
+    not a multiple of 8 run zero-padded) or raise; CPU tensors take the
     plain version. ``out_f32``: also return the f32 rows (the next
     residual); at N = 1024 the kernel stages the rows there either way."""
     if not x.is_cuda:
         return gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps, out_f32=out_f32)
+    n_true = w.shape[0]
+    if x.dim() == 2 and w.dim() == 2 and residual.dim() == 2 and (x.shape[1] % 8 or n_true not in _LN_WIDTHS):
+        kp, np_ = _up8(x.shape[1]), _ln_width(n_true)
+        vec = lambda t: _pad_to(t, (np_,), keep=True)  # noqa: E731
+        x = _pad_to(x, (x.shape[0], kp))
+        w = _pad_to(w, (np_, kp), keep=True)
+        b, gamma, beta = vec(b), vec(gamma), vec(beta)
+        residual = _pad_to(residual, (residual.shape[0], np_))
     m, n, k = gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta)
     yf = torch.empty((m, n), dtype=torch.float32, device=x.device) if out_f32 or n in _LN_STAGED else None
     yb = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
@@ -198,10 +262,13 @@ def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, 
             x.data_ptr(), w.data_ptr(), b.data_ptr(), residual.data_ptr(),
             int(residual.dtype == torch.float32), gamma.data_ptr(), beta.data_ptr(),
             yf.data_ptr() if yf is not None else None, yb.data_ptr(),
-            m, n, k, float(eps), _build.stream_handle(x),
+            m, n, n_true, k, float(eps), _build.stream_handle(x),
         )
         _build.check(err, "gemm_bias_residual_layernorm")
         _build.LAUNCHES["gemm_bias_residual_layernorm"] += 1
+    if n != n_true:
+        yf = yf[:, :n_true].contiguous() if out_f32 else None
+        yb = yb[:, :n_true].contiguous()
     return (yf if out_f32 else None), yb
 
 
@@ -283,13 +350,38 @@ def prepare_params(params: dict, cfg) -> dict:
     """A TextEncoder state dict laid out for ``encoder_forward``: embeddings
     and projection weights cast to ``cfg.dtype`` once, biases and LayerNorm
     in f32, all contiguous, so the forward makes no cast per call. Values
-    are those the forward would cast to anyway."""
+    are those the forward would cast to anyway. On a CUDA device the
+    layers' parameters that the kernels take only zero-padded (a width
+    outside ``_LN_WIDTHS``, K or N not a multiple of 8) are padded here,
+    once."""
     out = {}
     for name, t in params.items():
         key = name.split(".", 2)[-1] if name.startswith("layers.") else name
         dt = cfg.dtype if key in _WORKING_DTYPE_KEYS else torch.float32
         out[name] = t.to(dt).contiguous()
+    if any(t.is_cuda for t in out.values()) and cfg.dtype == torch.bfloat16:
+        if "attention.qkv.weight" in out:  # one layer's parameters (``layer_params``)
+            _pad_layer(out)
+        for i in range(cfg.num_layers):
+            if f"layers.{i}.attention.qkv.weight" in out:
+                _pad_layer(layer_params(out, i))
     return out
+
+
+def _pad_layer(lp: dict) -> None:
+    """Pad one layer's parameters as its kernel calls will ask for them."""
+    for proj in ("attention.qkv", "mlp_in"):
+        n, k = lp[proj + ".weight"].shape
+        _pad_to(lp[proj + ".weight"], (_up8(n), _up8(k)), keep=True)
+        _pad_to(lp[proj + ".bias"], (_up8(n),), keep=True)
+    for proj, ln in (("attention.out", "ln_att"), ("mlp_out", "ln_mlp")):
+        n, k = lp[proj + ".weight"].shape
+        if n > _LN_WIDTHS[-1]:
+            continue  # the kernel call raises on such a width
+        width = _ln_width(n)
+        _pad_to(lp[proj + ".weight"], (width, _up8(k)), keep=True)
+        for key in (proj + ".bias", ln + ".weight", ln + ".bias"):
+            _pad_to(lp[key], (width,), keep=True)
 
 
 # ------------------------------------------------------------ the encoder

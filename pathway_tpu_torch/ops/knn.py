@@ -491,8 +491,10 @@ class DeviceKnnIndex:
         filter_fns: list[Callable | None] | None = None,
     ) -> list[list[tuple[Any, float]]]:
         """Raw text queries -> (key, score) lists: tokenize, encode through
-        the whole-layer path, score with a plain product + the tie-ordered
-        top-k (:func:`_topk_lower_index`)."""
+        the whole-layer path, then the index's own top-k on the device
+        embeddings (the fused kernel B2 on a CUDA slab at fetch <= 64, else
+        the plain product + tie-ordered top-k); nothing visits the host
+        before the (score, slot) pairs."""
         from ..models.batching import DEFAULT_SEQ_BUCKETS, bucket
         from .fused_layer import encoder_forward, use_fused_encoder
 
@@ -519,16 +521,11 @@ class DeviceKnnIndex:
                 emb = encoder_forward(enc.params, enc.cfg, ids_d, mask, lens=lens_d)
             else:
                 emb = enc.module(ids_d, mask)
-            scores = emb @ self._dev_matrix.T
-            if self.metric == "l2":
-                sq = (self._dev_matrix * self._dev_matrix).sum(dim=1)
-                scores = 2.0 * scores - sq[None, :] - 1.0  # |emb| = 1
-            scores = torch.where(self._dev_valid[None, :], scores, _NEG)
+        emb = emb[:n].float().contiguous()  # unit rows: |emb| = 1
 
         def dispatch(todo, fetch):
-            vals, idx = _topk_lower_index(scores, min(fetch, self.capacity))
-            sel = torch.as_tensor(todo, device=self.device)
-            return vals[sel], idx[sel]
+            rows = emb if len(todo) == n else emb[torch.as_tensor(todo, device=self.device)]
+            return self._device_topk(rows.contiguous(), min(fetch, self.capacity))
 
         return self._assemble(n, k, filter_fns, dispatch)
 

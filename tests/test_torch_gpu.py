@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card, at the main path's widths (MiniLM-L6: d 384, 12
 heads of 32, FFN 1536; the decoder: d 256, 4 heads of 64) and at the other
-head dims (64, 128, and 48 zero-padded to 64) and LayerNorm widths (256 to
-1024) the kernels take. Every test here needs a CUDA device and skips
+head dims (64, 128, 256, and others zero-padded to the next of these),
+LayerNorm widths (256 to 1024, any other width up to 1024 zero-padded) and
+GEMM K and N that are not multiples of 8 (zero-padded to 8) the kernels
+take. Every test here needs a CUDA device and skips
 inside its fixture when there is none; run them on the card with
 ``pytest -m gpu tests/test_torch_*.py``.
 
@@ -184,7 +186,7 @@ def test_gemm_residual_layernorm_outputs_and_residuals(cuda, n, res_f32, out_f32
     _check_ln(cuda, 129, n, 384, res_f32, out_f32)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 48])
+@pytest.mark.parametrize("hd", [64, 128, 48, 256, 160])
 def test_segment_attention_head_dims_match_plain(cuda, hd):
     from pathway_tpu_torch.ops import _build
     from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
@@ -492,3 +494,80 @@ def test_paged_decode_attention_head_dims_and_splits_match_plain(cuda, hd, page,
     want = paged_attention_reference(q, kp, vp, tables, lens, n_heads=heads)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert (got[0] == 0).all()
+
+
+# ---- geometry repairs: widths the kernels take only zero-padded
+
+
+@pytest.mark.parametrize(
+    "m,n,k,act",
+    [(129, 1152, 36, False), (4096 + 37, 100, 384, True), (17, 30, 12, False), (1, 1000, 1003, True)],
+)
+def test_gemm_bias_act_unaligned_k_and_n_match_plain(cuda, m, n, k, act):
+    """K or N not a multiple of 8: the wrapper pads to one and slices back,
+    one launch, the weight padded once."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops import fused_layer as fl
+
+    g = _gen(m + n * 3 + k)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (0.05 * torch.randn(n, k, device=cuda, generator=g)).bfloat16()
+    b = 0.1 * torch.randn(n, device=cuda, generator=g)
+    before = _build.LAUNCHES["gemm_bias_act"]
+    got = fl.gemm_bias_act(x, w, b, act)
+    again = fl.gemm_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gemm_bias_act"] == before + 2
+    assert got.shape == (m, n) and got.is_contiguous() and torch.equal(got, again)
+    assert sum(key[0] == id(w) for key in fl._PADDED) == 1
+    torch.testing.assert_close(got.float(), fl.gemm_bias_act_reference(x, w, b, act).float(), **BF16)
+
+
+@pytest.mark.parametrize("res_f32,out_f32", [(False, False), (True, True)])
+@pytest.mark.parametrize("k", [40, 36, 384])
+@pytest.mark.parametrize("m", [17, 4096 + 19])
+@pytest.mark.parametrize("n", [8, 128, 200, 312, 640, 776, 1000, 1020])
+def test_gemm_residual_layernorm_padded_widths_match_plain(cuda, n, m, k, res_f32, out_f32):
+    """Widths outside the kernel's five, run at the next one with the pad
+    columns left out of the statistics (776-1020: the two-chunk width), and
+    K not a multiple of 8 (36); the residual's rows have a mean away from 0."""
+    _check_ln(cuda, m, n, k, res_f32, out_f32)
+
+
+@pytest.mark.parametrize("zero_empty", [True, False])
+@pytest.mark.parametrize("s", [37, 160, 512])
+@pytest.mark.parametrize("hd", [256, 192, 130])
+def test_masked_attention_head_dims_over_128_match_plain(cuda, hd, s, zero_empty):
+    """The head-dim-256 kernel (Q read from shared memory at each key tile),
+    and 129-255 zero-padded to it."""
+    test_masked_attention_head_dims_match_plain(cuda, hd, s, zero_empty)
+
+
+@pytest.mark.parametrize("hidden,heads,ffn", [(128, 2, 512), (312, 12, 1200), (512, 2, 2048)])
+def test_encoder_forward_at_public_small_widths_matches_plain(cuda, hidden, heads, ffn):
+    """Widths of public small checkpoints: bert-tiny (d 128, 2 heads of 64,
+    LayerNorm padded to 256), TinyBERT-4L-312 (d 312, 12 heads of 26 padded
+    to 32, LayerNorm padded to 384) and d 512 at 2 heads of 256."""
+    import dataclasses
+
+    from pathway_tpu_torch.models.encoder import EncoderConfig, init_params
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_layer import encoder_forward, prepare_params
+
+    cfg = EncoderConfig(hidden_size=hidden, num_layers=2, num_heads=heads, intermediate_size=ffn)
+    params = prepare_params({k: v.to(cuda) for k, v in init_params(cfg, seed=0).items()}, cfg)
+    g = _gen(hidden)
+    b, s = 32, 128
+    ids = torch.randint(999, 29000, (b, s), device=cuda, generator=g, dtype=torch.int32)
+    lens = torch.randint(1, s + 1, (b,), device=cuda, generator=g, dtype=torch.int32)
+    lens[-2:] = 0
+    mask = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    _build.reset_launches()
+    got = encoder_forward(params, cfg, ids, mask, lens=lens)
+    assert _build.LAUNCHES["masked_attention"] == cfg.num_layers
+    assert _build.LAUNCHES["gemm_bias_residual_layernorm"] == 2 * cfg.num_layers
+    want = encoder_forward(params, dataclasses.replace(cfg, layer_impl="plain"), ids, mask, lens=lens)
+    assert got.shape == (b, hidden) and torch.isfinite(got).all() and (got[-2:] == 0).all()
+    err = (got - want).abs().max().item()
+    cos = (got[:-2] * want[:-2]).sum(dim=1).min().item()
+    assert err < 3e-2 and cos > 0.999, (err, cos)

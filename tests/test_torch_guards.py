@@ -1,5 +1,7 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or
-pathway_tpu; its entry points never fall back to the CPU; its kernels are
+pathway_tpu, also when its dataflow engine runs a ``pw.run`` pipeline
+(``pw.io.python.read`` -> embedder -> ``DataIndex`` -> ``pw.io.subscribe``);
+its entry points never fall back to the CPU; its kernels are
 built only at first use on a CUDA tensor; ``chip_smoke.py`` refuses to run
 without a card."""
 
@@ -43,6 +45,28 @@ assert len(rag.answer("c d", k=2, max_new=3)["tokens"]) == 3
 dec = pt.DecodeEngine(pt.DecoderConfig(vocab_size=97, hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32, max_position=32),
                       pt.DecodeConfig(pages=16, page_size=4, lanes=2, max_new_tokens=3, degrade_max_new_tokens=1, max_seq=16), device="cpu")
 assert [len(s) for s in dec.generate([[1, 2, 3], [4]])] == [3, 3]
+import pathway_tpu_torch as pw
+class Docs(pw.io.python.ConnectorSubject):
+    def run(self):
+        for i, text in enumerate(["a b", "c d", "e f", "g h", "i j"]):
+            self.next(doc_id=i, text=text)
+            if i % 2:
+                self.commit()
+class DocSchema(pw.Schema):
+    doc_id: int
+    text: str
+docs = pw.io.python.read(Docs(), schema=DocSchema, autocommit_duration_ms=None)
+index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(docs.text, dimensions=32, reserved_space=64,
+                                                                embedder=enc, device="cpu"))
+queries = pw.debug.table_from_rows(schema=pw.schema_from_types(q=str), rows=[("c d",)])
+hits = []
+pw.io.subscribe(index.query_as_of_now(queries.q, number_of_matches=2).select(ids=pw.this.doc_id),
+                lambda key, row, time, is_addition: hits.append(row["ids"]))
+pw.run()
+assert hits and hits[-1][0] == 1, hits
+rows = pw.debug.table_from_rows(schema=pw.schema_from_types(k=str, v=int), rows=[("a", 1), ("a", 2), ("b", 5)])
+counts = rows.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v))
+assert sorted(pw.debug.table_to_dicts(counts)[1]["s"].values()) == [3, 5]
 added = set(sys.modules) - before
 bad = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
 print("BAD", bad)
@@ -131,14 +155,18 @@ def test_every_kernel_source_names_its_tpu_counterpart():
 def test_every_csrc_file_is_a_built_source_or_a_header_one_includes():
     """A header is hashed into every library's cache key; each one in
     ``csrc/`` is included by a kernel source and names the kernels it
-    serves, and nothing else sits there unbuilt."""
+    serves, and nothing else sits there unbuilt. ``csrc/host/`` holds the
+    host helpers' C++ source, built with g++ by ``native.py``, not nvcc."""
+    from pathway_tpu_torch import native
     from pathway_tpu_torch.ops import _build
 
     csrc = os.path.join(PKG, "csrc")
     names = sorted(os.listdir(csrc))
+    assert os.listdir(os.path.join(csrc, "host")) == [os.path.basename(native.SRC)]
+    assert os.path.dirname(native.SRC) == os.path.join(csrc, "host")
     sources = {n: open(os.path.join(csrc, n), encoding="utf-8").read() for n in _build.SOURCES}
     for name in names:
-        if name in _build.SOURCES:
+        if name in _build.SOURCES or name == "host":
             continue
         assert name.endswith(".cuh"), name
         users = [s for s, text in sources.items() if f'#include "{name}"' in text]

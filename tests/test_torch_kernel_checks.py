@@ -78,11 +78,12 @@ def test_segment_operands_pass_and_give_the_shape(b, s):
 @pytest.mark.parametrize(
     "d,heads,hd,kernel_hd",
     [(384, 12, 32, 32), (768, 12, 64, 64), (1024, 8, 128, 128), (384, 8, 48, 64), (96, 4, 24, 32),
-     (384, 4, 96, 128), (100, 4, 25, 32), (127, 1, 127, 128)],
+     (384, 4, 96, 128), (100, 4, 25, 32), (127, 1, 127, 128), (384, 2, 192, 256), (256, 1, 256, 256),
+     (312, 12, 26, 32)],
 )
 def test_attention_operands_take_head_dims_up_to_128(which, d, heads, hd, kernel_hd):
-    """Kernels for head dims 32, 64 and 128; any other head dim up to 128
-    is zero-padded to the next of these."""
+    """Kernels for head dims 32, 64, 128 and 256; any other head dim up to
+    256 is zero-padded to the next of these."""
     qkv = torch.zeros(2, 37, 3 * d, dtype=torch.bfloat16)
     other = torch.zeros(2, 37, dtype=torch.bool if which == "masked" else torch.int32)
     check = masked_attention_operands if which == "masked" else segment_attention_operands
@@ -95,7 +96,7 @@ def test_attention_operands_take_head_dims_up_to_128(which, d, heads, hd, kernel
 def test_attention_operands_raise_naming_the_limits(which, case):
     b, s, d, heads = 2, 64, 384, 12
     if case == "head_dim_over_128":
-        heads = 2
+        heads = 1  # head dim 384: over the largest kernel's 256
     elif case == "s_over_512":
         s = 513
     elif case == "heads_do_not_split":
@@ -105,12 +106,12 @@ def test_attention_operands_raise_naming_the_limits(which, case):
     if case == "other_device":
         other = other.to("meta")
     check = masked_attention_operands if which == "masked" else segment_attention_operands
-    match = {"head_dim_over_128": "head dims up to 128", "s_over_512": "S <= 512"}.get(case)
+    match = {"head_dim_over_128": "head dims up to 256", "s_over_512": "S <= 512"}.get(case)
     with pytest.raises(ValueError, match=match):
         check(qkv, other, heads)
 
 
-@pytest.mark.parametrize("hd", [24, 48, 96, 100])
+@pytest.mark.parametrize("hd", [24, 48, 96, 100, 160])
 @pytest.mark.parametrize("which", ["masked", "segment"])
 def test_zero_padded_heads_keep_the_result(which, hd):
     """The wrapper's padding, run through the plain versions in float32:
@@ -192,7 +193,7 @@ def test_segment_operands_raise(case):
     if case == "s_over_512":
         qkv, seg = torch.zeros(1, 513, 3 * 384, dtype=torch.bfloat16), torch.zeros(1, 513, dtype=torch.int32)
     elif case == "head_dim_over_128":
-        heads = 2
+        heads = 1  # head dim 384: over the largest kernel's 256
     elif case == "qkv_not_contiguous":
         qkv = torch.zeros(s, b, 3 * 384, dtype=torch.bfloat16).transpose(0, 1)
     elif case == "qkv_float32":
@@ -255,3 +256,41 @@ def test_bound_argtypes_match_the_c_signature(source, entry):
     assert sig, f"{entry} is not defined in {source}"
     params = [" ".join(p.split()[:-1]).replace("const ", "").replace(" *", "*") for p in sig.group(1).split(",")]
     assert [_C_TYPES[p] for p in params] == [t.__name__ for t in _build.SOURCES[source][entry]]
+
+
+@pytest.mark.parametrize("n,width", [(8, 256), (128, 256), (256, 256), (312, 384), (640, 768), (776, 1024), (1024, 1024)])
+def test_ln_width_pads_to_the_next_kernel_width(n, width):
+    from pathway_tpu_torch.ops.fused_layer import _ln_width
+
+    assert _ln_width(n) == width
+
+
+def test_ln_width_over_1024_raises():
+    from pathway_tpu_torch.ops.fused_layer import _ln_width
+
+    with pytest.raises(ValueError, match="up to 1024"):
+        _ln_width(1032)
+
+
+def test_pad_to_zero_pads_and_keeps_one_copy_per_parameter():
+    """A parameter is padded once (the copy is kept while it lives and is
+    not written to); an activation is padded per call."""
+    from pathway_tpu_torch.ops import fused_layer as fl
+
+    w = torch.arange(12.0).reshape(3, 4)
+    p = fl._pad_to(w, (8, 8), keep=True)
+    assert p.shape == (8, 8) and torch.equal(p[:3, :4], w) and p[3:].abs().sum() == 0 and p[:, 4:].abs().sum() == 0
+    assert fl._pad_to(w, (8, 8), keep=True) is p
+    w.add_(1.0)  # written to: the kept copy is stale and made anew
+    q = fl._pad_to(w, (8, 8), keep=True)
+    assert q is not p and torch.equal(q[:3, :4], w)
+    assert fl._pad_to(w, (3, 4), keep=True) is w
+    x = torch.ones(2, 5)
+    assert fl._pad_to(x, (2, 8)) is not fl._pad_to(x, (2, 8))
+    key = (id(w), (8, 8))
+    assert key in fl._PADDED
+    del w, p, q
+    import gc
+
+    gc.collect()
+    assert key not in fl._PADDED

@@ -9,7 +9,7 @@ both of its partial passes timed at 16; B5 at head dims 64, 128 and 48;
 the geometries that run zero-padded: attention at head dim 256, LayerNorm
 widths 128 and 312, a GEMM with K 300 and N 900, and whole layers at the
 widths of bert-tiny and TinyBERT-312), times the index's tie-ordered
-top-k beside ``torch.topk``, then drives four paths, each with the launch
+top-k beside ``torch.topk``, then drives five paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -31,7 +31,18 @@ counters set to 0 just before it and read just after:
   and one epoch of 512 through ``query_as_of_now`` -> ``pw.io.subscribe`` ->
   ``pw.run``; gated on the kernels' launches, ``add_batch_device`` carrying
   every ingest epoch, hits equal to the library path's, and a KNNIndex's
-  neighbour sets equal on 1 and 4 engine workers.
+  neighbour sets equal on 1 and 4 engine workers;
+* ``server_path``: the README's RAG document server as written, on the
+  port: 8,192 files of synthetic prose (about 22,000 chunks) ->
+  ``pw.io.fs.read(format="binary", mode="streaming", with_metadata=True)``
+  -> ``VectorStoreServer(embedder=SentenceTransformerEmbedder(),
+  parser=ParseUtf8(), splitter=TokenCountSplitter())`` ->
+  ``run_server(threaded=True)``, driven over HTTP: 512 sequential
+  ``/v1/retrieve``, 64 filtered, a burst of 64 concurrent requests,
+  ``/v1/statistics`` and ``/v1/inputs``, then 256 new files, 64 modified
+  and 64 deleted while serving; gated on the kernels' launches,
+  ``add_batch_device`` carrying every ingest epoch, every unfiltered answer
+  equal to the library path's, filters, file counts and the live changes.
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -1191,6 +1202,422 @@ def phase_engine_path(torch, n_docs: int = ENGINE_DOCS, per_epoch: int = ENGINE_
     return launches
 
 
+# server_path: the README's RAG document server. Files of the corpus, the
+# sequential, filtered and burst queries, the burst's client threads, and the
+# live changes: new files (bursts x files), modified and deleted files
+SERVER_FILES, SERVER_QUERIES, SERVER_FILTERED, SERVER_BURST, SERVER_BURST_THREADS = 8192, 512, 64, 64, 8
+SERVER_NEW_BURSTS, SERVER_NEW_PER_BURST, SERVER_MODIFIED, SERVER_DELETED = 4, 64, 64, 64
+
+
+def _prose_files(rng, n_files: int) -> list[str]:
+    """``n_files`` texts of synthetic prose: words Zipf over 8,000 made-up
+    words (``_synthetic_texts``' vocabulary), sentences of 8-30 words, 300 to
+    3,000 words a file, log-normal and long-tailed."""
+    import numpy as np
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = np.array(["".join(rng.choice(letters, rng.integers(3, 10))) for _ in range(8000)])
+    zipf = 1.0 / np.arange(1, len(vocab) + 1)
+    n_words = np.clip(np.round(rng.lognormal(np.log(900.0), 0.6, n_files)), 300, 3000).astype(np.int64)
+    words = vocab[rng.choice(len(vocab), int(n_words.sum()), p=zipf / zipf.sum())]
+    sentence_lens = rng.integers(8, 31, int(n_words.sum()) // 8 + n_files)
+    out, pos, s = [], 0, 0
+    for nw in n_words:
+        end, parts = pos + int(nw), []
+        while pos < end:
+            ln = min(int(sentence_lens[s]), end - pos)
+            s += 1
+            parts.append(" ".join(words[pos : pos + ln]) + ".")
+            pos += ln
+        out.append(" ".join(parts))
+    return out
+
+
+def _unique_chunk(tag: str, rng, n_words: int = 40) -> str:
+    """One chunk of text that occurs nowhere else: made-up words carrying
+    ``tag`` (each one wordpiece under the hashed tokenizer)."""
+    return " ".join(f"{tag}x{int(w)}" for w in rng.integers(0, 1 << 30, n_words)) + "."
+
+
+def phase_server_path(torch, n_files: int = SERVER_FILES, n_queries: int = SERVER_QUERIES,
+                      n_filtered: int = SERVER_FILTERED, n_burst: int = SERVER_BURST,
+                      burst_threads: int = SERVER_BURST_THREADS, new_bursts: int = SERVER_NEW_BURSTS,
+                      new_per_burst: int = SERVER_NEW_PER_BURST, n_modified: int = SERVER_MODIFIED,
+                      n_deleted: int = SERVER_DELETED) -> dict:
+    """The README's RAG serving example as written, on the port:
+    ``pw.io.fs.read(folder, format="binary", mode="streaming",
+    with_metadata=True)`` -> ``VectorStoreServer(embedder=
+    SentenceTransformerEmbedder(), parser=ParseUtf8(),
+    splitter=TokenCountSplitter())`` -> ``run_server(threaded=True)``,
+    driven over real HTTP: ``n_queries`` sequential ``/v1/retrieve`` (k 10,
+    each a random chunk's exact text), ``n_filtered`` with
+    ``metadata_filter`` or ``filepath_globpattern``, one burst of
+    ``n_burst`` concurrent requests from ``burst_threads`` client threads,
+    ``/v1/statistics`` and ``/v1/inputs``; then, while serving,
+    ``new_bursts`` bursts of ``new_per_burst`` new one-chunk files,
+    ``n_modified`` files rewritten and ``n_deleted`` deleted; then the
+    engine stops and the port is freed. Gates: the encoder kernels, B2's
+    streaming pass and its merge launch; ``add_batch_device`` carries every
+    ingest epoch and no host-side add happens; every unfiltered answer
+    equals the library path's hits (``encode_device`` ->
+    ``add_batch_device`` -> ``search_texts_batch`` replayed on the engine's
+    own batches, adds and removals) under ``topk_agreement``; each
+    exact-text query finds its chunk; filtered answers hold only matching
+    paths; ``file_count`` equals the files present; new files become
+    retrievable, modified files lose their old chunks and deleted files
+    their path. Returns the launch counts of the served run."""
+    import fnmatch
+    import gc
+    import http.client
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DeviceKnnIndex
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.io import fs as fs_mod
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    now = time.perf_counter
+    t_phase = now()
+    k = 10
+    rng = np.random.default_rng(SEED + 21)
+    texts = _prose_files(rng, n_files)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix="server_path_docs_", dir=build_dir)
+    paths = [os.path.join(folder, f"doc_{i:05d}.txt") for i in range(n_files)]
+    for path, text in zip(paths, texts):
+        with open(path, "w") as f:
+            f.write(text)
+    t_setup = now() - t_phase  # drawing and writing the corpus
+
+    embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder(device=DEV)
+    enc = embedder._encoder
+    enc.encode_device(texts[:256], pad_to=256)  # warm-up: first launches, handles
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    # every operation on the engine's index, in order, for the library replay
+    ops: list[tuple] = []
+    encoded: list[tuple] = []  # (texts, pad_to) of each encode_device call of the engine
+    counts = collections.Counter()
+    add_epochs: set = set()  # engine times of the device adds
+    refills = collections.Counter()
+    real = {name: getattr(DeviceKnnIndex, name) for name in
+            ("add_batch_device", "add_batch", "remove", "search_texts_batch", "_device_topk")}
+    real_encode, real_chunk, real_init = embedder.encode_device, TokenCountSplitter.chunk, GraphRunner.__init__
+    real_list_files, scans = fs_mod._list_files, []  # the streaming scanner's start times
+    runners = []
+
+    def encode_device(batch, pad_to=None):
+        encoded.append((list(batch), pad_to))
+        return real_encode(batch, pad_to=pad_to)
+
+    def add_batch_device(self, keys, vecs, metas=None):
+        real["add_batch_device"](self, keys, vecs, metas)
+        counts["device_calls"] += 1
+        add_epochs.add(runners[-1].engine.current_time)
+        batch, pad_to = encoded[-1]
+        ops.append(("add", list(keys), list(metas), batch, pad_to))
+
+    def add_batch(self, items):
+        counts["host_calls"] += 1
+        return real["add_batch"](self, items)
+
+    def remove(self, key):
+        real["remove"](self, key)
+        ops.append(("remove", key))
+
+    def search_texts_batch(self, batch, kk, filter_fns=None):
+        out = real["search_texts_batch"](self, batch, kk, filter_fns)
+        ops.append(("search", list(batch), kk, filter_fns, out))
+        return out
+
+    def device_topk(self, q, fetch):
+        if fetch > 64:  # a filtered query's refill; its first one past 64 fetches 256 (or the capacity)
+            refills["queries"] += int(q.shape[0]) if fetch <= 256 else 0
+            refills["dispatches"] += 1
+            refills["max_fetch"] = max(refills["max_fetch"], int(fetch))
+        return real["_device_topk"](self, q, fetch)
+
+    def list_files(*a, **kw):
+        scans.append(now())
+        return real_list_files(*a, **kw)
+
+    def chunk(self, txt):
+        t0 = now()
+        try:
+            return real_chunk(self, txt)
+        finally:
+            counts["split_s"] += now() - t0
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        runners.append(self)
+
+    def post(path, payload, timeout=300):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read().decode())
+
+    answers: dict[str, list] = collections.defaultdict(list)  # unfiltered query text -> its answers, in order
+
+    def retrieve(text, **filters):
+        hits = post("/v1/retrieve", {"query": text, "k": k, **filters})
+        if not filters:
+            answers[text].append(hits)
+        return hits
+
+    chunk_epochs: set = set()
+    pw.clear_graph()
+    docs = pw.io.fs.read(folder, format="binary", mode="streaming", with_metadata=True)
+    server = pw.xpacks.llm.VectorStoreServer(docs, embedder=embedder, parser=pw.xpacks.llm.parsers.ParseUtf8(),
+                                             splitter=pw.xpacks.llm.splitters.TokenCountSplitter())
+    pw.io.subscribe(server._graph["chunked_docs"],
+                    lambda key, row, time, is_addition: is_addition and chunk_epochs.add(time))
+    embedder.encode_device = encode_device
+    for name, fn in (("add_batch_device", add_batch_device), ("add_batch", add_batch), ("remove", remove),
+                     ("search_texts_batch", search_texts_batch), ("_device_topk", device_topk)):
+        setattr(DeviceKnnIndex, name, fn)
+    TokenCountSplitter.chunk, GraphRunner.__init__, fs_mod._list_files = chunk, recording_init, list_files
+    result: dict = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t_run = now()
+        run = server.run_server(host="127.0.0.1", port=port, threaded=True)
+
+        def file_count(timeout=600):
+            deadline = now() + timeout
+            while True:
+                try:
+                    return post("/v1/statistics", {})["file_count"]
+                except OSError:  # the endpoint is not up yet
+                    if now() > deadline:
+                        raise
+                    time.sleep(0.2)
+
+        def wait_files(n, timeout=600):
+            deadline = now() + timeout
+            while (count := file_count()) != n:
+                if now() > deadline:
+                    raise TimeoutError(f"/v1/statistics counts {count} files, expected {n}")
+                time.sleep(0.1)
+
+        wait_files(n_files)
+        ingest_s = now() - t_run
+        chunks = [(m.value["path"], t) for op in ops if op[0] == "add" for m, t in zip(op[2], op[3])]
+        result.update(files=n_files, chunks=len(chunks), ingest_seconds=ingest_s, ingest_files_per_s=n_files / ingest_s,
+                      ingest_chunks_per_s=len(chunks) / ingest_s, splitter_seconds=counts["split_s"],
+                      splitter_share=counts["split_s"] / ingest_s, ingest_epochs=len(chunk_epochs))
+        emit("server_path_ingest", **result)
+        chunks_of: dict[str, list] = collections.defaultdict(list)
+        for path, text in chunks:
+            chunks_of[path].append(text)
+
+        # sequential exact-text queries, then filtered ones
+        picked = rng.choice(len(chunks), n_queries + n_burst, replace=False)
+        own = [chunks[i] for i in picked[:n_queries]]
+        lat, top1, found = [], 0, 0
+        for path, text in own:
+            t0 = now()
+            hits = retrieve(text)
+            lat.append((now() - t0) * 1e3)
+            keys = [(h["metadata"]["path"], h["text"]) for h in hits]
+            top1 += keys[:1] == [(path, text)]
+            found += (path, text) in keys
+        if found != len(own):
+            raise AssertionError(f"{len(own) - found} of {len(own)} exact-text queries missed their own chunk")
+        bad_filter = 0
+        for j in range(n_filtered):
+            i = int(rng.integers(0, n_files))
+            stem = os.path.basename(paths[i])
+            if j % 2:
+                flt, match = {"metadata_filter": f"contains(path, `{stem[:8]}`)"}, lambda p, s=stem[:8]: s in p
+            else:
+                pattern = f"**/{stem[:7]}*.txt"
+                flt, match = {"filepath_globpattern": pattern}, lambda p, s=stem[:7]: fnmatch.fnmatch(
+                    os.path.basename(p), f"{s}*.txt")
+            hits = retrieve(chunks_of[paths[i]][0], **flt)
+            bad_filter += (not hits) or any(not match(h["metadata"]["path"]) for h in hits)
+        if bad_filter:
+            raise AssertionError(f"{bad_filter} filtered answers were empty or held a path outside their filter")
+
+        # one burst of concurrent requests from a few client threads, each with several connections open
+        burst = [chunks[i][1] for i in picked[n_queries:]]
+        burst_lat: list[float] = []
+        searches_before = sum(1 for op in ops if op[0] == "search")
+
+        def client(mine):
+            conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=300) for _ in mine]
+            sent = []
+            for conn, text in zip(conns, mine):
+                sent.append(now())
+                conn.request("POST", "/v1/retrieve", json.dumps({"query": text, "k": k}),
+                             {"Content-Type": "application/json"})
+            for conn, text, t0 in zip(conns, mine, sent):
+                body = json.loads(conn.getresponse().read().decode())
+                burst_lat.append((now() - t0) * 1e3)
+                answers[text].append(body)
+                conn.close()
+
+        t0 = now()
+        workers = [threading.Thread(target=client, args=(burst[i::burst_threads],)) for i in range(burst_threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        burst_ms = (now() - t0) * 1e3
+        burst_epochs = [len(op[1]) for op in ops[searches_before:] if op[0] == "search"]
+        if len(burst_lat) != len(burst):
+            raise AssertionError(f"{len(burst_lat)} of {len(burst)} burst requests were answered")
+        inputs = post("/v1/inputs", {})
+        if file_count() != n_files or len(inputs) != n_files:
+            raise AssertionError(f"/v1/inputs lists {len(inputs)} files, expected {n_files}")
+
+        # live changes while serving: new files, then modified, then deleted ones
+        present = n_files
+        to_retrievable = []
+        for b in range(new_bursts):
+            new = {}
+            for i in range(new_per_burst):
+                path = os.path.join(folder, f"new_{b}_{i:03d}.txt")
+                text = _unique_chunk(f"n{b}q{i}", rng)
+                with open(path, "w") as f:
+                    f.write(text)
+                new[path] = (text, now())
+            present += len(new)
+            deadline = now() + 120
+            while new:
+                for path, (text, t_write) in list(new.items()):
+                    if any(h["metadata"]["path"] == path for h in retrieve(text)):
+                        to_retrievable.append(now() - t_write)
+                        del new[path]
+                if new and now() > deadline:
+                    raise AssertionError(f"{len(new)} new files were never retrievable")
+        wait_files(present)
+        changed = [paths[i] for i in rng.choice(n_files, n_modified + n_deleted, replace=False)]
+        modified, deleted = changed[:n_modified], changed[n_modified:]
+        rewritten = {}
+        for path in modified:
+            rewritten[path] = _unique_chunk(f"m{os.path.basename(path)[4:9]}", rng)
+            with open(path, "w") as f:
+                f.write(rewritten[path])
+        deadline = now() + 120
+        while rewritten:  # until each new text finds its file, then its old chunks must be gone
+            for path, text in list(rewritten.items()):
+                if any((h["metadata"]["path"], h["text"]) == (path, text) for h in retrieve(text)):
+                    del rewritten[path]
+            if rewritten and now() > deadline:
+                raise AssertionError(f"the new texts of {len(rewritten)} modified files were never retrievable")
+        stale = sum(any((h["metadata"]["path"], h["text"]) in {(path, t) for t in chunks_of[path]}
+                        for h in retrieve(chunks_of[path][0])) for path in modified)
+        for path in deleted:
+            os.remove(path)
+        present -= len(deleted)
+        wait_files(present)
+        gone = set(deleted)
+        stale += sum(any(h["metadata"]["path"] in gone for h in retrieve(chunks_of[path][-1])) for path in deleted)
+        inputs = post("/v1/inputs", {})
+        if stale or len(inputs) != present or gone & {m["path"] for m in inputs}:
+            raise AssertionError(f"{stale} answers after a change still held a modified file's old chunk or a "
+                                 f"deleted file's path; /v1/inputs lists {len(inputs)} of {present} files")
+    finally:
+        if runners:
+            runners[-1].engine.stop()
+        embedder.encode_device = real_encode
+        for name, fn in real.items():
+            setattr(DeviceKnnIndex, name, fn)
+        TokenCountSplitter.chunk, GraphRunner.__init__, fs_mod._list_files = real_chunk, real_init, real_list_files
+    run.join(timeout=120)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    run_s = now() - t_run
+    pw.clear_graph()
+    if run.is_alive():
+        raise AssertionError("the served run did not end after the engine stopped")
+    with socket.socket() as s:  # the server closed its socket: a new listener binds the port
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))
+    shutil.rmtree(folder)
+
+    # ---- gates, outside the counted run
+    missing = [key for key in ("gemm_bias_act", "gemm_bias_residual_layernorm", "knn_topk_stream", "knn_topk_merge")
+               if launches.get(key, 0) == 0]
+    if launches.get("masked_attention", 0) + launches.get("segment_attention", 0) == 0:
+        missing.append("masked_attention or segment_attention")
+    if missing:
+        raise AssertionError(f"server_path never launched {missing}")
+    if add_epochs != chunk_epochs or counts["host_calls"]:
+        raise AssertionError(f"add_batch_device carried {len(add_epochs & chunk_epochs)} of {len(chunk_epochs)} "
+                             f"ingest epochs ({len(add_epochs - chunk_epochs)} others, {counts['host_calls']} "
+                             f"host-side adds)")
+    # the library path: the same adds (same chunk texts, same batches), removals and search batches, replayed
+    lib = DeviceKnnIndex(dim=enc.dim, metric="cos", reserved_space=1024, device=DEV)
+    lib.attach_encoder(enc)
+    named: dict = {}  # key -> (path, text)
+    want: dict[str, list] = collections.defaultdict(list)
+    for op in ops:
+        if op[0] == "add":
+            _, keys, metas, batch, pad_to = op
+            lib.add_batch_device(keys, enc.encode_device(batch, pad_to=pad_to), metas)
+            named.update({key: (m.value["path"], t) for key, m, t in zip(keys, metas, batch)})
+        elif op[0] == "remove":
+            lib.remove(op[1])
+        else:
+            _, batch, kk, filter_fns, _ = op
+            out = lib.search_texts_batch(batch, kk, filter_fns)
+            for i, (text, hits) in enumerate(zip(batch, out)):
+                if filter_fns is None or filter_fns[i] is None:
+                    want[text].append([(named[key], score) for key, score in hits])
+    ids: dict = {}
+    got_rows, want_rows = [], []
+    for text, seq in answers.items():
+        if len(want[text]) != len(seq):
+            raise AssertionError(f"{len(seq)} answers to one query text, {len(want[text])} library searches")
+        for hits, lib_hits in zip(seq, want[text]):
+            got_rows.append([(ids.setdefault((h["metadata"]["path"], h["text"]), len(ids)), -h["dist"]) for h in hits])
+            want_rows.append([(ids.setdefault(name, len(ids)), score) for name, score in lib_hits])
+    share, ok = _hits_agree(got_rows, want_rows, k)
+    if not ok:
+        raise AssertionError(f"served answers disagree with the library path's beyond {HIT_TOL} ({share})")
+    first = next(op for op in ops if op[0] == "add")
+    scratch = DeviceKnnIndex(dim=enc.dim, metric="cos", reserved_space=len(first[1]), device=DEV)
+    ingest_ops, ingest_device_ms = device_ops(torch, lambda: scratch.add_batch_device(
+        first[1], enc.encode_device(first[3], pad_to=first[4])))
+    del lib, scratch, server, embedder, enc, ops, encoded
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(
+        setup_seconds=t_setup, ingest_device_ms=ingest_device_ms, ingest_device_ops=ingest_ops and ingest_ops["total"],
+        retrieve=_percentiles(lat), queries=len(own), self_query_top1=top1 / len(own), filtered_queries=n_filtered,
+        filtered_refilled_past_64=refills["queries"], filtered_refill_dispatches=refills["dispatches"],
+        filtered_max_fetch=refills["max_fetch"], scans=len(scans),
+        scan_period=_percentiles(np.diff(scans[1:]) * 1e3) if len(scans) > 2 else None,
+        burst_requests=len(burst), burst_threads=burst_threads, burst_wall_ms=burst_ms,
+        burst_request=_percentiles(burst_lat), burst_epoch_queries=burst_epochs,
+        new_files=len(to_retrievable), write_to_retrievable_p50_s=float(np.percentile(to_retrievable, 50)),
+        write_to_retrievable_max_s=float(max(to_retrievable)), modified_files=len(modified),
+        deleted_files=len(deleted), files_at_end=present, answers_vs_library=share,
+        answers_compared=len(got_rows), add_batch_device_calls=counts["device_calls"],
+        add_batch_device_epochs=len(add_epochs), host_add_calls=counts["host_calls"], b4_fired=launches.get("segment_attention", 0) > 0,
+        run_seconds=run_s, phase_seconds=now() - t_phase, max_memory_allocated=peak, launches=launches,
+    )
+    emit("server_path", **result)
+    return launches
+
+
 def phase_decode_path(torch, cross) -> dict:
     """The decode plane as ``bench.py``'s decode-serving suite drives it: 64
     seeded prompts of 4-63 tokens, each submitted after a
@@ -1310,7 +1737,8 @@ def main(argv: list[str]) -> int:
     launches.update(rag_launches)
     launches.update(phase_decode_path(torch, cross))
     launches.update(phase_engine_path(torch))
-    for e in entries:  # launches summed over the four paths' counted runs
+    launches.update(phase_server_path(torch))
+    for e in entries:  # launches summed over the five paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

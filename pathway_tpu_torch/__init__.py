@@ -12,7 +12,18 @@ kernels. Its users write the reference's surface:
     pw.io.subscribe(answers, on_change)
     pw.run()
 
-The engine (``engine/``, ``internals/``, ``io/python``, ``debug``,
+and the README's RAG document server:
+
+    docs = pw.io.fs.read("./docs", format="binary", mode="streaming", with_metadata=True)
+    server = pw.xpacks.llm.VectorStoreServer(
+        docs,
+        embedder=pw.xpacks.llm.embedders.SentenceTransformerEmbedder("all-MiniLM-L6-v2"),
+        parser=pw.xpacks.llm.parsers.ParseUtf8(),
+        splitter=pw.xpacks.llm.splitters.TokenCountSplitter(),
+    )
+    server.run_server(host="0.0.0.0", port=8765)  # POST /v1/retrieve
+
+The engine (``engine/``, ``internals/``, ``io/``, ``debug``,
 ``reducers``) is host Python with C++ helpers (``native.py``: update
 consolidation, row hashing, the batched WordPiece tokenizer). The device
 path: host tokenizer -> ``SentenceEncoder`` (MiniLM-L6 encoder whose
@@ -22,13 +33,14 @@ searched by a fused top-k kernel). The RAG answer plane builds on it:
 ``CrossEncoderScorer`` / ``DeviceReranker`` rerank, ``FusedRagPipeline``
 runs embed -> retrieve -> rerank -> generate without a host round trip,
 and ``DecodeEngine`` generates with continuous batching over a paged KV
-pool. Entry points run on ``"cuda"`` unless the caller passes
+pool. The REST endpoints (``io/http``) run on the standard library's
+HTTP server. Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``. The package imports torch and numpy only.
 """
 
 import datetime as _datetime
 
-from . import debug, io, reducers, stdlib, xpacks
+from . import debug, io, reducers, serving, stdlib, xpacks
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
 from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_make_pointer, wrap_py_object
@@ -141,6 +153,7 @@ __all__ = [
     "schema_builder",
     "schema_from_dict",
     "schema_from_types",
+    "serving",
     "stdlib",
     "this",
     "udf",

@@ -1871,6 +1871,10 @@ class EngineGraph:
         self._wake = threading.Event()
         self._async_loop = None
         self._stop = False
+        # set when the run ends (stopped, finished or failed): readers that
+        # serve until then (the REST endpoint, the streaming file scanner)
+        # wait on it and return
+        self.stopped = threading.Event()
         self.connector_threads: list[threading.Thread] = []
         # fatal reader-thread failures (name, exc): the run loop raises
         # instead of treating the dead session as clean EOF (reference:
@@ -2016,8 +2020,16 @@ class EngineGraph:
 
     def run(self, monitoring_callback: Callable | None = None) -> None:
         """Run to completion: process scripted batches in time order, then
-        live sessions until all close. (Persistence, its recovery replay
-        and the overlapped epoch pipeline are not part of this package.)"""
+        live sessions until all close or ``stop()``. (Persistence, its
+        recovery replay and the overlapped epoch pipeline are not part of
+        this package.) ``stopped`` is set when the run ends, however it
+        ends."""
+        try:
+            self._run(monitoring_callback)
+        finally:
+            self.stopped.set()
+
+    def _run(self, monitoring_callback: Callable | None) -> None:
         for t in self.connector_threads:
             t.start()
         self._threads_started = True
@@ -2085,6 +2097,7 @@ class EngineGraph:
         for node in self.nodes:
             node.on_end()
         if self._threads_started:
+            self.stopped.set()
             for t in self.connector_threads:
                 t.join(timeout=5.0)
 

@@ -80,7 +80,7 @@ class StreamingContext:
     (upstream Pathway's src/engine/graph.rs:943-950) — instead of funneling
     everything through process 0."""
 
-    def __init__(self, session: df.InputSession, schema: type[Schema]):
+    def __init__(self, session: df.InputSession, schema: type[Schema], stopped: threading.Event):
         self.session = session
         self.dtypes = schema.dtypes()
         self.names = list(self.dtypes.keys())
@@ -99,6 +99,13 @@ class StreamingContext:
         # construction but before reader threads start
         self._seq: list[int] | None = None
         self._deletions: dict[int, tuple] = {}
+        self._stopped = stopped  # the engine's: set when its run ends
+
+    def wait_stopped(self, timeout: float | None = None) -> bool:
+        """Block until the engine's run ends, or ``timeout`` seconds pass;
+        True once it has ended. Readers that serve until the run ends (the
+        REST endpoint, the streaming file scanner) wait here and return."""
+        return self._stopped.wait(timeout)
 
     @property
     def offsets(self) -> dict:
@@ -249,7 +256,7 @@ def input_table_from_reader(
         node.supports_offsets = supports_offsets
         node.parallel_readers = parallel_readers
         node.append_only = schema_ao
-        ctx = StreamingContext(node.session, schema)
+        ctx = StreamingContext(node.session, schema, engine.stopped)
         if parallel_readers and ctx.n_processes > 1:
             # each process logs its partition slice under its own
             # persistence namespace (EnginePersistence proc-<pid>/) and

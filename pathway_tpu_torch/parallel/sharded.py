@@ -250,9 +250,11 @@ class ShardCluster:
             for e in self.engines:
                 for node in e.nodes:
                     node.on_end()
+            primary.stopped.set()
             for t in primary.connector_threads:
                 t.join(timeout=5.0)
         finally:
+            primary.stopped.set()
             if self._pool is not None:
                 self._pool.shutdown(wait=False)
 

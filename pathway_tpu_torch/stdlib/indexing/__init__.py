@@ -1,9 +1,11 @@
 """pw.indexing — the retriever API (the reference's stdlib/indexing/):
-``DataIndex`` over a KNN inner index. BM25, hybrid and sorted indexes
-come with ROADMAP Queue A item 1."""
+``DataIndex`` over KNN, BM25 and hybrid inner indexes, and the default
+document indexes. The sorted index comes with ROADMAP Queue A item 7."""
 
+from .bm25 import TantivyBM25, TantivyBM25Factory
 from .colnames import _INDEX_REPLY, _SCORE
 from .data_index import DataIndex, InnerIndex
+from .hybrid_index import HybridIndex, HybridIndexFactory
 from .nearest_neighbors import (
     AbstractKnn,
     BruteForceKnn,
@@ -17,6 +19,14 @@ from .nearest_neighbors import (
     UsearchKnnFactory,
 )
 from .retrievers import AbstractRetrieverFactory, InnerIndexFactory
+from .vector_document_index import (
+    VectorDocumentIndex,
+    default_brute_force_knn_document_index,
+    default_full_text_document_index,
+    default_lsh_knn_document_index,
+    default_usearch_knn_document_index,
+    default_vector_document_index,
+)
 
 # reference capitalization alias
 USearchKnn = UsearchKnn
@@ -28,15 +38,25 @@ __all__ = [
     "BruteForceKnnFactory",
     "BruteForceKnnMetricKind",
     "DataIndex",
+    "HybridIndex",
+    "HybridIndexFactory",
     "InnerIndex",
     "InnerIndexFactory",
     "KnnIndexFactory",
     "LshKnn",
     "LshKnnFactory",
+    "TantivyBM25",
+    "TantivyBM25Factory",
     "USearchKnn",
     "USearchMetricKind",
     "UsearchKnn",
     "UsearchKnnFactory",
+    "VectorDocumentIndex",
+    "default_brute_force_knn_document_index",
+    "default_full_text_document_index",
+    "default_lsh_knn_document_index",
+    "default_usearch_knn_document_index",
+    "default_vector_document_index",
     "_INDEX_REPLY",
     "_SCORE",
 ]

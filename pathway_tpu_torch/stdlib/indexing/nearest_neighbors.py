@@ -11,9 +11,9 @@ the card (the engine routes a tensor batch to ``add_batch_device``), and
 one that exposes its encoder takes the fused text-query path
 (``search_texts_batch``). ``LshKnn`` keeps a host LSH tier
 (random-projection bucketing). ``device``: ``None`` places the index on
-``"cuda"``; ``"cpu"`` only when asked. The ``mesh``, ``tiers`` and
-``tenant`` options raise ``NotImplementedError`` until their planes are
-ported.
+its encoder's device when its embedder has one, else on ``"cuda"``;
+``"cpu"`` only when asked. The ``mesh``, ``tiers`` and ``tenant``
+options raise ``NotImplementedError`` until their planes are ported.
 """
 
 from __future__ import annotations
@@ -156,7 +156,8 @@ class AbstractKnn(InnerIndex):
         self._check_placement()
         dim, metric, res = self.dimensions, self.metric, self.reserved_space
         enc = fused_query_encoder(self.embedder) if self.embedder else None
-        device = self.device
+        # an index fed by an encoder lives on the encoder's device
+        device = self.device if self.device is not None or enc is None else enc.device
 
         def make():
             idx = _VectorPayloadIndex(dim=dim, metric=metric, reserved_space=max(64, res), device=device)

@@ -1,4 +1,4 @@
-"""Extension packs: ``llm`` (embedders so far)."""
+"""Extension packs: ``llm``."""
 
 from . import llm
 

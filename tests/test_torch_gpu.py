@@ -571,3 +571,94 @@ def test_encoder_forward_at_public_small_widths_matches_plain(cuda, hidden, head
     err = (got - want).abs().max().item()
     cos = (got[:-2] * want[:-2]).sum(dim=1).min().item()
     assert err < 3e-2 and cos > 0.999, (err, cos)
+
+
+def test_rag_server_on_the_card_answers_as_the_library_path(cuda, tmp_path, monkeypatch):
+    """The README's RAG server (``pw.io.fs.read`` -> ``ParseUtf8`` ->
+    ``TokenCountSplitter`` -> ``SentenceTransformerEmbedder`` at MiniLM-L6
+    width, seeded -> ``VectorStoreServer.run_server``) over a tiny folder on
+    the card: one ``/v1/retrieve`` answer equals the library path's hits
+    (``encode_device`` -> ``add_batch_device`` -> ``search_texts_batch`` on
+    the same chunk texts in the same batch), scores within 1e-5."""
+    import json
+    import socket
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    monkeypatch.setenv("PATHWAY_TPU_FS_ONESHOT", "1")
+    words = "river stone cloud light apple graph epoch delta kappa sigma tau omega".split()
+    g = torch.Generator().manual_seed(3)
+    for i in range(4):
+        text = ". ".join(" ".join(words[j] for j in torch.randint(0, len(words), (8,), generator=g).tolist())
+                         for _ in range(3 + i)) + "."
+        (tmp_path / f"d{i}.txt").write_text(text)
+    embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder()
+    batches, adds = [], []
+    real_encode, real_add = embedder.encode_device, DeviceKnnIndex.add_batch_device
+
+    def encode_device(texts, pad_to=None):
+        batches.append((list(texts), pad_to))
+        return real_encode(texts, pad_to=pad_to)
+
+    def add_batch_device(self, keys, vecs, metas=None):
+        adds.append((list(keys), [m.value if hasattr(m, "value") else m for m in metas]))
+        return real_add(self, keys, vecs, metas)
+
+    runners = []
+    real_init = GraphRunner.__init__
+
+    def recording_init(self, *a, **k):
+        real_init(self, *a, **k)
+        runners.append(self)
+
+    monkeypatch.setattr(embedder, "encode_device", encode_device)
+    monkeypatch.setattr(DeviceKnnIndex, "add_batch_device", add_batch_device)
+    monkeypatch.setattr(GraphRunner, "__init__", recording_init)
+    pw.clear_graph()
+    docs = pw.io.fs.read(str(tmp_path), format="binary", mode="streaming", with_metadata=True)
+    server = pw.xpacks.llm.VectorStoreServer(docs, embedder=embedder, parser=pw.xpacks.llm.parsers.ParseUtf8(),
+                                             splitter=pw.xpacks.llm.splitters.TokenCountSplitter(max_tokens=20))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    def post(path, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read().decode())
+
+    _build.reset_launches()
+    run = server.run_server(host="127.0.0.1", port=port, threaded=True)
+    try:
+        for _ in range(1200):
+            try:
+                if post("/v1/statistics", {})["file_count"] == 4:
+                    break
+            except OSError:
+                pass
+            torch.cuda.synchronize()
+        query = batches[0][0][1]
+        got = post("/v1/retrieve", {"query": query, "k": 3})
+    finally:
+        runners[-1].engine.stop()
+        run.join(timeout=60)
+        pw.clear_graph()
+    assert not run.is_alive()
+    assert len(batches) == len(adds) == 1 and _build.LAUNCHES["knn_topk_stream"] >= 1
+    assert _build.LAUNCHES["gemm_bias_act"] >= 1 and _build.LAUNCHES["masked_attention"] >= 1
+    texts, pad_to = batches[0]
+    keys, metas = adds[0]
+    lib = DeviceKnnIndex(dim=embedder.get_embedding_dimension(), metric="cos", reserved_space=64, device=cuda)
+    real_add(lib, keys, real_encode(texts, pad_to=pad_to))
+    lib.attach_encoder(embedder._encoder)
+    want = lib.search_texts_batch([query], 3)[0]
+    by_key = {k: (m["path"], t) for k, t, m in zip(keys, texts, metas)}
+    assert [(h["metadata"]["path"], h["text"]) for h in got] == [by_key[k] for k, _ in want]
+    assert got[0]["text"] == query
+    for h, (_, score) in zip(got, want):
+        assert abs(h["dist"] + score) <= 1e-5

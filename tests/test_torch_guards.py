@@ -1,9 +1,11 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or
 pathway_tpu, also when its dataflow engine runs a ``pw.run`` pipeline
-(``pw.io.python.read`` -> embedder -> ``DataIndex`` -> ``pw.io.subscribe``);
-its entry points never fall back to the CPU; its kernels are
-built only at first use on a CUDA tensor; ``chip_smoke.py`` refuses to run
-without a card."""
+(``pw.io.python.read`` -> embedder -> ``DataIndex`` -> ``pw.io.subscribe``)
+or serves the RAG document servers over a folder; it never imports
+``aiohttp`` or ``requests``, which the card's machine lacks (its webserver
+is the standard library's); its entry points never fall back to the CPU;
+its kernels are built only at first use on a CUDA tensor;
+``chip_smoke.py`` refuses to run without a card."""
 
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pathway_tpu_torch")
 
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu)(?:\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu|aiohttp|requests)(?:\.|\s|$)", re.M)
+_FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "pathway_tpu", "aiohttp", "requests")
 
 _PROBE = r"""
 import sys
@@ -68,18 +71,95 @@ rows = pw.debug.table_from_rows(schema=pw.schema_from_types(k=str, v=int), rows=
 counts = rows.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v))
 assert sorted(pw.debug.table_to_dicts(counts)[1]["s"].values()) == [3, 5]
 added = set(sys.modules) - before
-bad = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN)
+print("BAD", bad)
+"""
+
+_SERVER_PROBE = r"""
+import importlib, json, os, pkgutil, sys, tempfile, threading, urllib.request
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+for info in pkgutil.walk_packages(pw.__path__, "pathway_tpu_torch."):
+    importlib.import_module(info.name)
+from pathway_tpu_torch.internals.graph_runner import GraphRunner
+from pathway_tpu_torch.models import sentence_encoder
+from pathway_tpu_torch.models.encoder import EncoderConfig
+from pathway_tpu_torch.models.tokenizer import WordPieceTokenizer
+cfg = EncoderConfig(vocab_size=2048, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64, max_position=32)
+enc = sentence_encoder.SentenceEncoder(config=cfg, max_seq_len=16, max_batch=8, device="cpu")
+enc.tokenizer = WordPieceTokenizer(vocab_size=2048)
+sentence_encoder.SentenceEncoder = lambda *a, **k: enc
+os.environ["PATHWAY_TPU_FS_ONESHOT"] = "1"
+folder = tempfile.mkdtemp()
+for i, text in enumerate(["river stone. cloud light.", "apple graph epoch.", "delta kappa river."]):
+    with open(os.path.join(folder, f"d{i}.txt"), "w") as f:
+        f.write(text)
+runners = []
+real_init = GraphRunner.__init__
+def recording_init(self, *a, **k):
+    real_init(self, *a, **k)
+    runners.append(self)
+GraphRunner.__init__ = recording_init
+def post(port, path, payload):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read().decode())
+def serve(start, port):
+    run = start(port)
+    for _ in range(400):
+        try:
+            if post(port, "/v1/statistics", {})["file_count"] == 3:
+                break
+        except OSError:
+            threading.Event().wait(0.05)
+    hits = post(port, "/v1/retrieve", {"query": "apple graph epoch.", "k": 2})
+    runners[-1].engine.stop()
+    run.join(timeout=30)
+    assert not run.is_alive()
+    pw.clear_graph()
+    return hits
+embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder(device="cpu")
+def vector_store(port):
+    docs = pw.io.fs.read(folder, format="binary", mode="streaming", with_metadata=True)
+    server = pw.xpacks.llm.VectorStoreServer(docs, embedder=embedder, splitter=pw.xpacks.llm.splitters.TokenCountSplitter())
+    return server.run_server(host="127.0.0.1", port=port, threaded=True)
+def document_store(port):
+    docs = pw.io.fs.read(folder, format="binary", mode="streaming", with_metadata=True)
+    factory = pw.indexing.HybridIndexFactory([pw.indexing.BruteForceKnnFactory(embedder=embedder),
+                                              pw.indexing.TantivyBM25Factory()])
+    store = pw.xpacks.llm.DocumentStore(docs, retriever_factory=factory)
+    return pw.xpacks.llm.servers.DocumentStoreServer("127.0.0.1", port, store).run(threaded=True)
+import socket
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+assert serve(vector_store, free_port())[0]["text"] == "apple graph epoch."
+assert serve(document_store, free_port())[0]["text"] == "apple graph epoch."
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN)
 print("BAD", bad)
 """
 
 
-def test_port_run_imports_no_jax_flax_or_reference():
+def _run_probe(probe: str) -> None:
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        [sys.executable, "-c", f"FORBIDDEN = {_FORBIDDEN_MODULES!r}\n" + probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_port_run_imports_no_jax_flax_or_reference():
+    _run_probe(_PROBE)
+
+
+def test_port_servers_import_no_jax_flax_reference_or_http_clients():
+    """Every module of the port imported, then the README's RAG server and a
+    DocumentStoreServer over a hybrid index served over a folder."""
+    _run_probe(_SERVER_PROBE)
 
 
 def test_port_sources_and_chip_smoke_have_no_forbidden_imports():

@@ -8,9 +8,10 @@ every kernel against its plain PyTorch version at the main paths' shapes
 both of its partial passes timed at 16; B5 at head dims 64, 128 and 48;
 the geometries that run zero-padded: attention at head dim 256, LayerNorm
 widths 128 and 312, a GEMM with K 300 and N 900, and whole layers at the
-widths of bert-tiny and TinyBERT-312), times the index's tie-ordered
-top-k beside ``torch.topk``, then drives five paths, each with the launch
-counters set to 0 just before it and read just after:
+widths of bert-tiny and TinyBERT-312; ``knn_topk_sharded`` at 1, 16 and 256
+queries over 4 shards of 2^20 rows on the mesh below), times the index's
+tie-ordered top-k beside ``torch.topk``, then drives six paths, each with
+the launch counters set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
   ``SentenceEncoder.encode_device`` -> ``DeviceKnnIndex.add_batch_device``
@@ -42,7 +43,18 @@ counters set to 0 just before it and read just after:
   ``/v1/statistics`` and ``/v1/inputs``, then 256 new files, 64 modified
   and 64 deleted while serving; gated on the kernels' launches,
   ``add_batch_device`` carrying every ingest epoch, every unfiltered answer
-  equal to the library path's, filters, file counts and the live changes.
+  equal to the library path's, filters, file counts and the live changes;
+* ``mesh_path``: on a ``DeviceMesh`` of every visible card when there are
+  two or more, else 4 data shards on ``cuda:0`` (an explicit device list):
+  ``SentenceEncoder(mesh=)`` -> ``DeviceKnnIndex(reserved_space=2^22,
+  mesh=)`` (4 x 2^20 rows, filled to 15/16, 1 % removed) beside an
+  unsharded twin, 512 single text queries and a batch of 512, then
+  ``pw.run(mesh=)`` over ``DataIndex(BruteForceKnn(embedder=
+  SentenceTransformerEmbedder(mesh=)))`` with 32,768 streamed documents;
+  gated on the per-shard passes and the cross-shard merge launching, hits
+  equal to the twin's, the mesh encoder against the single-device one, the
+  engine's hits equal to the same pipeline without a mesh, and no mesh left
+  installed after the run.
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -144,6 +156,12 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sync_cards(torch, devices=None) -> None:
+    """Wait for every card in ``devices`` (each once), or the current one."""
+    for dev in sorted({str(d) for d in devices}) if devices else [None]:
+        torch.cuda.synchronize(dev)
 
 
 def graph_ms(fn, reps: int = 50) -> float:
@@ -422,6 +440,7 @@ def phase_kernels(torch) -> list[dict]:
     phase_b1_layer(torch, g, "d312", 312, 12, 1200)
 
     entries.extend(knn_entries(torch, g, d))
+    entries.extend(knn_sharded_entries(torch, g, d))
     entries.append(segment_attention_entry(torch, g))
     entries.append(segment_attention_entry(torch, g, rows=128, d=768, h=12, tag="hd64"))
     for hd, heads in ((64, 4), (128, 2), (48, 4)):
@@ -480,6 +499,90 @@ def knn_entries(torch, g, d: int, N: int = 1 << 20) -> list[dict]:
             flops, nbytes, PEAK_F32, cuda_ms(lib, reps=reps), index_agreement=share, shape=[Q, N, d], **extra,
         ))
     del docs, valid, queries
+    torch.cuda.empty_cache()
+    return entries
+
+
+def mesh_devices(torch) -> tuple[object, str]:
+    """The mesh of ``mesh_path`` and the sharded kernel rows: one data
+    shard a card when two or more are visible, else 4 shards on ``cuda:0``
+    from an explicit device list; and a line that says which."""
+    from pathway_tpu_torch.parallel.sharding import make_mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return make_mesh(n_devices=n, model_parallel=1), f"{n} cards, one data shard each"
+    return make_mesh(devices=["cuda:0"] * MESH_ONE_CARD_SHARDS, model_parallel=1), (
+        f"one card: {MESH_ONE_CARD_SHARDS} data shards on cuda:0 (an explicit device list)")
+
+
+def knn_sharded_entries(torch, g, d: int, rows: int = 1 << 20) -> list[dict]:
+    """``knn_topk_sharded`` over the mesh of :func:`mesh_devices` (4 shards
+    of ``rows`` (1,048,576) x ``d`` f32 docs, 10 % dead: each shard is
+    ``main_path``'s B2 shape) at 1 query (each shard's streaming pass), 16
+    and 256 (its tensor-core pass), cos k 16, against its plain version
+    and against the plain top-k over the shards concatenated; the bound is every shard's bytes (or f32 operations) over the distinct
+    cards' rates; the yardstick one ``addmm`` + ``topk`` over the shards
+    concatenated on the first card."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops.knn import _pallas_bias
+
+    try:
+        from pathway_tpu_torch.ops.knn_topk import (
+            knn_topk_reference, knn_topk_sharded, knn_topk_sharded_reference, merge_shard_candidates,
+            topk_agreement,
+        )
+    except ImportError:
+        if not ALT_TREE:
+            raise
+        emit("kernel_skipped", name="knn_topk_sharded", reason="the other tree has no knn_topk_sharded")
+        return []
+    mesh, where = mesh_devices(torch)
+    devs = mesh.data_devices()
+    cards = len(set(devs))
+    doc_shards, bias_shards = [], []
+    for dev in devs:
+        docs = F.normalize(torch.randn(rows, d, device=DEV, generator=g), dim=1).to(dev)
+        valid = (torch.rand(rows, device=DEV, generator=g) >= 0.1).to(dev)
+        doc_shards.append(docs)
+        bias_shards.append(_pallas_bias("cos", docs, valid))
+    cat_docs = torch.cat([t.to(DEV) for t in doc_shards])
+    cat_bias = torch.cat([t.to(DEV) for t in bias_shards])
+    queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
+    N, k, entries = rows * len(devs), 16, []
+    for Q in (1, 16, 256):
+        q = queries[:Q].contiguous()
+        vk, ik = knn_topk_sharded(q, doc_shards, bias_shards, k=k)
+        vp, ip = knn_topk_sharded_reference(q, doc_shards, bias_shards, k=k)
+        share, ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
+        if not ok:
+            raise AssertionError(f"knn_topk_sharded q={Q} disagrees with its plain version ({share})")
+        # and with the plain top-k over the whole slab, which knows nothing of shards
+        vw, iw = knn_topk_reference(q, cat_docs, k=k, bias=cat_bias)
+        whole_share, ok = topk_agreement(vk, ik, vw, iw, atol=1e-5, rtol=1e-5)
+        if not ok:
+            raise AssertionError(f"knn_topk_sharded q={Q} disagrees with the whole slab's plain top-k "
+                                 f"({whole_share})")
+        del vw, iw
+        reps = 20 if Q <= 16 else 5
+        flops, nbytes = 2.0 * Q * N * d, 4 * N * d + 4 * N + 4 * Q * d + 8 * Q * k
+        extra = {"shards": len(devs), "cards": cards, "mesh": where, "whole_slab_agreement": whole_share}
+        if Q > 16:  # the tensor cores' bound: bytes, or 3 TF32 products per f32 one, over the cards
+            extra["bound_3xtf32_ms"] = max(nbytes / HBM_BYTES, 3 * flops / PEAK_TF32) * 1e3 / cards
+        cand_s = torch.stack([vk] * len(devs), dim=1).contiguous()
+        cand_i = torch.stack([ik] * len(devs), dim=1).contiguous()
+        extra["cross_shard_merge_ms"] = cuda_ms(lambda: merge_shard_candidates(cand_s, cand_i, k), reps=20)
+        lib = lambda: torch.topk(torch.addmm(cat_bias, q, cat_docs.T), k, dim=1)  # noqa: E731
+        entries.append(_entry(
+            f"knn_topk_sharded[cos,k={k},q={Q}]", "pathway_tpu_torch/csrc/knn_topk.cu",
+            "pathway_tpu/ops/pallas_knn.py:181", "knn_topk_sharded_merge", (vk - vp).abs().max().item(),
+            cuda_ms(lambda: knn_topk_sharded(q, doc_shards, bias_shards, k=k), reps=reps),
+            cuda_ms(lambda: knn_topk_sharded_reference(q, doc_shards, bias_shards, k=k), reps=2, warmup=1),
+            flops / cards, nbytes / cards, PEAK_F32, cuda_ms(lib, reps=reps), index_agreement=share,
+            shape=[Q, len(devs), rows, d], **extra,
+        ))
+    del doc_shards, bias_shards, cat_docs, cat_bias, queries
     torch.cuda.empty_cache()
     return entries
 
@@ -1702,6 +1805,264 @@ def phase_decode_path(torch, cross) -> dict:
     return launches
 
 
+# mesh_path: shards on one card, index rows (4 x 2^20), documents embedded, text
+# queries, the engine's streamed documents and its single queries
+MESH_ONE_CARD_SHARDS, MESH_ROWS, MESH_DOCS, MESH_QUERIES = 4, 1 << 22, 16_384, 512
+MESH_ENGINE_DOCS, MESH_ENGINE_SINGLES, MESH_ENGINE_EPOCH = 32_768, 128, 1024
+# the mesh encoder against the single-device one: the bound the JAX package
+# holds its own mesh encoder to (tests/test_sharding.py)
+MESH_ENCODER_TOL = dict(rtol=2e-3, atol=1e-3, min_cos=0.9999)
+
+
+def _stream_and_query(torch, pw, embedder, texts: list, singles: list, batch: list, per_epoch: int, cards=None,
+                      **run_kwargs):
+    """``engine_path``'s pipeline: ``texts`` streamed by a subject committing
+    every ``per_epoch`` (each commit waits for its delivery) ->
+    ``DataIndex(BruteForceKnn(embedder=))`` -> ``singles`` one epoch each,
+    then ``batch`` as one epoch, ``query_as_of_now(number_of_matches=10)``,
+    under ``pw.run(**run_kwargs)`` -> (per query [(doc_id, score)], ingest
+    seconds, run seconds); each clock is read after every card of ``cards``
+    (default: the current one) is done."""
+    import threading
+
+    k, n_docs = 10, len(texts)
+    n_epochs = -(-n_docs // per_epoch)
+    cv = threading.Condition()
+    state = {"doc_rows": 0, "answers": {}, "ingest_done": False, "need": 0}
+
+    class Documents(pw.io.python.ConnectorSubject):
+        def run(self):
+            for e in range(n_epochs):
+                for i in range(e * per_epoch, min(n_docs, (e + 1) * per_epoch)):
+                    self.next(doc_id=i, text=texts[i])
+                if e == 0:
+                    state["t0"] = time.perf_counter()
+                self.commit()
+                with cv:
+                    if not cv.wait_for(lambda: state["doc_rows"] >= min(n_docs, (e + 1) * per_epoch), timeout=300):
+                        raise TimeoutError(f"ingest epoch {e} was not delivered")
+            sync_cards(torch, cards)
+            state["ingest_s"] = time.perf_counter() - state["t0"]
+            with cv:
+                state["ingest_done"] = True
+                cv.notify_all()
+
+    class Queries(pw.io.python.ConnectorSubject):
+        def run(self):
+            with cv:
+                cv.wait_for(lambda: state["ingest_done"], timeout=1200)
+            for i, text in enumerate(singles):
+                state["need"] = i + 1
+                self.next(qid=i, text=text)
+                self.commit()
+                with cv:
+                    if not cv.wait_for(lambda: i in state["answers"], timeout=120):
+                        raise TimeoutError(f"query {i} was not answered")
+            state["need"] = len(singles) + len(batch)
+            for i, text in enumerate(batch):
+                self.next(qid=len(singles) + i, text=text)
+            self.commit()
+            with cv:
+                if not cv.wait_for(lambda: len(state["answers"]) == state["need"], timeout=300):
+                    raise TimeoutError("the batch epoch was not answered")
+
+    def on_doc(key, row, time, is_addition):
+        state["doc_rows"] += 1
+
+    def on_epoch_end(time):
+        with cv:
+            cv.notify_all()
+
+    def on_answer(key, row, time, is_addition):
+        with cv:
+            state["answers"][row["qid"]] = list(zip(row["ids"], row["scores"]))
+            if len(state["answers"]) >= state["need"]:
+                cv.notify_all()
+
+    pw.clear_graph()
+    schema = pw.schema_from_types(doc_id=int, text=str)
+    docs = pw.io.python.read(Documents(), schema=schema, autocommit_duration_ms=None)
+    queries = pw.io.python.read(Queries(), schema=pw.schema_from_types(qid=int, text=str), autocommit_duration_ms=None)
+    index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(
+        docs.text, dimensions=embedder.get_embedding_dimension(), reserved_space=n_docs, embedder=embedder))
+    answers = index.query_as_of_now(queries.text, number_of_matches=k).select(
+        qid=queries.qid, ids=pw.this.doc_id, scores=pw.this._pw_index_reply_score)
+    pw.io.subscribe(docs, on_doc, on_time_end=on_epoch_end)
+    pw.io.subscribe(answers, on_answer)
+    try:
+        t0 = time.perf_counter()
+        pw.run(**run_kwargs)
+        sync_cards(torch, cards)
+        run_s = time.perf_counter() - t0
+    finally:
+        pw.clear_graph()
+    if state["doc_rows"] != n_docs:
+        raise AssertionError(f"{state['doc_rows']} of {n_docs} documents delivered")
+    return [state["answers"][i] for i in range(len(singles) + len(batch))], state["ingest_s"], run_s
+
+
+def phase_mesh_path(torch, rows: int = MESH_ROWS, n_docs: int = MESH_DOCS, n_queries: int = MESH_QUERIES,
+                    engine_docs: int = MESH_ENGINE_DOCS, engine_singles: int = MESH_ENGINE_SINGLES) -> dict:
+    """The mesh-sharded index and the data-parallel encoder (MiniLM-L6, d
+    384, bf16, seeded) on the mesh of :func:`mesh_devices`:
+    ``SentenceEncoder(mesh=)`` embeds ``n_docs`` documents into
+    ``DeviceKnnIndex(reserved_space=rows, mesh=)`` (4 shards of 2^20 rows:
+    each shard's B2 shape is ``main_path``'s), seeded unit rows fill it to
+    15/16 (no shard outgrows its slab), 1 % of the keys are removed; an
+    unsharded twin on ``cuda:0`` holds the same keys and rows. ``n_queries``
+    single text queries (each shard's streaming pass) and one batch of them
+    (each shard's tensor-core pass), k 10, on both. Then ``pw.run(mesh=)``
+    streams ``engine_docs`` documents through ``DataIndex(BruteForceKnn(
+    embedder=SentenceTransformerEmbedder(mesh=)))`` with ``engine_singles``
+    single queries and a batch epoch of ``n_queries``. Gates: both per-shard
+    regimes and the cross-shard merge launch; hits equal the twin's
+    (``topk_agreement`` at 1e-5); the mesh encoder against the
+    single-device one at the JAX package's bound; the engine's hits equal
+    those of the same pipeline run without a mesh; no mesh is left
+    installed after the run. Returns the launch counts of the path."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DeviceKnnIndex, SentenceEncoder
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import merge_shard_candidates
+    from pathway_tpu_torch.parallel.mesh import active_mesh
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    t_phase = time.perf_counter()
+    now = time.perf_counter
+    mesh, where = mesh_devices(torch)
+    devs = mesh.data_devices()
+    cards = sorted(set(devs), key=str)
+    dim, k = 384, 10
+    rng = np.random.default_rng(SEED + 21)
+    docs = _synthetic_texts_bulk(rng, n_docs, 20, 220)
+    own = rng.choice(n_docs, n_queries // 2, replace=False)
+    queries = [docs[i] for i in own] + _synthetic_texts(rng, n_queries - len(own), 5, 40)
+
+    enc = SentenceEncoder(max_seq_len=256, max_batch=1024, seed=SEED, mesh=mesh)
+    solo = SentenceEncoder(max_seq_len=256, max_batch=1024, seed=SEED, device=DEV)
+    # gate: the mesh path against the single-device encoder, both through the module path
+    toks = [enc.tokenizer.encode(t, enc.max_seq_len) for t in docs[:256]]
+    got_e, want_e = enc.encode_tokens(toks), solo.encode_tokens(toks)
+    enc_err = float(np.abs(got_e - want_e).max())
+    enc_cos = float((got_e * want_e).sum(axis=1).min())
+    tol = MESH_ENCODER_TOL
+    if not (np.allclose(got_e, want_e, rtol=tol["rtol"], atol=tol["atol"]) and enc_cos > tol["min_cos"]):
+        raise AssertionError(f"mesh encoder disagrees with the single-device one: max abs err {enc_err}, "
+                             f"min cos {enc_cos}")
+    del solo
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    _build.reset_launches()
+    t0 = now()
+    embs = enc.encode_device(docs)
+    sync_cards(torch, cards)
+    embed_s = now() - t0
+    if embs.shape != (n_docs, dim) or not torch.isfinite(embs).all():
+        raise AssertionError(f"bad mesh embeddings {tuple(embs.shape)}")
+    index = DeviceKnnIndex(dim=dim, metric="cos", reserved_space=rows, mesh=mesh)
+    twin = DeviceKnnIndex(dim=dim, metric="cos", reserved_space=rows, device=DEV)
+    fill = rows * 15 // 16
+    g = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    t0 = now()
+    for idx in (index, twin):
+        idx.add_batch_device(list(range(n_docs)), embs)
+    for start in range(n_docs, fill, 1 << 16):
+        keys = list(range(start, min(fill, start + (1 << 16))))
+        filler = F.normalize(torch.randn(len(keys), dim, device=DEV, generator=g), dim=1)
+        for idx in (index, twin):
+            idx.add_batch_device(keys, filler)
+    sync_cards(torch, cards)
+    fill_s = now() - t0
+    gone = rng.choice(fill, fill // 100, replace=False).tolist()
+    for key in gone:
+        index.remove(key)
+        twin.remove(key)
+    if index.shard_capacity * len(devs) != rows or len(index) != fill - len(gone) or len(twin) != len(index):
+        raise AssertionError(f"mesh index holds {len(index)} rows in {len(devs)} x {index.shard_capacity}")
+
+    q_single = [enc.encode_device([text]) for text in queries]
+    lat, lat_twin, got, want = [], [], [], []
+    stream_before = _build.LAUNCHES["knn_topk_stream"]
+    for q1 in q_single:
+        t0 = now()
+        got += index.search_batch(q1, k)
+        lat.append((now() - t0) * 1e3)
+        t0 = now()
+        want += twin.search_batch(q1, k)
+        lat_twin.append((now() - t0) * 1e3)
+    # each single query: one streaming pass a shard, one for the twin
+    sharded_stream = _build.LAUNCHES["knn_topk_stream"] - stream_before - len(q_single)
+    q_batch = enc.encode_device(queries)
+    tc_before = _build.LAUNCHES["knn_topk_tc"]
+    t0 = now()
+    got += index.search_batch(q_batch, k)
+    batch_ms = (now() - t0) * 1e3
+    sharded_tc = _build.LAUNCHES["knn_topk_tc"] - tc_before
+    t0 = now()
+    want += twin.search_batch(q_batch, k)
+    twin_batch_ms = (now() - t0) * 1e3
+    share, ok = _hits_agree(got, want, k)
+    if not ok:
+        raise AssertionError(f"mesh index hits disagree with the unsharded twin's beyond {HIT_TOL} ({share})")
+    self_top1 = float(np.mean([got[i][0][0] == int(own[i]) for i in range(len(own))]))
+    sync_cards(torch, cards)
+    peak = {str(dev): torch.cuda.max_memory_allocated(dev) for dev in cards}
+    del index, twin, embs, q_single, q_batch
+    torch.cuda.empty_cache()
+
+    # the engine, as a user runs it on the mesh
+    texts = _synthetic_texts_bulk(rng, engine_docs, 20, 220)
+    singles = [texts[i] for i in rng.choice(engine_docs, engine_singles, replace=False)]
+    batch = _synthetic_texts(rng, n_queries, 5, 40)
+    embedder = SentenceTransformerEmbedder(mesh=mesh)
+    engine_before = dict(_build.LAUNCHES)
+    hits, ingest_s, run_s = _stream_and_query(torch, pw, embedder, texts, singles, batch, MESH_ENGINE_EPOCH,
+                                              cards=cards, mesh=mesh)
+    sync_cards(torch, cards)
+    launches = dict(_build.LAUNCHES)
+    left = active_mesh()
+    engine_merges = launches.get("knn_topk_sharded_merge", 0) - engine_before.get("knn_topk_sharded_merge", 0)
+    # the same pipeline and embedder without a mesh: one unsharded index
+    plain_hits, plain_ingest_s, _ = _stream_and_query(torch, pw, embedder, texts, singles, batch, MESH_ENGINE_EPOCH)
+    e_share, e_ok = _hits_agree(hits, plain_hits, k)
+
+    t_merge = {}
+    for Q in (1, n_queries):
+        cand_s = torch.randn(Q, len(devs), 16, device=DEV).sort(dim=2, descending=True).values
+        cand_i = torch.randint(0, rows, (Q, len(devs), 16), device=DEV, dtype=torch.int32)
+        t_merge[f"q{Q}"] = cuda_ms(lambda: merge_shard_candidates(cand_s, cand_i, 16), reps=50)
+
+    if not e_ok:
+        raise AssertionError(f"the engine's mesh hits disagree with the unsharded run's ({e_share})")
+    if left is not None:
+        raise AssertionError(f"pw.run(mesh=) left {left} installed")
+    missing = [key for key in ("knn_topk_stream", "knn_topk_tc", "knn_topk_merge", "knn_topk_sharded_merge",
+                               "masked_attention") if launches.get(key, 0) == 0]
+    if missing or sharded_stream < len(devs) * len(queries) or sharded_tc < len(devs) or engine_merges == 0:
+        raise AssertionError(f"mesh_path never launched {missing} (per-shard streaming passes {sharded_stream}, "
+                             f"tensor-core passes {sharded_tc}, {len(devs)} shards; engine merges {engine_merges})")
+    result = dict(
+        mesh=where, shards=len(devs), cards=len(cards), index_rows=rows, filled=fill, removed=len(gone),
+        docs=n_docs, embed_seconds=embed_s, embed_docs_per_s=n_docs / embed_s, fill_seconds=fill_s,
+        encoder_vs_single_max_abs_err=enc_err, encoder_vs_single_min_cos=enc_cos,
+        query=_percentiles(lat), twin_query=_percentiles(lat_twin), queries=len(queries),
+        batch_512_search_ms=batch_ms, twin_batch_512_search_ms=twin_batch_ms, hits_vs_twin_agreement=share,
+        self_query_top1=self_top1, cross_shard_merge_ms=t_merge, per_shard_stream_launches=sharded_stream,
+        per_shard_tc_launches=sharded_tc, engine_docs=engine_docs, engine_ingest_seconds=ingest_s,
+        engine_ingest_docs_per_s=engine_docs / ingest_s, engine_unsharded_ingest_docs_per_s=engine_docs / plain_ingest_s,
+        engine_run_seconds=run_s, engine_queries=len(singles) + len(batch), engine_sharded_merges=engine_merges,
+        engine_hits_vs_unsharded_agreement=e_share, max_memory_allocated=peak, phase_seconds=now() - t_phase,
+        launches=launches,
+    )
+    emit("mesh_path", **result)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -1716,7 +2077,7 @@ def main(argv: list[str]) -> int:
         print("usage: chip_smoke.py [--kernels [TREE]]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if len(argv) == 2:  # the port of another checkout (A/B of two versions)
+    if argv[:1] == ["--kernels"] and len(argv) == 2:  # the port of another checkout (A/B of two versions)
         ALT_TREE = True
         sys.path.insert(0, os.path.abspath(argv[1]))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1738,7 +2099,8 @@ def main(argv: list[str]) -> int:
     launches.update(phase_decode_path(torch, cross))
     launches.update(phase_engine_path(torch))
     launches.update(phase_server_path(torch))
-    for e in entries:  # launches summed over the five paths' counted runs
+    launches.update(phase_mesh_path(torch))
+    for e in entries:  # launches summed over the six paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

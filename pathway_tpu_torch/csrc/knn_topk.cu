@@ -7,6 +7,17 @@
 // enters a list, so a list that finds fewer than k live docs ends in
 // (NEG, -1). Rows at or past n_docs never surface.
 //
+// Also replaces pathway_tpu/ops/pallas_knn.py::knn_topk_sharded, which runs
+// the same kernel on each shard of a row-sharded slab inside a shard_map and
+// takes one top-k over the [q, n_shards * k] candidates. Here each shard runs
+// the two passes below on its own device, its merge writing global indices
+// (base = shard * shard_len) into its k columns of a [q, n_shards, k] block
+// on the first shard's device, and one more knn_merge_kernel launch folds the
+// block: the (score, index) order makes the shards' ties go to the lower
+// global row, as lax.top_k over the shard-major concatenation does. That
+// merge reads q * n_shards * k entries, so the shards' doc bytes bound the
+// whole call, as they bound one shard's.
+//
 // The TPU carries one running top-k per query across a sequential doc axis
 // (dimension_semantics "arbitrary"); Hopper blocks run in no order, so the
 // work is two passes: a partial pass in which each block scores one
@@ -602,8 +613,8 @@ constexpr int MG_UNROLL = 4;
 // splits x k partials (MG_UNROLL loads in flight a lane), then warp 0 folds
 // the warps' lists.
 __global__ void __launch_bounds__(MG_THREADS)
-knn_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i, int splits, int k,
-                 float* __restrict__ out_s, int* __restrict__ out_i) {
+knn_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i, int splits, int k, int base,
+                 int ld_out, float* __restrict__ out_s, int* __restrict__ out_i) {
   __shared__ float ws[MG_WARPS * 64];
   __shared__ int wi[MG_WARPS * 64];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -639,12 +650,12 @@ knn_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_
   }
   const bool live0 = ls[0] > NEG * 0.5f, live1 = ls[1] > NEG * 0.5f;
   if (lane < k) {
-    out_s[q * k + lane] = live0 ? ls[0] : NEG;
-    out_i[q * k + lane] = live0 ? li[0] : -1;
+    out_s[q * ld_out + lane] = live0 ? ls[0] : NEG;
+    out_i[q * ld_out + lane] = live0 ? li[0] + base : -1;
   }
   if (lane + 32 < k) {
-    out_s[q * k + lane + 32] = live1 ? ls[1] : NEG;
-    out_i[q * k + lane + 32] = live1 ? li[1] : -1;
+    out_s[q * ld_out + lane + 32] = live1 ? ls[1] : NEG;
+    out_i[q * ld_out + lane + 32] = live1 ? li[1] + base : -1;
   }
 }
 
@@ -713,12 +724,16 @@ int pt_knn_topk_tc(const void* Q, const void* D, const void* bias, float factor,
   return (int)cudaGetLastError();
 }
 
-// Merge pass: [nq, splits, k] partials -> out_s/out_i [nq, k].
-int pt_knn_topk_merge(const void* part_s, const void* part_i, int nq, int splits, int k, void* out_s, void* out_i,
-                      void* stream) {
-  if (k < 1 || k > 64) return (int)cudaErrorInvalidValue;
+// Merge pass: [nq, splits, k] partials -> out_s/out_i, row q at q * ld_out
+// (ld_out >= k), live indices shifted by base (a shard's first global row;
+// dead entries stay -1). knn_topk_sharded merges each shard with its base
+// into a [nq, n_shards, k] candidate block (ld_out = n_shards * k), then the
+// block once more with splits = n_shards and base 0.
+int pt_knn_topk_merge(const void* part_s, const void* part_i, int nq, int splits, int k, int base, int ld_out,
+                      void* out_s, void* out_i, void* stream) {
+  if (k < 1 || k > 64 || ld_out < k || base < 0) return (int)cudaErrorInvalidValue;
   knn_merge_kernel<<<nq, MG_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const float*)part_s, (const int*)part_i, splits, k, (float*)out_s, (int*)out_i);
+      (const float*)part_s, (const int*)part_i, splits, k, base, ld_out, (float*)out_s, (int*)out_i);
   return (int)cudaGetLastError();
 }
 

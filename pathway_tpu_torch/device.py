@@ -8,6 +8,8 @@ CPU was not asked for, resolution raises; it never falls back.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,10 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def as_current(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (kernels
+    launched through ctypes run on the current device); nothing for the
+    CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

@@ -8,6 +8,14 @@ The run options of planes this package does not hold yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, whether
 they come as keywords or as ``PATHWAY_*`` environment variables; none is
 silently ignored.
+
+``mesh=`` (or ``PATHWAY_MESH``) shards the device-backed indexes over a
+mesh's data axis: the spec is parsed into ``G.run_context["mesh_axes"]``
+first (None when malformed; the resolve then raises), and a ``mesh=``
+argument is resolved and installed as the run-scoped mesh
+(``parallel.mesh.active_mesh``) for the run only, so an enclosing
+``use_mesh`` survives a run without one. ``PATHWAY_MESH`` is read when an
+index is built. ``"auto"`` arms the elastic plane and raises.
 """
 
 from __future__ import annotations
@@ -16,13 +24,15 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..parallel.mesh import parse_mesh_spec, resolve_mesh, use_mesh
+from ..parallel.sharding import CLUSTER_ITEM
 from .graph_runner import GraphRunner
 from .parse_graph import G
 
 # ROADMAP Queue A items of the planes a run option belongs to
 _PLANES = "ROADMAP Queue A item 3 (the index, monitoring and tracing planes)"
 _TIERS = "ROADMAP Queue A item 4 (tiered and tenant indexes)"
-_MULTI = "ROADMAP Queue A item 5 (multi-GPU and multi-process clusters)"
+_MULTI = CLUSTER_ITEM
 _DURABLE = "ROADMAP Queue A item 6 (persistence, recovery and the epoch pipeline)"
 _DECODE = "ROADMAP Queue A item 2 (the decode extensions)"
 _VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
@@ -40,7 +50,6 @@ _UNPORTED_KWARGS = {
     "persistence_config": (None, _DURABLE),
     "recovery": (None, _DURABLE),
     "ingest_workers": (None, _DURABLE),
-    "mesh": (None, _MULTI),
     "elastic": (None, _MULTI),
     "cluster_accept_timeout": (None, _MULTI),
     "cluster_hello_timeout": (None, _MULTI),
@@ -69,7 +78,6 @@ _UNPORTED_ENV = {
     "PATHWAY_PIPELINE_DEPTH": (("1",), _DURABLE),
     "PATHWAY_INGEST_WORKERS": (("0",), _DURABLE),
     "PATHWAY_PROCESSES": (("1",), _MULTI),
-    "PATHWAY_MESH": ((), _MULTI),
     "PATHWAY_ELASTIC": (("0", "false", "no", "off"), _MULTI),
     "PATHWAY_INDEX_TIERS": ((), _TIERS),
     "PATHWAY_TENANCY": (("0", "false", "no", "off"), _TIERS),
@@ -96,6 +104,13 @@ def unported_options(kwargs: dict[str, Any], environ=None) -> list[str]:
     plane is not ported (an option at its "off" value passes)."""
     environ = os.environ if environ is None else environ
     out = []
+    for name, spec in (("pw.run(mesh=...)", kwargs.get("mesh")), ("PATHWAY_MESH", environ.get("PATHWAY_MESH"))):
+        try:
+            auto = bool((parse_mesh_spec(spec) or {}).get("auto"))
+        except ValueError:
+            auto = False  # a malformed spec fails when the run resolves it
+        if auto:
+            out.append(f"{name} 'auto' arms the elastic plane: it needs {_MULTI}")
     for name, value in kwargs.items():
         if name == "pipeline_depth":
             if value is not None and int(value) > 1:
@@ -125,6 +140,7 @@ def run(
     runtime_typechecking: bool = True,
     terminate_on_error: bool = True,
     pipeline_depth: int | None = None,
+    mesh: Any = None,
     **kwargs: Any,
 ) -> RunResult:
     """Execute all registered outputs/subscriptions to completion (static
@@ -136,13 +152,30 @@ def run(
     error log. ``debug`` and ``runtime_typechecking`` are accepted as
     the reference accepts them. Every other keyword of the reference's
     ``pw.run`` belongs to a plane not yet ported and raises
-    ``NotImplementedError`` unless it is at its "off" value."""
+    ``NotImplementedError`` unless it is at its "off" value.
+
+    ``mesh``: a ``DeviceMesh`` or a spec (``8``, ``"4x2"``, ...; it
+    resolves on the cards) that the device-backed indexes built in this run
+    shard over."""
     unknown = sorted(set(kwargs) - set(_UNPORTED_KWARGS))
     if unknown:
         raise TypeError(f"pw.run() got unexpected keyword arguments {unknown}")
-    missing = unported_options({**kwargs, "pipeline_depth": pipeline_depth})
+    missing = unported_options({**kwargs, "pipeline_depth": pipeline_depth, "mesh": mesh})
     if missing:
         raise NotImplementedError("; ".join(missing))
+    try:
+        mesh_axes = parse_mesh_spec(mesh if mesh is not None else (os.environ.get("PATHWAY_MESH") or None))
+    except ValueError:
+        mesh_axes = None
+    G.run_context = {"mesh_axes": mesh_axes}
+    run_mesh = resolve_mesh(mesh)
+    if run_mesh is None:
+        return _run_graph(terminate_on_error)
+    with use_mesh(run_mesh):
+        return _run_graph(terminate_on_error)
+
+
+def _run_graph(terminate_on_error: bool) -> RunResult:
     runner = GraphRunner(n_workers=_threads())
     runner.engine.terminate_on_error = terminate_on_error
     for r in runner._replicas:

@@ -18,8 +18,18 @@ reference does. ``CrossEncoderScorer`` scores (query, doc) text pairs
 through ``CrossEncoderHead`` (kernel B3).
 
 The reference's donated device ring for the id/length uploads becomes a
-pinned host tensor and a ``non_blocking`` copy. The mesh path comes with a
-later slice.
+pinned host tensor and a ``non_blocking`` copy.
+
+Data-parallel embedding (``mesh=``, a ``parallel.sharding.DeviceMesh`` or a
+spec): one copy of the module's parameters on each data device, all made
+from the same state dict. Rows are padded to a multiple of the data axis and
+split contiguously over the data devices, as ``P("data")`` splits them, and
+run the module path (``TextEncoder``, attention B3) as the reference's mesh
+path does, not the whole-layer path; every device's launches are issued
+before any result is read, and the embeddings are gathered on the first
+data device. Batches round down to a multiple of the data axis; the
+packers step aside. The reference replicates over the mesh's ``model``
+axis, which changes no answer; the port uses ``devices[s][0]``.
 """
 
 from __future__ import annotations
@@ -30,14 +40,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_current, resolve_device
 from ..ops.fused_layer import encoder_forward, prepare_params, use_fused_encoder
+from ..parallel.mesh import resolve_mesh
 from ..weights import load_hf_weights
 from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_SEQ_BUCKETS,
     bucket,
     chunks,
+    effective_max_batch,
     pad_token_batch,
 )
 from .encoder import CrossEncoderHead, EncoderConfig, TextEncoder, init_cross_encoder_params, init_params
@@ -97,15 +109,21 @@ class SentenceEncoder:
         seed: int = 0,
         device=None,
         params: dict | None = None,
+        mesh=None,
     ):
         """``params``: a TextEncoder state dict (e.g. from
         ``weights.from_jax_params``); without it, ``init_params(config,
         seed)`` overlaid with a local HF checkpoint in ``checkpoint_dir`` (or
         ``PATHWAY_TPU_CKPT``) when it holds one. That directory also
-        supplies ``vocab.txt`` for the tokenizer."""
+        supplies ``vocab.txt`` for the tokenizer. ``mesh``: embed
+        data-parallel over its data devices (a spec resolves on the cards,
+        or on the CPU with ``device="cpu"``); ``self.device`` is then the
+        first data device."""
         if config is None:
             config = EncoderConfig.minilm_l12() if "l12" in model.lower() else EncoderConfig.minilm_l6()
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, device=device)
+        self._data_devices = [resolve_device(d) for d in (self.mesh.data_devices() if self.mesh else [device])]
+        self.device = self._data_devices[0]
         self.cfg = config
         self.model_name = model
         self.max_seq_len = max_seq_len
@@ -118,33 +136,61 @@ class SentenceEncoder:
         # the whole-layer path's weights, cast once (biases stay f32 there)
         self.params = prepare_params(self.module.state_dict(), config)
         self.module.cast_for_inference()
+        # one module a data device, each made from the same state dict and
+        # cast as the first one is
+        self._replicas = {self.device: self.module}
+        for dev in self._data_devices[1:]:
+            if dev not in self._replicas:
+                replica = TextEncoder(config).cast_for_inference()
+                replica.load_state_dict(self.module.state_dict())
+                self._replicas[dev] = replica.to(dev).eval()
         self.tokenizer = default_tokenizer(checkpoint_dir)
 
     @property
     def dim(self) -> int:
         return self.cfg.hidden_size
 
-    def _wire(self, arr: np.ndarray) -> torch.Tensor:
+    def _wire(self, arr: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
         """Host array -> device tensor; on CUDA through a pinned buffer
         and a non_blocking copy, so the upload overlaps device work."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
     def _run_padded(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """The module path over (B, L) ids and their mask. On a mesh the rows
+        pad to a multiple of the data axis and split contiguously over the
+        data devices; every device's forward is issued before any is read,
+        and the embeddings gather on the first data device."""
+        if self.mesh is None:
+            with torch.no_grad():
+                return self.module(self._wire(ids), self._wire(mask))
+        n = len(self._data_devices)
+        pad = (-ids.shape[0]) % n
+        if pad:
+            ids = np.concatenate([ids, np.zeros((pad, ids.shape[1]), ids.dtype)])
+            mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), bool)])
+        per = ids.shape[0] // n
+        outs = []
         with torch.no_grad():
-            return self.module(self._wire(ids), self._wire(mask))
+            for s, dev in enumerate(self._data_devices):
+                rows = slice(s * per, (s + 1) * per)
+                with as_current(dev):
+                    outs.append(self._replicas[dev](self._wire(ids[rows], dev), self._wire(mask[rows], dev)))
+        return torch.cat([o.to(self.device) for o in outs], dim=0)
 
     def encode_tokens(self, toks: Sequence[list[int]]) -> np.ndarray:
         """Embed pre-tokenized sequences through the TextEncoder module."""
         if not len(toks):
             return np.zeros((0, self.dim), np.float32)
         order = sorted(range(len(toks)), key=lambda i: len(toks[i]))
+        batch = effective_max_batch(self.max_batch, len(self._data_devices))
         pending = []
-        for group in chunks(order, self.max_batch):
+        for group in chunks(order, batch):
             ids, mask, _, n = pad_token_batch(
-                [toks[i] for i in group], pad_id=self.tokenizer.pad_id, max_batch=self.max_batch
+                [toks[i] for i in group], pad_id=self.tokenizer.pad_id, max_batch=batch
             )
             pending.append((group, n, self._run_padded(ids, mask)))
         out = np.empty((len(toks), self.dim), np.float32)
@@ -166,7 +212,7 @@ class SentenceEncoder:
         matrix. Returns [(group_indices, n_real, device_embeddings)]."""
         n = len(lens)
         order = np.argsort(lens, kind="stable")  # dense length buckets
-        batch = self.max_batch
+        batch = effective_max_batch(self.max_batch, len(self._data_devices))
         pending = []
         for start in range(0, n, batch):
             group = order[start : start + batch]
@@ -180,7 +226,11 @@ class SentenceEncoder:
                     ids = np.pad(ids, ((0, B - ng), (0, 0)))
             ln = np.zeros((ids.shape[0],), np.int32)
             ln[:ng] = lens[group]
-            pending.append((group, ng, self._run_group(ids, ln)))
+            if self.mesh is None:
+                pending.append((group, ng, self._run_group(ids, ln)))
+            else:  # the reference's mesh path: the module over a host-built mask
+                mask = np.arange(ids.shape[1])[None, :] < ln[:, None]
+                pending.append((group, ng, self._run_padded(ids, mask)))
         return pending
 
     def _run_group(self, ids: np.ndarray, lens: np.ndarray) -> torch.Tensor:
@@ -273,7 +323,7 @@ class SentenceEncoder:
         of at most PACK_ROWS (the reference pads to a multiple of PACK_ROWS
         for its fixed scan shape). Pooling is a segment sum with
         ``index_add_`` in f32."""
-        if self.cfg.vocab_size >= 32768:
+        if self.mesh is not None or self.cfg.vocab_size >= 32768:
             return None
         if not self.cfg.normalize or self.cfg.pooling != "mean":
             return None  # packed pooling bakes mean + normalize in
@@ -342,7 +392,7 @@ class SentenceEncoder:
         """Length-sorted fast path: rows sort by length once and split into
         max_batch groups, each padded to its own seq bucket; the groups
         dispatch back to back and stay on the device."""
-        if self.cfg.vocab_size >= 32768:
+        if self.mesh is not None or self.cfg.vocab_size >= 32768:
             return None
         n = len(lens)
         B = self.max_batch

@@ -59,7 +59,7 @@ SOURCES: dict[str, dict[str, tuple]] = {
     "knn_topk.cu": {
         "pt_knn_topk_stream": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         "pt_knn_topk_tc": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-        "pt_knn_topk_merge": (_P, _P, _I, _I, _I, _P, _P, _P),
+        "pt_knn_topk_merge": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     },
 }
 

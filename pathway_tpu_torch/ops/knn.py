@@ -1,12 +1,12 @@
-"""Device-resident brute-force KNN index, single device.
+"""Device-resident brute-force KNN index, on one device or over a mesh.
 
-Port of ``pathway_tpu/ops/knn.py::DeviceKnnIndex`` (the part without a
-mesh). A capacity-doubling ``[capacity, dim]`` float32 slab, a validity
-mask and a score bias live on the device; a host mirror keeps keys,
-metadata and (lazily) the rows. add/remove stage on the host and sync
-before the next search; ``add_batch_device`` scatters embeddings that
-never visit the host. Updates run as in-place tensor ops (the reference
-donates and replaces its arrays; here the slab is mutated where it lies).
+Port of ``pathway_tpu/ops/knn.py::DeviceKnnIndex``. A capacity-doubling
+``[capacity, dim]`` float32 slab, a validity mask and a score bias live on
+the device; a host mirror keeps keys, metadata and (lazily) the rows.
+add/remove stage on the host and sync before the next search;
+``add_batch_device`` scatters embeddings that never visit the host.
+Updates run as in-place tensor ops (the reference donates and replaces its
+arrays; here the slab is mutated where it lies).
 
 Search at fetch <= 64 on a CUDA slab runs the fused top-k kernel
 (``ops/knn_topk.py``, kernel B2); wider fetches and CPU slabs use the
@@ -15,9 +15,24 @@ ascending slot as the reference's ``lax.top_k`` does.
 ``cos`` rows are normalised on add and queries on search; ``l2`` scores
 are ``-|q - x|^2``; dead slots never surface.
 
-Left for later slices: the mesh, freshness, index metrics, the HBM
-ledger, tracing, the flight recorder, chip-time accounting and the
-elastic reshard export/import.
+Mesh scale-out (``mesh=``, a ``parallel.sharding.DeviceMesh``, or
+``pw.run(mesh=...)`` through the stdlib factories): the index becomes one
+logical index sharded over the mesh's ``data`` axis. Its global slot range
+``[0, n_shards * shard_capacity)`` is split contiguously; shard ``s``'s
+slab, mask and bias live on ``mesh.data_devices()[s]``. Keys route to
+their shard by the engine's key rule (``engine.value.shard_of``), each
+shard keeps its own free list, and growth doubles every shard's slab in
+place, so global slot ``g`` moves to ``(g // c) * 2c + g % c``. Search at
+fetch <= 64 on CUDA runs ``knn_topk_sharded`` (B2 per shard, one
+cross-shard merge); otherwise a per-shard plain top-k re-based to global
+slots and one top-k over the ``[q, n_shards * k]`` candidates. The
+reference replicates the index over the mesh's ``model`` axis; that
+changes no answer, so the port places shard ``s`` on ``devices[s][0]``
+only. ``mesh=None`` is the single-device index. The elastic reshard
+(``spawn_like``, ``reshard_*``) raises until that plane is ported.
+
+Left for later slices: freshness, index metrics, the HBM ledger, tracing,
+the flight recorder and chip-time accounting.
 """
 
 from __future__ import annotations
@@ -28,9 +43,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_current, resolve_device
+from ..parallel.sharding import CLUSTER_ITEM
 from .knn_topk import NEG as _PNEG
-from .knn_topk import KERNEL_MAX_K, knn_topk
+from .knn_topk import KERNEL_MAX_K, knn_topk, knn_topk_sharded
 
 _NEG = -3.0e38
 
@@ -48,6 +64,18 @@ class StaleGeneration(RuntimeError):
         )
         self.index_name = name
         self.generation = generation
+
+
+def _shard_of_key(key, n_shards: int) -> int:
+    """Owning shard of an index key: the engine's key hash (low bits mod
+    n), so an index over the mesh and a table over workers agree."""
+    if n_shards <= 1:
+        return 0
+    from ..engine.value import ref_scalar, shard_of
+
+    if isinstance(key, (int, np.integer)) and not isinstance(key, bool):
+        return shard_of(int(key), n_shards)
+    return shard_of(int(ref_scalar(key)), n_shards)
 
 
 def _topk_lower_index(scores: torch.Tensor, k: int):
@@ -106,15 +134,21 @@ def _pallas_bias(metric: str, matrix, valid):
     return b
 
 
+def _l2_shift(metric: str, vals, queries):
+    """The kernels score L2 as ``2 q.x - |x|^2``; subtract ``|q|^2`` from
+    the live entries."""
+    if metric != "l2":
+        return vals
+    qq = (queries * queries).sum(dim=1, keepdim=True)
+    return torch.where(vals > _PNEG / 2, vals - qq, vals)
+
+
 def _pallas_topk(metric: str, matrix, valid, queries, k: int, bias=None):
     if bias is None:
         bias = _pallas_bias(metric, matrix, valid)
     factor = 2.0 if metric == "l2" else 1.0
     vals, idx = knn_topk(queries.contiguous(), matrix, k=k, bias=bias, factor=factor)
-    if metric == "l2":
-        qq = (queries * queries).sum(dim=1, keepdim=True)
-        vals = torch.where(vals > _PNEG / 2, vals - qq, vals)
-    return vals, idx
+    return _l2_shift(metric, vals, queries), idx
 
 
 def _k_bucket(k: int) -> int:
@@ -124,8 +158,13 @@ def _k_bucket(k: int) -> int:
     return b
 
 
+def _take(t: torch.Tensor, sel) -> torch.Tensor:
+    return t if isinstance(sel, slice) else t.index_select(0, torch.as_tensor(sel, device=t.device))
+
+
 class DeviceKnnIndex:
-    """Growable device slab + host-side key/metadata mirror."""
+    """Growable device slab (one per shard on a mesh) + host-side key and
+    metadata mirror."""
 
     def __init__(
         self,
@@ -134,32 +173,60 @@ class DeviceKnnIndex:
         reserved_space: int = 1024,
         name: str | None = None,
         device=None,
+        mesh=None,
     ):
         if metric not in ("cos", "l2", "ip"):
             raise ValueError(f"unknown metric {metric!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        devices = mesh.data_devices() if mesh is not None else [device]
+        self.shard_devices = [resolve_device(d) for d in devices]
+        self.device = self.shard_devices[0]
+        self.n_shards = len(self.shard_devices)
         self.dim = dim
         self.metric = metric
         self.name = name if name is not None else f"knn{next(_NAME_SEQ)}"
-        self.capacity = max(64, int(reserved_space))
+        # one logical slot range [0, n_shards * shard_capacity), split
+        # contiguously: shard s holds [s * c, (s + 1) * c)
+        self.shard_capacity = -(-max(64, int(reserved_space)) // self.n_shards)
+        self.capacity = self.n_shards * self.shard_capacity
         self._host = np.zeros((self.capacity, dim), np.float32)
         self._valid_host = np.zeros((self.capacity,), bool)
         self._keys: list[Any] = [None] * self.capacity
         self._slot_of: dict[Any, int] = {}
         self._meta: dict[Any, Any] = {}
-        self._free: list[int] = list(range(self.capacity - 1, -1, -1))  # low slots first
+        c = self.shard_capacity
+        # per-shard free lists, low slots first
+        self._free_shard: list[list[int]] = [
+            list(range((s + 1) * c - 1, s * c - 1, -1)) for s in range(self.n_shards)
+        ]
         self._full = True  # device needs a full host upload
         self._host_stale = False  # device rows newer than host mirror
         self._pending: dict[int, np.ndarray | None] = {}  # slot -> vec | tombstone
-        self._dev_matrix: torch.Tensor | None = None
-        self._dev_valid: torch.Tensor | None = None
-        self._dev_bias: torch.Tensor | None = None
+        self._slab: list[list[torch.Tensor]] | None = None  # per shard [matrix, valid, bias]
         self._encoder = None
         self.generation = 0
         self._fenced = False
 
     def __len__(self) -> int:
         return len(self._slot_of)
+
+    # the single slab of an index without a mesh
+    @property
+    def _dev_matrix(self) -> torch.Tensor | None:
+        return self._shard_part(0)
+
+    @property
+    def _dev_valid(self) -> torch.Tensor | None:
+        return self._shard_part(1)
+
+    @property
+    def _dev_bias(self) -> torch.Tensor | None:
+        return self._shard_part(2)
+
+    def _shard_part(self, part: int) -> torch.Tensor | None:
+        if self.n_shards != 1:
+            raise AttributeError("a mesh index holds one slab per shard (_slab)")
+        return None if self._slab is None else self._slab[0][part]
 
     def _check_fence(self) -> None:
         if self._fenced:
@@ -173,9 +240,25 @@ class DeviceKnnIndex:
             self.generation = max(self.generation, int(generation))
 
     def _alloc_slots(self, keys) -> list[int]:
-        while len(self._free) < len(keys):
+        """Route every key to its shard, grow until each shard can hold its
+        share, then pop: growth remaps the global slots of a mesh index, so
+        it comes before any slot of this batch is handed out."""
+        if self.n_shards == 1:
+            while len(self._free_shard[0]) < len(keys):
+                self._grow()
+            free = self._free_shard[0]
+            return [free.pop() for _ in keys]
+        shards = np.fromiter((_shard_of_key(k, self.n_shards) for k in keys), np.int64, len(keys))
+        need = np.bincount(shards, minlength=self.n_shards)
+        while any(len(self._free_shard[s]) < need[s] for s in range(self.n_shards)):
             self._grow()
-        return [self._free.pop() for _ in keys]
+        free = self._free_shard
+        return [free[s].pop() for s in shards.tolist()]
+
+    def _live_docs_shard(self) -> list[int]:
+        """Live rows per shard, from the validity mask."""
+        v = self._valid_host.reshape(self.n_shards, self.shard_capacity)
+        return [int(n) for n in v.sum(axis=1)]
 
     # --- updates (engine diff protocol) ---
 
@@ -221,20 +304,22 @@ class DeviceKnnIndex:
                 self._pending[slot] = vecs[i]
 
     def add_batch_device(self, keys, dev_vectors: torch.Tensor, metadatas=None) -> None:
-        """Bulk insert of embeddings already on the index's device (e.g.
-        ``SentenceEncoder.encode_device`` output): one scatter, the
-        vectors never visit the host. ``dev_vectors`` may have more rows
-        than ``keys``; the extra rows drop."""
+        """Bulk insert of embeddings already on the index's (first) device
+        (e.g. ``SentenceEncoder.encode_device`` output): the vectors never
+        visit the host; on a mesh each shard's rows go to its device with
+        one ``index_select`` and one copy. ``dev_vectors`` may have more
+        rows than ``keys``; the extra rows drop."""
         n = len(keys)
         if n == 0:
             return
         self._check_fence()
         if dev_vectors.device != self.device:
             raise ValueError(f"dev_vectors on {dev_vectors.device}, index on {self.device}")
-        if self._full or self._dev_matrix is None:
+        if self._full or self._slab is None:
             if not self._slot_of and not self._pending:
-                # cold start on an empty index: make the slab on the device
-                self._dev_matrix, self._dev_valid, self._dev_bias = self._empty(self.capacity)
+                # cold start on an empty index: make the slabs on the devices
+                c = self.shard_capacity
+                self._slab = [self._empty(dev, c) for dev in self.shard_devices]
                 self._full = False
                 self._pending.clear()
             else:
@@ -244,7 +329,7 @@ class DeviceKnnIndex:
                 self.remove(key)
         alloc = self._alloc_slots(keys)
         self._flush_pending()
-        self._scatter_dev(alloc, dev_vectors[:n])
+        self._scatter_dev(np.asarray(alloc, np.int64), dev_vectors[:n])
         self._valid_host[np.asarray(alloc)] = True
         self._host_stale = True
         for i, (slot, key) in enumerate(zip(alloc, keys)):
@@ -261,42 +346,89 @@ class DeviceKnnIndex:
         self._valid_host[slot] = False
         self._keys[slot] = None
         self._meta.pop(key, None)
-        self._free.append(slot)
+        self._free_shard[slot // self.shard_capacity].append(slot)
         if not self._full:
             self._pending[slot] = None
 
-    # --- device slab ---
+    # --- elastic reshard protocol: not ported ---
 
-    def _empty(self, cap: int):
-        return (
-            torch.zeros((cap, self.dim), dtype=torch.float32, device=self.device),
-            torch.zeros((cap,), dtype=torch.bool, device=self.device),
-            torch.full((cap,), _PNEG, dtype=torch.float32, device=self.device),
-        )
+    def spawn_like(self, mesh, reserved_space: int | None = None):
+        raise NotImplementedError(f"DeviceKnnIndex.spawn_like needs {CLUSTER_ITEM}")
+
+    def reshard_export_chunks(self, chunk_rows: int):
+        raise NotImplementedError(f"DeviceKnnIndex.reshard_export_chunks needs {CLUSTER_ITEM}")
+
+    def reshard_import_chunk(self, chunk: dict) -> None:
+        raise NotImplementedError(f"DeviceKnnIndex.reshard_import_chunk needs {CLUSTER_ITEM}")
+
+    def reshard_finish(self) -> None:
+        raise NotImplementedError(f"DeviceKnnIndex.reshard_finish needs {CLUSTER_ITEM}")
+
+    # --- device slabs ---
+
+    def _empty(self, device: torch.device, rows: int) -> list[torch.Tensor]:
+        return [
+            torch.zeros((rows, self.dim), dtype=torch.float32, device=device),
+            torch.zeros((rows,), dtype=torch.bool, device=device),
+            torch.full((rows,), _PNEG, dtype=torch.float32, device=device),
+        ]
 
     def _grow(self) -> None:
-        old = self.capacity
-        self.capacity *= 2
-        self._host = np.concatenate([self._host, np.zeros((old, self.dim), np.float32)])
-        self._valid_host = np.concatenate([self._valid_host, np.zeros((old,), bool)])
-        self._keys.extend([None] * old)
-        self._free.extend(range(self.capacity - 1, old - 1, -1))
-        if self._dev_matrix is not None and not self._full:
-            # double the resident slab on the device; pending slot updates
-            # stay valid (old slots keep their positions)
-            m, v, b = self._empty(self.capacity)
-            m[:old] = self._dev_matrix
-            v[:old] = self._dev_valid
-            b[:old] = self._dev_bias
-            self._dev_matrix, self._dev_valid, self._dev_bias = m, v, b
+        old = self.shard_capacity
+        self.shard_capacity *= 2
+        self.capacity = self.n_shards * self.shard_capacity
+        if self.n_shards == 1:
+            self._host = np.concatenate([self._host, np.zeros((old, self.dim), np.float32)])
+            self._valid_host = np.concatenate([self._valid_host, np.zeros((old,), bool)])
+            self._keys.extend([None] * old)
+            self._free_shard[0].extend(range(self.capacity - 1, old - 1, -1))
+        else:
+            self._remap_grow(old)
+        if self._slab is not None and not self._full:
+            # double every resident slab in place on its device: a shard's
+            # rows keep their local positions, so staged updates (remapped
+            # above) stay valid
+            for part in self._slab:
+                grown = self._empty(part[0].device, self.shard_capacity)
+                for new, cur in zip(grown, part):
+                    new[:old] = cur
+                part[:] = grown
+
+    def _remap_grow(self, old: int) -> None:
+        """Host mirror of the sharded growth: widen every shard from ``old``
+        to ``2 * old`` rows; global slot g -> (g // old) * 2 old + g % old."""
+        S, new = self.n_shards, self.shard_capacity
+        host = self._host.reshape(S, old, self.dim)
+        self._host = np.concatenate([host, np.zeros((S, old, self.dim), np.float32)], axis=1).reshape(
+            self.capacity, self.dim
+        )
+        valid = self._valid_host.reshape(S, old)
+        self._valid_host = np.concatenate([valid, np.zeros((S, old), bool)], axis=1).reshape(self.capacity)
+
+        def remap(g: int) -> int:
+            return (g // old) * new + g % old
+
+        keys: list[Any] = [None] * self.capacity
+        for g, key in enumerate(self._keys):
+            if key is not None:
+                keys[remap(g)] = key
+        self._keys = keys
+        self._slot_of = {k: remap(g) for k, g in self._slot_of.items()}
+        self._pending = {remap(g): vec for g, vec in self._pending.items()}
+        self._free_shard = [[remap(g) for g in free] for free in self._free_shard]
+        for s in range(S):
+            # new rows join each shard's LIFO free list low slots first, as
+            # the single-shard growth extends its list
+            self._free_shard[s].extend(range((s + 1) * new - 1, s * new + old - 1, -1))
 
     def _refresh_host(self) -> None:
         """Pull device-resident rows into the host mirror, overlaying
         host-staged pending updates (newer than the device copy)."""
-        if not self._host_stale or self._dev_matrix is None:
+        if not self._host_stale or self._slab is None:
             return
-        fetched = self._dev_matrix.cpu().numpy()[: len(self._host)]
-        self._host[: len(fetched)] = fetched
+        c = self.shard_capacity
+        for s, part in enumerate(self._slab):
+            self._host[s * c : (s + 1) * c] = part[0].cpu().numpy()
         for slot, vec in self._pending.items():
             if vec is not None:
                 self._host[slot] = vec
@@ -304,16 +436,19 @@ class DeviceKnnIndex:
 
     def _upload_full(self) -> None:
         self._refresh_host()
-        # copies, also on the CPU: the slab is mutated in place and must not
-        # alias the host mirror
-        self._dev_matrix = torch.from_numpy(self._host).to(self.device, copy=True)
-        self._dev_valid = torch.from_numpy(self._valid_host).to(self.device, copy=True)
-        self._dev_bias = _pallas_bias(self.metric, self._dev_matrix, self._dev_valid)
+        c = self.shard_capacity
+        self._slab = []
+        for s, dev in enumerate(self.shard_devices):
+            # copies, also on the CPU: the slab is mutated in place and must
+            # not alias the host mirror
+            m = torch.from_numpy(self._host[s * c : (s + 1) * c]).to(dev, copy=True)
+            v = torch.from_numpy(self._valid_host[s * c : (s + 1) * c]).to(dev, copy=True)
+            self._slab.append([m, v, _pallas_bias(self.metric, m, v)])
         self._full = False
         self._pending.clear()
 
     def _sync(self) -> None:
-        if self._full or self._dev_matrix is None:
+        if self._full or self._slab is None:
             self._upload_full()
             return
         if not self._pending:
@@ -340,35 +475,55 @@ class DeviceKnnIndex:
                 rows[i] = v
         self._scatter(slots, rows, np.array([v is not None for v in vecs]))
 
+    def _by_shard(self, slots: np.ndarray):
+        """(shard, the positions in ``slots`` it owns, their local slots)
+        for every shard that ``slots`` touch."""
+        if self.n_shards == 1:
+            yield 0, slice(None), slots
+            return
+        owner = slots // self.shard_capacity
+        for s in np.unique(owner).tolist():
+            sel = np.nonzero(owner == s)[0]
+            yield s, sel, slots[sel] - s * self.shard_capacity
+
     def _scatter(self, slots: np.ndarray, rows: np.ndarray, flags: np.ndarray) -> None:
         """Write staged rows (flags True) and tombstones (flags False) into
-        the slab, its validity and its bias, in place."""
-        sl = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        rows_d = torch.from_numpy(rows).to(self.device)
-        live = torch.from_numpy(flags).to(self.device)
-        self._dev_matrix[sl] = rows_d
-        self._dev_valid[sl] = live
-        b = torch.where(live, 0.0, _PNEG).to(torch.float32)
-        if self.metric == "l2":
-            b = torch.where(live, b - (rows_d * rows_d).sum(dim=1), b)
-        self._dev_bias[sl] = b
+        the owning shards' slabs, validity and bias, in place."""
+        for s, sel, local in self._by_shard(slots):
+            matrix, valid, bias = self._slab[s]
+            dev = matrix.device
+            sl = torch.as_tensor(local, dtype=torch.long, device=dev)
+            rows_d = torch.from_numpy(rows[sel]).to(dev)
+            live = torch.from_numpy(flags[sel]).to(dev)
+            matrix[sl] = rows_d
+            valid[sl] = live
+            b = torch.where(live, 0.0, _PNEG).to(torch.float32)
+            if self.metric == "l2":
+                b = torch.where(live, b - (rows_d * rows_d).sum(dim=1), b)
+            bias[sl] = b
 
-    def _scatter_dev(self, slots: list[int], vecs: torch.Tensor) -> None:
-        """Write device-resident rows into the slab in place (normalised
-        for cos, their -|x|^2 bias for l2)."""
+    def _scatter_dev(self, slots: np.ndarray, vecs: torch.Tensor) -> None:
+        """Write device-resident rows into the owning shards' slabs in place
+        (normalised for cos, their -|x|^2 bias for l2)."""
         vecs = vecs.to(torch.float32)
         if self.metric == "cos":
             norms = torch.sqrt((vecs * vecs).sum(dim=1, keepdim=True))
             vecs = vecs / torch.clamp(norms, min=1e-12)
-        sl = torch.as_tensor(np.asarray(slots), dtype=torch.long, device=self.device)
-        self._dev_matrix[sl] = vecs
-        self._dev_valid[sl] = True
-        self._dev_bias[sl] = -(vecs * vecs).sum(dim=1) if self.metric == "l2" else 0.0
+        for s, sel, local in self._by_shard(slots):
+            matrix, valid, bias = self._slab[s]
+            dev = matrix.device
+            rows = _take(vecs, sel).to(dev)
+            sl = torch.as_tensor(local, dtype=torch.long, device=dev)
+            matrix[sl] = rows
+            valid[sl] = True
+            bias[sl] = -(rows * rows).sum(dim=1) if self.metric == "l2" else 0.0
 
     def _scatter_tomb(self, slots: np.ndarray) -> None:
-        sl = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        self._dev_valid[sl] = False
-        self._dev_bias[sl] = _PNEG
+        for s, _, local in self._by_shard(slots):
+            _, valid, bias = self._slab[s]
+            sl = torch.as_tensor(local, dtype=torch.long, device=valid.device)
+            valid[sl] = False
+            bias[sl] = _PNEG
 
     # --- search ---
 
@@ -390,11 +545,46 @@ class DeviceKnnIndex:
         return torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
 
     def _device_topk(self, q: torch.Tensor, fetch: int):
+        if self.n_shards == 1:
+            matrix, valid, bias = self._slab[0]
+            if _pallas_eligible(self.metric, fetch, self.device):
+                return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
+            return _topk_fn(self.metric)(matrix, valid, q, fetch)
         if _pallas_eligible(self.metric, fetch, self.device):
-            return _pallas_topk(
-                self.metric, self._dev_matrix, self._dev_valid, q, fetch, bias=self._dev_bias
+            vals, idx = knn_topk_sharded(
+                q.contiguous(), [p[0] for p in self._slab], [p[2] for p in self._slab], k=fetch,
+                factor=2.0 if self.metric == "l2" else 1.0,
             )
-        return _topk_fn(self.metric)(self._dev_matrix, self._dev_valid, q, fetch)
+            return _l2_shift(self.metric, vals, q), idx
+        return self._sharded_topk(q, fetch)
+
+    def _sharded_topk(self, q: torch.Tensor, fetch: int):
+        """The plain two-phase search over the shards: each shard's top
+        ``min(fetch, rows)`` re-based to global slots, then one top-k over
+        the shard-major ``[q, n_shards * k_local]`` candidates (ties to the
+        lower global slot); for L2, ``-|q|^2`` after the top-k, on every
+        entry, as the reference's ``merge_topk`` does."""
+        rows = self.shard_capacity
+        k_local = min(fetch, rows)
+        l2 = self.metric == "l2"
+        # queries out to every device first, results back last: a copy between
+        # cards between two shards' work would run the shards one by one
+        on_device = {dev: q.to(dev) for dev in set(self.shard_devices)}
+        local = []
+        for s, (matrix, valid, _) in enumerate(self._slab):
+            with as_current(matrix.device):
+                scores = on_device[matrix.device] @ matrix.T
+                if l2:
+                    scores = 2.0 * scores - (matrix * matrix).sum(dim=1)[None, :]
+                scores = torch.where(valid[None, :], scores, _NEG)
+                v, i = _topk_lower_index(scores, k_local)
+            local.append((v, i + s * rows))
+        vals = torch.cat([v.to(self.device) for v, _ in local], dim=1)
+        v, pos = _topk_lower_index(vals, min(fetch, self.n_shards * k_local))
+        gi = torch.cat([i.to(self.device) for _, i in local], dim=1).gather(1, pos)
+        if l2:
+            v = v - (q * q).sum(dim=1, keepdim=True)
+        return v, gi
 
     def search_batch(
         self,

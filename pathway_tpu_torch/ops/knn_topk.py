@@ -17,6 +17,11 @@ docs streamed once through a ``cp.async`` ring, one block per SM), above
 it the tensor-core kernel (3xTF32 ``wgmma`` fed by TMA, 64 queries x 128
 docs a tile). The kernels take k <= 64, the widths the index sends them
 (``ops/knn.py``); wider k on a CUDA tensor raises.
+
+:func:`knn_topk_sharded` ports ``pallas_knn.py::knn_topk_sharded`` for a
+slab cut into equal shards on several devices (the mesh index): the same
+two passes per shard on its device, the merge writing global indices, and
+one more merge launch over the ``[q, n_shards, k]`` candidates.
 """
 
 from __future__ import annotations
@@ -139,30 +144,14 @@ def launch_plan(nq: int, nd: int, sm_count: int, *, dim: int = 384, regime: str 
     return KnnPlan(regime, tile, -(-tiles // per), per, stages)
 
 
-def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0, regime: str | None = None):
-    """queries [Q, D] x docs [N, D] (+ bias [N]) -> (scores [Q, k] f32,
-    indices [Q, k] int32). CUDA tensors launch a partial pass chosen by
-    :func:`launch_plan` (``regime`` forces one) and the merge pass (f32,
-    k <= 64) or raise; CPU tensors take :func:`knn_topk_reference`."""
-    if not queries.is_cuda:
-        return knn_topk_reference(queries, docs, k=k, bias=bias, factor=factor)
-    if not 1 <= k <= KERNEL_MAX_K:
-        raise ValueError(f"knn_topk kernel takes 1 <= k <= {KERNEL_MAX_K}, got {k}")
-    _build.require(queries, dtype=torch.float32, ndim=2, name="queries")
-    _build.require(docs, dtype=torch.float32, ndim=2, name="docs")
+def _topk_into(queries, docs, bias, *, k: int, factor: float, regime: str | None, out_s, out_i, base: int = 0):
+    """Launch the partial pass and the merge of ``queries`` x ``docs`` on
+    their device, which must be the current one (``ctypes`` launches run
+    there), on its current stream; the merged lists land in the rows of
+    ``out_s`` / ``out_i`` (row stride ``out_s.stride(0)``, which may exceed
+    k), live indices shifted by ``base``."""
     nq, dim = queries.shape
     nd = docs.shape[0]
-    if docs.shape[1] != dim:
-        raise ValueError(f"queries dim {dim} != docs dim {docs.shape[1]}")
-    if bias is None:
-        bias = torch.zeros((nd,), dtype=torch.float32, device=docs.device)
-    _build.require(bias, dtype=torch.float32, ndim=1, name="bias")
-    if bias.shape[0] != nd or docs.device != queries.device or bias.device != queries.device:
-        raise ValueError("bias must be [N] and every operand on one device")
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=queries.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=queries.device)
-    if nq == 0:
-        return out_s, out_i
     sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
     plan = launch_plan(nq, nd, sms, dim=dim, regime=regime)
     part_s = torch.empty((nq, plan.splits, k), dtype=torch.float32, device=queries.device)
@@ -187,8 +176,148 @@ def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0, regime: s
         _build.check(err, name)
         _build.LAUNCHES[name] += 1
     err = lib.pt_knn_topk_merge(
-        part_s.data_ptr(), part_i.data_ptr(), nq, plan.splits, k, out_s.data_ptr(), out_i.data_ptr(), stream
+        part_s.data_ptr(), part_i.data_ptr(), nq, plan.splits, k, int(base), out_s.stride(0), out_s.data_ptr(),
+        out_i.data_ptr(), stream,
     )
     _build.check(err, "knn_topk_merge")
     _build.LAUNCHES["knn_topk_merge"] += 1
+
+
+def _check_operands(queries, docs, bias, k: int):
+    """The kernels' operand rules: f32, contiguous, aligned, k <= 64,
+    docs and bias on one device."""
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"knn_topk kernel takes 1 <= k <= {KERNEL_MAX_K}, got {k}")
+    _build.require(queries, dtype=torch.float32, ndim=2, name="queries")
+    _build.require(docs, dtype=torch.float32, ndim=2, name="docs")
+    _build.require(bias, dtype=torch.float32, ndim=1, name="bias")
+    if docs.shape[1] != queries.shape[1]:
+        raise ValueError(f"queries dim {queries.shape[1]} != docs dim {docs.shape[1]}")
+    if bias.shape[0] != docs.shape[0] or bias.device != docs.device:
+        raise ValueError("bias must be [N] on the docs' device")
+
+
+def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0, regime: str | None = None):
+    """queries [Q, D] x docs [N, D] (+ bias [N]) -> (scores [Q, k] f32,
+    indices [Q, k] int32). CUDA tensors launch a partial pass chosen by
+    :func:`launch_plan` (``regime`` forces one) and the merge pass (f32,
+    k <= 64) or raise; CPU tensors take :func:`knn_topk_reference`."""
+    if not queries.is_cuda:
+        return knn_topk_reference(queries, docs, k=k, bias=bias, factor=factor)
+    if bias is None:
+        bias = torch.zeros((docs.shape[0],), dtype=torch.float32, device=docs.device)
+    _check_operands(queries, docs, bias, k)
+    if docs.device != queries.device:
+        raise ValueError("queries and docs must lie on one device")
+    nq = queries.shape[0]
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=queries.device)
+    if nq:
+        with torch.cuda.device(queries.device):
+            _topk_into(queries, docs, bias, k=k, factor=factor, regime=regime, out_s=out_s, out_i=out_i)
     return out_s, out_i
+
+
+# ---------------------------------------------------------------- sharded
+
+
+def knn_topk_sharded_reference(queries, doc_shards, bias_shards, *, k: int, factor: float = 1.0):
+    """Plain version of :func:`knn_topk_sharded`, on any device:
+    :func:`knn_topk_reference` per shard, live indices shifted by
+    ``shard * shard_len`` (-1 kept), and :func:`_merge_candidates_reference`
+    over the shard-major concatenation; on the first shard's device."""
+    dev0 = doc_shards[0].device
+    rows = doc_shards[0].shape[0]
+    vals, idx = [], []
+    for s, (docs, bias) in enumerate(zip(doc_shards, bias_shards)):
+        v, i = knn_topk_reference(queries.to(docs.device), docs, k=k, bias=bias, factor=factor)
+        vals.append(v.to(dev0))
+        idx.append(torch.where(i >= 0, i + s * rows, -1).to(dev0))
+    return _merge_candidates_reference(torch.stack(vals, dim=1), torch.stack(idx, dim=1), k)
+
+
+def _merge_candidates_reference(cand_s, cand_i, k: int):
+    """Plain cross-shard merge: a stable descending sort of the flattened
+    [q, n_shards, k] candidates (ties to the lower position of the
+    shard-major order, which is the lower global row), cut to k."""
+    nq = cand_s.shape[0]
+    vals, order = torch.sort(cand_s.reshape(nq, -1), dim=1, descending=True, stable=True)
+    return vals[:, :k], cand_i.reshape(nq, -1).gather(1, order[:, :k])
+
+
+def merge_shard_candidates(cand_s, cand_i, k: int):
+    """The cross-shard merge of :func:`knn_topk_sharded`: [q, n_shards, k]
+    candidates with global indices -> the [q, k] top-k, ties to the lower
+    global index. On CUDA one ``knn_merge_kernel`` launch (key
+    ``knn_topk_sharded_merge``); on the CPU :func:`_merge_candidates_reference`."""
+    nq, n_shards = cand_s.shape[0], cand_s.shape[1]
+    if not cand_s.is_cuda:
+        return _merge_candidates_reference(cand_s, cand_i, k)
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=cand_s.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=cand_s.device)
+    if nq:
+        with torch.cuda.device(cand_s.device):
+            err = _build.library("knn_topk.cu").pt_knn_topk_merge(
+                cand_s.data_ptr(), cand_i.data_ptr(), nq, n_shards, k, 0, k, out_s.data_ptr(), out_i.data_ptr(),
+                _build.stream_handle(cand_s),
+            )
+        _build.check(err, "knn_topk_sharded_merge")
+        _build.LAUNCHES["knn_topk_sharded_merge"] += 1
+    return out_s, out_i
+
+
+def knn_topk_sharded(queries, doc_shards, bias_shards, *, k: int, factor: float = 1.0, regime: str | None = None):
+    """Port of ``pathway_tpu/ops/pallas_knn.py::knn_topk_sharded``: the
+    top-k of ``factor * (queries @ docs.T) + bias`` over a slab cut into
+    equal shards, shard ``s`` holding global rows ``[s * L, (s + 1) * L)``
+    on its own device -> (scores [Q, k] f32, indices [Q, k] int32) on the
+    first shard's device. Ties go to the lower global row.
+
+    On CUDA each shard runs B2's partial pass (:func:`launch_plan`) and its
+    merge on its device and current stream (the queries copied there once),
+    the merge writing global indices into the shard's k columns of a
+    [Q, n_shards, k] block on the first shard's device: a shard on that
+    device writes them in place, one on another card into a tensor of its
+    own that is copied over (PyTorch's copy between cards records an event
+    on the source's stream that the destination's stream waits on). Every
+    shard's launches are issued before anything waits; then
+    :func:`merge_shard_candidates` folds the block. CPU shards take
+    :func:`knn_topk_sharded_reference`."""
+    if not doc_shards or len(doc_shards) != len(bias_shards):
+        raise ValueError("knn_topk_sharded takes one bias per doc shard, at least one shard")
+    rows = doc_shards[0].shape[0]
+    if any(d.shape[0] != rows for d in doc_shards):
+        raise ValueError("knn_topk_sharded takes shards of equal length")
+    if not doc_shards[0].is_cuda:
+        return knn_topk_sharded_reference(queries, doc_shards, bias_shards, k=k, factor=factor)
+    dev0 = doc_shards[0].device
+    for docs, bias in zip(doc_shards, bias_shards):
+        if not docs.is_cuda:
+            raise ValueError("knn_topk_sharded takes every shard on a CUDA device, or every shard on the CPU")
+        _check_operands(queries, docs, bias, k)
+    nq, n_shards = queries.shape[0], len(doc_shards)
+    cand_s = torch.empty((nq, n_shards, k), dtype=torch.float32, device=dev0)
+    cand_i = torch.empty((nq, n_shards, k), dtype=torch.int32, device=dev0)
+    if nq == 0:
+        return merge_shard_candidates(cand_s, cand_i, k)
+    # the copies between cards come first (queries) and last (results): a
+    # copy makes each side's stream wait for the other's earlier work, so
+    # one between two shards' launches would run the shards one after another
+    on_device = {dev: queries.to(dev).contiguous() for dev in {d.device for d in doc_shards}}
+    remote = []
+    for s, (docs, bias) in enumerate(zip(doc_shards, bias_shards)):
+        dev = docs.device
+        with torch.cuda.device(dev):
+            if dev == dev0:
+                _topk_into(on_device[dev], docs, bias, k=k, factor=factor, regime=regime,
+                           out_s=cand_s[:, s], out_i=cand_i[:, s], base=s * rows)
+            else:
+                own_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+                own_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+                _topk_into(on_device[dev], docs, bias, k=k, factor=factor, regime=regime,
+                           out_s=own_s, out_i=own_i, base=s * rows)
+                remote.append((s, own_s, own_i))
+    for s, own_s, own_i in remote:
+        cand_s[:, s].copy_(own_s, non_blocking=True)
+        cand_i[:, s].copy_(own_i, non_blocking=True)
+    return merge_shard_candidates(cand_s, cand_i, k)

@@ -39,6 +39,10 @@ class InnerIndex:
         """(data_embed, query_embed) batch callables or None."""
         return None, None
 
+    def _index_spec(self) -> dict | None:
+        """Static description of a device-backed index, or None."""
+        return None
+
     # --- shared query building ---
 
     def _build_query(
@@ -73,6 +77,13 @@ class InnerIndex:
         for n in data_cols:
             cols[f"_pw_data_{n}"] = Column(dt.ANY)
         result = Table(cols, query_table._universe, op, name="index_reply")
+        spec = self._index_spec()
+        if spec is not None:
+            # the graph's record of its device indexes and their mesh
+            # axes, made before anything is allocated
+            from ...internals.parse_graph import G
+
+            G.external_indexes.append(spec)
         return result
 
     def query(

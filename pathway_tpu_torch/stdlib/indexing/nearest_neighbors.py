@@ -12,8 +12,13 @@ one that exposes its encoder takes the fused text-query path
 (``search_texts_batch``). ``LshKnn`` keeps a host LSH tier
 (random-projection bucketing). ``device``: ``None`` places the index on
 its encoder's device when its embedder has one, else on ``"cuda"``;
-``"cpu"`` only when asked. The ``mesh``, ``tiers`` and ``tenant``
-options raise ``NotImplementedError`` until their planes are ported.
+``"cpu"`` only when asked. ``mesh``: the device-backed indexes shard over
+the mesh's data axis (``DeviceKnnIndex(mesh=)``); it resolves when the
+graph is lowered, the explicit ``mesh=`` first (a spec on the CPU when
+``device="cpu"``), else ``parallel.mesh.active_mesh()`` (``pw.run(mesh=)``
+or ``PATHWAY_MESH``). ``LshKnn`` keeps its host tier on a mesh, as the
+reference does. The ``tiers`` and ``tenant`` options raise
+``NotImplementedError`` until their planes are ported.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 
 from ...internals.expression import ColumnExpression, ColumnReference
 from ...ops.knn import DeviceKnnIndex, _k_bucket as _pow2_bucket
+from ...parallel.mesh import active_mesh, parse_mesh_spec, resolve_mesh
 from .data_index import InnerIndex
 from .retrievers import InnerIndexFactory
 
@@ -93,9 +99,12 @@ class AbstractKnn(InnerIndex):
     reserved_space: int = 1024
     metric: str = "cos"
     embedder: Callable | None = None
-    #: the reference's mesh / tier / tenant placements: not ported yet
-    #: (raise when set)
+    #: explicit DeviceMesh (or spec accepted by parallel.mesh.resolve_mesh);
+    #: None defers to the run-scoped mesh from ``pw.run(mesh=...)`` /
+    #: ``PATHWAY_MESH`` at lowering time
     mesh: Any = None
+    #: the reference's tier / tenant placements: not ported yet (raise
+    #: when set)
     tiers: Any = None
     tenant: str | None = None
     #: device of the index slab: None -> "cuda" (resolve_device); "cpu"
@@ -145,12 +154,21 @@ class AbstractKnn(InnerIndex):
 
         return batch_embed, batch_embed
 
+    def _index_spec(self) -> dict | None:
+        """The graph's description of a device-backed index: its kind and
+        the explicit mesh's axes, parsed without touching a device."""
+        if not self._device_backed:
+            return None
+        try:
+            mesh_axes = parse_mesh_spec(self.mesh)
+        except (ValueError, TypeError):
+            mesh_axes = None
+        return {"kind": type(self).__name__, "mesh_axes": mesh_axes}
+
     def _check_placement(self) -> None:
-        for name, item in (("mesh", 5), ("tiers", 4), ("tenant", 4)):
+        for name in ("tiers", "tenant"):
             if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"{type(self).__name__}({name}=...) needs ROADMAP Queue A item {item}"
-                )
+                raise NotImplementedError(f"{type(self).__name__}({name}=...) needs ROADMAP Queue A item 4")
 
     def _make_device_index(self):
         self._check_placement()
@@ -158,9 +176,14 @@ class AbstractKnn(InnerIndex):
         enc = fused_query_encoder(self.embedder) if self.embedder else None
         # an index fed by an encoder lives on the encoder's device
         device = self.device if self.device is not None or enc is None else enc.device
+        mesh_spec = self.mesh
 
         def make():
-            idx = _VectorPayloadIndex(dim=dim, metric=metric, reserved_space=max(64, res), device=device)
+            # the mesh resolves here, when the graph is lowered inside
+            # pw.run, so retrievers built before the run pick up
+            # pw.run(mesh=...) / PATHWAY_MESH
+            mesh = resolve_mesh(mesh_spec, device=device) if mesh_spec is not None else active_mesh(device=device)
+            idx = _VectorPayloadIndex(dim=dim, metric=metric, reserved_space=max(64, res), device=device, mesh=mesh)
             if enc is not None:
                 idx.attach_encoder(enc)
             return idx
@@ -268,7 +291,8 @@ class _LshIndex:
 
 @dataclass(frozen=True)
 class LshKnn(AbstractKnn):
-    """LSH-bucketed approximate KNN (reference LshKnn :262)."""
+    """LSH-bucketed approximate KNN (reference LshKnn :262): a host index,
+    which ignores a mesh, as the reference's does."""
 
     bucket_length: float = 4.0
     n_or: int = 8
@@ -290,7 +314,7 @@ class KnnIndexFactory(InnerIndexFactory):
     reserved_space: int = 1024
     metric: str = "cos"
     embedder: Callable | None = None
-    mesh: Any = None  # not ported: raises when set
+    mesh: Any = None  # explicit DeviceMesh/spec; None -> run-scoped mesh
     tiers: Any = None  # not ported: raises when set
     tenant: str | None = None  # not ported: raises when set
     device: Any = None  # None -> "cuda"; "cpu" only when asked

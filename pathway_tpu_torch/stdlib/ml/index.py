@@ -56,7 +56,8 @@ class KNNIndex:
         self.reranker = as_reranker(rerank)
         self.rerank_column = rerank_column
         metric = "l2" if distance_type == "euclidean" else "cos"
-        # mesh= / tiers= / tenant= raise in BruteForceKnn until their
+        # mesh= (None: the run-scoped mesh) shards the index over a mesh's
+        # data axis; tiers= / tenant= raise in BruteForceKnn until their
         # planes are ported
         self.inner = BruteForceKnn(
             data_embedding,

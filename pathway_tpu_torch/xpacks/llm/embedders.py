@@ -38,7 +38,9 @@ class SentenceTransformerEmbedder(BaseEmbedder):
     from ``PATHWAY_TPU_CKPT`` when it holds a checkpoint, otherwise the
     encoder runs with seeded random weights, as in the reference.
     ``device``: ``None`` runs on ``"cuda"`` (and raises without a card);
-    ``"cpu"`` only when asked.
+    ``"cpu"`` only when asked. ``mesh``: embed data-parallel over the mesh's
+    data devices (``SentenceEncoder(mesh=)``; a spec resolves on the CPU
+    with ``device="cpu"``).
     """
 
     def __init__(
@@ -51,17 +53,13 @@ class SentenceTransformerEmbedder(BaseEmbedder):
         mesh=None,
         **init_kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SentenceTransformerEmbedder(mesh=...) needs ROADMAP Queue A item 5 (multi-GPU)"
-            )
         executor = init_kwargs.pop("executor", None)
         if executor is None:
             executor = udfs.batch_executor(max_batch_size=max_batch_size)
         super().__init__(executor=executor, **init_kwargs)
         from ...models.sentence_encoder import SentenceEncoder
 
-        self._encoder = SentenceEncoder(model, max_batch=max_batch_size, device=device)
+        self._encoder = SentenceEncoder(model, max_batch=max_batch_size, device=device, mesh=mesh)
         self.kwargs = dict(call_kwargs)
 
     def __wrapped__(self, input, **kwargs):

@@ -15,7 +15,9 @@ package, on the CPU (the port on ``device="cpu"``):
   device-resident ingest through ``add_batch_device``, queries through
   the fused text path; hits equal, scores within 1e-5;
 * every unported ``pw.run`` option and index placement raises
-  ``NotImplementedError``.
+  ``NotImplementedError``; ``mesh=`` (the run's, ``PATHWAY_MESH`` or an
+  index's) runs on a CPU mesh, except ``"auto"``, which arms the elastic
+  plane and raises.
 """
 
 from __future__ import annotations
@@ -163,7 +165,7 @@ def embedders(monkeypatch):
     monkeypatch.setattr(jse, "SentenceEncoder", lambda *a, **k: jenc)
     made = {}
 
-    def make_port(model, max_batch, device):
+    def make_port(model, max_batch, device, mesh=None):
         made["device"] = device
         return tenc
 
@@ -262,7 +264,7 @@ def test_embedder_batched_udf_and_dimension(embedders):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=8), dict(index_tiers="hot=64"), dict(decode=True), dict(tenancy=True), dict(elastic=True),
+    [dict(mesh="auto"), dict(index_tiers="hot=64"), dict(decode=True), dict(tenancy=True), dict(elastic=True),
      dict(freshness=True), dict(chip_ledger=True), dict(persistence_config=object()), dict(recovery=True),
      dict(profile=True), dict(tracing=True), dict(watchdog=True), dict(with_http_server=True),
      dict(ingest_workers=2), dict(pipeline_depth=2), dict(analysis="strict"), dict(cluster_lease_ms=100),
@@ -281,7 +283,7 @@ def test_unported_run_options_raise(kwargs):
 
 @pytest.mark.parametrize(
     "var,value",
-    [("PATHWAY_MESH", "4"), ("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_DECODE", "on"), ("PATHWAY_TENANCY", "on"),
+    [("PATHWAY_MESH", "auto"), ("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_DECODE", "on"), ("PATHWAY_TENANCY", "on"),
      ("PATHWAY_ELASTIC", "on"), ("PATHWAY_FRESHNESS", "on"), ("PATHWAY_CHIP_LEDGER", "1"), ("PATHWAY_PROFILE", "p.json"),
      ("PATHWAY_TRACING", "1"), ("PATHWAY_WATCHDOG", "1"), ("PATHWAY_PIPELINE_DEPTH", "2"),
      ("PATHWAY_INGEST_WORKERS", "2"), ("PATHWAY_PROCESSES", "2"), ("PATHWAY_REPLAY_STORAGE", "/tmp/x"),
@@ -310,8 +312,7 @@ def test_run_options_at_their_off_values_pass(monkeypatch):
         tpw.run(no_such_option=1)
 
 
-@pytest.mark.parametrize("placement", [dict(mesh=4), dict(tiers="hot=64"), dict(tenant="acme")],
-                         ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("placement", [dict(tiers="hot=64"), dict(tenant="acme")], ids=lambda kw: next(iter(kw)))
 @pytest.mark.parametrize("kind", ["BruteForceKnn", "LshKnn", "KNNIndex"])
 def test_unported_index_placements_raise(placement, kind):
     t = tpw.debug.table_from_rows(schema=tpw.schema_from_types(v=tuple), rows=[((1.0, 0.0),)])
@@ -321,6 +322,60 @@ def test_unported_index_placements_raise(placement, kind):
         else:
             idx = tpw.indexing.DataIndex(t, getattr(tpw.indexing, kind)(t.v, dimensions=2, device="cpu", **placement))
         (idx.get_nearest_items(t.v) if kind == "KNNIndex" else idx.query(t.v))
+
+
+def _nearest_on_mesh(kind, monkeypatch, **run_kwargs):
+    """A two-row index of ``kind`` queried by its own rows under
+    ``pw.run(**run_kwargs)`` -> ({query: nearest row}, shard counts of the
+    device indexes built)."""
+    shards = []
+    real_init = tknn.DeviceKnnIndex.__init__
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        shards.append(self.n_shards)
+
+    monkeypatch.setattr(tknn.DeviceKnnIndex, "__init__", recording_init)
+    t = tpw.debug.table_from_rows(schema=tpw.schema_from_types(name=str, v=tuple),
+                                  rows=[("a", (1.0, 0.0)), ("b", (0.0, 1.0))])
+    if kind == "KNNIndex":
+        res = TKNNIndex(t.v, t, n_dimensions=2, device="cpu").get_nearest_items(t.v, k=1).select(
+            q=t.name, near=tpw.this.name)
+    else:
+        index = tpw.indexing.DataIndex(t, getattr(tpw.indexing, kind)(t.v, dimensions=2, device="cpu"))
+        res = index.query(t.v, number_of_matches=1).select(q=t.name, near=tpw.this.name)
+    got = {}
+    tpw.io.subscribe(res, lambda key, row, time, is_addition: got.__setitem__(row["q"], tuple(row["near"])))
+    tpw.run(**run_kwargs)
+    return got, shards
+
+
+@pytest.mark.parametrize("kind", ["BruteForceKnn", "UsearchKnn", "LshKnn", "KNNIndex"])
+def test_mesh_placements_run_on_a_cpu_mesh(kind, monkeypatch):
+    """``pw.run(mesh=)`` shards the device-backed indexes over the mesh's
+    data axis (LshKnn, a host index, ignores it, as in the reference)."""
+    from pathway_tpu_torch.parallel.mesh import active_mesh, resolve_mesh
+
+    got, shards = _nearest_on_mesh(kind, monkeypatch, mesh=resolve_mesh(4, device="cpu"))
+    assert got == {"a": ("a",), "b": ("b",)} and active_mesh() is None
+    assert shards == ([] if kind == "LshKnn" else [4])
+
+
+@pytest.mark.parametrize("kind", ["BruteForceKnn", "KNNIndex"])
+def test_pathway_mesh_env_runs_on_a_cpu_mesh(kind, monkeypatch):
+    monkeypatch.setenv("PATHWAY_MESH", "2")
+    got, shards = _nearest_on_mesh(kind, monkeypatch)
+    assert got == {"a": ("a",), "b": ("b",)} and shards == [2]
+
+
+def test_index_mesh_spec_resolves_on_the_index_device(monkeypatch):
+    t = tpw.debug.table_from_rows(schema=tpw.schema_from_types(v=tuple), rows=[((1.0, 0.0),)])
+    idx = tpw.indexing.BruteForceKnn(t.v, dimensions=2, device="cpu", mesh="data=3")._index_factory()()
+    assert idx.n_shards == 3 and idx.shard_devices == [torch.device("cpu")] * 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 3 visible CUDA cards"):
+        tpw.indexing.BruteForceKnn(t.v, dimensions=2, mesh=3)._index_factory()()
 
 
 def test_index_and_embedder_default_to_cuda(monkeypatch):

@@ -310,6 +310,116 @@ def test_knn_topk_regimes_fewer_live_docs_than_k(cuda, regime, nq, dim):
     assert (idx[:, 3:] == -1).all() and (vals[:, 3:] == NEG).all()
 
 
+def _shard_case(cuda, nq, metric, n_shards, rows=40_000, d=384, seed=0):
+    """``n_shards`` x ``rows`` docs (views of one slab on the card), 10 % dead,
+    exact copies of doc 5 in the last shard (a tie group across shards)."""
+    from pathway_tpu_torch.ops.knn import _pallas_bias
+
+    g = _gen(seed + nq + n_shards)
+    n = n_shards * rows
+    docs = torch.nn.functional.normalize(torch.randn(n, d, device=cuda, generator=g), dim=1)
+    docs[n - 10 :] = docs[5]
+    valid = torch.rand(n, device=cuda, generator=g) > 0.1
+    valid[5] = True
+    valid[n - 10 :] = True
+    q = torch.nn.functional.normalize(torch.randn(nq, d, device=cuda, generator=g), dim=1)
+    q[0] = docs[5]
+    bias = _pallas_bias(metric, docs, valid)
+    return q, docs, bias, list(docs.split(rows)), list(bias.split(rows)), 2.0 if metric == "l2" else 1.0
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2"])
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("nq,regime", [(1, "stream"), (16, "stream"), (70, "tc")])
+def test_knn_topk_sharded_matches_plain(cuda, nq, regime, n_shards, metric):
+    """Shards on one card: each runs its partial pass and its merge with a
+    base, then one cross-shard merge; the result equals the plain version and
+    one unsharded top-k, ties across shards to the lower global row."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import (
+        knn_topk_reference, knn_topk_sharded, knn_topk_sharded_reference, topk_agreement,
+    )
+
+    k = 16
+    q, docs, bias, doc_shards, bias_shards, factor = _shard_case(cuda, nq, metric, n_shards)
+    before = dict(_build.LAUNCHES)
+    vals, idx = knn_topk_sharded(q, doc_shards, bias_shards, k=k, factor=factor, regime=regime)
+    torch.cuda.synchronize()
+    for key, n in ((f"knn_topk_{regime}", n_shards), ("knn_topk_merge", n_shards), ("knn_topk_sharded_merge", 1)):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + n, key
+    after = dict(_build.LAUNCHES)
+    plain = (knn_topk_sharded_reference(q, doc_shards, bias_shards, k=k, factor=factor),
+             knn_topk_reference(q, docs, k=k, bias=bias, factor=factor))
+    assert dict(_build.LAUNCHES) == after  # the plain versions launch no kernel
+    for rv, ri in plain:
+        share, ok = topk_agreement(vals, idx, rv, ri, atol=1e-5, rtol=1e-5)
+        assert ok, share
+    n = docs.shape[0]
+    assert idx[0, :11].tolist() == [5, *range(n - 10, n)]
+
+
+def test_knn_topk_merge_shifts_by_base(cuda):
+    """The single-shard merge with a base: live ids shift, dead ones stay -1."""
+    from pathway_tpu_torch.ops.knn_topk import NEG, _topk_into, knn_topk
+
+    g = _gen(11)
+    docs = torch.randn(5000, 64, device=cuda, generator=g)
+    bias = torch.full((5000,), NEG, device=cuda)
+    bias[[7, 4000, 4999]] = 0.0
+    q = torch.randn(3, 64, device=cuda, generator=g)
+    want_s, want_i = knn_topk(q, docs, k=8, bias=bias)
+    out_s = torch.empty((3, 2, 8), device=cuda)
+    out_i = torch.empty((3, 2, 8), dtype=torch.int32, device=cuda)
+    _topk_into(q, docs, bias, k=8, factor=1.0, regime=None, out_s=out_s[:, 1], out_i=out_i[:, 1], base=123_456)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s[:, 1], want_s)
+    assert torch.equal(out_i[:, 1], torch.where(want_i >= 0, want_i + 123_456, -1))
+    assert (out_i[:, 1, 3:] == -1).all()
+
+
+def test_knn_topk_sharded_across_cards(cuda):
+    """One shard a card: another card's result reaches the first by a peer
+    copy ordered against the first card's stream."""
+    from pathway_tpu_torch.ops.knn_topk import knn_topk_reference, knn_topk_sharded, topk_agreement
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two CUDA cards")
+    q, docs, bias, doc_shards, bias_shards, _ = _shard_case(cuda, 5, "cos", n_cards)
+    moved = [t.to(f"cuda:{s}") for s, t in enumerate(doc_shards)]
+    moved_b = [t.to(f"cuda:{s}") for s, t in enumerate(bias_shards)]
+    vals, idx = knn_topk_sharded(q, moved, moved_b, k=16)
+    assert vals.device == docs.device
+    rv, ri = knn_topk_reference(q, docs, k=16, bias=bias)
+    assert topk_agreement(vals, idx, rv, ri, atol=1e-5, rtol=1e-5)[1]
+
+
+def test_mesh_index_on_one_card_equals_unsharded(cuda):
+    """``DeviceKnnIndex`` over 4 shards of one card (the kernel path at
+    fetch <= 64, the plain two-phase search above) against the unsharded
+    index, holding the same keys and rows."""
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.ops.knn_topk import topk_agreement
+    from pathway_tpu_torch.parallel.sharding import make_mesh
+
+    g = _gen(21)
+    mesh = make_mesh(devices=[cuda] * 4, model_parallel=1)
+    sharded = DeviceKnnIndex(dim=384, metric="cos", reserved_space=1 << 16, mesh=mesh)
+    plain = DeviceKnnIndex(dim=384, metric="cos", reserved_space=1 << 16, device=cuda)
+    vecs = torch.randn(50_000, 384, device=cuda, generator=g)
+    for idx in (sharded, plain):
+        idx.add_batch_device(list(range(50_000)), vecs)
+        for key in range(0, 50_000, 100):
+            idx.remove(key)
+    queries = vecs[1:400:7]
+    for k in (10, 100):
+        a, b = sharded.search_batch(queries, k), plain.search_batch(queries, k)
+        hits = [torch.tensor([[hit[j] for hit in row] for row in res], dtype=torch.float64)
+                for res in (a, b) for j in (1, 0)]
+        share, ok = topk_agreement(*hits, atol=1e-5, rtol=1e-5)
+        assert ok, share
+
+
 def test_encoder_forward_kernels_match_plain(cuda):
     import dataclasses
 

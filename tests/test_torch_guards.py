@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or
 pathway_tpu, also when its dataflow engine runs a ``pw.run`` pipeline
 (``pw.io.python.read`` -> embedder -> ``DataIndex`` -> ``pw.io.subscribe``)
-or serves the RAG document servers over a folder; it never imports
+or serves the RAG document servers over a folder, or shards an index and
+an encoder over a mesh of CPU devices; it never imports
 ``aiohttp`` or ``requests``, which the card's machine lacks (its webserver
 is the standard library's); its entry points never fall back to the CPU;
 its kernels are built only at first use on a CUDA tensor;
@@ -70,6 +71,18 @@ assert hits and hits[-1][0] == 1, hits
 rows = pw.debug.table_from_rows(schema=pw.schema_from_types(k=str, v=int), rows=[("a", 1), ("a", 2), ("b", 5)])
 counts = rows.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v))
 assert sorted(pw.debug.table_to_dicts(counts)[1]["s"].values()) == [3, 5]
+from pathway_tpu_torch.parallel.mesh import active_mesh, parse_mesh_spec, resolve_mesh, use_mesh
+from pathway_tpu_torch.parallel.sharding import make_mesh
+mesh = resolve_mesh("4", device="cpu")
+assert mesh.shape == {"data": 4, "model": 1} and parse_mesh_spec("4x2") == {"data": 4, "model": 2}
+assert make_mesh(devices=["cpu"] * 4, model_parallel=1) == mesh
+menc = pt.SentenceEncoder(config=cfg, max_seq_len=16, max_batch=8, device="cpu", mesh=mesh)
+menc.tokenizer = enc.tokenizer
+mindex = pt.DeviceKnnIndex(dim=32, mesh=mesh)
+mindex.add_batch_device(list(range(5)), menc.encode_device(["a b", "c d", "e f", "g h", "i j"]))
+assert mindex.search_batch(menc.encode(["c d"]), 2)[0][0][0] == 1
+with use_mesh(mesh):
+    assert active_mesh() is mesh
 added = set(sys.modules) - before
 bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN)
 print("BAD", bad)

@@ -5,13 +5,15 @@
 Builds the port's kernels from ``pathway_tpu_torch/csrc`` with nvcc, holds
 every kernel against its plain PyTorch version at the main paths' shapes
 (with times, bounds and a PyTorch yardstick; B2 at 1, 16 and 256 queries,
-both of its partial passes timed at 16; B5 at head dims 64, 128 and 48;
-the geometries that run zero-padded: attention at head dim 256, LayerNorm
-widths 128 and 312, a GEMM with K 300 and N 900, and whole layers at the
-widths of bert-tiny and TinyBERT-312; ``knn_topk_sharded`` at 1, 16 and 256
-queries over 4 shards of 2^20 rows on the mesh below), times the index's
-tie-ordered top-k beside ``torch.topk``, then drives six paths, each with
-the launch counters set to 0 just before it and read just after:
+both of its partial passes timed at 16; B5 at head dims 64, 128, 48 and,
+staged in column tiles, 512 and 320; attention and packed attention at S
+1024; the geometries that run zero-padded: attention at head dim 256,
+LayerNorm widths 128 and 312, a GEMM with K 300 and N 900, and whole layers
+at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
+1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
+rows on the mesh below), times the index's tie-ordered top-k beside
+``torch.topk``, then drives eight paths, each with the launch counters set
+to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
   ``SentenceEncoder.encode_device`` -> ``DeviceKnnIndex.add_batch_device``
@@ -347,8 +349,10 @@ def phase_kernels(torch) -> list[dict]:
     # out) and FFN out (K 3072, f32 residual, bf16 out) over 32,768 rows,
     # and the widths that run zero-padded: the FFN out of bert-tiny (N 128 -> 256) and of
     # TinyBERT-4L-312 (N 312 -> 384), f32 residual as in the layer
+    # and a staged width past 1024 (N 1536, three column chunks of 512), K 1536, bf16 residual, f32 rows out
     for n_out, k_in, res_dt, out_f32 in ((768, 768, torch.bfloat16, True), (768, 3072, torch.float32, False),
-                                         (128, 512, torch.float32, False), (312, 1200, torch.float32, False)):
+                                         (128, 512, torch.float32, False), (312, 1200, torch.float32, False),
+                                         (1536, 1536, torch.bfloat16, True)):
         xin = torch.randn(32_768, k_in, device=dev, generator=g).bfloat16()
         ww = (0.03 * torch.randn(n_out, k_in, device=dev, generator=g)).bfloat16()
         res = (1.0 + torch.randn(32_768, n_out, device=dev, generator=g)).to(res_dt)
@@ -433,6 +437,19 @@ def phase_kernels(torch) -> list[dict]:
                 raise
             emit("kernel_skipped", name=f"masked_attention[{tag}]", reason="the other tree's kernel does not take it")
         del qkv_h
+    # S 1024 at MiniLM's heads (12 of 32): 32 sequences of 512-1024 live keys, one fully masked
+    qkv_s = torch.randn(32, 1024, 3 * d, device=dev, generator=g).bfloat16()
+    kl_s = torch.randint(512, 1025, (32,), device=dev, generator=g)
+    kl_s[5] = 0
+    km_s = torch.arange(1024, device=dev)[None, :] < kl_s[:, None]
+    try:
+        entries.append(attention_entry("masked_attention[S1024]", "pathway_tpu/ops/fused_attention.py:117", qkv_s,
+                                       km_s, False))
+    except ValueError:
+        if not ALT_TREE:
+            raise
+        emit("kernel_skipped", name="masked_attention[S1024]", reason="the other tree's kernel does not take it")
+    del qkv_s
     phase_b1_layer(torch, g, "hd64", 768, 12, 3072)
     # public small widths that run zero-padded: bert-tiny (LayerNorm 128 -> 256) and TinyBERT-4L-312
     # (LayerNorm 312 -> 384, 12 heads of 26 -> 32)
@@ -443,7 +460,13 @@ def phase_kernels(torch) -> list[dict]:
     entries.extend(knn_sharded_entries(torch, g, d))
     entries.append(segment_attention_entry(torch, g))
     entries.append(segment_attention_entry(torch, g, rows=128, d=768, h=12, tag="hd64"))
-    for hd, heads in ((64, 4), (128, 2), (48, 4)):
+    try:
+        entries.append(segment_attention_entry(torch, g, rows=64, tag="S1024", seq=1024))
+    except ValueError:
+        if not ALT_TREE:
+            raise
+        emit("kernel_skipped", name="segment_attention[S1024]", reason="the other tree's kernel does not take it")
+    for hd, heads in ((64, 4), (128, 2), (48, 4), (512, 2), (320, 2)):
         entry = paged_decode_attention_entry(torch, g, hd, heads)
         if entry is not None:
             entries.append(entry)
@@ -632,17 +655,18 @@ def phase_b1_layer(torch, g, tag: str, hidden: int, heads: int, ffn: int) -> Non
     )
 
 
-def segment_attention_entry(torch, g, rows: int = 256, d: int = 384, h: int = 12, tag: str = "B4") -> dict:
-    """B4 at the packed ingest's shapes: qkv [rows, 512, 3d] bf16 (MiniLM:
-    d 384, 12 heads), segment ids laid out by the port's own packer from
-    seeded lengths of 64-256."""
+def segment_attention_entry(torch, g, rows: int = 256, d: int = 384, h: int = 12, tag: str = "B4",
+                            seq: int = 512) -> dict:
+    """B4 at the packed ingest's shapes: qkv [rows, seq, 3d] bf16 (MiniLM:
+    d 384, 12 heads; rows of 512), segment ids laid out by the port's own
+    packer from seeded lengths of 64-256."""
     import numpy as np
     import torch.nn.functional as F
 
     from pathway_tpu_torch.models.sentence_encoder import shelf_pack
     from pathway_tpu_torch.ops.fused_attention import segment_attention, segment_attention_reference
 
-    L, SEGS = 512, 8
+    L, SEGS = seq, seq // 64
     hd = d // h
     rng = np.random.default_rng(SEED + 2)
     lens = rng.integers(64, 257, rows * 3)
@@ -681,7 +705,9 @@ def segment_attention_entry(torch, g, rows: int = 256, d: int = 384, h: int = 12
 def paged_decode_attention_entry(torch, g, hd: int = 64, h: int = 4) -> dict | None:
     """B5 at the decode engine's shapes: 8 lanes, ``h`` heads of ``hd`` (the
     decoder: 4 of 64), a pool of 512 pages x 16, page tables of 10, lengths
-    1-160 with one lane at 0, shuffled tables and shared prefix pages. Its
+    1-160 with one lane at 0, shuffled tables and shared prefix pages; at
+    head dims above 256 (staged in column tiles) also a table entry past the
+    pool beyond a lane's length, which is never read. Its
     time is device time (CUDA-graph replay: a call this small is host-bound,
     its enqueue rate kept as ``enqueue_ms``). None when an older tree
     (``--kernels TREE``) does not take the head dim."""
@@ -697,6 +723,9 @@ def paged_decode_attention_entry(torch, g, hd: int = 64, h: int = 4) -> dict | N
     tables[1, :4] = tables[0, :4]  # shared prefix pages
     lens = torch.randint(1, pps * page + 1, (lanes,), device=DEV, generator=g, dtype=torch.int32)
     lens[3] = 0
+    if hd > 256:
+        tables[4, pps - 1] = n_pages + 7  # out of range, past the lane's length
+        lens[4] = (pps - 1) * page
     kern = lambda: paged_decode_attention(q, kp, vp, tables, lens, n_heads=h)  # noqa: E731
     try:
         got = kern()
@@ -1805,6 +1834,252 @@ def phase_decode_path(torch, cross) -> dict:
     return launches
 
 
+# decode_ext_path: the traffic (requests, of them long ones, their shared
+# prefixes), the pool and lanes, the request deadline, and the configurations
+DECODE_EXT_REQUESTS, DECODE_EXT_LONG, DECODE_EXT_PREFIXES, DECODE_EXT_DEADLINE_MS = 64, 8, 4, 120_000.0
+DECODE_EXT_POOL = "pages=1024,page=16,lanes=8,max_new=32,degrade=8,max_seq=512"
+DECODE_EXT_IMPL = "paged"  # kernel B5
+DECODE_EXT_CONFIGS = (
+    ("a_greedy", ""),
+    ("b_cache_chunk", ",cache=on,chunk=64"),
+    ("c_spec_layer_skip", ",cache=on,chunk=64,spec=4,draft=2"),
+    ("d_spec_prompt_lookup", ",cache=on,chunk=64,spec=4,draft=2,ngram=3"),
+)
+DECODE_EXT_SAMPLED = f",temp=0.8,top_k=50,top_p=0.95,seed={SEED}"
+# the service's batcher: the engine batches continuously inside a dispatch
+# (which drains it), so a dispatch takes every queued request (up to 64) after
+# a 20 ms coalescing window, and no slot is yielded (no ingest runs beside it)
+DECODE_EXT_SERVING = dict(max_queue=256, batch_max=64, batch_window_ms=20.0, latency_budget_ms=60_000.0,
+                          query_share=1.0)
+
+
+def _decode_ext_prompts(vocab: int) -> list[list[int]]:
+    """64 seeded requests: each starts with one of 4 shared system prefixes
+    of 64-256 tokens (whole pages of 16), then a 4-63-token question; 8 of
+    them are long, 300-440 tokens, so chunked prefill interleaves with
+    decoding."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 13)
+    prefixes = [rng.integers(1, vocab, 16 * int(n)).tolist() for n in rng.integers(4, 17, DECODE_EXT_PREFIXES)]
+    long = set(rng.choice(DECODE_EXT_REQUESTS, DECODE_EXT_LONG, replace=False).tolist())
+    prompts = []
+    for i in range(DECODE_EXT_REQUESTS):
+        pre = prefixes[i % DECODE_EXT_PREFIXES]
+        n_q = int(rng.integers(300, 441)) - len(pre) if i in long else int(rng.integers(4, 64))
+        prompts.append(pre + rng.integers(1, vocab, n_q).tolist())
+    return prompts
+
+
+def _serve_decode(torch, pw, mcfg, spec: str, prompts) -> dict:
+    """``pw.run(decode=spec)`` over one python connector whose subject builds
+    a ``DecodeEngine`` (its config from the run, ``active_decode()``) behind a
+    ``DecodeService``, submits every prompt with a deadline, and hands each
+    stream to the dataflow as a row; ``pw.io.subscribe`` collects them. The
+    launch counters are set to 0 just before the run and again, with the
+    decode metrics, after the engine's warm-up inside it, and read just after
+    the run; the service's error, the pool and the cache are read after the
+    drain."""
+    import numpy as np
+
+    from pathway_tpu_torch.decode import DECODE_METRICS, DecodeEngine, DecodeService
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.serving import Deadline, ServingConfig
+
+    state: dict = {}
+
+    class Requests(pw.io.python.ConnectorSubject):
+        def run(self):
+            engine = DecodeEngine(mcfg, seed=SEED, device=DEV)
+            engine.generate([[7] * 24])  # warm-up: cuBLAS handles, first launches (one cached page at most)
+            torch.cuda.synchronize()
+            _build.reset_launches()  # the counts are the 64 requests' own, not the warm-up's
+            DECODE_METRICS.reset()
+            svc = DecodeService(engine, config=ServingConfig(**DECODE_EXT_SERVING))
+            done_at: dict = {}
+            t0 = time.perf_counter()
+            sent = []
+            for p in prompts:
+                sent.append(time.perf_counter())
+                sent_ticket = svc.submit(p, deadline=Deadline(DECODE_EXT_DEADLINE_MS))
+                state.setdefault("tickets", []).append(sent_ticket)
+            tickets = state["tickets"]
+            while len(done_at) < len(tickets) and svc.error is None:
+                for i, tk in enumerate(tickets):
+                    if i not in done_at and tk.done.is_set():
+                        done_at[i] = time.perf_counter()
+                time.sleep(0.0005)
+            torch.cuda.synchronize()
+            state["wall"] = time.perf_counter() - t0
+            svc.stop()
+            state.update(error=svc.error, config=engine.config, pages_in_use=engine.pool.pages_in_use,
+                         cached_pages=engine.cache.cached_pages if engine.cache is not None else 0,
+                         completion_ms=[(done_at[i] - sent[i]) * 1e3 for i in sorted(done_at)],
+                         metrics=DECODE_METRICS.snapshot(), params=engine.params,
+                         preempted=sum(tk.preempted for tk in tickets))
+            for i, tk in enumerate(tickets):
+                self.next(i=i, tokens=json.dumps(tk.tokens))
+
+    pw.clear_graph()
+    rows = pw.io.python.read(Requests(), schema=pw.schema_from_types(i=int, tokens=str), autocommit_duration_ms=50)
+    streams: dict = {}
+    pw.io.subscribe(rows, lambda key, row, time, is_addition: streams.__setitem__(row["i"], json.loads(row["tokens"])))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    pw.run(decode=f"{DECODE_EXT_POOL},impl={DECODE_EXT_IMPL}{spec}")
+    launches = dict(_build.LAUNCHES)
+    pw.clear_graph()
+    if state.get("error") is not None:
+        raise AssertionError(f"DecodeService failed under {spec!r}: {state['error']!r}")
+    if sorted(streams) != list(range(len(prompts))) or state["preempted"]:
+        raise AssertionError(f"{len(streams)} of {len(prompts)} streams came back ({state['preempted']} preempted)")
+    if state["pages_in_use"] != state["cached_pages"]:
+        raise AssertionError(f"the pool holds {state['pages_in_use']} pages after the drain, "
+                             f"{state['cached_pages']} of them cached")
+    if state["config"] != pw.decode.parse_decode_spec(f"{DECODE_EXT_POOL},impl={DECODE_EXT_IMPL}{spec}"):
+        raise AssertionError("the engine built in the run did not take pw.run(decode=)'s config")
+    tokens = sum(len(v) for v in streams.values())
+    m = state["metrics"]
+    return dict(
+        streams=[streams[i] for i in range(len(prompts))], launches=launches, params=state["params"],
+        summary=dict(
+            tokens=tokens, wall_seconds=state["wall"], tokens_per_s=tokens / state["wall"],
+            completion=_percentiles(state["completion_ms"]), prefix_hit_ratio=m.get("prefix_hit_ratio", 0.0),
+            prefix_hit_pages=m.get("prefix_hit_pages_total", 0),
+            prefill_tokens_saved=m.get("prefix_hit_pages_total", 0) * 16,
+            spec_proposed=m.get("spec_proposed_total", 0), spec_acceptance_rate=m.get("spec_acceptance_rate", 0.0),
+            steps=m["steps_total"], pool_pages_after=state["pages_in_use"], cached_pages_after=state["cached_pages"],
+            b5_launches=launches.get("paged_decode_attention", 0),
+        ),
+    )
+
+
+def _lane_logits(torch, params, mcfg, prompt, tokens, attention) -> list:
+    """The next-token logits of one lane after ``prompt`` and each prefix of
+    ``tokens``, computed as the engine's step computes them (prefill, then
+    one decode step per token through ``attention`` over a paged pool):
+    entry t is what token t is drawn from."""
+    from pathway_tpu_torch.decode.engine import _prefill_logits_math, _step_logits_math
+    from pathway_tpu_torch.ops.paged_attention import PagedKvPool, pages_for
+
+    ps, plen = 16, len(prompt)
+    n_pages = pages_for(plen + len(tokens) + 1, ps)
+    pool = PagedKvPool(layers=mcfg.num_layers, dim=mcfg.hidden_size, n_pages=n_pages, page_size=ps, device=DEV)
+    table = torch.arange(n_pages, device=DEV, dtype=torch.int32)[None]
+    with torch.no_grad():
+        ids = torch.tensor([prompt], device=DEV)
+        k_rows, v_rows, logits = _prefill_logits_math(params, mcfg, ids, torch.tensor([plen], device=DEV))
+        pos = torch.arange(plen, device=DEV)
+        pool.k[:, pos // ps, pos % ps] = k_rows[0]
+        pool.v[:, pos // ps, pos % ps] = v_rows[0]
+        out = [logits[0]]
+        for t, tok in enumerate(tokens[:-1]):
+            at = plen + t
+            lens = torch.tensor([at], device=DEV, dtype=torch.int32)
+
+            def attend(layer, q, k_new, v_new, at=at, lens=lens):
+                pool.k[layer, at // ps, at % ps] = k_new[0]
+                pool.v[layer, at // ps, at % ps] = v_new[0]
+                return attention(q, pool.k[layer], pool.v[layer], table, lens + 1, n_heads=mcfg.num_heads)
+
+            out.append(_step_logits_math(params, mcfg, torch.tensor([tok], device=DEV), lens, attend)[0])
+    return out
+
+
+def phase_decode_ext_path(torch) -> dict:
+    """The decode extensions at ``DecoderConfig()`` width (vocab 32,000, d
+    256, 4 layers of 4 heads of 64, 512 positions), ``impl="paged"``, each
+    configuration a ``pw.run(decode=<spec>)`` whose engine takes the spec
+    through ``active_decode()`` and serves 64 requests through
+    ``DecodeService`` (``_serve_decode``): (a) greedy, (b) the prefix cache
+    with chunked prefill of 64, (c) (b) with 4 speculative tokens drafted by
+    2 layers, (d) (c) drafted by prompt lookup (n-gram 3); then sampled
+    decode (temperature 0.8, top-k 50, top-p 0.95) twice. Gates: (b), (c)
+    and (d) give (a)'s streams or part only at a near tie; B5 launches in the
+    greedy and the sampled step; the cache hits; the verify runs; the
+    service keeps no error; the pool returns to its cached pages; the
+    sampled streams repeat, equal those of each prompt decoded alone, and
+    where they part from an ``impl="xla"`` engine's the two attentions'
+    logits there agree at f32 1e-4."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DecodeEngine, DecoderConfig
+    from pathway_tpu_torch.decode import parse_decode_spec
+    from pathway_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
+
+    t_phase = time.perf_counter()
+    mcfg = DecoderConfig()
+    prompts = _decode_ext_prompts(mcfg.vocab_size)
+    launches: collections.Counter = collections.Counter()
+    runs = {}
+    for tag, spec in DECODE_EXT_CONFIGS:
+        runs[tag] = _serve_decode(torch, pw, mcfg, spec, prompts)
+        launches.update(runs[tag]["launches"])
+        emit("decode_ext_config", config=tag, spec=DECODE_EXT_POOL + spec, **runs[tag]["summary"])
+    sampled = _serve_decode(torch, pw, mcfg, DECODE_EXT_SAMPLED, prompts)
+    launches.update(sampled["launches"])
+    emit("decode_ext_config", config="e_sampled", spec=DECODE_EXT_POOL + DECODE_EXT_SAMPLED, **sampled["summary"])
+    again = _serve_decode(torch, pw, mcfg, DECODE_EXT_SAMPLED, prompts)
+    launches.update(again["launches"])
+
+    # ---- gates, outside the counted runs
+    params = runs["a_greedy"]["params"]
+    base = runs["a_greedy"]["streams"]
+    parted = {}
+    for tag in ("b_cache_chunk", "c_spec_layer_skip", "d_spec_prompt_lookup"):
+        splits = []
+        for prompt, got, want in zip(prompts, runs[tag]["streams"], base):
+            t, gap = _first_split(torch, params, mcfg, prompt, got, want)
+            if t is not None:
+                splits.append({"step": t, "top2_gap": gap})
+                if gap >= NEAR_TIE:
+                    raise AssertionError(f"{tag} parts from greedy at step {t} with a top-2 gap of {gap}")
+        parted[tag] = splits
+    for tag in ("a_greedy", "e_sampled"):
+        run = runs.get(tag, sampled)
+        if run["launches"].get("paged_decode_attention", 0) == 0:
+            raise AssertionError(f"decode_ext_path {tag} never launched B5")
+    if runs["b_cache_chunk"]["summary"]["prefix_hit_pages"] == 0:
+        raise AssertionError("the prefix cache never hit")
+    for tag in ("c_spec_layer_skip", "d_spec_prompt_lookup"):
+        if runs[tag]["summary"]["spec_proposed"] == 0:
+            raise AssertionError(f"{tag}: the verify never ran")
+    if sampled["streams"] != again["streams"]:
+        raise AssertionError("sampled decode is not reproducible across two runs")
+    scfg = parse_decode_spec(f"{DECODE_EXT_POOL},impl={DECODE_EXT_IMPL}{DECODE_EXT_SAMPLED}")
+    alone = [DecodeEngine(mcfg, scfg, seed=SEED, device=DEV).generate([p])[0] for p in prompts[:4]]
+    if alone != sampled["streams"][:4]:
+        raise AssertionError("a sampled stream differs alone and batched")
+    xla = DecodeEngine(mcfg, dataclasses.replace(scfg, impl="xla"), seed=SEED, device=DEV).generate(prompts)
+    sampled_splits = []
+    for prompt, got, want in zip(prompts, sampled["streams"], xla):
+        t = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if t is None:
+            continue
+        kern = _lane_logits(torch, params, mcfg, prompt, got[: t + 1], paged_decode_attention)[t]
+        plain = _lane_logits(torch, params, mcfg, prompt, got[: t + 1], paged_attention_reference)[t]
+        sampled_splits.append({"step": t, "max_abs_err": held(f"sampled logits at step {t}", kern, plain, **F32_TOL)})
+
+    # the sampled step: one full-width step of a fresh engine with 8 live lanes, wall and device time
+    probe = DecodeEngine(mcfg, scfg, seed=SEED, device=DEV)
+    for p in prompts[:8]:
+        probe.submit(p)
+    probe.step()  # admits (prefills) all eight, then steps
+    t0 = time.perf_counter()
+    probe.step()
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t0) * 1e3
+    step_ops, step_device_ms = device_ops(torch, probe.step)
+    emit(
+        "decode_ext_path", requests=len(prompts), prompt_tokens=sum(len(p) for p in prompts),
+        long_requests=DECODE_EXT_LONG, configs={tag: r["summary"] for tag, r in runs.items()},
+        sampled=sampled["summary"], near_tie_splits=parted, sampled_repeats=True, sampled_alone_equals_batched=True,
+        sampled_vs_xla_splits=sampled_splits, sampled_step_wall_ms=step_wall_ms, sampled_step_device_ms=step_device_ms,
+        sampled_step_device_ops=step_ops and step_ops["total"], phase_seconds=time.perf_counter() - t_phase,
+        launches=dict(launches),
+    )
+    return dict(launches)
+
+
 # mesh_path: shards on one card, index rows (4 x 2^20), documents embedded, text
 # queries, the engine's streamed documents and its single queries
 MESH_ONE_CARD_SHARDS, MESH_ROWS, MESH_DOCS, MESH_QUERIES = 4, 1 << 22, 16_384, 512
@@ -2063,6 +2338,248 @@ def phase_mesh_path(torch, rows: int = MESH_ROWS, n_docs: int = MESH_DOCS, n_que
     return launches
 
 
+# qa_path: the corpus, the questions answered and the retrievals, the
+# retriever's k and the reranker's cut
+QA_FILES, QA_ANSWERS, QA_RETRIEVE, QA_SEARCH_K, QA_RERANK_K = 1024, 256, 64, 6, 3
+
+
+def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
+                  n_retrieve: int = QA_RETRIEVE) -> dict:
+    """The README's question answerer on the port: ``pw.io.fs.read`` over
+    ``n_files`` files of synthetic prose -> ``DocumentStore(
+    retriever_factory=BruteForceKnnFactory(embedder=
+    SentenceTransformerEmbedder()), splitter=TokenCountSplitter())`` at
+    MiniLM-L6 width, each query's ``QA_SEARCH_K`` retrieved docs rescored by a
+    ``CrossEncoderReranker`` at cross_encoder_l6 width and cut by
+    ``rerank_topk_filter`` to ``QA_RERANK_K`` -> ``BaseRAGQuestionAnswerer``
+    whose chat (defined here, deterministic) answers with
+    ``rag_evals.extractive_answerer`` over its context -> ``QARestServer``,
+    driven over HTTP: ``n_answers`` sequential ``/v1/pw_ai_answer`` (each a
+    sentence of one file) and ``n_retrieve`` ``/v1/retrieve``. In the same
+    run, a python connector replays every question, one an epoch, through
+    ``answer_query`` in process. Gates: each answer and its
+    ``context_docs`` equal the replay's; the encoder kernels, B2's streaming
+    pass and merge launch; each served rerank call launches the
+    cross-encoder's attention (``masked_attention``) once a layer a batch and
+    nothing else launches during it; the ``rag_evals`` report over the
+    questions is printed."""
+    import socket
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.xpacks.llm import rag_evals
+    from pathway_tpu_torch.xpacks.llm.llms import BaseChat, _messages_to_plain
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker, rerank_topk_filter
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    now = time.perf_counter
+    t_phase = now()
+    rng = np.random.default_rng(SEED + 31)
+    texts = _prose_files(rng, n_files)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix="qa_path_docs_", dir=build_dir)
+    paths = [os.path.join(folder, f"doc_{i:05d}.txt") for i in range(n_files)]
+    for path, text in zip(paths, texts):
+        with open(path, "w") as f:
+            f.write(text)
+    questions, cases = [], []
+    for i in rng.choice(n_files, n_answers, replace=False):
+        sentences = [x.strip() for x in texts[i].split(".") if len(x.split()) >= 8]
+        q = sentences[int(rng.integers(0, len(sentences)))] + "."
+        questions.append(q)
+        cases.append(rag_evals.EvalCase(q, paths[i], tuple(sorted(q[:-1].split(), key=len)[-2:])))
+    retrieve_q = [questions[int(j)] for j in rng.choice(n_answers, n_retrieve, replace=False)]
+
+    embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder(device=DEV)
+    embedder._encoder.encode_device(texts[:64], pad_to=64)  # warm-up: first launches, handles
+    reranker = CrossEncoderReranker(seed=SEED, device=DEV)
+    reranker.__wrapped__(texts[:8], texts[8:16])
+
+    class ExtractiveChat(BaseChat):
+        """Answers with the extractive answerer over the context its prompt carries."""
+
+        def __wrapped__(self, messages, **kwargs) -> str:
+            asked = json.loads(_messages_to_plain(messages)[-1]["content"])
+            return rag_evals.extractive_answerer(asked["question"], asked["context"].split("\n\n"))
+
+        def _accepts_call_arg(self, arg_name: str) -> bool:
+            return False
+
+    def qa_prompt(context: str, query: str) -> str:
+        return json.dumps({"question": query, "context": context})
+
+    rerank_launches: list = []  # each served rerank call's own launches, and what its forward should launch
+
+    @pw.udf
+    def rerank(docs, query: str) -> pw.Json:
+        plain = [d.value if isinstance(d, pw.Json) else d for d in (docs.value if isinstance(docs, pw.Json) else docs)]
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        scores = reranker.__wrapped__([str(d["text"]) for d in plain], [query] * len(plain))
+        torch.cuda.synchronize()
+        own = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items() if v != before.get(k, 0)}
+        groups = -(-len(plain) // reranker._scorer.max_batch)
+        rerank_launches.append((own, {"masked_attention": reranker._scorer.cfg.num_layers * groups} if groups else {}))
+        top, _ = rerank_topk_filter.func(plain, scores, QA_RERANK_K)
+        return pw.Json(list(top))
+
+    class RerankedStore:
+        """The document store with each query's retrieved docs rescored by
+        the cross-encoder and cut to the best ``QA_RERANK_K``."""
+
+        def __init__(self, store):
+            self.store = store
+            self.RetrieveQuerySchema = store.RetrieveQuerySchema
+            self.StatisticsQuerySchema = store.StatisticsQuerySchema
+            self.InputsQuerySchema = store.InputsQuerySchema
+
+        def retrieve_query(self, queries):
+            hits = self.store.retrieve_query(queries)
+            return (queries.select(q=pw.this.query) + hits).select(result=rerank(pw.this.result, pw.this.q))
+
+        def statistics_query(self, queries):
+            return self.store.statistics_query(queries)
+
+        def inputs_query(self, queries):
+            return self.store.inputs_query(queries)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+
+    def post(path, payload, timeout=300):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read().decode())
+
+    replay_go, replayed = threading.Event(), {}
+    replay_done = threading.Event()
+
+    class Replay(pw.io.python.ConnectorSubject):
+        def run(self):
+            replay_go.wait()
+            for q in questions:
+                self.next(prompt=q, filters=None, model=None, return_context_docs=True)
+                self.commit()
+                while q not in replayed:
+                    time.sleep(0.001)
+            replay_done.set()
+
+    runners = []
+    real_init = GraphRunner.__init__
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        runners.append(self)
+
+    pw.clear_graph()
+    docs = pw.io.fs.read(folder, format="binary", mode="streaming", with_metadata=True)
+    store = pw.xpacks.llm.DocumentStore(
+        docs, retriever_factory=pw.indexing.BruteForceKnnFactory(embedder=embedder),
+        splitter=pw.xpacks.llm.splitters.TokenCountSplitter())
+    rag = BaseRAGQuestionAnswerer(ExtractiveChat(), RerankedStore(store), prompt_template=qa_prompt,
+                                  search_topk=QA_SEARCH_K)
+    server = QARestServer("127.0.0.1", port, rag)
+    replay_q = pw.io.python.read(Replay(), schema=rag.AnswerQuerySchema, autocommit_duration_ms=None)
+    pw.io.subscribe(replay_q.select(prompt=pw.this.prompt) + rag.answer_query(replay_q),
+                    lambda key, row, time, is_addition: is_addition and replayed.__setitem__(
+                        row["prompt"], json.loads(json.dumps(row["result"].value, default=float))))
+    GraphRunner.__init__ = recording_init
+    result: dict = {}
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t_run = now()
+        run = server.run(threaded=True)
+        deadline = now() + 600
+        while True:
+            try:
+                if post("/v1/statistics", {})["file_count"] == n_files:
+                    break
+            except OSError:  # the endpoint is not up yet
+                pass
+            if now() > deadline:
+                raise TimeoutError("the QA server never indexed every file")
+            time.sleep(0.2)
+        ingest_s = now() - t_run
+        answers, lat = {}, []
+        t0 = now()
+        for q in questions:
+            t1 = now()
+            answers[q] = post("/v1/pw_ai_answer", {"prompt": q, "return_context_docs": True})
+            lat.append((now() - t1) * 1e3)
+        answer_s = now() - t0
+        retrieved, rlat = [], []
+        for q in retrieve_q:
+            t1 = now()
+            retrieved.append(post("/v1/retrieve", {"query": q, "k": QA_SEARCH_K}))
+            rlat.append((now() - t1) * 1e3)
+        replay_go.set()
+        if not replay_done.wait(timeout=600):
+            raise TimeoutError(f"the in-process replay answered {len(replayed)} of {len(questions)} questions")
+        result.update(files=n_files, ingest_seconds=ingest_s, answers=len(answers), answers_per_s=len(answers) / answer_s,
+                      pw_ai_answer=_percentiles(lat), retrieve=_percentiles(rlat), retrievals=len(retrieved))
+    finally:
+        if runners:
+            runners[-1].engine.stop()
+        GraphRunner.__init__ = real_init
+    run.join(timeout=120)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    pw.clear_graph()
+    shutil.rmtree(folder)
+    if run.is_alive():
+        raise AssertionError("the served run did not end after the engine stopped")
+
+    # ---- gates, outside the counted run
+    missing = [key for key in ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention", "knn_topk_stream",
+                               "knn_topk_merge") if launches.get(key, 0) == 0]
+    if missing:
+        raise AssertionError(f"qa_path never launched {missing}")
+    # the cross-encoder's attention: each served rerank call launched B3 once a
+    # layer a batch, and nothing else launched while it ran
+    if not rerank_launches or any(own != want for own, want in rerank_launches):
+        bad = next((r for r in rerank_launches if r[0] != r[1]), None)
+        raise AssertionError(f"{len(rerank_launches)} rerank calls; a call's own launches against its forward's: {bad}")
+    if sum(own.get("masked_attention", 0) for own, _ in rerank_launches) == 0:
+        raise AssertionError("the cross-encoder's attention never launched")
+    differ = 0
+    for q in questions:
+        got, want = answers[q], replayed[q]
+        same_docs = [(d["text"], d["metadata"]["path"]) for d in got["context_docs"]] == [
+            (d["text"], d["metadata"]["path"]) for d in want["context_docs"]]
+        differ += not (got["response"] == want["response"] and same_docs
+                       and len(got["context_docs"]) == QA_RERANK_K)
+    if differ:
+        raise AssertionError(f"{differ} of {len(questions)} served answers differ from the in-process replay")
+    if any(len(r) != QA_RERANK_K for r in retrieved):
+        raise AssertionError("a /v1/retrieve answer did not hold the reranker's cut")
+    report = rag_evals.EvalReport(k=QA_RERANK_K)
+    for case in cases:
+        docs_ = answers[case.question]["context_docs"]
+        files = [d["metadata"]["path"] for d in docs_]
+        rank = next((i + 1 for i, f in enumerate(files) if case.expected_file in f), None)
+        answer = answers[case.question]["response"]
+        report.outcomes.append(rag_evals.CaseOutcome(case, files, rank, answer,
+                                                     rag_evals._coverage(answer, case.answer_terms)))
+    result.update(rag_evals=report.as_dict() | {"misses": len(report.as_dict()["misses"])},
+                  replay_equal=len(questions), rerank_calls=len(rerank_launches),
+                  rerank_attention_launches=sum(own.get("masked_attention", 0) for own, _ in rerank_launches),
+                  phase_seconds=now() - t_phase, launches=launches)
+    emit("qa_path", **result)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -2100,7 +2617,9 @@ def main(argv: list[str]) -> int:
     launches.update(phase_engine_path(torch))
     launches.update(phase_server_path(torch))
     launches.update(phase_mesh_path(torch))
-    for e in entries:  # launches summed over the six paths' counted runs
+    launches.update(phase_decode_ext_path(torch))
+    launches.update(phase_qa_path(torch))
+    for e in entries:  # launches summed over the eight paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

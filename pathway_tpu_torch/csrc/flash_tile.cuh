@@ -7,7 +7,9 @@
 // cp.async; scores and probabilities stay in registers (an f32 online
 // softmax in the exp2 domain), and P is rounded to bf16 straight into the A
 // fragment of the P.V product -- before normalisation, which happens once at
-// the end. What a key counts for (excluded, masked, live) is the caller's:
+// the end. A sequence may have any length: the callers walk its key tiles
+// one after another; past SHORT_S they keep only a few ints a tile in shared
+// memory. What a key counts for (excluded, masked, live) is the caller's:
 // it hands `update` scores already scaled into the exp2 domain, with -inf
 // for keys the row may not attend. Templated on the head dim (32, 64, 128,
 // 256). At 256 a warp's output tile alone is 128 f32 registers a thread, so
@@ -29,8 +31,10 @@ constexpr int QT = 64;          // query rows per block, 16 per warp
 constexpr int WARPS = QT / 16;
 constexpr int NT = WARPS * 32;  // threads per block
 constexpr int KT = 64;          // keys per tile
-constexpr int MAX_S = 512;
-constexpr int MAX_KT = MAX_S / KT;
+// up to this S the kernels keep a sequence's per-key state in static shared
+// memory; past it their long instances keep a few ints a tile
+constexpr int SHORT_S = 512;
+constexpr int SHORT_KT = SHORT_S / KT;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(QT == KT, "load_rows stages Q and K/V tiles of the same height");
 
@@ -263,6 +267,23 @@ template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The long instances' opt-in: all the card allows beside the kernel's static
+// shared memory, returned in `limit`. Their per-S arrays (a few ints per
+// 64-key tile) stay far below it at any S a sequence has.
+template <class Kernel>
+cudaError_t smem_limit(Kernel kernel, int* limit) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const int dyn = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err == cudaSuccess) *limit = dyn;
+  return err;
 }
 
 }  // namespace flash

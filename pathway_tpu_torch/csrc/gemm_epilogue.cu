@@ -34,7 +34,7 @@
 // 0.541-0.549 ms against 0.195 ms and 0.669 ms (F.linear + F.gelu).
 //
 // gemm_bias_residual_layernorm reuses that mainloop with an output tile that
-// spans whole rows (N up to 768; N = 1024 in two column chunks), so the
+// spans whole rows (N up to 768; wider rows in column chunks of 512), so the
 // LayerNorm statistics come from the accumulators in the epilogue: bias,
 // residual, LayerNorm and the f32 and bf16 stores never make a separate
 // pass over device memory. At the main path's shapes (M = 163,840, N = 384,
@@ -357,16 +357,18 @@ cudaError_t launch_tma(const bf16* X, const bf16* W, const float* bias, bf16* Y,
 // [64 rg, 64 rg + 64) and columns [CW cs, CW cs + CW) of it, issued as NP
 // wgmma of width PN. With CS = 2 the two warpgroups split the columns and
 // exchange each row's sum and sum of squared deviations through shared
-// memory. Widths whose row does not fit the registers (N = 1024) run in
-// NCH = 2 column chunks: each chunk's pre-LayerNorm rows go to the f32
-// output, its statistics merge into the row's (Chan's pairwise update),
-// and a last pass normalises the rows from there (L2-resident).
-//   N     RG CS NCH  per warpgroup      stages
-//   256   2  1  1    64 x 256 (2 x 128)  4
-//   384   2  1  1    64 x 384 (2 x 192)  3
-//   512   1  2  1    64 x 256 (2 x 128)  2
-//   768   1  2  1    64 x 384 (2 x 192)  2
-//   1024  1  2  2    64 x 256 (2 x 128)  3
+// memory. Widths whose row does not fit the registers (N = 1024 and every
+// multiple of 512 above) are staged: they run in N / 512 column chunks of
+// 512 (a runtime count, one instance for them all); each chunk's
+// pre-LayerNorm rows go to the f32 output, its statistics merge into the
+// row's (Chan's pairwise update), and a last pass normalises the rows from
+// there (L2-resident at the encoders' sizes).
+//   N            RG CS chunks  per warpgroup      stages
+//   256          2  1  1       64 x 256 (2 x 128)  4
+//   384          2  1  1       64 x 384 (2 x 192)  3
+//   512          1  2  1       64 x 256 (2 x 128)  2
+//   768          1  2  1       64 x 384 (2 x 192)  2
+//   512 c, c>=2  1  2  c       64 x 256 (2 x 128)  3
 // The grid is persistent (one block per SM: ring and staging take 150-226
 // KB) and the loads of the next tile run under this tile's epilogue. The
 // residual is read in bf16 or f32 (a template parameter: no branch in the
@@ -376,8 +378,7 @@ cudaError_t launch_tma(const bf16* X, const bf16* W, const float* bias, bf16* Y,
 // would spill. The rows leave through a [16, 32] f32 tile per warp in
 // shared memory, so that every store writes whole row segments.
 //
-// Other widths: the wrapper pads a row of width n (any n up to 1024) to the
-// next width above with zero weight rows, bias, gamma, beta and residual
+// Other widths: the wrapper pads a row of width n to the next width above with zero weight rows, bias, gamma, beta and residual
 // columns, and passes n as n_live. Columns at or past n_live hold exactly 0
 // before the LayerNorm; they are left out of the row's mean and variance
 // (each chunk counts its live columns) and leave as 0, which the wrapper
@@ -394,10 +395,10 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
 
-template <int N, int RG, int CS, int NCH, int STAGES>
+template <int CN_, int RG, int CS, bool STAGED, int STAGES>
 struct LnTile {
   static constexpr int BM = 64 * RG;   // rows per tile
-  static constexpr int CN = N / NCH;   // columns per chunk
+  static constexpr int CN = CN_;       // columns per chunk
   static constexpr int CW = CN / CS;   // columns per warpgroup
   static constexpr int PN = CW > 256 ? CW / 2 : (CW == 256 ? 128 : CW);  // width of one wgmma
   static constexpr int NP = CW / PN;
@@ -405,20 +406,23 @@ struct LnTile {
   static constexpr int A_BYTES = BM * TBK * 2;
   static constexpr int STAGE = A_BYTES + CN * TBK * 2;
   static constexpr int TILE = 16 * 32 * 4;              // a warp's [16, 32] f32 output tile
-  static constexpr int STAGING = NCH == 1 ? 8 * TILE : 0;  // (N = 1024 writes its rows directly)
+  static constexpr int STAGING = STAGED ? 0 : 8 * TILE;  // (staged widths write their rows directly)
   static constexpr int SMEM = STAGES * STAGE + STAGING + 2 * STAGES * 8 + 2 * CS * BM * 4 + 1024;
   static_assert(RG * CS == 2, "two consumer warpgroups");
   static_assert(CN % BOX == 0 && CW % PN == 0 && NP * PN == CW, "column split");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-template <int N, int RG, int CS, int NCH, int STAGES, typename RT>
+template <int CN_, int RG, int CS, bool STAGED, int STAGES, typename RT>
 __global__ void __launch_bounds__(256, 1)
 gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                        const float* __restrict__ bias, const RT* __restrict__ R, const float* __restrict__ gamma,
                        const float* __restrict__ beta, float* __restrict__ Yf, bf16* __restrict__ Yb, int M, int K,
-                       int n_live, float eps) {
-  using T = LnTile<N, RG, CS, NCH, STAGES>;
+                       int row_width, int n_live, float eps) {
+  using T = LnTile<CN_, RG, CS, STAGED, STAGES>;
+  // the row width and its column chunks: compile-time unless STAGED
+  const int ldn = STAGED ? row_width : CN_;
+  const int nch = STAGED ? row_width / CN_ : 1;
   constexpr int PN = T::PN, NP = T::NP, CW = T::CW, CN = T::CN, BM = T::BM;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -434,7 +438,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
   const int rg = wg / CS, cs = wg % CS;
   const int tiles = (M + BM - 1) / BM;
   const int ksteps = (K + TBK - 1) / TBK;
-  const int per_tile = NCH * ksteps;
+  const int per_tile = nch * ksteps;
   const int my_tiles = tiles > (int)blockIdx.x ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   const int total = my_tiles * per_tile;
 
@@ -501,7 +505,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
   for (int t = 0; t < my_tiles; ++t) {
     const int64_t row0 = (int64_t)(blockIdx.x + t * gridDim.x) * BM + rg * 64 + w * 16 + g;
     float mean[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
-    for (int ch = 0; ch < NCH; ++ch) {
+    for (int ch = 0; ch < nch; ++ch) {
       for (int k = 0; k < ksteps; ++k, ++c) {
         const int s = c % STAGES;
         mbar_wait(full(s), (c / STAGES) & 1);
@@ -528,7 +532,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
       // epilogue of the chunk: v = residual + (acc + bias), its row statistics
       const int col0 = ch * CN + cs * CW + 2 * (lane % 4);
       const bool ok[2] = {row0 < M, row0 + 8 < M};
-      const RT* res[2] = {R + row0 * N + col0, R + (row0 + 8) * N + col0};  // read only where ok
+      const RT* res[2] = {R + row0 * ldn + col0, R + (row0 + 8) * ldn + col0};  // read only where ok
       float sum[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int p = 0; p < NP; ++p)
@@ -572,7 +576,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
           }
       }
       row_total(sq, 1);
-      if (NCH == 1) {
+      if (!STAGED) {
         mean[0] = cmean[0];
         mean[1] = cmean[1];
         m2[0] = sq[0];
@@ -612,7 +616,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
                 for (int it = 0; it < 4; ++it) {  // 16 rows x 8 float4
                   const int r = (32 * it + lane) >> 3, k = lane & 7;
                   if (wrow + r < M)
-                    *reinterpret_cast<float4*>(Yf + (wrow + r) * N + cbase + 4 * k) =
+                    *reinterpret_cast<float4*>(Yf + (wrow + r) * ldn + cbase + 4 * k) =
                         *reinterpret_cast<const float4*>(tile + r * 32 + ((4 * k) ^ ((r & 3) << 3)));
                 }
               }
@@ -627,7 +631,7 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
                   o.y = pack_bf16x2(a.z, a.w);
                   o.z = pack_bf16x2(b.x, b.y);
                   o.w = pack_bf16x2(b.z, b.w);
-                  *reinterpret_cast<uint4*>(Yb + (wrow + r) * N + cbase + 8 * k) = o;
+                  *reinterpret_cast<uint4*>(Yb + (wrow + r) * ldn + cbase + 8 * k) = o;
                 }
               }
               __syncwarp();  // the tile is read before the next chunk overwrites it
@@ -654,13 +658,13 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh)
               if (ok[hh])
-                *reinterpret_cast<float2*>(Yf + (row0 + 8 * hh) * N + col0 + p * PN + 8 * j) =
+                *reinterpret_cast<float2*>(Yf + (row0 + 8 * hh) * ldn + col0 + p * PN + 8 * j) =
                     make_float2(d[p][4 * j + 2 * hh] + cmean[hh], d[p][4 * j + 2 * hh + 1] + cmean[hh]);
       }
     }
-    if (NCH > 1) {  // normalise the staged rows: each thread reads back what it wrote
+    if (STAGED) {  // normalise the staged rows: each thread reads back what it wrote
       const float inv[2] = {rsqrtf(m2[0] / n_live + eps), rsqrtf(m2[1] / n_live + eps)};
-      for (int ch = 0; ch < NCH; ++ch)
+      for (int ch = 0; ch < nch; ++ch)
 #pragma unroll
         for (int p = 0; p < NP; ++p)
 #pragma unroll 4
@@ -672,26 +676,26 @@ gemm_res_ln_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
             for (int hh = 0; hh < 2; ++hh) {
               const int64_t row = row0 + 8 * hh;
               if (row >= M) continue;
-              float2* yf = reinterpret_cast<float2*>(Yf + row * N + col);
+              float2* yf = reinterpret_cast<float2*>(Yf + row * ldn + col);
               const float2 v = *yf;
               const float y0 = (v.x - mean[hh]) * inv[hh] * ga.x + be.x;
               const float y1 = (v.y - mean[hh]) * inv[hh] * ga.y + be.y;
               *yf = make_float2(y0, y1);
-              *reinterpret_cast<__nv_bfloat162*>(Yb + row * N + col) = __floats2bfloat162_rn(y0, y1);
+              *reinterpret_cast<__nv_bfloat162*>(Yb + row * ldn + col) = __floats2bfloat162_rn(y0, y1);
             }
           }
     }
   }
 }
 
-template <int N, int RG, int CS, int NCH, int STAGES, typename RT>
+template <int CN_, int RG, int CS, bool STAGED, int STAGES, typename RT>
 cudaError_t launch_res_ln(const bf16* X, const bf16* W, const float* bias, const RT* R, const float* gamma,
-                          const float* beta, float* Yf, bf16* Yb, int M, int K, int n_live, float eps,
+                          const float* beta, float* Yf, bf16* Yb, int M, int K, int ldn, int n_live, float eps,
                           cudaStream_t stream) {
-  using T = LnTile<N, RG, CS, NCH, STAGES>;
+  using T = LnTile<CN_, RG, CS, STAGED, STAGES>;
   static int max_grid = 0;  // resident blocks on the whole card, found once
-  auto kernel = gemm_res_ln_tma_kernel<N, RG, CS, NCH, STAGES, RT>;
-  if (NCH > 1 && !Yf) return cudaErrorInvalidValue;  // the rows are staged in Yf
+  auto kernel = gemm_res_ln_tma_kernel<CN_, RG, CS, STAGED, STAGES, RT>;
+  if (STAGED && !Yf) return cudaErrorInvalidValue;  // the rows are staged in Yf
   if (!max_grid) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return err;
@@ -704,23 +708,23 @@ cudaError_t launch_res_ln(const bf16* X, const bf16* W, const float* bias, const
     max_grid = sms * per_sm;
   }
   CUtensorMap tx, tw;
-  if (!tensor_map(&tx, X, M, K, T::BM) || !tensor_map(&tw, W, N, K, T::BOX)) return cudaErrorInvalidValue;
+  if (!tensor_map(&tx, X, M, K, T::BM) || !tensor_map(&tw, W, ldn, K, T::BOX)) return cudaErrorInvalidValue;
   const int tiles = (M + T::BM - 1) / T::BM;
   const int grid = tiles < max_grid ? tiles : max_grid;
-  kernel<<<grid, 256, T::SMEM, stream>>>(tx, tw, bias, R, gamma, beta, Yf, Yb, M, K, n_live, eps);
+  kernel<<<grid, 256, T::SMEM, stream>>>(tx, tw, bias, R, gamma, beta, Yf, Yb, M, K, ldn, n_live, eps);
   return cudaGetLastError();
 }
 
 // the launch for a bf16 or an f32 residual
-template <int N, int RG, int CS, int NCH, int STAGES>
+template <int CN_, int RG, int CS, bool STAGED, int STAGES>
 cudaError_t launch_res_ln_any(const bf16* X, const bf16* W, const float* bias, const void* R, int r_is_f32,
-                              const float* gamma, const float* beta, float* Yf, bf16* Yb, int M, int K, int n_live,
-                              float eps, cudaStream_t stream) {
+                              const float* gamma, const float* beta, float* Yf, bf16* Yb, int M, int K, int ldn,
+                              int n_live, float eps, cudaStream_t stream) {
   if (r_is_f32)
-    return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const float*)R, gamma, beta, Yf, Yb, M, K, n_live, eps,
-                                                 stream);
-  return launch_res_ln<N, RG, CS, NCH, STAGES>(X, W, bias, (const bf16*)R, gamma, beta, Yf, Yb, M, K, n_live, eps,
-                                               stream);
+    return launch_res_ln<CN_, RG, CS, STAGED, STAGES>(X, W, bias, (const float*)R, gamma, beta, Yf, Yb, M, K, ldn,
+                                                      n_live, eps, stream);
+  return launch_res_ln<CN_, RG, CS, STAGED, STAGES>(X, W, bias, (const bf16*)R, gamma, beta, Yf, Yb, M, K, ldn,
+                                                    n_live, eps, stream);
 }
 
 }  // namespace
@@ -737,29 +741,29 @@ int pt_gemm_bias_act(const void* X, const void* W, const void* bias, void* Y, in
   return (int)launch_tma<0>(x, w, (const float*)bias, (bf16*)Y, M, N, K, s);
 }
 
-// N in {256, 384, 512, 768, 1024}, K % 8 == 0; the first n_live (0 <
-// n_live <= N) columns are the row, the rest zero padding; Yf may be null
-// except at N = 1024, where the rows are staged there. Returns the launch's
-// cudaError_t, or cudaErrorInvalidValue for another N.
+// N in {256, 384, 512, 768} or a multiple of 512 from 1024 up (staged), K %
+// 8 == 0; the first n_live (0 < n_live <= N) columns are the row, the rest
+// zero padding; Yf may be null except at a staged width, where the rows are
+// staged there. Returns the launch's cudaError_t, or cudaErrorInvalidValue
+// for another N.
 int pt_gemm_bias_residual_layernorm(const void* X, const void* W, const void* bias,
                                     const void* R, int r_is_f32, const void* gamma,
                                     const void* beta, void* Yf, void* Yb, int M, int N, int n_live,
                                     int K, float eps, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define PT_RES_LN(NN, RG, CS, NCH, ST)                                                         \
-  case NN:                                                                                     \
-    return (int)launch_res_ln_any<NN, RG, CS, NCH, ST>((const bf16*)X, (const bf16*)W, (const float*)bias, R, \
-                                                   r_is_f32, (const float*)gamma, (const float*)beta, \
-                                                   (float*)Yf, (bf16*)Yb, M, K, n_live, eps, s);
+#define PT_RES_LN(CN, RG, CS, STAGED, ST)                                                                      \
+  return (int)launch_res_ln_any<CN, RG, CS, STAGED, ST>((const bf16*)X, (const bf16*)W, (const float*)bias, R, \
+                                                        r_is_f32, (const float*)gamma, (const float*)beta,    \
+                                                        (float*)Yf, (bf16*)Yb, M, K, N, n_live, eps, s);
   if (K % 8 || n_live <= 0 || n_live > N) return (int)cudaErrorInvalidValue;
   switch (N) {
-    PT_RES_LN(256, 2, 1, 1, 4)
-    PT_RES_LN(384, 2, 1, 1, 3)
-    PT_RES_LN(512, 1, 2, 1, 2)
-    PT_RES_LN(768, 1, 2, 1, 2)
-    PT_RES_LN(1024, 1, 2, 2, 3)
+    case 256: PT_RES_LN(256, 2, 1, false, 4)
+    case 384: PT_RES_LN(384, 2, 1, false, 3)
+    case 512: PT_RES_LN(512, 1, 2, false, 2)
+    case 768: PT_RES_LN(768, 1, 2, false, 2)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (N < 1024 || N % 512) return (int)cudaErrorInvalidValue;
+      PT_RES_LN(512, 1, 2, true, 3)
   }
 #undef PT_RES_LN
 }

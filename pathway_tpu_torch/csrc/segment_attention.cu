@@ -4,16 +4,19 @@
 // Replaces the TPU kernel
 //   pathway_tpu/ops/fused_attention.py::_packed_call (body _seg_kernel) -- B4
 //
-// Several chunks share one row of up to 512 tokens, back to back; segment
+// Several chunks share one row of tokens (512 on the packed ingest), back to back; segment
 // ids are unique across rows and -1 marks padding. The TPU kernel packs
 // 256-token blocks and adds BLOCK_OFF where ids differ, to keep its 128-wide
 // matrix unit fed. Here the kernel is a FlashAttention-2 style loop:
 //
 //   * one block of 4 warps owns (64-query tile, head, row); a warp owns 16
 //     query rows and runs mma.sync m16n8k16 bf16 with f32 accumulation;
-//   * the block loads the row's segment ids once (2 KB) and the query
-//     tile's range [lo, hi] of live ids; a 64-key tile whose [min, max] id
-//     range misses [lo, hi] holds no key any of those queries may attend,
+//   * the block reads the query tile's range [lo, hi] of live ids and each
+//     64-key tile's [min, max] id range. Up to S = 512 the row's ids (2 KB)
+//     sit in static shared memory; past it (any S) the ranges take two ints
+//     a tile of dynamic shared memory and a visited tile's ids are staged
+//     with its K and V, loaded under the tile before. A 64-key tile whose
+//     [min, max] id range misses [lo, hi] holds no key any of those queries may attend,
 //     so only the live key tiles are visited (an exact skip). With
 //     contiguous segments of 64-256 tokens that is two to four of a 512-
 //     token row's eight tiles. A warp also skips the compute of a live tile
@@ -69,13 +72,18 @@ __device__ __forceinline__ uint32_t live_tiles(const int* tmin, const int* tmax,
   return mask;
 }
 
-template <int HD>
+// LONG = false (S <= SHORT_S, every path of the port today): the row's ids
+// sit in static shared memory and the live tiles in bit masks. LONG = true
+// (any S): two ints a tile of dynamic shared memory for the tiles' id
+// ranges, and each visited tile's ids staged beside its K and V.
+template <int HD, bool LONG>
 __global__ void __launch_bounds__(NT)
 segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg_ids,
                          bf16* __restrict__ out, int S, int D, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(16) int seg[MAX_S];
-  __shared__ int tmin[MAX_KT], tmax[MAX_KT];
+  // short: the row's ids (-1 past S); long: the two staged tiles'
+  __shared__ __align__(16) int seg[LONG ? 2 * KT : SHORT_S];
+  __shared__ int ranges[LONG ? 1 : 2 * SHORT_KT];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -85,17 +93,29 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
   const int64_t b = blockIdx.z;
   const int64_t row_stride = 3LL * D;
   const bf16* base = qkv + b * S * row_stride;
+  const int* row_ids = seg_ids + b * S;
   const int n_kt = (S + KT - 1) / KT;
+  int* tmin = LONG ? reinterpret_cast<int*>(smem + Tiles<HD>::BYTES) : ranges;  // [n_kt]
+  int* tmax = tmin + n_kt;                                                      // [n_kt]
+  // the id of position j (-1 past S): short from shared memory, long from the row
+  auto id = [&](int j) {
+    if constexpr (LONG) {
+      return j < S ? row_ids[j] : -1;
+    } else {
+      return seg[j];
+    }
+  };
 
-  for (int j = tid; j < MAX_S; j += NT) seg[j] = j < S ? seg_ids[b * S + j] : -1;
-  __syncthreads();
+  if constexpr (!LONG) {
+    for (int j = tid; j < SHORT_S; j += NT) seg[j] = j < S ? row_ids[j] : -1;
+    __syncthreads();
+  }
 
-  // the query tile's range of live ids (-1 rows excluded; seg is -1 past S);
-  // each warp computes it
+  // the query tile's range of live ids (-1 rows excluded); each warp computes it
   int lo = NO_SEG_LO, hi = NO_SEG_HI;
 #pragma unroll
   for (int i = lane; i < QT; i += 32) {
-    const int a = seg[q0 + i];
+    const int a = id(q0 + i);
     lo = min(lo, a >= 0 ? a : NO_SEG_LO);
     hi = max(hi, a >= 0 ? a : NO_SEG_HI);
   }
@@ -107,7 +127,7 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
   }
   // each key tile's id range, once per block
   for (int t = warp; t < n_kt; t += WARPS) {
-    const int a = seg[t * KT + lane], c = seg[t * KT + 32 + lane];
+    const int a = id(t * KT + lane), c = id(t * KT + 32 + lane);
     const int mn = warp_min_i(min(a, c)), mx = warp_max_i(max(a, c));
     if (lane == 0) {
       tmin[t] = mn;
@@ -115,31 +135,47 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
     }
   }
   __syncthreads();
-  uint32_t todo = live_tiles(tmin, tmax, n_kt, lo, hi);
+  // short: the live tiles as a bit mask
+  uint32_t todo = LONG ? 0u : live_tiles(tmin, tmax, n_kt, lo, hi);
+  auto next_tile = [&](int t) {  // the live tile after t, -1 past the last
+    if constexpr (LONG) {
+      for (++t; t < n_kt; ++t)
+        if (tmax[t] >= lo && tmin[t] <= hi) return t;
+      return -1;
+    } else {
+      const int nxt = todo ? __ffs(todo) - 1 : -1;
+      todo &= todo - 1;
+      return nxt;
+    }
+  };
 
   // this warp's 16 rows: their ids, and the live tiles that meet their range
   const int g = lane / 4, cq = lane % 4;
   const int r0 = q0 + warp * 16 + g;
-  const int sq0 = seg[r0];
-  const int sq1 = seg[r0 + 8];
-  uint32_t mine;
-  {
-    const int s16 = seg[q0 + warp * 16 + (lane % 16)];
-    const int wlo = warp_min_i(s16 >= 0 ? s16 : NO_SEG_LO);
-    const int whi = warp_max_i(s16 >= 0 ? s16 : NO_SEG_HI);
-    mine = wlo > whi ? 0u : (live_tiles(tmin, tmax, n_kt, wlo, whi) & todo);
-  }
+  const int sq0 = id(r0);
+  const int sq1 = id(r0 + 8);
+  const int s16 = id(q0 + warp * 16 + (lane % 16));
+  const int wlo = warp_min_i(s16 >= 0 ? s16 : NO_SEG_LO);
+  const int whi = warp_max_i(s16 >= 0 ? s16 : NO_SEG_HI);
+  const uint32_t mine = LONG || wlo > whi ? 0u : (live_tiles(tmin, tmax, n_kt, wlo, whi) & todo);
+  auto is_mine = [&](int t) {
+    if constexpr (LONG) {
+      return wlo <= whi && tmax[t] >= wlo && tmin[t] <= whi;
+    } else {
+      return (mine >> t) & 1u;
+    }
+  };
 
-  // stage Q (once) and the first live tile's K, V; rows past S are zero-filled
+  // stage Q (once) and the first live tile's K, V (long: and ids); rows past S are zero-filled
   bf16* Qs = Tiles<HD>::q(smem);
   load_rows<HD>(Qs, base, row_stride, h * HD, q0, S, tid);
   auto load_kv = [&](int t, int buf) {
     load_rows<HD>(Tiles<HD>::k(smem, buf), base, row_stride, D + h * HD, t * KT, S, tid);
     load_rows<HD>(Tiles<HD>::v(smem, buf), base, row_stride, 2 * D + h * HD, t * KT, S, tid);
   };
-  int cur = __ffs(todo) - 1;
-  todo &= todo - 1;
+  int cur = next_tile(-1);
   load_kv(cur, 0);
+  if (LONG && tid < KT) seg[tid] = id(cur * KT + tid);
   cp_async_commit();
 
   const float sl = scale * LOG2E;
@@ -148,9 +184,11 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
   int buf = 0;
   bool first = true;
   while (cur >= 0) {
-    const int nxt = todo ? __ffs(todo) - 1 : -1;
-    todo &= todo - 1;
+    const int nxt = next_tile(cur);
     if (nxt >= 0) load_kv(nxt, buf ^ 1);
+    // long: the next tile's ids, loaded now and staged after this tile's
+    // math, so the load's latency hides under it
+    const int next_ids = LONG && nxt >= 0 && tid < KT ? id(nxt * KT + tid) : -1;
     cp_async_commit();
     cp_async_wait_1();
     __syncthreads();
@@ -158,22 +196,23 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
       rows.load_q(Qs, warp, lane);
       first = false;
     }
-    if (mine & (1u << cur)) {
+    if (is_mine(cur)) {
       // mask to the row's own segment, in the exp2 domain
       float s[KT / 8][4];
       rows.scores(Tiles<HD>::k(smem, buf), lane, s);
-      const int kbase = cur * KT;
+      const int* kseg = seg + (LONG ? buf * KT : cur * KT);
 #pragma unroll
       for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int sk = seg[kbase + j * 8 + 2 * cq + (e & 1)];
+          const int sk = kseg[j * 8 + 2 * cq + (e & 1)];
           const int sq = (e < 2) ? sq0 : sq1;
           s[j][e] = (sq >= 0 && sk == sq) ? s[j][e] * sl : -CUDART_INF_F;
         }
       }
       rows.update(s, Tiles<HD>::v(smem, buf), lane);
     }
+    if (LONG && nxt >= 0 && tid < KT) seg[(buf ^ 1) * KT + tid] = next_ids;
     __syncthreads();  // every warp is done with buf before it is refilled
     cur = nxt;
     buf ^= 1;
@@ -185,10 +224,21 @@ segment_attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ s
 template <int HD>
 cudaError_t launch(const bf16* qkv, const int* seg, bf16* out, int B, int S, int D, float scale,
                    cudaStream_t stream) {
-  static const cudaError_t opt_in = allow_smem(segment_attention_kernel<HD>, Tiles<HD>::BYTES);
-  if (opt_in != cudaSuccess) return opt_in;
   dim3 grid((S + QT - 1) / QT, D / HD, B);
-  segment_attention_kernel<HD><<<grid, NT, Tiles<HD>::BYTES, stream>>>(qkv, seg, out, S, D, scale);
+  if (S <= SHORT_S) {
+    static const cudaError_t opt_in = allow_smem(segment_attention_kernel<HD, false>, Tiles<HD>::BYTES);
+    if (opt_in != cudaSuccess) return opt_in;
+    segment_attention_kernel<HD, false><<<grid, NT, Tiles<HD>::BYTES, stream>>>(qkv, seg, out, S, D, scale);
+    return cudaGetLastError();
+  }
+  static int limit = 0;  // dynamic shared memory the long kernel may take, found once
+  if (!limit) {
+    const cudaError_t err = smem_limit(segment_attention_kernel<HD, true>, &limit);
+    if (err != cudaSuccess) return err;
+  }
+  const int bytes = Tiles<HD>::BYTES + 2 * ((S + KT - 1) / KT) * (int)sizeof(int);
+  if (bytes > limit) return cudaErrorInvalidValue;
+  segment_attention_kernel<HD, true><<<grid, NT, bytes, stream>>>(qkv, seg, out, S, D, scale);
   return cudaGetLastError();
 }
 
@@ -197,11 +247,11 @@ cudaError_t launch(const bf16* qkv, const int* seg, bf16* out, int B, int S, int
 extern "C" {
 
 // qkv [B, S, 3D] bf16, segment_ids [B, S] int32 (-1 = padding), out [B, S, D]
-// bf16; head_dim 32, 64, 128 or 256 (D = heads * head_dim), S <= 512. Returns the
+// bf16; head_dim 32, 64, 128 or 256 (D = heads * head_dim), any S. Returns the
 // launch's cudaError_t.
 int pt_segment_attention(const void* qkv, const void* segment_ids, void* out, int B, int S, int D,
                          int head_dim, float scale, void* stream) {
-  if (S > MAX_S || D % head_dim) return (int)cudaErrorInvalidValue;
+  if (D % head_dim) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bf16* q = reinterpret_cast<const bf16*>(qkv);
   const int* seg = reinterpret_cast<const int*>(segment_ids);

@@ -16,14 +16,24 @@ argument is resolved and installed as the run-scoped mesh
 (``parallel.mesh.active_mesh``) for the run only, so an enclosing
 ``use_mesh`` survives a run without one. ``PATHWAY_MESH`` is read when an
 index is built. ``"auto"`` arms the elastic plane and raises.
+
+``decode=`` (or ``PATHWAY_DECODE``) is parsed into
+``G.run_context["decode"]`` (the config's knobs, None when off or
+malformed), and a ``decode=`` argument is installed as the run-scoped
+decode config (``decode.config.active_decode``) for the run only, so an
+enclosing ``use_decode`` survives the run: a ``DecodeEngine`` built during
+the run without a config takes it. A malformed ``decode=`` raises.
+``PATHWAY_DECODE`` is read when an engine is built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..decode.config import parse_decode_spec, use_decode
 from ..parallel.mesh import parse_mesh_spec, resolve_mesh, use_mesh
 from ..parallel.sharding import CLUSTER_ITEM
 from .graph_runner import GraphRunner
@@ -34,7 +44,6 @@ _PLANES = "ROADMAP Queue A item 3 (the index, monitoring and tracing planes)"
 _TIERS = "ROADMAP Queue A item 4 (tiered and tenant indexes)"
 _MULTI = CLUSTER_ITEM
 _DURABLE = "ROADMAP Queue A item 6 (persistence, recovery and the epoch pipeline)"
-_DECODE = "ROADMAP Queue A item 2 (the decode extensions)"
 _VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
 
 # keyword -> (value that leaves the plane off, ROADMAP item)
@@ -57,7 +66,6 @@ _UNPORTED_KWARGS = {
     "cluster_partial_restarts": (None, _MULTI),
     "index_tiers": (None, _TIERS),
     "tenancy": (None, _TIERS),
-    "decode": (None, _DECODE),
     "analysis": (None, _VERIFIER),
     "license_key": (None, _PLANES),
 }
@@ -81,7 +89,6 @@ _UNPORTED_ENV = {
     "PATHWAY_ELASTIC": (("0", "false", "no", "off"), _MULTI),
     "PATHWAY_INDEX_TIERS": ((), _TIERS),
     "PATHWAY_TENANCY": (("0", "false", "no", "off"), _TIERS),
-    "PATHWAY_DECODE": ((), _DECODE),
     "PATHWAY_ANALYSIS": (("off",), _VERIFIER),
 }
 
@@ -141,6 +148,7 @@ def run(
     terminate_on_error: bool = True,
     pipeline_depth: int | None = None,
     mesh: Any = None,
+    decode: Any = None,
     **kwargs: Any,
 ) -> RunResult:
     """Execute all registered outputs/subscriptions to completion (static
@@ -156,7 +164,11 @@ def run(
 
     ``mesh``: a ``DeviceMesh`` or a spec (``8``, ``"4x2"``, ...; it
     resolves on the cards) that the device-backed indexes built in this run
-    shard over."""
+    shard over.
+
+    ``decode``: a ``DecodeConfig`` or a spec (``True``, ``"pages=256,
+    cache=on,chunk=64"``, a dict, ...) that the decode engines built in
+    this run without a config take."""
     unknown = sorted(set(kwargs) - set(_UNPORTED_KWARGS))
     if unknown:
         raise TypeError(f"pw.run() got unexpected keyword arguments {unknown}")
@@ -167,11 +179,19 @@ def run(
         mesh_axes = parse_mesh_spec(mesh if mesh is not None else (os.environ.get("PATHWAY_MESH") or None))
     except ValueError:
         mesh_axes = None
-    G.run_context = {"mesh_axes": mesh_axes}
+    decode_cfg = parse_decode_spec(decode)  # a malformed decode= raises here
+    if decode is None:
+        try:
+            decode_cfg = parse_decode_spec(os.environ.get("PATHWAY_DECODE") or None)
+        except ValueError:
+            decode_cfg = None  # active_decode() treats it as off too
+    G.run_context = {"mesh_axes": mesh_axes, "decode": decode_cfg.as_dict() if decode_cfg is not None else None}
     run_mesh = resolve_mesh(mesh)
-    if run_mesh is None:
-        return _run_graph(terminate_on_error)
-    with use_mesh(run_mesh):
+    with contextlib.ExitStack() as scope:
+        if run_mesh is not None:
+            scope.enter_context(use_mesh(run_mesh))
+        if decode is not None and decode_cfg is not None:
+            scope.enter_context(use_decode(decode_cfg))
         return _run_graph(terminate_on_error)
 
 

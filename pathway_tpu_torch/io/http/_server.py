@@ -36,7 +36,8 @@ from ...internals import dtype as dt
 from ...internals.parse_graph import G
 from ...internals.schema import ColumnDefinition, Schema, schema_builder
 from ...internals.table import Table
-from ...serving.deadline import DEADLINE_HEADER, Deadline, DeadlineExceeded
+from ...serving.admission import DeadlineExceeded
+from ...serving.deadline import DEADLINE_HEADER, Deadline
 from .._connector import StreamingContext, input_table_from_reader
 from ..fs import _jsonable
 from ._docs import EndpointDocumentation, _LoggingContext, validate_payload
@@ -262,10 +263,13 @@ def rest_connector(
     Every request logs one structured JSON access record. A client
     deadline (``X-Pathway-Deadline-Ms``) bounds the wait for the answer;
     expiry answers a typed 503. ``serving`` (the reference's serving
-    plane) comes with ROADMAP Queue A item 3 and raises."""
+    plane in front of the REST reader) raises: ``serving.admission`` and
+    ``serving.batching`` are ported, their wiring into this reader comes
+    with ROADMAP Queue A item 3."""
     if serving is not None:
         raise NotImplementedError(
-            "rest_connector(serving=...) needs ROADMAP Queue A item 3 (the serving plane: admission, batching, metrics)"
+            "rest_connector(serving=...) needs ROADMAP Queue A item 3 (the REST reader's admission and "
+            "batching wiring, with the monitoring and tracing planes)"
         )
     if webserver is None:
         if host is None or port is None:

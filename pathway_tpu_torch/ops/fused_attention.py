@@ -41,7 +41,6 @@ KEY_OFF = -1.0e9  # additive bias on padded keys
 
 _HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are built for
 _MAX_HEAD_DIM = _HEAD_DIMS[-1]  # any other head dim up to this is zero-padded to the next one
-_MAX_S = 512
 
 
 def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -99,18 +98,18 @@ def _attention_operands(qkv, other, n_heads: int, name: str, other_name: str) ->
     """The attention kernels' operand checks -> (b, s, d, head dim, the
     kernel's head dim). Raises ValueError on what they do not take: a
     dtype, rank or layout other than contiguous bf16 [B, S, 3D], a width
-    that does not split into heads, a head dim over 256, S > 512, or a
-    ``other`` of another shape or device."""
+    that does not split into heads, a head dim over 256, or a ``other`` of
+    another shape or device. Any S: the kernels walk the key tiles."""
     _build.require(qkv, dtype=torch.bfloat16, ndim=3, name="qkv")
     b, s, three_d = qkv.shape
     d = three_d // 3
     if three_d % 3 or d % n_heads:
         raise ValueError(f"qkv width {three_d} does not split into 3 x {n_heads} heads")
     hd = d // n_heads
-    if hd > _MAX_HEAD_DIM or s > _MAX_S:
+    if hd > _MAX_HEAD_DIM:
         raise ValueError(
             f"{name} takes head dims up to {_MAX_HEAD_DIM} (kernels for {_HEAD_DIMS}, others zero-padded "
-            f"to the next) and S <= {_MAX_S}, got head dim {hd}, S {s}"
+            f"to the next), got head dim {hd}"
         )
     if tuple(other.shape) != (b, s) or other.device != qkv.device:
         raise ValueError(f"{other_name} must be [{b}, {s}] on {qkv.device}")
@@ -166,7 +165,7 @@ def masked_attention(
 ) -> torch.Tensor:
     """qkv [B, S, 3D] (q | k | v, heads minor within each), key_mask
     [B, S] bool -> ctx [B, S, D]. CUDA tensors launch the kernel (bf16,
-    head dim up to 256, S <= 512) or raise; CPU tensors take
+    head dim up to 256, any S) or raise; CPU tensors take
     :func:`masked_attention_reference`."""
     if not qkv.is_cuda:
         return masked_attention_reference(qkv, key_mask, n_heads, zero_empty)
@@ -196,7 +195,7 @@ def segment_attention_reference(qkv: torch.Tensor, segment_ids: torch.Tensor, n_
 
 def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
     """qkv [B, S, 3D], segment_ids [B, S] int (-1 = padding) -> ctx [B, S, D].
-    CUDA tensors launch the kernel (bf16, head dim up to 256, S <= 512) or
+    CUDA tensors launch the kernel (bf16, head dim up to 256, any S) or
     raise; CPU tensors take :func:`segment_attention_reference`."""
     if not qkv.is_cuda:
         return segment_attention_reference(qkv, segment_ids, n_heads)

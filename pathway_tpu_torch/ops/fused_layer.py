@@ -18,14 +18,15 @@ hand-written kernels (``csrc/gemm_epilogue.cu``, ``csrc/masked_attention.cu``):
 3. ``gemm_bias_residual_layernorm``: out projection + residual + LN1 and
    ``mlp_out`` + residual + LN2 on the same TMA + wgmma mainloop, with an
    output tile that spans whole rows (N in ``_LN_WIDTHS``), so the row
-   statistics come from the accumulators.
+   statistics come from the accumulators; rows of 1024 columns and more
+   (multiples of 512) pass through f32 device memory in chunks of 512.
 
 Attention takes head dims up to 256 (``ops/fused_attention.py``).
 
 The kernels load rows with a 16-byte stride (K and N multiples of 8) and
-the LayerNorm kernel is built for the widths in ``_LN_WIDTHS``. The
-wrappers take any other K and N (up to 1024 for the LayerNorm) by zero
-padding: a parameter (weight, bias, gamma, beta) is padded once, when
+the LayerNorm kernel is built for the widths in ``_LN_WIDTHS`` and the
+staged multiples of 512 from 1024 up. The wrappers take any other K and N
+by zero padding: a parameter (weight, bias, gamma, beta) is padded once, when
 ``prepare_params`` lays it out or at its first use, and kept beside it; an
 activation is padded per call; the result is sliced back. Zero columns of
 K add nothing to a product, and the LayerNorm kernel leaves columns past
@@ -54,10 +55,12 @@ import torch
 from . import _build
 from .fused_attention import masked_attention, masked_attention_reference
 
-# row widths the LayerNorm-epilogue kernel is built for: the decoder (256),
-# MiniLM (384), BERT-small (512), BERT-base (768), BERT-large (1024)
-_LN_WIDTHS = (256, 384, 512, 768, 1024)
-_LN_STAGED = (1024,)  # widths whose rows pass through f32 device memory before the LayerNorm
+# row widths the LayerNorm-epilogue kernel holds in registers: the decoder
+# (256), MiniLM (384), BERT-small (512), BERT-base (768)
+_LN_WIDTHS = (256, 384, 512, 768)
+# wider rows (BERT-large's 1024 and up) are staged: multiples of this chunk,
+# their rows pass through f32 device memory before the LayerNorm
+_LN_CHUNK = 512
 
 
 def _pack_rows(s: int) -> int:
@@ -125,11 +128,17 @@ def _up8(n: int) -> int:
 
 
 def _ln_width(n: int) -> int:
-    """The LayerNorm kernel's width for a row of ``n`` columns."""
+    """The LayerNorm kernel's width for a row of ``n`` columns: the next of
+    ``_LN_WIDTHS``, past them the next staged multiple of 512."""
     for width in _LN_WIDTHS:
         if width >= n:
             return width
-    raise ValueError(f"gemm_bias_residual_layernorm takes rows up to {_LN_WIDTHS[-1]} columns, got {n}")
+    return -(-n // _LN_CHUNK) * _LN_CHUNK
+
+
+def _ln_staged(n: int) -> bool:
+    """Whether the kernel stages rows of width ``n`` in f32 device memory."""
+    return n > _LN_WIDTHS[-1]
 
 
 def _gelu_tanh(x32: torch.Tensor) -> torch.Tensor:
@@ -210,8 +219,8 @@ def gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps: 
 def gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta) -> tuple[int, int, int]:
     """The kernel's operand checks -> (m, n, k). Raises ValueError on a
     dtype, rank, layout, shape or device the kernel does not take: N must
-    be one of ``_LN_WIDTHS`` and K a multiple of 8 (the 16-byte row stride
-    of its TMA loads)."""
+    be one of ``_LN_WIDTHS`` or a multiple of 512 from 1024 up, and K a
+    multiple of 8 (the 16-byte row stride of its TMA loads)."""
     if any(t.device != x.device for t in (w, b, residual, gamma, beta)):
         raise ValueError(f"gemm_bias_residual_layernorm operands must all lie on {x.device}")
     _build.require(x, dtype=torch.bfloat16, ndim=2, name="x")
@@ -228,11 +237,12 @@ def gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta) -> tup
         or tuple(residual.shape) != (m, n)
         or any(t.shape[0] != n for t in (b, gamma, beta))
         or k % 8
-        or n not in _LN_WIDTHS
+        or _ln_width(n) != n
     ):
         raise ValueError(
             f"gemm_bias_residual_layernorm shapes x{tuple(x.shape)} w{tuple(w.shape)} "
-            f"residual{tuple(residual.shape)}; N must be one of {_LN_WIDTHS} and K a multiple of 8"
+            f"residual{tuple(residual.shape)}; N must be one of {_LN_WIDTHS} or a multiple of "
+            f"{_LN_CHUNK} from 1024 up, and K a multiple of 8"
         )
     return m, n, k
 
@@ -240,14 +250,15 @@ def gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta) -> tup
 def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, out_f32: bool = True):
     """x [M, K] bf16, w [N, K] bf16, residual [M, N] bf16 or f32, b/gamma/
     beta [N] f32 -> (LN f32 [M, N] or None, its bf16 copy). CUDA tensors
-    launch the kernel (N up to 1024; a width not in ``_LN_WIDTHS`` and a K
-    not a multiple of 8 run zero-padded) or raise; CPU tensors take the
-    plain version. ``out_f32``: also return the f32 rows (the next
-    residual); at N = 1024 the kernel stages the rows there either way."""
+    launch the kernel (any N: a width the kernel does not take and a K not
+    a multiple of 8 run zero-padded) or raise; CPU tensors take the plain
+    version. ``out_f32``: also return the f32 rows (the next residual); at
+    a staged width (1024 and up) the kernel stages the rows there either
+    way."""
     if not x.is_cuda:
         return gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps, out_f32=out_f32)
     n_true = w.shape[0]
-    if x.dim() == 2 and w.dim() == 2 and residual.dim() == 2 and (x.shape[1] % 8 or n_true not in _LN_WIDTHS):
+    if x.dim() == 2 and w.dim() == 2 and residual.dim() == 2 and (x.shape[1] % 8 or _ln_width(n_true) != n_true):
         kp, np_ = _up8(x.shape[1]), _ln_width(n_true)
         vec = lambda t: _pad_to(t, (np_,), keep=True)  # noqa: E731
         x = _pad_to(x, (x.shape[0], kp))
@@ -255,7 +266,7 @@ def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, 
         b, gamma, beta = vec(b), vec(gamma), vec(beta)
         residual = _pad_to(residual, (residual.shape[0], np_))
     m, n, k = gemm_bias_residual_layernorm_operands(x, w, b, residual, gamma, beta)
-    yf = torch.empty((m, n), dtype=torch.float32, device=x.device) if out_f32 or n in _LN_STAGED else None
+    yf = torch.empty((m, n), dtype=torch.float32, device=x.device) if out_f32 or _ln_staged(n) else None
     yb = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m:
         err = _build.library("gemm_epilogue.cu").pt_gemm_bias_residual_layernorm(
@@ -376,8 +387,6 @@ def _pad_layer(lp: dict) -> None:
         _pad_to(lp[proj + ".bias"], (_up8(n),), keep=True)
     for proj, ln in (("attention.out", "ln_att"), ("mlp_out", "ln_mlp")):
         n, k = lp[proj + ".weight"].shape
-        if n > _LN_WIDTHS[-1]:
-            continue  # the kernel call raises on such a width
         width = _ln_width(n)
         _pad_to(lp[proj + ".weight"], (width, _up8(k)), keep=True)
         for key in (proj + ".bias", ln + ".weight", ln + ".bias"):

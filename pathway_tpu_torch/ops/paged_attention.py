@@ -13,7 +13,8 @@ On a CUDA tensor ``paged_decode_attention`` launches
 row and length, loads only live rows (all of them in flight at once) and
 keeps an unnormalised softmax, then, when the context spans more than one
 split, a log-sum-exp combine launch. The TPU kernel's gather buffer and
-zero-fill are gone. It takes any head dim up to ``MAX_HEAD_DIM``. Its plain
+zero-fill are gone. It takes any head dim: a split stages the head's K and
+V columns 256 at a time through shared memory. Its plain
 version, :func:`paged_attention_reference`, gathers the pages into a
 contiguous context and runs :func:`dense_decode_attention`. Positions at
 or past a sequence's length get the additive ``KEY_OFF``, whose softmax
@@ -34,7 +35,6 @@ from ..device import resolve_device
 from . import _build
 from .fused_attention import KEY_OFF
 
-MAX_HEAD_DIM = 256  # widest head the kernel takes
 _SPLIT_POSITIONS = 64  # context positions a split covers (whole pages up to this page size)
 
 
@@ -94,7 +94,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lens, *, n_heads: i
     [n_pages, page_size, d] (one layer of the pool) · ``page_tables``: [B, P]
     int32 (entries past ``pages_for(lens[b])`` are never read) · ``lens``:
     [B] int32. Returns [B, d] float32. CUDA tensors launch the kernel (f32,
-    head dim up to 256) and, past one split, its combine, or raise; CPU
+    any head dim) and, past one split, its combine, or raise; CPU
     tensors take :func:`paged_attention_reference`."""
     if not q.is_cuda:
         return paged_attention_reference(q, k_pages, v_pages, page_tables, lens, n_heads=n_heads, scale=scale)
@@ -106,11 +106,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lens, *, n_heads: i
     b, d = q.shape
     n_pages, page_size, dk = k_pages.shape
     pages_per_seq = page_tables.shape[1]
-    if n_heads < 1 or d % n_heads or d // n_heads > MAX_HEAD_DIM:
-        raise ValueError(
-            f"paged_decode_attention takes head dims up to {MAX_HEAD_DIM} (d divisible by the heads), "
-            f"got d {d} / {n_heads} heads"
-        )
+    if n_heads < 1 or d % n_heads:
+        raise ValueError(f"paged_decode_attention needs d divisible by the heads, got d {d} / {n_heads} heads")
     if (
         dk != d
         or tuple(v_pages.shape) != tuple(k_pages.shape)

@@ -1,11 +1,12 @@
-"""Per-request deadlines.
+"""Per-request deadlines for the serving plane.
 
-The port's copy of the part of the reference's ``serving/deadline.py``
-and ``serving/admission.py`` that ``rest_connector`` uses without the
-serving plane: a :class:`Deadline` is an absolute point on the monotonic
-clock plus the budget it was created with, parsed from the client's
-``X-Pathway-Deadline-Ms`` header; the response wait is bounded by what
-is left of it, and expiry answers a typed 503 (:class:`DeadlineExceeded`).
+The port's copy of the reference's ``serving/deadline.py``. A
+:class:`Deadline` is an absolute point on the monotonic clock plus the
+budget it was created with. It travels with a request from HTTP admission
+through batch dispatch to the response wait, so every layer asks the same
+object how much time is left. Clients set the budget with the
+``X-Pathway-Deadline-Ms`` header; ``Deadline.none()`` means no budget
+(``remaining()`` is ``inf``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ class Deadline:
     """Remaining-time budget anchored to the monotonic clock.
 
     ``budget_ms=None`` builds an infinite deadline: ``remaining()``
-    returns ``inf``. ``start=`` (a ``time.monotonic()`` value) is
-    injectable for tests.
+    returns ``inf`` and ``expired()`` is always False. ``start=`` (a
+    ``time.monotonic()`` value) is injectable for tests.
     """
 
     __slots__ = ("budget_ms", "start")
@@ -32,6 +33,10 @@ class Deadline:
             budget_ms = max(0.0, float(budget_ms))
         self.budget_ms = budget_ms
         self.start = _time.monotonic() if start is None else start
+
+    @classmethod
+    def none(cls) -> "Deadline":
+        return cls(None)
 
     @classmethod
     def from_header(cls, header_value: str | None, default_ms: float | None = None) -> "Deadline":
@@ -47,7 +52,8 @@ class Deadline:
 
     @property
     def expires_at(self) -> float:
-        """Monotonic-clock expiry; ``inf`` for an unbounded deadline."""
+        """Monotonic-clock expiry; ``inf`` for an unbounded deadline. The
+        admission queue and the batcher order requests by this."""
         if self.budget_ms is None:
             return math.inf
         return self.start + self.budget_ms / 1000.0
@@ -58,14 +64,6 @@ class Deadline:
             return math.inf
         return max(0.0, self.expires_at - _time.monotonic())
 
-
-class DeadlineExceeded(RuntimeError):
-    """The request's deadline passed before the pipeline answered: a typed
-    503 whose body names the reason (the reference's
-    ``serving/admission.py`` rejection)."""
-
-    status = 503
-    reason = "deadline_exceeded"
-
-    def to_response(self) -> dict:
-        return {"error": str(self), "reason": self.reason}
+    def remaining_ms(self) -> float:
+        rem = self.remaining()
+        return rem if math.isinf(rem) else rem * 1000.0

@@ -79,10 +79,15 @@ class InnerIndex:
         result = Table(cols, query_table._universe, op, name="index_reply")
         spec = self._index_spec()
         if spec is not None:
-            # the graph's record of its device indexes and their mesh
-            # axes, made before anything is allocated
+            # the graph's record of its device indexes, made before anything
+            # is allocated: the index's description, whether the query k is
+            # fixed, and the result table it anchors
             from ...internals.parse_graph import G
 
+            spec = dict(spec)
+            spec["query_k"] = int(number_of_matches) if isinstance(number_of_matches, int) else None
+            spec["query_k_dynamic"] = not isinstance(number_of_matches, int)
+            spec["_table"] = result
             G.external_indexes.append(spec)
         return result
 

@@ -155,15 +155,39 @@ class AbstractKnn(InnerIndex):
         return batch_embed, batch_embed
 
     def _index_spec(self) -> dict | None:
-        """The graph's description of a device-backed index: its kind and
-        the explicit mesh's axes, parsed without touching a device."""
+        """The graph's description of a device-backed index, the reference's
+        fields and values: enough to estimate its device footprint,
+        compile-bucket space and placement without building it. The mesh is
+        parsed without touching a device (an unparseable spec gives None)."""
         if not self._device_backed:
             return None
-        try:
-            mesh_axes = parse_mesh_spec(self.mesh)
-        except (ValueError, TypeError):
-            mesh_axes = None
-        return {"kind": type(self).__name__, "mesh_axes": mesh_axes}
+        mesh_axes = None
+        if self.mesh is not None:
+            try:
+                mesh_axes = parse_mesh_spec(self.mesh)
+            except (ValueError, TypeError):
+                mesh_axes = None
+        encoder = None
+        enc = fused_query_encoder(self.embedder) if self.embedder is not None else None
+        if enc is not None:
+            encoder = {
+                "max_seq_len": int(getattr(enc, "max_seq_len", 256) or 256),
+                "max_batch": int(getattr(enc, "max_batch", 1024) or 1024),
+                "hidden": int(getattr(getattr(enc, "cfg", None), "hidden_size", 0) or 0),
+            }
+        return {
+            "kind": type(self).__name__,
+            "dimensions": int(self.dimensions),
+            "reserved_space": int(self.reserved_space),
+            "metric": self.metric,
+            "device_backed": True,
+            "mesh": self.mesh is not None,
+            "mesh_axes": mesh_axes,
+            "tiers": self.tiers is not None,
+            "tier_spec": self.tiers if isinstance(self.tiers, (dict, str)) else None,
+            "tenant": self.tenant,
+            "encoder": encoder,
+        }
 
     def _check_placement(self) -> None:
         for name in ("tiers", "tenant"):

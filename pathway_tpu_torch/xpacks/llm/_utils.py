@@ -1,14 +1,17 @@
 """Internal helpers for the LLM xpack: the port's copy of the reference's
 ``xpacks/llm/_utils.py`` (upstream Pathway's xpacks/llm/_utils.py): the
-helpers the stores, servers and embedders use. The chat-client and
-question-answering helpers come with the HTTP embedders and chat models,
-ROADMAP Queue A items 1 and 2."""
+helpers the stores, servers, embedders, chats, rerankers and
+question-answering apps use. ``openai`` is imported only when a client is
+made."""
 
 from __future__ import annotations
 
 import asyncio
 import functools
+import weakref
 from typing import Any, Callable
+
+from ...engine.value import Json
 
 
 def coerce_async(fn: Callable) -> Callable:
@@ -78,3 +81,45 @@ def combine_metadata_filters(queries) -> Any:
             this.metadata_filter, this.filepath_globpattern
         )
     )
+
+
+# per-event-loop client pools, weak-keyed so a finished run's loop (and
+# its clients' dead connection pools) drop out instead of being handed
+# to a later loop that reused the same address
+_openai_clients: "weakref.WeakKeyDictionary[Any, dict]" = weakref.WeakKeyDictionary()
+_openai_clients_noloop: dict[tuple, Any] = {}
+
+
+def shared_openai_client(api_key: str | None, base_url: str | None):
+    """One AsyncOpenAI client per (event loop, api_key, base_url):
+    clients own HTTP connection pools, so per-call construction leaks
+    sockets and defeats keep-alive under the async executor's
+    concurrency — but a client's pool is bound to the loop it was
+    created on, so each run's loop gets its own."""
+    import openai
+
+    try:
+        loop = asyncio.get_running_loop()
+        pool = _openai_clients.setdefault(loop, {})
+    except RuntimeError:
+        pool = _openai_clients_noloop
+    key = (api_key, base_url)
+    client = pool.get(key)
+    if client is None:
+        client = openai.AsyncOpenAI(api_key=api_key, base_url=base_url)
+        pool[key] = client
+    return client
+
+
+def _check_model_accepts_arg(model_name: str, provider: str, arg: str) -> bool:
+    """Best-effort capability check; without network metadata we accept
+    common sampling args for all models."""
+    return arg in {
+        "temperature",
+        "max_tokens",
+        "top_p",
+        "stop",
+        "seed",
+        "frequency_penalty",
+        "presence_penalty",
+    }

@@ -3,9 +3,9 @@
 The port's copy of the reference's ``xpacks/llm/servers.py`` (upstream
 Pathway's python/pathway/xpacks/llm/servers.py: BaseRestServer :16,
 DocumentStoreServer :92, QARestServer :140, QASummaryRestServer :193,
-serve_callable :227). The QA servers take any question answerer with the
-reference's query schemas and handlers; the reference's
-``question_answering.py`` comes with ROADMAP Queue A item 2.
+serve_callable :227). The QA servers serve the apps of
+``question_answering.py`` (or any answerer with their query schemas and
+handlers).
 """
 
 from __future__ import annotations

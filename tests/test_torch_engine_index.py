@@ -264,7 +264,7 @@ def test_embedder_batched_udf_and_dimension(embedders):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh="auto"), dict(index_tiers="hot=64"), dict(decode=True), dict(tenancy=True), dict(elastic=True),
+    [dict(mesh="auto"), dict(index_tiers="hot=64"), dict(tenancy=True), dict(elastic=True),
      dict(freshness=True), dict(chip_ledger=True), dict(persistence_config=object()), dict(recovery=True),
      dict(profile=True), dict(tracing=True), dict(watchdog=True), dict(with_http_server=True),
      dict(ingest_workers=2), dict(pipeline_depth=2), dict(analysis="strict"), dict(cluster_lease_ms=100),
@@ -283,7 +283,7 @@ def test_unported_run_options_raise(kwargs):
 
 @pytest.mark.parametrize(
     "var,value",
-    [("PATHWAY_MESH", "auto"), ("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_DECODE", "on"), ("PATHWAY_TENANCY", "on"),
+    [("PATHWAY_MESH", "auto"), ("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_TENANCY", "on"),
      ("PATHWAY_ELASTIC", "on"), ("PATHWAY_FRESHNESS", "on"), ("PATHWAY_CHIP_LEDGER", "1"), ("PATHWAY_PROFILE", "p.json"),
      ("PATHWAY_TRACING", "1"), ("PATHWAY_WATCHDOG", "1"), ("PATHWAY_PIPELINE_DEPTH", "2"),
      ("PATHWAY_INGEST_WORKERS", "2"), ("PATHWAY_PROCESSES", "2"), ("PATHWAY_REPLAY_STORAGE", "/tmp/x"),

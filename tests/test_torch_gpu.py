@@ -2,7 +2,9 @@
 versions, on the card, at the main path's widths (MiniLM-L6: d 384, 12
 heads of 32, FFN 1536; the decoder: d 256, 4 heads of 64) and at the other
 head dims (64, 128, 256, and others zero-padded to the next of these),
-LayerNorm widths (256 to 1024, any other width up to 1024 zero-padded) and
+LayerNorm widths (256 to 768, multiples of 512 from 1024 up staged, any
+other width zero-padded to the next of these), attention at S past 512,
+paged decode attention at head dims past 256 (column tiles) and
 GEMM K and N that are not multiples of 8 (zero-padded to 8) the kernels
 take. Every test here needs a CUDA device and skips
 inside its fixture when there is none; run them on the card with
@@ -86,7 +88,8 @@ def test_gemm_residual_layernorm_matches_plain(cuda, k, res_f32):
     torch.testing.assert_close(yb.float(), rb.float(), **BF16)
 
 
-@pytest.mark.parametrize("b,s,zero_empty", [(64, 160, True), (48, 128, False), (4, 512, False), (9, 37, True)])
+@pytest.mark.parametrize("b,s,zero_empty", [(64, 160, True), (48, 128, False), (4, 512, False), (9, 37, True),
+                                            (4, 1024, False), (3, 700, True), (2, 2100, False)])
 def test_masked_attention_matches_plain(cuda, b, s, zero_empty):
     from pathway_tpu_torch.ops.fused_attention import masked_attention, masked_attention_reference
 
@@ -109,7 +112,7 @@ def test_masked_attention_matches_plain(cuda, b, s, zero_empty):
 
 
 @pytest.mark.parametrize("zero_empty", [True, False])
-@pytest.mark.parametrize("s", [1, 37, 128, 160, 512])
+@pytest.mark.parametrize("s", [1, 37, 128, 160, 512, 1024])
 @pytest.mark.parametrize("hd", [32, 64, 128, 48])
 def test_masked_attention_head_dims_match_plain(cuda, hd, s, zero_empty):
     """Every query row against the plain version, with a length-0 sequence,
@@ -171,7 +174,7 @@ def _check_ln(cuda, m, n, k, res_f32, out_f32):
 @pytest.mark.parametrize("res_f32,out_f32", [(False, False), (True, True)])
 @pytest.mark.parametrize("k", [40, 384, 1536])
 @pytest.mark.parametrize("m", [1, 17, 129, 4096 + 19])
-@pytest.mark.parametrize("n", [256, 384, 512, 768, 1024])
+@pytest.mark.parametrize("n", [256, 384, 512, 768, 1024, 1536, 2048])
 def test_gemm_residual_layernorm_widths_match_plain(cuda, n, m, k, res_f32, out_f32):
     """Every LayerNorm width, M tails (one row, part of a 64- or 128-row
     tile, many tiles per persistent block) and K tails (40: one zero-filled
@@ -181,7 +184,7 @@ def test_gemm_residual_layernorm_widths_match_plain(cuda, n, m, k, res_f32, out_
 
 @pytest.mark.parametrize("res_f32", [False, True])
 @pytest.mark.parametrize("out_f32", [False, True])
-@pytest.mark.parametrize("n", [384, 1024])
+@pytest.mark.parametrize("n", [384, 1024, 1536])
 def test_gemm_residual_layernorm_outputs_and_residuals(cuda, n, res_f32, out_f32):
     _check_ln(cuda, 129, n, 384, res_f32, out_f32)
 
@@ -492,6 +495,9 @@ def _packed_segments(g, rows, length, lo, hi, device):
         (6, 100, 10, 40),
         (3, 512, 512, 512),  # one 512-token segment per row
         (8, 512, 20, 90),  # short segments that straddle 64-key tiles
+        (6, 1024, 64, 256),  # rows past 512 tokens
+        (4, 1030, 0, 0),
+        (2, 3000, 300, 900),
     ],
 )
 def test_segment_attention_matches_plain(cuda, rows, s, lo, hi):
@@ -571,7 +577,7 @@ def test_encoder_forward_at_head_dim_64_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("page,pps", [(16, 10), (16, 2), (48, 5), (100, 3)])
-@pytest.mark.parametrize("hd", [32, 48, 64, 128, 256, 50])
+@pytest.mark.parametrize("hd", [32, 48, 64, 128, 256, 50, 260, 320, 512, 1024])
 def test_paged_decode_attention_head_dims_and_splits_match_plain(cuda, hd, page, pps):
     """Every head dim up to 256 (50: rows of 4-byte copies), one split or
     several, pages larger than a split: lengths 0, 1, a page boundary and
@@ -636,7 +642,7 @@ def test_gemm_bias_act_unaligned_k_and_n_match_plain(cuda, m, n, k, act):
 @pytest.mark.parametrize("res_f32,out_f32", [(False, False), (True, True)])
 @pytest.mark.parametrize("k", [40, 36, 384])
 @pytest.mark.parametrize("m", [17, 4096 + 19])
-@pytest.mark.parametrize("n", [8, 128, 200, 312, 640, 776, 1000, 1020])
+@pytest.mark.parametrize("n", [8, 128, 200, 312, 640, 776, 1000, 1020, 1032, 1800])
 def test_gemm_residual_layernorm_padded_widths_match_plain(cuda, n, m, k, res_f32, out_f32):
     """Widths outside the kernel's five, run at the next one with the pad
     columns left out of the statistics (776-1020: the two-chunk width), and
@@ -645,7 +651,7 @@ def test_gemm_residual_layernorm_padded_widths_match_plain(cuda, n, m, k, res_f3
 
 
 @pytest.mark.parametrize("zero_empty", [True, False])
-@pytest.mark.parametrize("s", [37, 160, 512])
+@pytest.mark.parametrize("s", [37, 160, 512, 1024])
 @pytest.mark.parametrize("hd", [256, 192, 130])
 def test_masked_attention_head_dims_over_128_match_plain(cuda, hd, s, zero_empty):
     """The head-dim-256 kernel (Q read from shared memory at each key tile),

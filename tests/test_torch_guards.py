@@ -2,9 +2,13 @@
 pathway_tpu, also when its dataflow engine runs a ``pw.run`` pipeline
 (``pw.io.python.read`` -> embedder -> ``DataIndex`` -> ``pw.io.subscribe``)
 or serves the RAG document servers over a folder, or shards an index and
-an encoder over a mesh of CPU devices; it never imports
-``aiohttp`` or ``requests``, which the card's machine lacks (its webserver
-is the standard library's); its entry points never fall back to the CPU;
+an encoder over a mesh of CPU devices, or runs the decode extensions under
+``pw.run(decode=)`` through ``DecodeService`` and answers questions through
+the xpack's question answerer; it never imports ``aiohttp`` or
+``requests``, which the card's machine lacks (its webserver is the standard
+library's), and imports no service client (``openai``, ``litellm``,
+``cohere``, ``transformers``, ``flashrank``) at module load; its entry
+points never fall back to the CPU;
 its kernels are built only at first use on a CUDA tensor;
 ``chip_smoke.py`` refuses to run without a card."""
 
@@ -23,6 +27,9 @@ PKG = os.path.join(REPO, "pathway_tpu_torch")
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu|aiohttp|requests)(?:\.|\s|$)", re.M)
 _FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "pathway_tpu", "aiohttp", "requests")
+# service clients: imported only inside the function that calls them
+_CLIENTS = ("openai", "litellm", "cohere", "transformers", "flashrank")
+_CLIENT_AT_LOAD = re.compile(r"^(?:import|from)\s+(?:" + "|".join(_CLIENTS) + r")(?:\.|\s|$)", re.M)
 
 _PROBE = r"""
 import sys
@@ -156,9 +163,65 @@ print("BAD", bad)
 """
 
 
+_DECODE_QA_PROBE = r"""
+import sys
+before = set(sys.modules)
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.decode import DecodeService
+from pathway_tpu_torch.serving import Deadline
+geom = pw.DecoderConfig(vocab_size=97, hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32, max_position=64)
+streams = []
+class One(pw.io.python.ConnectorSubject):
+    def run(self):
+        self.next(x=1)
+t = pw.io.python.read(One(), schema=pw.schema_from_types(x=int))
+def on_change(key, row, time, is_addition):
+    for spec in ("cache=on,chunk=4", "spec=2,draft=1", "spec=3,ngram=2", "temp=0.8,top_k=5,seed=1"):
+        with pw.decode.use_decode("pages=64,page=4,lanes=2,max_new=4,degrade=1,max_seq=48," + spec):
+            svc = DecodeService(pw.DecodeEngine(geom, device="cpu"))
+            tickets = [svc.submit([1, 2, 3, 4, 5, 6, 7], deadline=Deadline(60_000.0)), svc.submit([9, 8])]
+            streams.append([tk.result(timeout=60) for tk in tickets])
+            assert svc.error is None
+            svc.stop()
+pw.io.subscribe(t, on_change)
+pw.run(decode="pages=64,page=4,lanes=2,max_new=4,degrade=1,max_seq=48")
+assert len(streams) == 4 and all(len(s) == 4 for pair in streams for s in pair), streams
+pw.clear_graph()
+class Chat(pw.xpacks.llm.llms.BaseChat):
+    def __wrapped__(self, messages, **kwargs):
+        return "answer"
+    def _accepts_call_arg(self, arg_name):
+        return True
+@pw.udf
+def embed(x: str) -> np.ndarray:
+    v = np.array([len(x), x.count("a"), x.count("e"), 1.0], np.float32)
+    return v / np.linalg.norm(v)
+class DocSchema(pw.Schema):
+    data: bytes
+    _metadata: pw.Json
+docs = pw.debug.table_from_rows(DocSchema, [(t.encode(), pw.Json({"path": f"/d{i}"}))
+                                           for i, t in enumerate(["alpha beta", "gamma", "eee"])])
+store = pw.xpacks.llm.DocumentStore(docs, retriever_factory=pw.indexing.BruteForceKnnFactory(embedder=embed, device="cpu"))
+rag = pw.xpacks.llm.question_answering.BaseRAGQuestionAnswerer(Chat(), store, search_topk=2)
+class Q(pw.Schema):
+    prompt: str
+    filters: str | None = pw.column_definition(default_value=None)
+    model: str | None = pw.column_definition(default_value=None)
+    return_context_docs: bool | None = pw.column_definition(default_value=True)
+out = pw.debug.table_to_dicts(rag.answer_query(pw.debug.table_from_rows(Q, [("gamma", None, None, True)])))[1]
+(answer,) = out["result"].values()
+assert answer.value["response"] == "answer" and len(answer.value["context_docs"]) == 2
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + CLIENTS)
+print("BAD", bad)
+"""
+
+
 def _run_probe(probe: str) -> None:
     out = subprocess.run(
-        [sys.executable, "-c", f"FORBIDDEN = {_FORBIDDEN_MODULES!r}\n" + probe], cwd=REPO, capture_output=True,
+        [sys.executable, "-c", f"FORBIDDEN = {_FORBIDDEN_MODULES!r}\nCLIENTS = {_CLIENTS!r}\n" + probe], cwd=REPO,
+        capture_output=True,
         text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
     )
     assert out.returncode == 0, out.stderr[-3000:]
@@ -175,6 +238,14 @@ def test_port_servers_import_no_jax_flax_reference_or_http_clients():
     _run_probe(_SERVER_PROBE)
 
 
+def test_port_decode_extensions_and_qa_import_no_jax_flax_reference_or_clients():
+    """``pw.run(decode=)`` around engines behind ``DecodeService`` in every
+    extension (cache and chunks, both drafts, sampling), then the xpack's
+    question answerer over a document store: nothing of JAX or the
+    reference, and no service client, is imported."""
+    _run_probe(_DECODE_QA_PROBE)
+
+
 def test_port_sources_and_chip_smoke_have_no_forbidden_imports():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
@@ -182,7 +253,8 @@ def test_port_sources_and_chip_smoke_have_no_forbidden_imports():
     assert len(files) > 10
     for path in files:
         with open(path, encoding="utf-8") as f:
-            hits = _FORBIDDEN.findall(f.read())
+            text = f.read()
+        hits = _FORBIDDEN.findall(text) + _CLIENT_AT_LOAD.findall(text)
         assert not hits, (path, hits)
 
 
@@ -204,6 +276,33 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert pt.resolve_device("cpu").type == "cpu"
+
+
+def test_hf_pipeline_chat_runs_on_the_card_by_default(monkeypatch):
+    """``HFPipelineChat`` hands the card to its pipeline unless the caller
+    asks for the CPU, and raises, naming ``device='cpu'``, when there is no
+    card. ``transformers`` is a fake here, so nothing is downloaded."""
+    import types
+
+    from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
+
+    built = []
+
+    class _Pipe:
+        def __init__(self, task, model=None, device=None, **kw):
+            built.append(device)
+            self.tokenizer = None
+
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(pipeline=_Pipe))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HFPipelineChat(model="tiny")
+    assert built == []
+    HFPipelineChat(model="tiny", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    HFPipelineChat(model="tiny")
+    assert built == [torch.device("cpu"), torch.device("cuda", 0)]
 
 
 def test_cpu_tensors_never_launch_kernels_and_build_is_lazy(monkeypatch):

@@ -91,14 +91,12 @@ def test_attention_operands_take_head_dims_up_to_128(which, d, heads, hd, kernel
 
 
 @pytest.mark.parametrize("which", ["masked", "segment"])
-@pytest.mark.parametrize("case", ["head_dim_over_128", "s_over_512", "heads_do_not_split", "other_shape",
+@pytest.mark.parametrize("case", ["head_dim_over_128", "heads_do_not_split", "other_shape",
                                   "other_device", "qkv_bf16_required"])
 def test_attention_operands_raise_naming_the_limits(which, case):
     b, s, d, heads = 2, 64, 384, 12
     if case == "head_dim_over_128":
         heads = 1  # head dim 384: over the largest kernel's 256
-    elif case == "s_over_512":
-        s = 513
     elif case == "heads_do_not_split":
         heads = 7
     qkv = torch.zeros(b, s, 3 * d, dtype=torch.float32 if case == "qkv_bf16_required" else torch.bfloat16)
@@ -106,7 +104,7 @@ def test_attention_operands_raise_naming_the_limits(which, case):
     if case == "other_device":
         other = other.to("meta")
     check = masked_attention_operands if which == "masked" else segment_attention_operands
-    match = {"head_dim_over_128": "head dims up to 256", "s_over_512": "S <= 512"}.get(case)
+    match = {"head_dim_over_128": "head dims up to 256"}.get(case)
     with pytest.raises(ValueError, match=match):
         check(qkv, other, heads)
 
@@ -145,19 +143,19 @@ def _ln_operands(m=8, n=384, k=32, res_dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [256, 384, 512, 768, 1024])
+@pytest.mark.parametrize("n", [256, 384, 512, 768, 1024, 1536, 2048])
 def test_gemm_ln_operands_take_every_layernorm_width(n, res_dtype):
     assert gemm_bias_residual_layernorm_operands(*_ln_operands(17, n, 40, res_dtype)) == (17, n, 40)
 
 
-@pytest.mark.parametrize("case", ["n_320", "n_2048", "k_not_multiple_of_8", "residual_f16", "residual_shape",
+@pytest.mark.parametrize("case", ["n_320", "n_2056", "k_not_multiple_of_8", "residual_f16", "residual_shape",
                                   "gamma_bf16", "w_other_device"])
 def test_gemm_ln_operands_raise_naming_the_limits(case):
     ops = list(_ln_operands())
     if case == "n_320":
         ops = list(_ln_operands(n=320))
-    elif case == "n_2048":
-        ops = list(_ln_operands(n=2048))
+    elif case == "n_2056":  # past 768 the kernel takes multiples of 512 only
+        ops = list(_ln_operands(n=2056))
     elif case == "k_not_multiple_of_8":
         ops = list(_ln_operands(k=36))
     elif case == "residual_f16":
@@ -184,15 +182,13 @@ def test_gemm_ln_cpu_takes_the_plain_version(out_f32):
     assert (got[0] is None) == (not out_f32) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("case", ["head_dim_over_128", "s_over_512", "qkv_not_contiguous", "qkv_float32",
+@pytest.mark.parametrize("case", ["head_dim_over_128", "qkv_not_contiguous", "qkv_float32",
                                   "seg_shape", "seg_other_device", "width_not_3d"])
 def test_segment_operands_raise(case):
     b, s, heads = 2, 64, 12
     qkv = torch.zeros(b, s, 3 * 384, dtype=torch.bfloat16)
     seg = torch.zeros(b, s, dtype=torch.int32)
-    if case == "s_over_512":
-        qkv, seg = torch.zeros(1, 513, 3 * 384, dtype=torch.bfloat16), torch.zeros(1, 513, dtype=torch.int32)
-    elif case == "head_dim_over_128":
+    if case == "head_dim_over_128":
         heads = 1  # head dim 384: over the largest kernel's 256
     elif case == "qkv_not_contiguous":
         qkv = torch.zeros(s, b, 3 * 384, dtype=torch.bfloat16).transpose(0, 1)
@@ -258,18 +254,14 @@ def test_bound_argtypes_match_the_c_signature(source, entry):
     assert [_C_TYPES[p] for p in params] == [t.__name__ for t in _build.SOURCES[source][entry]]
 
 
-@pytest.mark.parametrize("n,width", [(8, 256), (128, 256), (256, 256), (312, 384), (640, 768), (776, 1024), (1024, 1024)])
+@pytest.mark.parametrize("n,width", [(8, 256), (128, 256), (256, 256), (312, 384), (640, 768), (776, 1024), (1024, 1024),
+                                     (1032, 1536), (1536, 1536), (4096, 4096), (4100, 4608)])
 def test_ln_width_pads_to_the_next_kernel_width(n, width):
-    from pathway_tpu_torch.ops.fused_layer import _ln_width
+    """Rows up to 768 run in registers at the next of ``_LN_WIDTHS``; wider
+    rows are staged at the next multiple of 512."""
+    from pathway_tpu_torch.ops.fused_layer import _ln_staged, _ln_width
 
-    assert _ln_width(n) == width
-
-
-def test_ln_width_over_1024_raises():
-    from pathway_tpu_torch.ops.fused_layer import _ln_width
-
-    with pytest.raises(ValueError, match="up to 1024"):
-        _ln_width(1032)
+    assert _ln_width(n) == width and _ln_staged(width) == (width >= 1024)
 
 
 def test_pad_to_zero_pads_and_keeps_one_copy_per_parameter():

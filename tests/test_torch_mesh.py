@@ -281,7 +281,20 @@ def test_pathway_mesh_env_reaches_the_run_context(monkeypatch):
 
 
 def test_index_description_carries_the_mesh_axes():
+    """The graph's description of a device-backed index is the reference's,
+    field for field, for the same index (dimensions, reserved space, metric,
+    mesh, tiers, tenant, encoder)."""
+    import pathway_tpu as jpw
+    from pathway_tpu.internals.parse_graph import G as JG
+
     t = tpw.debug.table_from_rows(schema=tpw.schema_from_types(v=tuple), rows=[((1.0, 0.0),)])
     tpw.indexing.DataIndex(t, tpw.indexing.BruteForceKnn(t.v, dimensions=2, mesh="4x2", device="cpu")).query(t.v)
     (spec,) = TG.external_indexes
-    assert spec == {"kind": "BruteForceKnn", "mesh_axes": {"data": 4, "model": 2}}
+    jpw.clear_graph()
+    jt = jpw.debug.table_from_rows(schema=jpw.schema_from_types(v=tuple), rows=[((1.0, 0.0),)])
+    jpw.indexing.DataIndex(jt, jpw.indexing.BruteForceKnn(jt.v, dimensions=2, mesh="4x2")).query(jt.v)
+    (want,) = JG.external_indexes
+    jpw.clear_graph()
+    assert spec.pop("_table")._name == want.pop("_table")._name == "index_reply"  # each package's own result table
+    assert spec == want
+    assert spec["mesh_axes"] == {"data": 4, "model": 2} and spec["dimensions"] == 2 and spec["encoder"] is None

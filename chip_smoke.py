@@ -12,7 +12,7 @@ LayerNorm widths 128 and 312, a GEMM with K 300 and N 900, and whole layers
 at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below), times the index's tie-ordered top-k beside
-``torch.topk``, then drives eight paths, each with the launch counters set
+``torch.topk``, then drives nine paths, each with the launch counters set
 to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -36,7 +36,7 @@ to 0 just before it and read just after:
   every ingest epoch, hits equal to the library path's, and a KNNIndex's
   neighbour sets equal on 1 and 4 engine workers;
 * ``server_path``: the README's RAG document server as written, on the
-  port: 8,192 files of synthetic prose (about 22,000 chunks) ->
+  port: 4,096 files of synthetic prose (about 11,000 chunks) ->
   ``pw.io.fs.read(format="binary", mode="streaming", with_metadata=True)``
   -> ``VectorStoreServer(embedder=SentenceTransformerEmbedder(),
   parser=ParseUtf8(), splitter=TokenCountSplitter())`` ->
@@ -56,7 +56,19 @@ to 0 just before it and read just after:
   gated on the per-shard passes and the cross-shard merge launching, hits
   equal to the twin's, the mesh encoder against the single-device one, the
   engine's hits equal to the same pipeline without a mesh, and no mesh left
-  installed after the run.
+  installed after the run;
+* ``decode_ext_path``: ``pw.run(decode=)`` -> ``DecodeService`` in every
+  decode extension (greedy, cache + chunks, two speculative drafts,
+  sampled), streams held to greedy's;
+* ``qa_path``: the question answerer (``QARestServer`` over 1,024 files, a
+  cross-encoder cut), answers held to an in-process replay;
+* ``observe_path``: the question answerer behind ``serving=`` under
+  ``pw.run(tracing=True, chip_ledger=True, freshness=True, watchdog=True,
+  with_http_server=True, monitoring_http_port=0)`` against a planes-off
+  twin (off, on, on, off), with an overload burst and a ``DecodeService``
+  burst; gated on equal answers, the ledger's accounts and its bookings
+  against a profiled window, the traces, the sheds, the scrape and the
+  freshness plane against polling.
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -1083,7 +1095,7 @@ def _first_split(torch, params, cfg, prompt, got, want):
 
 # engine_path: documents streamed through the dataflow engine, epochs of them,
 # and the documents of the 1- vs 4-worker KNNIndex comparison
-ENGINE_DOCS, ENGINE_EPOCH, ENGINE_QUERIES, ENGINE_WORKER_DOCS = 131_072, 1024, 512, 16_384
+ENGINE_DOCS, ENGINE_EPOCH, ENGINE_QUERIES, ENGINE_WORKER_DOCS = 131_072, 1024, 512, 4_096
 HIT_TOL = 1e-5  # topk_agreement tolerance of the engine's hits against the library path's
 
 
@@ -1337,7 +1349,7 @@ def phase_engine_path(torch, n_docs: int = ENGINE_DOCS, per_epoch: int = ENGINE_
 # server_path: the README's RAG document server. Files of the corpus, the
 # sequential, filtered and burst queries, the burst's client threads, and the
 # live changes: new files (bursts x files), modified and deleted files
-SERVER_FILES, SERVER_QUERIES, SERVER_FILTERED, SERVER_BURST, SERVER_BURST_THREADS = 8192, 512, 64, 64, 8
+SERVER_FILES, SERVER_QUERIES, SERVER_FILTERED, SERVER_BURST, SERVER_BURST_THREADS = 4096, 512, 64, 64, 8
 SERVER_NEW_BURSTS, SERVER_NEW_PER_BURST, SERVER_MODIFIED, SERVER_DELETED = 4, 64, 64, 64
 
 
@@ -2580,6 +2592,619 @@ def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
     return launches
 
 
+# observe_path: the corpus and the files written while serving, the traffic
+# and its clients, the overload burst at an admission queue bounded well
+# below it, the decode burst, and the freshness probe
+OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 1024, 256, 256, 64, 8
+OBS_BURST, OBS_QUEUE, OBS_DECODE, OBS_PROBE, OBS_WINDOW, OBS_WRITE_GROUP = 256, 32, 16, 32, 6, 8
+# the questions and retrievals read the corpus only: the files written while
+# they are asked cannot change their answers, so the twin's must be equal
+OBS_FILTER = 'globmatch(`"**/doc_*"`, path)'
+OBS_DECODE_SPEC = ",cache=on,chunk=64,spec=4,draft=2"  # decode_ext_path's configuration (c)
+OBS_SERVING = dict(max_queue=OBS_QUEUE, batch_max=64, batch_window_ms=2.0, latency_budget_ms=60_000.0,
+                   query_share=1.0, default_deadline_ms=120_000.0)
+OBS_PLANES = dict(tracing=True, chip_ledger=True, freshness=True, watchdog=True, with_http_server=True,
+                  monitoring_http_port=0)
+OBS_ACCOUNTS = ("encode", "index.search", "rerank", "decode", "decode.draft", "decode.verify", "compile")
+# the engine-side spans a served answer's trace must hold, from its HTTP root
+OBS_STAGES = ("request", "admission", "queue", "dispatch", "pipeline", "index_search", "rerank")
+# the reference's metric names a scrape must hold, by section
+OBS_METRICS = {
+    "chip": ("pathway_chip_seconds_total", "pathway_chip_dispatches_total", "pathway_chip_busy_seconds_total",
+             "pathway_chip_stranded_fraction"),
+    "index": ("pathway_index_docs", "pathway_index_searches_total", "pathway_index_queries_total"),
+    "serving": ("pathway_serving_admitted_total", "pathway_serving_shed_total", "pathway_serving_batches_total",
+                "pathway_serving_stage_seconds_bucket"),
+    "decode": ("pathway_decode_tokens_total", "pathway_decode_steps_total", "pathway_decode_spec_acceptance_rate"),
+    "freshness": ("pathway_freshness_visibility_lag_seconds_bucket", "pathway_freshness_staleness_seconds"),
+}
+LEDGER_DEVICE_SHARE = 0.9  # an account's booked seconds against its kernels' device time
+
+
+def _obs_write(folder: str, name: str, text: str) -> float:
+    """Write one file so that it appears whole in the watched folder (written
+    beside it, then renamed into it); returns the write time."""
+    staging = folder + "_staging"
+    os.makedirs(staging, exist_ok=True)
+    tmp = os.path.join(staging, name)
+    with open(tmp, "w") as f:
+        f.write(text)
+    t = time.perf_counter()
+    os.replace(tmp, os.path.join(folder, name))
+    return t
+
+
+def _obs_serve(torch, parts: dict, *, on: bool, questions, retrievals, new_texts, decode_prompts,
+               cold_build: bool = False, burst: int = 0, probe=(), window: bool = False) -> dict:
+    """One run of the question answerer (``phase_observe_path``): the planes
+    on (``pw.run(**OBS_PLANES)``) or off, the corpus written once the
+    endpoint is up, then ``questions`` and ``retrievals`` from
+    ``OBS_CLIENTS`` concurrent clients while ``new_texts`` are written and
+    each polled until retrievable, then the decode burst; with the planes
+    on, also (``burst``) the overload burst and the scrape, the ledger's
+    snapshot, (``probe``) the freshness probe and (``window``) the
+    profiled window. ``cold_build``: the kernels are built anew, into an
+    empty directory, once the run is up (the ledger's ``compile``)."""
+    import queue as queue_mod
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.decode import DecodeEngine, DecoderConfig, DecodeService
+    from pathway_tpu_torch.freshness.plane import FRESHNESS
+    from pathway_tpu_torch.internals import http_monitoring
+    from pathway_tpu_torch.internals.chip_ledger import CHIP_LEDGER
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.io import fs as fs_mod
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.serving import SERVING_METRICS, Deadline, ServingConfig
+    from pathway_tpu_torch.tracing import TRACE_STORE
+    from pathway_tpu_torch.tracing import span as trace_span
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    now = time.perf_counter
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    # one folder for every run: the answers quote their documents' paths
+    folder = os.path.join(build_dir, "observe_path_docs")
+    shutil.rmtree(folder, ignore_errors=True)
+    shutil.rmtree(folder + "_staging", ignore_errors=True)
+    os.makedirs(folder)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+
+    def post(path, payload, timeout=600):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return resp.status, json.loads(resp.read().decode()), dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode() or "null"), dict(e.headers)
+
+    def retrievable(text, path) -> bool:
+        status, hits, _ = post("/v1/retrieve", {"query": text, "k": 1})
+        return status == 200 and any(h["metadata"]["path"] == path for h in hits)
+
+    def file_count() -> int:
+        try:
+            status, stats, _ = post("/v1/statistics", {})
+        except OSError:  # the endpoint is not up yet
+            return -1
+        return stats["file_count"] if status == 200 else -1
+
+    runners, monitors, scans, batch_sizes = [], [], [], []
+    real_init, real_start = GraphRunner.__init__, http_monitoring.MonitoringHttpServer.start
+    real_list, real_record_batch = fs_mod._list_files, SERVING_METRICS.record_batch
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        runners.append(self)
+
+    def recording_start(self):
+        real_start(self)
+        monitors.append(self)
+
+    def list_files(*a, **kw):
+        scans.append(now())
+        return real_list(*a, **kw)
+
+    def record_batch(size, ewma):
+        batch_sizes.append(int(size))
+        return real_record_batch(size, ewma)
+
+    pw.clear_graph()
+    docs = pw.io.fs.read(folder, format="binary", mode="streaming", with_metadata=True)
+    store = pw.xpacks.llm.DocumentStore(
+        docs, retriever_factory=pw.indexing.BruteForceKnnFactory(embedder=parts["embedder"]),
+        splitter=pw.xpacks.llm.splitters.TokenCountSplitter())
+    rag = BaseRAGQuestionAnswerer(parts["chat"], parts["store"](store), prompt_template=parts["prompt"],
+                                  search_topk=QA_SEARCH_K)
+    QARestServer("127.0.0.1", port, rag, serving=ServingConfig(**OBS_SERVING))
+    for reg in (CHIP_LEDGER, FRESHNESS, TRACE_STORE, SERVING_METRICS):
+        reg.reset()
+    GraphRunner.__init__, http_monitoring.MonitoringHttpServer.start = recording_init, recording_start
+    fs_mod._list_files, SERVING_METRICS.record_batch = list_files, record_batch
+    out: dict = {}
+    res: dict = {}
+    run = threading.Thread(target=lambda: res.update(result=pw.run(**(OBS_PLANES if on else {}))), daemon=True)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t_run = now()
+        run.start()
+        deadline = now() + 300
+        while file_count() != 0:
+            if now() > deadline:
+                raise TimeoutError("the observed server never came up")
+            time.sleep(0.05)
+        if cold_build:  # the kernels built anew while the run is up: the ledger books the nvcc builds
+            _build.BUILD_DIR = tempfile.mkdtemp(prefix="observe_build_", dir=build_dir)
+            _build._LIBS.clear()
+            t0 = now()
+            _build.build_all()
+            out["cold_build_seconds"] = now() - t0
+        t0 = now()
+        for i, text in enumerate(parts["texts"]):
+            _obs_write(folder, f"doc_{i:05d}.txt", text)
+        while file_count() != len(parts["texts"]):
+            if now() > deadline + 300:
+                raise TimeoutError("the observed server never indexed the corpus")
+            time.sleep(0.05)
+        out["ingest_seconds"] = now() - t0
+
+        # questions and retrievals from concurrent clients, files written meanwhile
+        work: queue_mod.Queue = queue_mod.Queue()
+        for j, q in enumerate(questions):
+            work.put(("answer", j, {"prompt": q, "filters": OBS_FILTER, "return_context_docs": True}))
+        for j, q in enumerate(retrievals):
+            work.put(("retrieve", j, {"query": q, "k": QA_SEARCH_K, "metadata_filter": OBS_FILTER}))
+        answers, retrieved, traces, lat, failures = {}, {}, {}, [], []
+
+        def client():
+            while True:
+                try:
+                    kind, j, payload = work.get_nowait()
+                except queue_mod.Empty:
+                    return
+                t1 = now()
+                status, body, headers = post("/v1/pw_ai_answer" if kind == "answer" else "/v1/retrieve", payload)
+                lat.append((now() - t1) * 1e3)
+                if status != 200:
+                    failures.append((kind, j, status, body))
+                (answers if kind == "answer" else retrieved)[j] = (body, headers.get("X-Pathway-Trace"))
+                if on and kind == "answer":  # read at once: the store's ring evicts the oldest spans
+                    tid = headers.get("X-Pathway-Trace")
+                    traces[j] = TRACE_STORE.get_trace(tid) if tid else []
+
+        written_lag = []
+
+        def writer():  # groups of OBS_WRITE_GROUP files, each file polled until retrievable
+            for g in range(0, len(new_texts), OBS_WRITE_GROUP):
+                group = {}
+                for i in range(g, min(g + OBS_WRITE_GROUP, len(new_texts))):
+                    name = f"new_{i:05d}.txt"
+                    group[os.path.join(folder, name)] = (new_texts[i], _obs_write(folder, name, new_texts[i]))
+                until = now() + 120
+                while group:
+                    for path, (text, t_write) in list(group.items()):
+                        if retrievable(text, path):
+                            written_lag.append(now() - t_write)
+                            del group[path]
+                    if group and now() > until:
+                        failures.append(("new_files", g, "never retrievable", sorted(group)[:2]))
+                        return
+                    time.sleep(0.01)
+
+        clients = [threading.Thread(target=client) for _ in range(OBS_CLIENTS)]
+        writing = threading.Thread(target=writer)
+        t0 = now()
+        for t in clients + [writing]:
+            t.start()
+        for t in clients:
+            t.join(timeout=900)
+        traffic_s = now() - t0
+        writing.join(timeout=900)
+        if failures or len(answers) != len(questions) or len(retrieved) != len(retrievals):
+            raise AssertionError(f"observe_path traffic: {len(answers)} answers, {len(retrieved)} retrievals, "
+                                 f"failures {failures[:3]}")
+        out.update(answers=answers, retrieved=retrieved, traffic_seconds=traffic_s,
+                   answers_per_s=(len(questions) + len(retrievals)) / traffic_s, latency=_percentiles(lat),
+                   new_files=len(written_lag), write_to_retrievable=_percentiles([x * 1e3 for x in written_lag]))
+        out["traces"] = traces
+
+        # the decode burst behind a DecodeService: configuration (c), whose
+        # ticks are all speculative (draft and verify), then the greedy one,
+        # whose steps run B5
+        out.update(streams={}, tokens_per_s={})
+        for tag, spec in (("c", OBS_DECODE_SPEC), ("a", "")):
+            engine = DecodeEngine(DecoderConfig(), pw.decode.parse_decode_spec(
+                f"{DECODE_EXT_POOL},impl={DECODE_EXT_IMPL}{spec}"), seed=SEED, device=DEV)
+            engine.generate([[7] * 24])  # warm-up
+            svc = DecodeService(engine, config=ServingConfig(**DECODE_EXT_SERVING))
+            try:
+                torch.cuda.synchronize()
+                t0 = now()
+                tickets = []
+                for p in decode_prompts:
+                    with trace_span("request", new_trace=True):
+                        tickets.append(svc.submit(p, deadline=Deadline(DECODE_EXT_DEADLINE_MS)))
+                streams = [t.result(timeout=600) for t in tickets]
+                torch.cuda.synchronize()
+                decode_s = now() - t0
+            finally:
+                svc.stop()
+            if svc.error is not None or any(t.preempted for t in tickets):
+                raise AssertionError(f"observe_path's decode burst ({tag}) failed: {svc.error!r}")
+            out["streams"][tag] = streams
+            out["tokens_per_s"][tag] = sum(map(len, streams)) / decode_s
+
+        if burst:  # the overload burst: far more concurrent requests than the admission queue holds
+            admitted0 = SERVING_METRICS.snapshot()["admitted_total"]
+            gate = threading.Barrier(burst)
+            got = []
+
+            def one(j):
+                gate.wait()
+                got.append(post("/v1/retrieve", {"query": questions[j % len(questions)], "k": QA_SEARCH_K,
+                                                 "metadata_filter": OBS_FILTER}))
+
+            threads = [threading.Thread(target=one, args=(j,)) for j in range(burst)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            snap = SERVING_METRICS.snapshot()
+            out["burst"] = dict(
+                sent=burst, answered=sum(s == 200 for s, _, _ in got),
+                shed=sum(s == 503 and b.get("reason") == "queue_full" for s, b, _ in got),
+                other=[(s, b) for s, b, _ in got if s not in (200, 503)][:3],
+                admitted=snap["admitted_total"] - admitted0, bad_answers=sum(
+                    s == 200 and len(b) != QA_RERANK_K for s, b, _ in got),
+                shed_with_trace=sum(s == 503 and bool(h.get("X-Pathway-Trace")) for s, _, h in got))
+        if on:
+            mport = monitors[-1].port
+            with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=60) as resp:
+                out["metrics"] = resp.read().decode()
+            with urllib.request.urlopen(f"http://127.0.0.1:{mport}/status", timeout=60) as resp:
+                out["status"] = json.loads(resp.read().decode())
+            out["ledger"] = CHIP_LEDGER.snapshot()
+            out["freshness"] = FRESHNESS.snapshot()
+            out["batch_sizes"] = dict(sorted(collections.Counter(batch_sizes).items()))
+
+        plane_lag, polled_lag = [], []
+        # a random pause before each write, over the scanner's whole period
+        # (its sleep and its walk of the folder), so that the writes fall at
+        # any phase of it rather than just after the scan that served the last
+        period = float(np.median(np.diff(scans[-20:]))) if len(scans) > 2 else fs_mod._POLL_INTERVAL_S
+        delays = np.random.default_rng(SEED + 43).uniform(0.0, period, len(probe))
+        for i, text in enumerate(probe):  # the freshness probe: nothing else is served meanwhile
+            # named to sort first: the scanner lists the folder, then walks it
+            # in order, so a file late in the walk waits the walk's length
+            # more than one period (the files written while serving show it)
+            name = f"0probe_{i:05d}.txt"
+            path = os.path.join(folder, name)
+            time.sleep(float(delays[i]))
+            count0 = FRESHNESS.snapshot()["lag"]["count"]
+            t_write = _obs_write(folder, name, text)
+            until = now() + 120
+            if i % 2 == 0:  # the plane's own measure: its lag of the epoch that made the file visible
+                while FRESHNESS.snapshot()["lag"]["count"] == count0:
+                    if now() > until:
+                        raise AssertionError("the freshness plane never saw a probe file's epoch")
+                    time.sleep(0.01)
+                plane_lag.append(FRESHNESS.snapshot()["lag"]["last_ms"] / 1e3)
+                while not retrievable(text, path):  # then the file is retrievable as well
+                    time.sleep(0.01)
+            else:  # the path's own measure: polling until the file is retrieved
+                while not retrievable(text, path):
+                    if now() > until:
+                        raise AssertionError(f"probe file {name} was never retrievable")
+                    time.sleep(0.01)
+                polled_lag.append(now() - t_write)
+        if probe:
+            out["probe"] = dict(plane_s=plane_lag, polled_s=polled_lag, scan_periods_s=np.diff(scans[-50:]).tolist())
+
+        if window:  # the ledger against the card over one profiled window
+            from torch.profiler import ProfilerActivity, profile
+
+            from torch._C._profiler import _ExperimentalConfig
+            from torch.autograd import DeviceType
+
+            spec_engine = DecodeEngine(DecoderConfig(), pw.decode.parse_decode_spec(
+                f"{DECODE_EXT_POOL},impl={DECODE_EXT_IMPL}{OBS_DECODE_SPEC}"), seed=SEED, device=DEV)
+            spec_engine.generate([[7] * 24])  # warm-up
+            svc2 = DecodeService(spec_engine, config=ServingConfig(**DECODE_EXT_SERVING))
+            svc3 = DecodeService(engine, config=ServingConfig(**DECODE_EXT_SERVING))
+            torch.cuda.synchronize()
+            CHIP_LEDGER.reset()
+            t0 = now()
+            # the bookings run on the engine's and the batchers' threads
+            every_thread = _ExperimentalConfig(profile_all_threads=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         experimental_config=every_thread) as prof:
+                for j in range(OBS_WINDOW):
+                    post("/v1/pw_ai_answer", {"prompt": questions[j], "filters": OBS_FILTER,
+                                              "return_context_docs": True})
+                for one in (svc2, svc3):  # one engine at a time: the bookings never overlap
+                    for t in [one.submit(p, deadline=Deadline(DECODE_EXT_DEADLINE_MS)) for p in decode_prompts[:4]]:
+                        t.result(timeout=600)
+                name = "window_00000.txt"
+                _obs_write(folder, name, new_texts[0] + " window")
+                while not retrievable(new_texts[0] + " window", os.path.join(folder, name)):
+                    time.sleep(0.01)
+                torch.cuda.synchronize()
+            wall = now() - t0
+            svc2.stop()
+            svc3.stop()
+            booked = {a: r["seconds"] for a, r in CHIP_LEDGER.snapshot(wall_s=wall)["accounts"].items()}
+            device = collections.Counter()
+            for e in prof.events():
+                if e.name.startswith("chip_ledger::"):
+                    device[e.name.split("::", 1)[1]] += getattr(e, "device_time_total", 0.0) / 1e6
+            out["window"] = dict(wall_s=wall, booked_s=booked, device_s=dict(device),
+                                 device_events=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+        out["launches"] = dict(_build.LAUNCHES)
+    finally:
+        if runners:
+            runners[-1].engine.stop()
+        GraphRunner.__init__, http_monitoring.MonitoringHttpServer.start = real_init, real_start
+        fs_mod._list_files, SERVING_METRICS.record_batch = real_list, real_record_batch
+    if run.ident is not None:
+        run.join(timeout=120)
+    pw.clear_graph()
+    shutil.rmtree(folder)
+    shutil.rmtree(folder + "_staging", ignore_errors=True)
+    if run.is_alive():
+        raise AssertionError("the observed run did not end after the engine stopped")
+    out["result"] = res.get("result")
+    out["run_seconds"] = now() - t_run
+    return out
+
+
+def _obs_same_answers(on: dict, off: dict) -> int:
+    """How many answers and retrievals of a planes-on run differ from its
+    twin's (responses, context documents and hits by text and path; hit
+    scores within the top-k tolerance)."""
+    differ = 0
+    for j, (body, _) in on["answers"].items():
+        want = off["answers"][j][0]
+        docs = [(d["text"], d["metadata"]["path"]) for d in body["context_docs"]]
+        differ += not (body["response"] == want["response"]
+                       and docs == [(d["text"], d["metadata"]["path"]) for d in want["context_docs"]])
+    for j, (body, _) in on["retrieved"].items():
+        want = off["retrieved"][j][0]
+        differ += [(d["text"], d["metadata"]["path"]) for d in body] != [
+            (d["text"], d["metadata"]["path"]) for d in want] or any(
+            abs(float(a.get("dist", 0.0)) - float(b.get("dist", 0.0))) > HIT_TOL for a, b in zip(body, want))
+    return differ
+
+
+def phase_observe_path(torch, env: dict, n_files: int = OBS_FILES, n_new: int = OBS_NEW,
+                       n_answers: int = OBS_ANSWERS, n_retrieve: int = OBS_RETRIEVE, n_decode: int = OBS_DECODE,
+                       n_burst: int = OBS_BURST, n_probe: int = OBS_PROBE) -> dict:
+    """The observability planes over ``qa_path``'s question answerer at full
+    MiniLM-L6 width (``DocumentStore`` over brute-force KNN, k 6, each query's
+    docs rescored by a seeded cross_encoder_l6 ``CrossEncoderReranker`` cut
+    to 3, the extractive chat, ``QARestServer(serving=ServingConfig(...))``),
+    run four times, each over ``n_files`` files written once the endpoint is
+    up: planes off, on, on, off. Each run serves half of ``n_answers`` answers
+    and ``n_retrieve`` retrievals from ``OBS_CLIENTS`` concurrent clients while
+    half of ``n_new`` more files are written (each polled until retrievable),
+    then a ``DecodeService`` burst of ``n_decode`` requests under
+    ``decode_ext_path``'s configuration (c). The planes-on runs run under
+    ``pw.run(tracing=True, chip_ledger=True, freshness=True, watchdog=True,
+    with_http_server=True, monitoring_http_port=0)``; the first of them
+    rebuilds the kernels into an empty directory once it is up, meets an
+    overload burst of ``n_burst`` concurrent requests at an admission queue
+    of ``OBS_QUEUE`` and is scraped; both run the freshness probe; the second
+    profiles one window of answers, decode requests and a new file.
+
+    Gates: every answer and hit, and every decode stream, equal the twin's;
+    the ledger books a positive figure under each of ``OBS_ACCOUNTS``; over
+    the profiled window each account's booked seconds are at least
+    ``LEDGER_DEVICE_SHARE`` of its kernels' device time and all of them
+    together do not exceed the wall; every answer carries an
+    ``X-Pathway-Trace`` id whose trace holds ``OBS_STAGES`` and no span
+    belongs to two requests; the burst sheds with a typed 503 and every
+    admitted request is answered; the scrape holds ``OBS_METRICS`` and
+    ``/status`` parses; the plane's write -> retrievable p50 lies within one
+    scanner period of the polled one; the encoder's kernels, B2, B3 and B5
+    launch."""
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.decode import DecoderConfig
+    from pathway_tpu_torch.internals.chip_ledger import chip_peak_tflops
+    from pathway_tpu_torch.internals.ledger import default_hbm_bytes
+    from pathway_tpu_torch.xpacks.llm import rag_evals
+    from pathway_tpu_torch.xpacks.llm.llms import BaseChat, _messages_to_plain
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker, rerank_topk_filter
+
+    now = time.perf_counter
+    t_phase = now()
+    # the trace and flight-recorder dumps stay inside the checkout
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.environ.setdefault("PATHWAY_TRACE_DIR", os.path.join(build_dir, "observe_path_traces"))
+    os.environ.setdefault("PATHWAY_FLIGHT_RECORDER_DIR", os.path.join(build_dir, "observe_path_blackbox"))
+    rng = np.random.default_rng(SEED + 41)
+    texts = _prose_files(rng, n_files)
+    new_texts = [_unique_chunk(f"o{i}", rng) for i in range(n_new)]
+    probe_texts = [_unique_chunk(f"p{i}", rng) for i in range(n_probe)]
+    questions = []
+    for i in rng.choice(n_files, n_answers, replace=False):
+        sentences = [x.strip() for x in texts[i].split(".") if len(x.split()) >= 8]
+        questions.append(sentences[int(rng.integers(0, len(sentences)))] + ".")
+    retrievals = [questions[int(j)] for j in rng.choice(n_answers, n_retrieve, replace=False)]
+    decode_prompts = _decode_ext_prompts(DecoderConfig().vocab_size)[:n_decode]
+
+    embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder(device=DEV)
+    embedder._encoder.encode_device(texts[:64], pad_to=64)  # warm-up: first launches, handles
+    reranker = CrossEncoderReranker(seed=SEED, device=DEV)
+    reranker.__wrapped__(texts[:8], texts[8:16])
+
+    class ExtractiveChat(BaseChat):
+        """Answers with the extractive answerer over the context its prompt carries."""
+
+        def __wrapped__(self, messages, **kwargs) -> str:
+            asked = json.loads(_messages_to_plain(messages)[-1]["content"])
+            return rag_evals.extractive_answerer(asked["question"], asked["context"].split("\n\n"))
+
+        def _accepts_call_arg(self, arg_name: str) -> bool:
+            return False
+
+    def qa_prompt(context: str, query: str) -> str:
+        return json.dumps({"question": query, "context": context})
+
+    @pw.udf
+    def rerank(docs, query: str) -> pw.Json:
+        # one forward a query: the reranker's own booking and span (``rerank``)
+        plain = [d.value if isinstance(d, pw.Json) else d for d in (docs.value if isinstance(docs, pw.Json) else docs)]
+        scores = reranker.__wrapped__([str(d["text"]) for d in plain], [query] * len(plain))
+        top, _ = rerank_topk_filter.func(plain, scores, QA_RERANK_K)
+        return pw.Json(list(top))
+
+    class RerankedStore:
+        """The document store with each query's retrieved docs rescored by
+        the cross-encoder and cut to the best ``QA_RERANK_K``."""
+
+        def __init__(self, store):
+            self.store = store
+            self.RetrieveQuerySchema = store.RetrieveQuerySchema
+            self.StatisticsQuerySchema = store.StatisticsQuerySchema
+            self.InputsQuerySchema = store.InputsQuerySchema
+
+        def retrieve_query(self, queries):
+            hits = self.store.retrieve_query(queries)
+            return (queries.select(q=pw.this.query) + hits).select(result=rerank(pw.this.result, pw.this.q))
+
+        def statistics_query(self, queries):
+            return self.store.statistics_query(queries)
+
+        def inputs_query(self, queries):
+            return self.store.inputs_query(queries)
+
+    parts = dict(texts=texts, embedder=embedder, chat=ExtractiveChat(), prompt=qa_prompt, store=RerankedStore)
+    half_q, half_r, half_n = len(questions) // 2, len(retrievals) // 2, len(new_texts) // 2
+    halves = [dict(questions=questions[:half_q], retrievals=retrievals[:half_r], new_texts=new_texts[:half_n]),
+              dict(questions=questions[half_q:], retrievals=retrievals[half_r:], new_texts=new_texts[half_n:])]
+    half_probe = len(probe_texts) // 2
+    # off, on, on, off: each half served once with the planes off and once on,
+    # the order turned round for the second half
+    off1 = _obs_serve(torch, parts, on=False, decode_prompts=decode_prompts, **halves[0])
+    on1 = _obs_serve(torch, parts, on=True, decode_prompts=decode_prompts, cold_build=True, burst=n_burst,
+                     probe=probe_texts[:half_probe], **halves[0])
+    on2 = _obs_serve(torch, parts, on=True, decode_prompts=decode_prompts, probe=probe_texts[half_probe:],
+                     window=True, **halves[1])
+    off2 = _obs_serve(torch, parts, on=False, decode_prompts=decode_prompts, **halves[1])
+    launches = collections.Counter()
+    for r in (off1, on1, on2, off2):
+        launches.update(r["launches"])
+
+    # ---- gates, outside the counted runs
+    differ = _obs_same_answers(on1, off1) + _obs_same_answers(on2, off2)
+    if differ:
+        raise AssertionError(f"{differ} answers or retrievals with the planes on differ from the twin's")
+    if any(r["streams"] != off1["streams"] for r in (on1, on2, off2)):
+        raise AssertionError("a decode stream with the planes on differs from the twin's")
+    missing = [k for k in ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention", "knn_topk_stream",
+                           "knn_topk_merge", "paged_decode_attention") if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"observe_path never launched {missing}")
+    accounts = collections.Counter()
+    for r in (on1, on2):
+        for a, row in r["ledger"]["accounts"].items():
+            accounts[a] += row["seconds"]
+    unbooked = [a for a in OBS_ACCOUNTS if accounts.get(a, 0.0) <= 0.0]
+    if unbooked:
+        raise AssertionError(f"the chip ledger booked nothing under {unbooked}: {dict(accounts)}")
+    win = on2["window"]
+    if not win["device_events"]:
+        raise AssertionError("the profiled window holds no device events")
+    attributed = [a for a in ("encode", "index.search", "rerank", "decode", "decode.draft", "decode.verify")
+                  if win["device_s"].get(a, 0.0) > 0.0]
+    if len(attributed) < 6:
+        raise AssertionError(f"the profiler attributed device time to {attributed} only: {win}")
+    short = {a: (win["booked_s"].get(a, 0.0), s) for a, s in win["device_s"].items()
+             if win["booked_s"].get(a, 0.0) < LEDGER_DEVICE_SHARE * s}
+    if short or sum(win["booked_s"].values()) > win["wall_s"]:
+        raise AssertionError(f"the ledger against the card: booked below {LEDGER_DEVICE_SHARE} of the device time "
+                             f"{short}, or {sum(win['booked_s'].values())} s booked over a {win['wall_s']} s wall")
+    span_ids: collections.Counter = collections.Counter()
+    for r in (on1, on2):
+        for j, (body, tid) in r["answers"].items():
+            spans = r["traces"][j]
+            stages = {s["stage"] for s in spans}
+            if not tid or not set(OBS_STAGES) <= stages or any(s["trace"] != tid for s in spans):
+                raise AssertionError(f"answer {j}'s trace {tid!r} holds {sorted(stages)}")
+            span_ids.update(s["span"] for s in spans)
+        if not r["result"].trace_dumps or r["result"].health is None or not r["result"].monitoring_http_port:
+            raise AssertionError(f"a planes-on run's result lacks its trace dump, health or port: {r['result']}")
+    if any(n > 1 for n in span_ids.values()):
+        raise AssertionError("a span belongs to two requests")
+    burst = on1["burst"]
+    if burst["shed"] < 1 or burst["answered"] != burst["admitted"] or burst["other"] or burst["bad_answers"] or (
+            burst["answered"] + burst["shed"] != burst["sent"]) or burst["shed_with_trace"] != burst["shed"]:
+        raise AssertionError(f"the overload burst: {burst}")
+    absent = {sec: [m for m in names if m not in on1["metrics"]] for sec, names in OBS_METRICS.items()}
+    if any(absent.values()) or not isinstance(on1["status"], dict):
+        raise AssertionError(f"the scrape lacks {absent}")
+    probe = dict(plane_p50_s=float(np.percentile(on1["probe"]["plane_s"] + on2["probe"]["plane_s"], 50)),
+                 polled_p50_s=float(np.percentile(on1["probe"]["polled_s"] + on2["probe"]["polled_s"], 50)),
+                 scan_period_s=float(np.median(on1["probe"]["scan_periods_s"] + on2["probe"]["scan_periods_s"])),
+                 files=n_probe)
+    if abs(probe["polled_p50_s"] - probe["plane_p50_s"]) > probe["scan_period_s"]:
+        raise AssertionError(f"freshness: the plane's p50 is not within one scanner period of the polled one: {probe}")
+    # the decode pool's budget and the MFU peak are the card's, not a TPU's
+    budget = default_hbm_bytes()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory if DEV != "cpu" else None
+    if DEV != "cpu" and not os.environ.get("PATHWAY_HBM_BYTES") and budget != card_bytes:
+        raise AssertionError(f"the decode pool's budget is {budget} bytes, the card holds {card_bytes}")
+
+    def ledger_view(r):
+        snap = r["ledger"]
+        return dict(accounts={a: row["seconds"] for a, row in snap["accounts"].items()},
+                    dispatches={a: row["dispatches"] for a, row in snap["accounts"].items()},
+                    busy_seconds=snap["busy_seconds"], wall_seconds=snap["wall_seconds"],
+                    stranded_fraction=snap["stranded_fraction"], stranded_causes=snap["stranded_causes"])
+
+    result = dict(
+        card=env["nvidia_smi"], files=n_files, answers=len(questions), retrievals=len(retrievals),
+        new_files=on1["new_files"] + on2["new_files"], clients=OBS_CLIENTS,
+        answers_per_s=dict(off1=off1["answers_per_s"], on1=on1["answers_per_s"], on2=on2["answers_per_s"],
+                           off2=off2["answers_per_s"]),
+        latency_ms=dict(off1=off1["latency"], on1=on1["latency"], on2=on2["latency"], off2=off2["latency"]),
+        tokens_per_s=dict(off1=off1["tokens_per_s"], on1=on1["tokens_per_s"], on2=on2["tokens_per_s"],
+                          off2=off2["tokens_per_s"]),
+        ingest_seconds=dict(off1=off1["ingest_seconds"], on1=on1["ingest_seconds"], on2=on2["ingest_seconds"],
+                            off2=off2["ingest_seconds"]),
+        write_to_retrievable_ms=dict(on1=on1["write_to_retrievable"], on2=on2["write_to_retrievable"],
+                                     off1=off1["write_to_retrievable"], off2=off2["write_to_retrievable"]),
+        ledger=dict(on1=ledger_view(on1), on2=ledger_view(on2)), cold_build_seconds=on1["cold_build_seconds"],
+        window=win, freshness=dict(
+            on1={k: on1["freshness"]["lag"][k] for k in ("count", "p50_ms", "p99_ms")},
+            on2={k: on2["freshness"]["lag"][k] for k in ("count", "p50_ms", "p99_ms")}, probe=probe),
+        burst=burst, batch_sizes=dict(on1=on1["batch_sizes"], on2=on2["batch_sizes"]),
+        health={tag: dict(status=r["result"].health["status"], breached={
+            rule["name"]: round(rule["value"], 4) for rule in r["result"].health["rules"] if rule["level"] != "ok"})
+            for tag, r in (("on1", on1), ("on2", on2))},
+        decode_pool_budget_bytes=budget, card_memory_bytes=card_bytes, chip_peak_tflops=chip_peak_tflops(),
+        run_seconds=dict(off1=off1["run_seconds"], on1=on1["run_seconds"], on2=on2["run_seconds"],
+                         off2=off2["run_seconds"]),
+        phase_seconds=now() - t_phase, launches=dict(launches),
+    )
+    emit("observe_path", **result)
+    return dict(launches)
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -2619,7 +3244,8 @@ def main(argv: list[str]) -> int:
     launches.update(phase_mesh_path(torch))
     launches.update(phase_decode_ext_path(torch))
     launches.update(phase_qa_path(torch))
-    for e in entries:  # launches summed over the eight paths' counted runs
+    launches.update(phase_observe_path(torch, env))
+    for e in entries:  # launches summed over the nine paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -34,13 +34,17 @@ searched by a fused top-k kernel). The RAG answer plane builds on it:
 runs embed -> retrieve -> rerank -> generate without a host round trip,
 and ``DecodeEngine`` generates with continuous batching over a paged KV
 pool. The REST endpoints (``io/http``) run on the standard library's
-HTTP server. Entry points run on ``"cuda"`` unless the caller passes
-``device="cpu"``. The package imports torch and numpy only.
+HTTP server, behind the serving plane with ``serving=``. The observability
+planes (``tracing``, ``freshness``, the chip-time and HBM ledgers with the
+health watchdog, the flight recorder, ``/metrics`` and ``/status``) turn on
+with ``pw.run(tracing=, chip_ledger=, freshness=, watchdog=,
+with_http_server=)``. Entry points run on ``"cuda"`` unless the caller
+passes ``device="cpu"``. The package imports torch and numpy only.
 """
 
 import datetime as _datetime
 
-from . import debug, io, reducers, serving, stdlib, xpacks
+from . import debug, freshness, io, reducers, serving, stdlib, tracing, xpacks
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
 from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_make_pointer, wrap_py_object
@@ -138,6 +142,7 @@ __all__ = [
     "fill_error",
     "if_else",
     "indexing",
+    "freshness",
     "io",
     "left",
     "make_tuple",
@@ -156,6 +161,7 @@ __all__ = [
     "serving",
     "stdlib",
     "this",
+    "tracing",
     "udf",
     "udfs",
     "unsafe_make_pointer",

@@ -11,8 +11,9 @@ without a config picks up. Spec forms::
     pw.run(decode={"pages": 256, "lanes": 8})
     PATHWAY_DECODE=auto | off | pages=512,page=32,cache=on,chunk=64
 
-The pool budget is ``PATHWAY_HBM_BYTES`` or 16 GiB, the budget the JAX
-package checks against.
+The pool budget is ``internals/ledger.default_hbm_bytes``:
+``PATHWAY_HBM_BYTES`` when set, else the card's memory, else (without a
+card) the reference's 16 GiB.
 """
 
 from __future__ import annotations
@@ -23,43 +24,11 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any
 
+from ..internals.ledger import default_hbm_bytes, kv_pool_bytes, parse_bytes
+
 __all__ = ["DecodeConfig", "active_decode", "kv_pool_bytes", "parse_decode_spec", "set_active_decode", "use_decode"]
 
 _IMPLS = ("auto", "xla", "paged", "interpret")
-
-_DEFAULT_HBM_BYTES = 16 * 1024**3
-
-
-def kv_pool_bytes(pages: int, page_size: int, layers: int, hidden: int, dtype_bytes: int = 4) -> int:
-    """Device bytes of a K+V page pool."""
-    return 2 * pages * page_size * layers * hidden * dtype_bytes
-
-
-def _parse_bytes(raw: str | int) -> int:
-    """``"4G"`` / ``"512M"`` / ``"64K"`` / plain number -> bytes."""
-    if isinstance(raw, int):
-        return raw
-    s = str(raw).strip()
-    mult = 1
-    if s and s[-1] in "kKmMgG":
-        mult = {"k": 1024, "m": 1024**2, "g": 1024**3}[s[-1].lower()]
-        s = s[:-1]
-    try:
-        return int(float(s) * mult)
-    except ValueError:
-        raise ValueError(f"index tiers: bad byte size {raw!r}") from None
-
-
-def default_hbm_bytes() -> int:
-    """The pool budget: ``PATHWAY_HBM_BYTES`` when it parses, else 16 GiB."""
-    raw = os.environ.get("PATHWAY_HBM_BYTES", "")
-    if raw:
-        try:
-            return _parse_bytes(raw)
-        except ValueError:
-            pass
-    return _DEFAULT_HBM_BYTES
-
 
 @dataclass(frozen=True)
 class DecodeConfig:
@@ -218,7 +187,7 @@ def _coerce(kw: dict[str, Any]) -> dict[str, Any]:
         elif field == "impl":
             out[field] = str(value).strip().lower()
         elif field in _BYTES_FIELDS:
-            out[field] = _parse_bytes(value)
+            out[field] = parse_bytes(value)
         elif field in _FLOAT_FIELDS:
             out[field] = float(value)
         else:

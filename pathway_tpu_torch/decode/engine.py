@@ -43,8 +43,16 @@ The serving extensions are the reference's, all off by default:
   host (:func:`_sample_token`), keyed on the ticket's prompt, the position
   and the seed, so a stream is the same alone or batched.
 
-The reference's chaos sites, flight-recorder events, tracing spans and
-chip-ledger bookings come with ROADMAP Queue A items 3 and 6.
+The observability hooks are the reference's: the prefill (whole or by
+chunks) and the greedy or sampled step book their device time under the
+chip ledger's ``decode``, a speculative tick under ``decode.draft`` and
+``decode.verify``; the flight recorder gets ``decode.prefill``,
+``decode.admit``, ``decode.step``, ``decode.kv_evict`` and
+``decode.preempt``; a ticket made under a request trace gets
+``decode_prefill`` and ``decode_step`` spans (each in a trace of its own
+that links the member requests); the weights and the KV pool report to the
+HBM ledger. The reference's chaos site (``decode.step``) comes with ROADMAP
+Queue A item 6.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..internals import flight_recorder
+from ..internals.chip_ledger import CHIP_LEDGER
 from ..models.batching import bucket
 from ..ops.fused_attention import KEY_OFF
 from ..ops.paged_attention import (
@@ -441,13 +451,20 @@ def decode_greedy(params, cfg: DecoderConfig, ids, length, max_new: int):
 # -- engine ------------------------------------------------------------------
 
 
+def _members(trace) -> tuple:
+    """The request contexts a ticket's trace stands for."""
+    from ..tracing import trace_members
+
+    return trace_members(trace)
+
+
 class DecodeTicket:
     """One query's handle through the decode plane."""
 
     __slots__ = ("prompt", "max_new", "deadline", "degraded", "skip_rerank", "tokens", "preempted", "done",
-                 "sample_key")
+                 "sample_key", "trace")
 
-    def __init__(self, prompt, max_new, deadline, degraded):
+    def __init__(self, prompt, max_new, deadline, degraded, trace=None):
         self.prompt = list(prompt)
         self.max_new = max_new
         self.deadline = deadline
@@ -457,6 +474,7 @@ class DecodeTicket:
         self.preempted = False
         self.done = threading.Event()
         self.sample_key: int | None = None  # counter-based sampling key (None: greedy)
+        self.trace = trace  # the request's trace context, when traced
 
     def result(self, timeout: float | None = None) -> list[int]:
         """Block for the final token stream (short if the query was
@@ -542,6 +560,20 @@ class DecodeEngine:
         self._pending: deque[DecodeTicket] = deque()
         self.steps = 0
         DECODE_METRICS.set_pool(self.pool.pages_in_use, self.pool.n_pages)
+        self._ledger_update()
+        from ..internals.ledger import LEDGER, pytree_nbytes
+
+        LEDGER.update("weights", "decoder", pytree_nbytes(self.params))
+
+    def _ledger_update(self) -> None:
+        """Report the KV page pool to the HBM ledger: exact bytes of the
+        pool tensors; ``used`` is the allocated-page fraction, so the
+        ledger's fragmentation gauge reads idle pool capacity."""
+        from ..internals.ledger import LEDGER
+
+        nbytes = int(self.pool.pool_bytes)
+        used = int(nbytes * self.pool.pages_in_use / self.pool.n_pages) if self.pool.n_pages else 0
+        LEDGER.update("decode.kv", "pool", nbytes, used_bytes=used)
 
     # -- ticket lifecycle --
 
@@ -561,7 +593,10 @@ class DecodeEngine:
                 f"exceeds the context limit {self.max_prompt_len()}"
             )
         DECODE_METRICS.record_query(degraded=degraded)
-        ticket = DecodeTicket(prompt, max_new, deadline, degraded)
+        from ..tracing import current_trace, tracing_enabled
+
+        trace = current_trace() if tracing_enabled() else None
+        ticket = DecodeTicket(prompt, max_new, deadline, degraded, trace=trace)
         if self.config.temperature > 0:
             # content-addressed, not order-addressed: the stream a prompt
             # samples is independent of its co-runners
@@ -578,13 +613,15 @@ class DecodeEngine:
 
     # -- lanes --
 
-    def _free_lane_pages(self, lane_idx: int) -> None:
+    def _free_lane_pages(self, lane_idx: int, reason: str) -> None:
         lane = self._lanes[lane_idx]
         self.pool.free(lane.pages)
+        flight_recorder.record("decode.kv_evict", lane=lane_idx, pages=len(lane.pages), reason=reason)
         self._lanes[lane_idx] = None
         self._page_tables[lane_idx, :] = self.pool.sentinel
         self._lens[lane_idx] = 0
         DECODE_METRICS.set_pool(self.pool.pages_in_use, self.pool.n_pages)
+        self._ledger_update()
 
     def _preempt_expired(self) -> None:
         """A lane whose ticket's deadline (anything with ``expires_at`` on
@@ -595,15 +632,17 @@ class DecodeEngine:
                 continue
             dl = lane.ticket.deadline
             if dl is not None and dl.expires_at <= now:
+                flight_recorder.record("decode.preempt", lane=i, emitted=len(lane.ticket.tokens),
+                                       prompt_tokens=len(lane.ticket.prompt))
                 DECODE_METRICS.record_preempt()
                 ticket = lane.ticket
-                self._free_lane_pages(i)
+                self._free_lane_pages(i, "preempt")
                 ticket.preempted = True
                 ticket.done.set()
 
     def _finish(self, lane_idx: int) -> None:
         ticket = self._lanes[lane_idx].ticket
-        self._free_lane_pages(lane_idx)
+        self._free_lane_pages(lane_idx, "finish")
         ticket.done.set()
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -626,7 +665,7 @@ class DecodeEngine:
         ids[0, :plen] = ticket.prompt
         pos = np.arange(plen)
         where = np.stack([np.asarray(pages, np.int64)[pos // ps], pos % ps])
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("decode", device=self.device):
             ids_d = self._upload(ids)
             k_rows, v_rows, logits = _prefill_logits_math(
                 self.params, self.model_cfg, ids_d, torch.tensor([plen], device=self.device)
@@ -644,6 +683,9 @@ class DecodeEngine:
         ticket.tokens.append(tok0)
         DECODE_METRICS.record_prefill(plen, lane.prefill_wall)
         DECODE_METRICS.set_pool(self.pool.pages_in_use, self.pool.n_pages)
+        self._ledger_update()
+        flight_recorder.record("decode.prefill", lane=i, prompt_tokens=plen, pages=len(pages),
+                               wall_ms=round(lane.prefill_wall * 1000.0, 3))
 
     def _admit(self) -> None:
         if self._incremental:
@@ -719,6 +761,9 @@ class DecodeEngine:
             self._page_tables[i, : len(pages)] = pages
             self._lens[i] = hit_tokens
             DECODE_METRICS.set_pool(self.pool.pages_in_use, self.pool.n_pages)
+            self._ledger_update()
+            flight_recorder.record("decode.admit", lane=i, prompt_tokens=plen, pages=len(pages),
+                                   prefix_hit_tokens=hit_tokens)
 
     def _advance_prefills(self) -> None:
         """Advance the most urgent prefilling lane by one chunk. One chunk a
@@ -740,7 +785,7 @@ class DecodeEngine:
         ids = np.zeros(m, np.int64)
         ids[:count] = ticket.prompt[lane.filled : lane.filled + count]
         w0 = _time.monotonic()
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("decode", device=self.device):
             logits = _chunk_prefill_math(
                 self.params, self.model_cfg, self.pool.k, self.pool.v, self._upload(self._page_tables[i]),
                 self._upload(ids), lane.filled, count, page_size=self.config.page_size,
@@ -757,8 +802,18 @@ class DecodeEngine:
         if self.cache is not None:
             self.cache.publish(ticket.prompt, lane.pages, plen)
             DECODE_METRICS.set_cached_pages(self.cache.cached_pages)
+        hit_tokens = lane.shared * self.config.page_size
         DECODE_METRICS.record_prefill(plen, lane.prefill_wall)
         DECODE_METRICS.set_pool(self.pool.pages_in_use, self.pool.n_pages)
+        self._ledger_update()
+        flight_recorder.record("decode.prefill", lane=i, prompt_tokens=plen, pages=len(lane.pages),
+                               wall_ms=round(lane.prefill_wall * 1000.0, 3), prefix_hit_tokens=hit_tokens)
+        from ..tracing import record_span, tracing_enabled
+
+        if tracing_enabled() and ticket.trace is not None:
+            record_span("decode_prefill", start_mono=w0, end_mono=_time.monotonic(), new_trace=True,
+                        links=tuple(t.trace_id for t in _members(ticket.trace)), prefix_hit=hit_tokens,
+                        prompt_tokens=plen)
         if len(ticket.tokens) >= ticket.max_new:
             self._finish(i)
 
@@ -795,6 +850,9 @@ class DecodeEngine:
             return 0
         if self.config.spec_tokens:
             return self._spec_tick(live)
+        # captured before the commit loop finishes lanes (a finished lane's
+        # journey still belongs to this tick's step span)
+        lane_tickets = [self._lanes[i].ticket for i in live]
         w0 = _time.monotonic()
         tables_d, toks_d, lens_d, w_lane, w_page, w_off = self._step_upload(live)
         ctx_lens = lens_d + 1
@@ -805,7 +863,7 @@ class DecodeEngine:
             pool.v[layer, w_page, w_off] = v_new[w_lane]
             return att(q, pool.k[layer], pool.v[layer], tables_d, ctx_lens, n_heads=heads)
 
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("decode", device=self.device):
             logits = _step_logits_math(self.params, self.model_cfg, toks_d, lens_d, attend)
             if self.config.temperature > 0:
                 # counter-based draws (ticket key x stream position)
@@ -827,7 +885,22 @@ class DecodeEngine:
                 self._finish(i)
         self.steps += 1
         DECODE_METRICS.record_step(emitted, wall)
+        flight_recorder.record("decode.step", batch=len(live), tokens=emitted, wall_ms=round(wall * 1000.0, 3))
+        self._step_span(lane_tickets, w0, wall, step=self.steps - 1, batch=len(live), tokens=emitted)
         return emitted
+
+    @staticmethod
+    def _step_span(lane_tickets, w0: float, wall: float, **attrs) -> None:
+        """One fused tick serves N lanes: its ``decode_step`` span gets a
+        trace of its own that links every member request's journey."""
+        from ..tracing import record_span, tracing_enabled
+
+        if not tracing_enabled():
+            return
+        lane_traces = tuple(sorted({m.trace_id for t in lane_tickets for m in _members(t.trace)}))
+        if lane_traces:
+            record_span("decode_step", start_mono=w0, end_mono=w0 + wall, new_trace=True, links=lane_traces,
+                        **attrs)
 
     def _spec_tick(self, live) -> int:
         """One speculative tick: the draft proposes ``spec_tokens`` tokens
@@ -840,28 +913,31 @@ class DecodeEngine:
         toks = np.zeros(lanes, np.int64)
         for i in live:
             toks[i] = self._lanes[i].ticket.tokens[-1]
+        lane_tickets = [self._lanes[i].ticket for i in live]
         w0 = _time.monotonic()
         host = np.concatenate([self._page_tables.reshape(-1).astype(np.int64), self._lens.astype(np.int64), toks])
         dev = self._upload(host)
         n_tab = lanes * self._pages_per_seq
         pt, lens, tk = dev[:n_tab].view(lanes, -1), dev[n_tab : n_tab + lanes], dev[n_tab + lanes :]
         with torch.no_grad():
-            if self.config.draft_ngram:
-                # prompt-lookup draft: proposals copied from the lane's own
-                # history, no device work
-                dr = np.zeros((k_spec, lanes), np.int64)
-                for i in live:
-                    t = self._lanes[i].ticket
-                    dr[:, i] = _prompt_lookup(t.prompt + t.tokens, self.config.draft_ngram, k_spec)
-                drafts = self._upload(dr)
-            else:
-                drafts = _draft_math(self.params, self.model_cfg, self.pool.k, self.pool.v, pt, lens, tk,
-                                     page_size=ps, spec_tokens=k_spec, draft_layers=self._draft_layers)
-            # verify output j is the target's argmax at position lens + j,
-            # trustworthy iff every earlier proposal matched
-            inputs = torch.cat([tk[None], drafts[:-1]], dim=0).T
-            targets = _verify_math(self.params, self.model_cfg, self.pool.k, self.pool.v, pt, lens, inputs,
-                                   page_size=ps)
+            with CHIP_LEDGER.timed("decode.draft", device=self.device):
+                if self.config.draft_ngram:
+                    # prompt-lookup draft: proposals copied from the lane's own
+                    # history, no device work
+                    dr = np.zeros((k_spec, lanes), np.int64)
+                    for i in live:
+                        t = self._lanes[i].ticket
+                        dr[:, i] = _prompt_lookup(t.prompt + t.tokens, self.config.draft_ngram, k_spec)
+                    drafts = self._upload(dr)
+                else:
+                    drafts = _draft_math(self.params, self.model_cfg, self.pool.k, self.pool.v, pt, lens, tk,
+                                         page_size=ps, spec_tokens=k_spec, draft_layers=self._draft_layers)
+            with CHIP_LEDGER.timed("decode.verify", device=self.device):
+                # verify output j is the target's argmax at position lens + j,
+                # trustworthy iff every earlier proposal matched
+                inputs = torch.cat([tk[None], drafts[:-1]], dim=0).T
+                targets = _verify_math(self.params, self.model_cfg, self.pool.k, self.pool.v, pt, lens, inputs,
+                                       page_size=ps)
             both = torch.stack([drafts, targets]).cpu().numpy()
         drafts, targets = both[0], both[1]
         wall = _time.monotonic() - w0
@@ -884,6 +960,10 @@ class DecodeEngine:
         self.steps += 1
         DECODE_METRICS.record_step(emitted, wall)
         DECODE_METRICS.record_spec(proposed, accepted)
+        flight_recorder.record("decode.step", batch=len(live), tokens=emitted, wall_ms=round(wall * 1000.0, 3),
+                               proposed=proposed, accepted=accepted)
+        self._step_span(lane_tickets, w0, wall, step=self.steps - 1, batch=len(live), tokens=emitted,
+                        proposed=proposed, accepted=accepted)
         return emitted
 
     def busy(self) -> bool:

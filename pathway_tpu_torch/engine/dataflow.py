@@ -17,12 +17,22 @@ all-to-all on re-keying operators (see pathway_tpu.parallel). Data model:
 updates are (key: uint64, row: tuple, diff: ±1); tables are keyed (one row
 per key), which lets every stateful operator keep `dict jk -> dict key ->
 row` state instead of general multiset arrangements.
+
+The observability planes hook in as the reference's engine does: input
+sessions stamp the freshness plane's arrival, commit and drain marks; the
+epoch loop stamps its epoch transitions there, records ``epoch.begin`` /
+``epoch.advance`` in the flight recorder and reports each epoch's wall
+time to ``epoch_observers`` (the serving batcher's dispatch slots); and
+operators that work on request rows (expression maps, batch UDFs, index
+queries) bind those rows' request traces (``tracing.ROW_TRACES``) while
+they work, so a request's trace follows its row into the epoch thread.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import time as _wall
 from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
@@ -39,6 +49,9 @@ from .value import (
 )
 
 from .. import native as _native
+from ..freshness.plane import FRESHNESS
+from ..internals import flight_recorder
+from ..tracing.context import ROW_TRACES
 
 # Update = (key: int, row: tuple, diff: int)
 Update = tuple
@@ -285,10 +298,12 @@ class InputSession:
             self._pending.append((key, row, 1))
             if offsets:
                 self._offsets.update(offsets)
+        FRESHNESS.note_arrival(id(self))
 
     def remove(self, key: int, row: tuple) -> None:
         with self._lock:
             self._pending.append((key, row, -1))
+        FRESHNESS.note_arrival(id(self))
 
     def upsert(self, key: int, row: tuple | None, offsets: dict | None = None) -> None:
         """Replace the current row at key (None row = delete). ``offsets``
@@ -299,6 +314,7 @@ class InputSession:
             self._pending.append((key, row, 2))  # marker; resolved at feed
             if offsets:
                 self._offsets.update(offsets)
+        FRESHNESS.note_arrival(id(self))
 
     def commit(self) -> None:
         with self._lock:
@@ -306,6 +322,7 @@ class InputSession:
                 self._committed.append(self._pending)
                 self._pending = []
             self._committed_offsets = dict(self._offsets)
+        FRESHNESS.note_commit(id(self))
         self.node.graph.wake()
 
     def pending(self) -> bool:
@@ -321,6 +338,7 @@ class InputSession:
                 self._pending = []
             self._committed_offsets = dict(self._offsets)
             self._closed = True
+        FRESHNESS.note_commit(id(self))
         self.node.graph.wake()
 
     def drain(self) -> list[Update] | None:
@@ -330,6 +348,7 @@ class InputSession:
             batches = self._committed
             self._committed = []
             self.node.last_offsets = self._committed_offsets
+        FRESHNESS.note_drain(id(self))
         return [u for b in batches for u in b]
 
     @property
@@ -472,11 +491,12 @@ class ExprMapNode(Node):
             # materialized columns ride along for downstream consumers
             keys = [k for k, _, _ in updates]
             try:
-                result = self.batch_eval(
-                    keys,
-                    [r for _, r, _ in updates],
-                    getattr(updates, "col_cache", None),
-                )
+                with ROW_TRACES.bind(keys):
+                    result = self.batch_eval(
+                        keys,
+                        [r for _, r, _ in updates],
+                        getattr(updates, "col_cache", None),
+                    )
             except Exception:
                 if self.graph.terminate_on_error:
                     raise
@@ -506,9 +526,10 @@ class ExprMapNode(Node):
                     # None = "batch not cleanly typed / has error rows":
                     # re-evaluate per row, which has exact null/error
                     # routing semantics
-                    result = self.batch_eval(
-                        [k for k, _ in inserts], [r for _, r in inserts]
-                    )
+                    with ROW_TRACES.bind([k for k, _ in inserts]):
+                        result = self.batch_eval(
+                            [k for k, _ in inserts], [r for _, r in inserts]
+                        )
                     rows_out = result[0] if result is not None else None
                 except Exception:
                     if self.graph.terminate_on_error:
@@ -523,6 +544,10 @@ class ExprMapNode(Node):
         self.emit(out, time)
 
     def _eval_row(self, key, row, time, report: bool = True):
+        with ROW_TRACES.bind((key,)):
+            return self._eval_row_exprs(key, row, report)
+
+    def _eval_row_exprs(self, key, row, report: bool):
         out = []
         for e in self.exprs:
             try:
@@ -1581,7 +1606,8 @@ class ExternalIndexNode(Node):
                 if orow is not None:
                     out.append((key, orow, -1))
         if new_queries and self.query_embed is not None:
-            embedded = self.query_embed([q[2] for q in new_queries])
+            with ROW_TRACES.bind([q[0] for q in new_queries]):
+                embedded = self.query_embed([q[2] for q in new_queries])
             new_queries = [
                 (k, pre, emb, kk, flt)
                 for (k, pre, _, kk, flt), emb in zip(new_queries, embedded)
@@ -1608,7 +1634,8 @@ class ExternalIndexNode(Node):
         for k, idxs in by_k.items():
             payloads = [to_answer[i][2] for i in idxs]
             filter_fns = [self._compile_filter(to_answer[i][4]) for i in idxs]
-            matches = self.index.search_batch(payloads, k, filter_fns)
+            with ROW_TRACES.bind([to_answer[i][0] for i in idxs]):
+                matches = self.index.search_batch(payloads, k, filter_fns)
             for i, m in zip(idxs, matches):
                 replies[i] = m
         for (key, prefix, _, _, _), matches in zip(to_answer, replies):
@@ -1822,7 +1849,8 @@ class BatchApplyNode(Node):
             chunk = pending[lo : lo + self.max_batch_size]
             arg_cols = list(zip(*[self.row_args_fn(k, r) for k, r in chunk]))
             try:
-                results = self.batch_fn(*[list(c) for c in arg_cols])
+                with ROW_TRACES.bind([k for k, _ in chunk]):
+                    results = self.batch_fn(*[list(c) for c in arg_cols])
                 if len(results) != len(chunk):
                     raise ValueError(
                         f"batch UDF returned {len(results)} results for "
@@ -1895,6 +1923,9 @@ class EngineGraph:
         self._error_seq = 0
         # multi-worker: set by parallel.sharded.ShardCluster
         self.cluster = None
+        # epoch-completion observers (time, wall seconds of the epoch's
+        # sweep): the serving batcher's query-dispatch slots
+        self.epoch_observers: list[Callable[[int, float], None]] = []
 
     # --- builder helpers used by the graph runner ---
 
@@ -1903,6 +1934,15 @@ class EngineGraph:
 
     def wake(self):
         self._wake.set()
+
+    def _notify_epoch_observers(self, time: int, wall_s: float) -> None:
+        """Epoch-completion fan-out to serving-plane observers; a broken
+        observer must never take the epoch loop down with it."""
+        for obs in self.epoch_observers:
+            try:
+                obs(time, wall_s)
+            except Exception:  # pragma: no cover - observer bug guard
+                pass
 
     def report_row_error(self, origin: "Node", exc: BaseException):
         """Route a row-level failure: abort (terminate_on_error) or log
@@ -1988,9 +2028,15 @@ class EngineGraph:
     def run_async_batch(self, async_fn, pending):
         import asyncio
 
+        async def traced(k, r):
+            # each task runs in its own copy of the context: bind its row's
+            # request trace there
+            with ROW_TRACES.bind((k,)):
+                return await async_fn(k, r)
+
         async def runner():
             return await asyncio.gather(
-                *[async_fn(k, r) for k, r in pending], return_exceptions=True
+                *[traced(k, r) for k, r in pending], return_exceptions=True
             )
 
         return asyncio.run(runner())
@@ -2062,13 +2108,23 @@ class EngineGraph:
                 t = max(scripted_t, last_time + 1)
             t = max(t, last_time + 1) if t <= last_time else t
             self.current_time = t
+            FRESHNESS.begin_epoch(int(t))
+            _epoch_kw = {"t": int(t), "worker": self.worker_id}
+            flight_recorder.record("epoch.begin", batches=len(session_batches), **_epoch_kw)
             self._frontier_hooks(t)
             for s in self.static_sources:
                 s.feed(t)
             for s, b in session_batches:
                 s.feed_batch(b, t)
+            FRESHNESS.epoch_staged(int(t))
+            _sweep0 = _wall.perf_counter()
+            FRESHNESS.epoch_exec(int(t))
             self._topo_pass(t)
+            FRESHNESS.epoch_committed(int(t))
+            if self.epoch_observers:
+                self._notify_epoch_observers(int(t), _wall.perf_counter() - _sweep0)
             last_time = t
+            flight_recorder.record("epoch.advance", **_epoch_kw)
             if monitoring_callback is not None:
                 monitoring_callback(self)
 
@@ -2104,6 +2160,7 @@ class EngineGraph:
     def _raise_connector_failure(self) -> None:
         if self.connector_failures:
             name, exc = self.connector_failures[0]
+            flight_recorder.record("connector.failed", connector=name, error=type(exc).__name__)
             raise EngineError(f"connector {name!r} failed: {exc}") from exc
 
     def stop(self):

@@ -14,9 +14,21 @@ resolves. Query/response cycle:
     -> HTTP response.
 
 The endpoint's reader returns when the engine's run ends, and the server
-closes its socket then. The reference's serving plane (``serving=``),
-tracing and tenancy planes are not part of the port: a request is
-answered as the reference answers it with those planes off.
+closes its socket then.
+
+``serving=`` puts the endpoint behind the serving plane, wired as the
+reference wires it: an ``AdmissionController`` (bounded deadline-ordered
+queue, optional rate limit, typed 429/503 sheds) and an ``AdaptiveBatcher``
+that inserts a batch of admitted requests and commits once. With tracing
+on, each request gets a ``request`` root span (continuing an inbound
+``traceparent``), ``admission``, ``queue``, ``dispatch`` and ``pipeline``
+spans, and every response echoes its trace id in ``X-Pathway-Trace``; the
+request's row key is registered in ``tracing.ROW_TRACES`` while it is in
+flight, so the engine's index search and rerank spans join the request's
+trace on the epoch thread. While the freshness plane is live, every
+response carries ``X-Pathway-Freshness-Ms``. The tenant header
+(``X-Pathway-Tenant``) is carried into admission, whose tenant quotas
+raise under ``PATHWAY_TENANCY`` until the tenancy plane comes.
 """
 
 from __future__ import annotations
@@ -26,27 +38,52 @@ import http.server
 import json
 import logging
 import threading
+import time
 import uuid
 import weakref
 from typing import Any, Callable
 from urllib.parse import parse_qsl, urlsplit
 
 from ...engine.value import Json, ref_scalar
+from ...freshness.plane import FRESHNESS
 from ...internals import dtype as dt
 from ...internals.parse_graph import G
 from ...internals.schema import ColumnDefinition, Schema, schema_builder
 from ...internals.table import Table
-from ...serving.admission import DeadlineExceeded
+from ...serving.admission import AdmissionController, DeadlineExceeded, OverloadError
+from ...serving.batching import AdaptiveBatcher
 from ...serving.deadline import DEADLINE_HEADER, Deadline
+from ...serving.metrics import SERVING_METRICS
+from ...tracing import (
+    ROW_TRACES,
+    TRACE_RESPONSE_HEADER,
+    TRACEPARENT_HEADER,
+    TraceContext,
+    current_trace,
+    tracing_enabled,
+)
+from ...tracing import span as trace_span
 from .._connector import StreamingContext, input_table_from_reader
 from ..fs import _jsonable
 from ._docs import EndpointDocumentation, _LoggingContext, validate_payload
 
 logger = logging.getLogger(__name__)
 
+#: Answer-level staleness bound (ms) stamped on every REST reply while the
+#: freshness plane is live: any row this reply could have seen was visible
+#: at most this many milliseconds ago.
+FRESHNESS_HEADER = "X-Pathway-Freshness-Ms"
+
+#: the reference's tenant header (its tenancy plane's)
+TENANT_HEADER = "X-Pathway-Tenant"
+
 #: every serving webserver registers here (ports bound at start, including
 #: ``port=0`` and the ephemeral-port fallback)
 _ACTIVE_WEBSERVERS: "weakref.WeakSet[PathwayWebserver]" = weakref.WeakSet()
+
+#: every port a webserver bound, in order (a run reads the ones bound
+#: during it, after its servers closed)
+_BOUND_PORTS: list[int] = []
 
 
 def bound_serving_ports() -> list[int]:
@@ -214,6 +251,7 @@ class PathwayWebserver:
                                             daemon=True, name="pathway:http")
             self._thread.start()
             _ACTIVE_WEBSERVERS.add(self)
+            _BOUND_PORTS.append(self.port)
 
     def close(self) -> None:
         """Stop serving and close the listening socket (no-op when closed)."""
@@ -260,17 +298,17 @@ def rest_connector(
     ``validate_schema``: answer 400 for payloads that don't match the
     schema (missing required fields, scalar type mismatches); defaults
     to on for ``custom``-format endpoints with an explicit schema.
-    Every request logs one structured JSON access record. A client
-    deadline (``X-Pathway-Deadline-Ms``) bounds the wait for the answer;
-    expiry answers a typed 503. ``serving`` (the reference's serving
-    plane in front of the REST reader) raises: ``serving.admission`` and
-    ``serving.batching`` are ported, their wiring into this reader comes
-    with ROADMAP Queue A item 3."""
-    if serving is not None:
-        raise NotImplementedError(
-            "rest_connector(serving=...) needs ROADMAP Queue A item 3 (the REST reader's admission and "
-            "batching wiring, with the monitoring and tracing planes)"
-        )
+    Every request logs one structured JSON access record.
+
+    ``serving``: a :class:`pathway_tpu_torch.serving.ServingConfig` puts the
+    endpoint behind the serving plane: admission control (bounded
+    deadline-ordered queue, optional token-bucket rate limit), per-request
+    deadlines (``X-Pathway-Deadline-Ms`` or the config's
+    ``default_deadline_ms``), load shedding with typed 429/503 responses,
+    reduced work (``k`` clamped to ``degrade_top_k``, ``rerank`` off) under
+    ``shed="degrade"``, and adaptive batching of queries into one engine
+    commit. Without it the endpoint still honours a client deadline header
+    (expiry answers a typed 503), but nothing bounds the queue."""
     if webserver is None:
         if host is None or port is None:
             raise ValueError("rest_connector needs host and port, or a webserver")
@@ -293,15 +331,87 @@ def rest_connector(
     ctx_holder: dict[str, StreamingContext] = {}
     started = threading.Event()
 
+    G.serving_endpoints.append(
+        {
+            "route": route,
+            "kind": "rest_connector",
+            "protected": serving is not None,
+            "deadline_ms": serving.default_deadline_ms if serving is not None else None,
+            "batch_window_ms": serving.batch_window_ms if serving is not None else None,
+        }
+    )
+    admission = AdmissionController(serving, route=route) if serving is not None else None
+
+    def _dispatch(items: list[tuple[int, tuple]]) -> None:
+        """Fused engine dispatch: one commit for a whole batch of queries
+        (runs on the batcher's worker thread)."""
+        ctx = ctx_holder.get("ctx")
+        if ctx is None:
+            raise RuntimeError("pipeline not running")
+        for key, row in items:
+            ctx.session.insert(key, row)
+        ctx.session.commit()
+
+    batcher = AdaptiveBatcher(_dispatch, config=serving, name=f"rest:{route}") if serving is not None else None
+
+    def _overload_response(respond, exc: OverloadError):
+        headers = {}
+        if exc.retry_after_s is not None:
+            headers["Retry-After"] = f"{max(0.0, exc.retry_after_s):.3f}"
+        return respond(exc.to_response(), status=exc.status, headers=headers)
+
     def handler(request: _Request):
         qid = str(uuid.uuid4())
         log_ctx = _LoggingContext(request, qid)
+        t_start = time.monotonic()
+        # request-journey tracing: continue the client's W3C trace when a
+        # traceparent came in, else start a fresh one; every response,
+        # sheds and degraded replies included, echoes the trace id
+        inbound = TraceContext.from_traceparent(request.headers.get(TRACEPARENT_HEADER)) if tracing_enabled() else None
+        tenant = request.headers.get(TENANT_HEADER) or None
+        with trace_span("request", ctx=inbound, new_trace=True, boundary=True, route=route,
+                        **({"tenant": tenant} if tenant else {})) as root_sp:
+            trace_id = root_sp.trace_id if root_sp is not None else ""
 
-        def respond(data, status=200, headers=None):
-            log_ctx.log_response(status)
-            return status, data, headers
+            def respond(data, status=200, headers=None):
+                if trace_id:
+                    headers = dict(headers or {})
+                    headers[TRACE_RESPONSE_HEADER] = trace_id
+                if FRESHNESS.active():
+                    # answer-level staleness bound: now - min(visible
+                    # watermark) over every registered index
+                    bound = FRESHNESS.answer_bound()
+                    if bound is not None:
+                        headers = dict(headers or {})
+                        headers[FRESHNESS_HEADER] = f"{bound['staleness_ms']:.1f}"
+                        FRESHNESS.observe_answer(tenant=tenant)
+                        if root_sp is not None:
+                            root_sp.attrs["freshness_ms"] = round(bound["staleness_ms"], 3)
+                            root_sp.attrs["freshness_wm_epoch"] = bound["wm_epoch"]
+                log_ctx.log_response(status)
+                return status, data, headers
 
-        deadline = Deadline.from_header(request.headers.get(DEADLINE_HEADER))
+            # per-request deadline: the client header wins, then the serving
+            # config's default, then unbounded
+            deadline = Deadline.from_header(
+                request.headers.get(DEADLINE_HEADER), serving.default_deadline_ms if serving is not None else None
+            )
+            ticket = None
+            if admission is not None:
+                if batcher.error is not None:
+                    return respond({"error": f"serving plane failed: {batcher.error!r}"}, status=500)
+                try:
+                    ticket = admission.admit(deadline, tenant=tenant)
+                except OverloadError as exc:
+                    return _overload_response(respond, exc)
+            try:
+                return _serve_admitted(request, respond, deadline, ticket, qid, tenant)
+            finally:
+                if ticket is not None:
+                    admission.release(ticket)
+                    SERVING_METRICS.observe_stage("total", time.monotonic() - t_start)
+
+    def _serve_admitted(request: _Request, respond, deadline, ticket, qid, tenant=None):
         if request.method == "GET":
             payload = dict(request.query)
         elif format == "raw":
@@ -332,35 +442,58 @@ def rest_connector(
             if dt.unoptionalize(dtypes[n]) is dt.JSON and not isinstance(v, Json):
                 v = Json(v)
             values[n] = v
+        degraded = ticket is not None and ticket.degraded
+        if degraded:
+            # shed="degrade": serve reduced top-k instead of rejecting, and
+            # skip the rerank where the endpoint has one
+            k = values.get("k")
+            if isinstance(k, int) and k > serving.degrade_top_k:
+                values["k"] = serving.degrade_top_k
+            if isinstance(values.get("rerank"), bool):
+                values["rerank"] = False
         key = int(ref_scalar(qid))
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with pending_lock:
             pending[key] = fut
+        # the request's trace follows its row into the engine's epoch thread
+        ROW_TRACES.register(key, current_trace())
         try:
             started.wait(timeout=30)
             ctx = ctx_holder.get("ctx")
             if ctx is None:
                 return respond({"error": "pipeline not running"}, status=503)
-            ctx.session.insert(key, tuple(values.get(n) for n in names))
-            ctx.session.commit()
+            row = tuple(values.get(n) for n in names)
+            if batcher is not None:
+                # adaptive batching: concurrent queries fuse into one commit
+                batcher.submit((key, row), deadline, tenant=tenant)
+            else:
+                ctx.session.insert(key, row)
+                ctx.session.commit()
             # the wait is bounded by the request's remaining budget;
             # unbounded deadlines keep a 120 s backstop
             remaining = deadline.remaining()
             try:
-                result = fut.result(timeout=min(remaining, 120.0))
+                # the wait for the engine's reply: the part of the journey
+                # the queue and dispatch spans do not cover
+                with trace_span("pipeline"):
+                    result = fut.result(timeout=min(remaining, 120.0))
             except concurrent.futures.TimeoutError:
                 if remaining >= 120.0:
                     return respond({"error": "timeout"}, status=504)
-                exc = DeadlineExceeded("deadline expired before the pipeline produced a response")
-                return respond(exc.to_response(), status=exc.status)
+                if ticket is not None:
+                    exc = admission.expire(ticket)
+                else:
+                    exc = DeadlineExceeded("deadline expired before the pipeline produced a response")
+                return _overload_response(respond, exc)
             except _PipelineStopped:
                 return respond({"error": "pipeline not running"}, status=503)
         finally:
+            ROW_TRACES.forget(key)
             with pending_lock:
                 pending.pop(key, None)
         if isinstance(result, Json):
             result = result.value
-        return respond(_jsonable(result))
+        return respond(_jsonable(result), headers={"X-Pathway-Degraded": "1"} if degraded else None)
 
     docs: dict = {}
     for m in methods:
@@ -369,11 +502,17 @@ def rest_connector(
 
     def reader(ctx: StreamingContext) -> None:
         ctx_holder["ctx"] = ctx
+        if batcher is not None:
+            # query-dispatch slots: epoch completions feed the batcher's
+            # latency EWMA and wake its worker
+            batcher.attach_engine(ctx.session.node.graph)
         started.set()
         webserver.start()
         ctx.wait_stopped()  # serve until the engine's run ends
         ctx_holder.pop("ctx", None)
         webserver.close()
+        if batcher is not None:
+            batcher.stop()
         with pending_lock:
             waiting = list(pending.values())
         for f in waiting:

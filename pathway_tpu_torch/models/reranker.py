@@ -4,8 +4,10 @@ Port of ``pathway_tpu/models/reranker.py``: ``DeviceReranker`` scores
 (query, candidate) pairs through a ``CrossEncoderScorer`` (whose attention
 is kernel B3 on the card) and ``as_reranker`` coerces the ``rerank=`` knob.
 The scorer is built lazily on the first scored batch, so declaring a
-reranker costs nothing until a query flows. The reference's chip-ledger
-timing and tracing span come with the index planes (ROADMAP Queue A).
+reranker costs nothing until a query flows. Every scored batch runs under a
+``rerank`` span and, with the chip ledger on, books its device time under
+``rerank`` (:func:`scored`, which the xpack's ``CrossEncoderReranker``
+shares).
 """
 
 from __future__ import annotations
@@ -13,7 +15,20 @@ from __future__ import annotations
 import threading
 from typing import Any, Optional
 
-__all__ = ["DeviceReranker", "as_reranker"]
+__all__ = ["DeviceReranker", "as_reranker", "scored"]
+
+
+def scored(scorer, pairs) -> list[float]:
+    """``scorer.score(pairs)`` as floats, under a ``rerank`` span and the
+    chip ledger's ``rerank`` account (when on: it then waits for the card
+    to read the timing events)."""
+    from ..internals.chip_ledger import CHIP_LEDGER
+    from ..tracing import span as _trace_span
+
+    with _trace_span("rerank", pairs=len(pairs)):
+        device = getattr(scorer, "device", None)
+        with CHIP_LEDGER.timed("rerank", device=device):
+            return [float(s) for s in scorer.score(list(pairs))]
 
 
 class DeviceReranker:
@@ -44,7 +59,7 @@ class DeviceReranker:
         """Relevance score per (query, doc) text pair, higher is better."""
         if not pairs:
             return []
-        return [float(s) for s in self.scorer.score(list(pairs))]
+        return scored(self.scorer, pairs)
 
     def order(self, query: str, docs) -> tuple[int, ...]:
         """Permutation of ``docs`` by descending score (stable: ties keep

@@ -30,6 +30,10 @@ before any result is read, and the embeddings are gathered on the first
 data device. Batches round down to a multiple of the data axis; the
 packers step aside. The reference replicates over the mesh's ``model``
 axis, which changes no answer; the port uses ``devices[s][0]``.
+
+With the chip ledger on, every encoder forward (grouped, packed or the
+module path; on a mesh one booking over its cards) books its device time
+under ``encode``; both models report their weights to the HBM ledger.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import as_current, resolve_device
+from ..internals.chip_ledger import CHIP_LEDGER
 from ..ops.fused_layer import encoder_forward, prepare_params, use_fused_encoder
 from ..parallel.mesh import resolve_mesh
 from ..weights import load_hf_weights
@@ -95,6 +100,13 @@ def shelf_pack(lens: np.ndarray, row_len: int, max_segs: int):
     return order, lns, row_of, off_of, slot_of
 
 
+def _book_weights(owner: str, module) -> None:
+    """Report a model's weights to the HBM ledger's ``weights`` account."""
+    from ..internals.ledger import LEDGER, pytree_nbytes
+
+    LEDGER.update("weights", owner, pytree_nbytes(list(module.parameters())))
+
+
 class SentenceEncoder:
     """Batched text -> L2-normalised embeddings [n, hidden]."""
 
@@ -145,6 +157,7 @@ class SentenceEncoder:
                 replica.load_state_dict(self.module.state_dict())
                 self._replicas[dev] = replica.to(dev).eval()
         self.tokenizer = default_tokenizer(checkpoint_dir)
+        _book_weights(f"encoder:{model}", self.module)
 
     @property
     def dim(self) -> int:
@@ -165,7 +178,7 @@ class SentenceEncoder:
         data devices; every device's forward is issued before any is read,
         and the embeddings gather on the first data device."""
         if self.mesh is None:
-            with torch.no_grad():
+            with torch.no_grad(), CHIP_LEDGER.timed("encode", device=self.device):
                 return self.module(self._wire(ids), self._wire(mask))
         n = len(self._data_devices)
         pad = (-ids.shape[0]) % n
@@ -174,7 +187,7 @@ class SentenceEncoder:
             mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), bool)])
         per = ids.shape[0] // n
         outs = []
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("encode", device=self._data_devices):
             for s, dev in enumerate(self._data_devices):
                 rows = slice(s * per, (s + 1) * per)
                 with as_current(dev):
@@ -239,7 +252,7 @@ class SentenceEncoder:
         wire = np.int16 if self.cfg.vocab_size < 32768 else np.int32
         ids_dev = self._wire(ids.astype(wire, copy=False))
         lens_dev = self._wire(lens.astype(np.int32, copy=False))
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("encode", device=self.device):
             mask = torch.arange(ids_dev.shape[1], device=self.device)[None, :] < lens_dev[:, None]
             ids32 = ids_dev.to(torch.int32)
             if use_fused_encoder(self.cfg, ids_dev.shape[1]):
@@ -379,7 +392,7 @@ class SentenceEncoder:
         L2-normalised; empty slots give zeros."""
         slots = counts.shape[0]
         ids_d, pos_d, seg_d, counts_d = (self._wire(a) for a in (ids, pos, seg, counts))
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("encode", device=self.device):
             toks = self.module(ids_d, seg_d >= 0, position_ids=pos_d, segment_ids=seg_d)
             # padding tokens sum into one extra row, dropped below
             dest = torch.where(seg_d >= 0, seg_d, slots).reshape(-1).long()
@@ -449,6 +462,7 @@ class CrossEncoderScorer:
         self.module.to(self.device).eval()
         self.module.cast_for_inference()
         self.tokenizer = default_tokenizer(checkpoint_dir)
+        _book_weights(f"reranker:{model}", self.module)
 
     def score(self, pairs: Sequence[tuple[str, str]]) -> np.ndarray:
         if not len(pairs):

@@ -11,6 +11,9 @@ beyond the CUDA runtime: ``gemm_epilogue.cu`` fetches the driver's
 starts one ``nvcc`` per source at once. Every C entry point returns its
 ``cudaError_t``; :func:`check` raises when it is not 0.
 
+With the chip ledger on, each build (and bind) books its wall under the
+``compile`` account.
+
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels the
 main path went through.
@@ -128,15 +131,26 @@ def _bind(source: str) -> ctypes.CDLL:
     return lib
 
 
+def _compile_booking():
+    """The chip ledger's ``compile`` booking of a build and bind (host wall:
+    they take the place of the reference's jit compiles)."""
+    from ..internals.chip_ledger import CHIP_LEDGER
+
+    return CHIP_LEDGER.timed("compile")
+
+
 def build_all() -> None:
     """Build every kernel source in parallel (one nvcc each) and bind them."""
     with _LOCK:
         todo = [s for s in SOURCES if s not in _LIBS]
-        started = [(s, _start_build(s)) for s in todo]
-        for s, st in started:
-            _finish_build(s, st)
-        for s in todo:
-            _LIBS[s] = _bind(s)
+        if not todo:
+            return
+        with _compile_booking():
+            started = [(s, _start_build(s)) for s in todo]
+            for s, st in started:
+                _finish_build(s, st)
+            for s in todo:
+                _LIBS[s] = _bind(s)
 
 
 def library(source: str) -> ctypes.CDLL:
@@ -146,8 +160,9 @@ def library(source: str) -> ctypes.CDLL:
         return lib
     with _LOCK:
         if source not in _LIBS:
-            _finish_build(source, _start_build(source))
-            _LIBS[source] = _bind(source)
+            with _compile_booking():
+                _finish_build(source, _start_build(source))
+                _LIBS[source] = _bind(source)
         return _LIBS[source]
 
 

@@ -20,7 +20,10 @@ reranked; the l2 score is ``2 q.m - |m|^2 - 1``; retrieval misses score
 prompt ``q ids ++ top doc tokens`` cut to ``max_position - max_new``, a
 query with no hit generating from the query alone. Query rows are not
 padded to a k-bucket (that shape exists for XLA's compile cache only).
-The freshness key of ``answer_batch`` comes with the freshness plane.
+With the chip ledger on, a query batch's chain books its device time under
+the composite ``rag.fused`` account (the reference books its one fused
+call there). While the freshness plane is live, every ``answer_batch`` row
+carries ``freshness_ms``, the retrieval's staleness bound.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..freshness.plane import FRESHNESS
+from ..internals.chip_ledger import CHIP_LEDGER
 from ..models.batching import DEFAULT_SEQ_BUCKETS, bucket
 from .knn import DeviceKnnIndex, _k_bucket, _topk_lower_index
 
@@ -232,7 +237,11 @@ class FusedRagPipeline:
         """Tokenize and launch the chain; device (slots, scores), not waited for."""
         texts = ["" if t is None else str(t) for t in texts]
         ids, lens, kr = self._padded_queries(texts, k_retrieve)
-        fslots, fvals, _, _ = self._fused(ids, lens, kr, min(k, kr))
+        # the chain spans embed -> retrieve -> rerank, so it books under the
+        # composite ``rag.fused`` account; the booking waits for the card,
+        # which costs ``query_async`` its overlap: accounting is opt-in
+        with CHIP_LEDGER.timed("rag.fused", device=self.index.device):
+            fslots, fvals, _, _ = self._fused(ids, lens, kr, min(k, kr))
         return fslots, fvals
 
     def _hits(self, slots_row, vals_row, k: int) -> list[tuple[Any, float]]:
@@ -300,10 +309,17 @@ class FusedRagPipeline:
             plen = torch.where(has_hit, lens + self._len_dev[top].long(), lens).clamp(1, lp)
             gen = decode_greedy(self._dec_params, self._dec_cfg, buf[:, :lp], plen, max_new)
         fslots, fvals, gen = fslots.cpu().numpy(), fvals.cpu().numpy(), gen.cpu().numpy()
-        return [
-            {"hits": self._hits(fslots[qi], fvals[qi], k), "tokens": [int(t) for t in gen[qi]]}
-            for qi in range(len(texts))
-        ]
+        # generated answers inherit the retrieval staleness bound (the key is
+        # present only while the freshness plane is live, so plane-off
+        # outputs are unchanged)
+        bound = FRESHNESS.observe_answer(self.index) if FRESHNESS.active() else None
+        out = []
+        for qi in range(len(texts)):
+            row: dict[str, Any] = {"hits": self._hits(fslots[qi], fvals[qi], k), "tokens": [int(t) for t in gen[qi]]}
+            if bound is not None:
+                row["freshness_ms"] = round(bound["staleness_ms"], 3)
+            out.append(row)
+        return out
 
     def answer(self, text: str, **kw) -> dict[str, Any]:
         return self.answer_batch([text], **kw)[0]

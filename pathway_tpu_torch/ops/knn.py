@@ -31,22 +31,35 @@ changes no answer, so the port places shard ``s`` on ``devices[s][0]``
 only. ``mesh=None`` is the single-device index. The elastic reshard
 (``spawn_like``, ``reshard_*``) raises until that plane is ported.
 
-Left for later slices: freshness, index metrics, the HBM ledger, tracing,
-the flight recorder and chip-time accounting.
+The observability planes hook in at the reference's sites: every add and
+remove publishes the index's per-shard counts to ``INDEX_METRICS``, its
+device bytes to the HBM ledger (``index.hot``) and the touched shards to
+the freshness plane; every search runs under an ``index_search`` span,
+books its top-k under the chip ledger's ``index.search`` (on a mesh the
+cross-shard merge under ``index.merge``, with ``index_local_topk`` /
+``index_merge`` spans and the merge histogram), records an
+``index.search`` flight-recorder event and the answer's staleness bound.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ..device import as_current, resolve_device
+from ..freshness.plane import FRESHNESS
+from ..internals import flight_recorder
+from ..internals.chip_ledger import CHIP_LEDGER
 from ..parallel.sharding import CLUSTER_ITEM
+from ..tracing import current_trace, record_span, tracing_enabled
+from ..tracing import span as _trace_span
+from .index_metrics import INDEX_METRICS
 from .knn_topk import NEG as _PNEG
-from .knn_topk import KERNEL_MAX_K, knn_topk, knn_topk_sharded
+from .knn_topk import KERNEL_MAX_K, knn_topk, merge_shard_candidates, shard_candidates
 
 _NEG = -3.0e38
 
@@ -206,6 +219,7 @@ class DeviceKnnIndex:
         self._encoder = None
         self.generation = 0
         self._fenced = False
+        self._last_merge_s: float | None = None
 
     def __len__(self) -> int:
         return len(self._slot_of)
@@ -230,6 +244,7 @@ class DeviceKnnIndex:
 
     def _check_fence(self) -> None:
         if self._fenced:
+            flight_recorder.record("elastic.fenced_write", index=self.name, generation=self.generation)
             raise StaleGeneration(self.name, self.generation)
 
     def fence(self, generation: int | None = None) -> None:
@@ -256,9 +271,26 @@ class DeviceKnnIndex:
         return [free[s].pop() for s in shards.tolist()]
 
     def _live_docs_shard(self) -> list[int]:
-        """Live rows per shard, from the validity mask."""
-        v = self._valid_host.reshape(self.n_shards, self.shard_capacity)
-        return [int(n) for n in v.sum(axis=1)]
+        """Live rows per shard: a shard's slots less its free ones (every
+        add and remove publishes it, so it must not scan the mask)."""
+        return [self.shard_capacity - len(free) for free in self._free_shard]
+
+    def _publish_metrics(self) -> None:
+        INDEX_METRICS.update_index(self.name, self._live_docs_shard(), self.shard_capacity)
+        self._ledger_update()
+
+    def _ledger_update(self) -> None:
+        """Report this index's live device allocation to the HBM ledger,
+        exact from the slabs' bytes; ``used`` is the occupied-slot fraction,
+        so the ledger's fragmentation gauge reads reserved-but-empty rows."""
+        from ..internals.ledger import LEDGER
+
+        if self._slab is None:
+            LEDGER.drop("index.hot", self.name)
+            return
+        alloc = sum(t.element_size() * t.numel() for part in self._slab for t in part)
+        used = int(alloc * len(self._slot_of) / max(1, self.capacity))
+        LEDGER.update("index.hot", self.name, alloc, used_bytes=used)
 
     # --- updates (engine diff protocol) ---
 
@@ -302,6 +334,8 @@ class DeviceKnnIndex:
         if not self._full:
             for i, slot in enumerate(slots):
                 self._pending[slot] = vecs[i]
+        FRESHNESS.note_index_add(self, {s // self.shard_capacity for s in slots})
+        self._publish_metrics()
 
     def add_batch_device(self, keys, dev_vectors: torch.Tensor, metadatas=None) -> None:
         """Bulk insert of embeddings already on the index's (first) device
@@ -337,6 +371,8 @@ class DeviceKnnIndex:
             self._slot_of[key] = slot
             if metadatas is not None and metadatas[i] is not None:
                 self._meta[key] = metadatas[i]
+        FRESHNESS.note_index_add(self, {s // self.shard_capacity for s in alloc})
+        self._publish_metrics()
 
     def remove(self, key) -> None:
         self._check_fence()
@@ -346,9 +382,12 @@ class DeviceKnnIndex:
         self._valid_host[slot] = False
         self._keys[slot] = None
         self._meta.pop(key, None)
-        self._free_shard[slot // self.shard_capacity].append(slot)
+        shard = slot // self.shard_capacity
+        self._free_shard[shard].append(slot)
         if not self._full:
             self._pending[slot] = None
+        FRESHNESS.note_index_add(self, (shard,))
+        self._publish_metrics()
 
     # --- elastic reshard protocol: not ported ---
 
@@ -546,26 +585,69 @@ class DeviceKnnIndex:
 
     def _device_topk(self, q: torch.Tensor, fetch: int):
         if self.n_shards == 1:
+            # one dispatch: the chip ledger (when on) books it, waiting for
+            # the card to read its timing events
             matrix, valid, bias = self._slab[0]
-            if _pallas_eligible(self.metric, fetch, self.device):
-                return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
-            return _topk_fn(self.metric)(matrix, valid, q, fetch)
-        if _pallas_eligible(self.metric, fetch, self.device):
-            vals, idx = knn_topk_sharded(
-                q.contiguous(), [p[0] for p in self._slab], [p[2] for p in self._slab], k=fetch,
-                factor=2.0 if self.metric == "l2" else 1.0,
-            )
-            return _l2_shift(self.metric, vals, q), idx
+            with CHIP_LEDGER.timed("index.search", device=self.device):
+                if _pallas_eligible(self.metric, fetch, self.device):
+                    return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
+                return _topk_fn(self.metric)(matrix, valid, q, fetch)
         return self._sharded_topk(q, fetch)
 
     def _sharded_topk(self, q: torch.Tensor, fetch: int):
-        """The plain two-phase search over the shards: each shard's top
+        """The two-phase search over the shards: each shard's top
         ``min(fetch, rows)`` re-based to global slots, then one top-k over
         the shard-major ``[q, n_shards * k_local]`` candidates (ties to the
         lower global slot); for L2, ``-|q|^2`` after the top-k, on every
-        entry, as the reference's ``merge_topk`` does."""
+        entry, as the reference's ``merge_topk`` does. At fetch <= 64 on the
+        cards the phases are ``knn_topk_sharded``'s kernels (B2 per shard,
+        then ``knn_topk_sharded_merge``), else plain PyTorch.
+
+        The phases are timed apart (the merge into
+        ``pathway_index_merge_seconds``) when the index metrics, a bound
+        request trace or the chip ledger want them, as the reference's
+        sharded search is: the first phase is waited for before the merge
+        starts."""
+        traced = tracing_enabled() and current_trace() is not None
+        timing = INDEX_METRICS.active() or traced or CHIP_LEDGER.on()
+        kernel = _pallas_eligible(self.metric, fetch, self.device)
         rows = self.shard_capacity
-        k_local = min(fetch, rows)
+        k_local = fetch if kernel else min(fetch, rows)
+        l0 = time.monotonic()
+        with CHIP_LEDGER.timed("index.search", device=self.shard_devices):
+            if kernel:
+                cand = shard_candidates(
+                    q.contiguous(), [p[0] for p in self._slab], [p[2] for p in self._slab], k=fetch,
+                    factor=2.0 if self.metric == "l2" else 1.0,
+                )
+            else:
+                cand = self._local_topk(q, k_local)
+            if timing:
+                _sync_cards(self.shard_devices)
+        m0 = time.monotonic()
+        if timing and traced:
+            record_span("index_local_topk", start_mono=l0, end_mono=m0, shards=self.n_shards, k_local=k_local)
+        k_final = min(fetch, self.n_shards * k_local)
+        with CHIP_LEDGER.timed("index.merge", device=self.device):
+            if kernel:
+                v, gi = merge_shard_candidates(*cand, fetch)
+                v = _l2_shift(self.metric, v, q)
+            else:
+                v, gi = self._merge_local(q, cand, k_final)
+            if timing:
+                _sync_cards([self.device])
+        if timing:
+            self._last_merge_s = time.monotonic() - m0
+            INDEX_METRICS.observe_merge(self._last_merge_s)
+            if traced:
+                record_span("index_merge", start_mono=m0, end_mono=time.monotonic(), shards=self.n_shards,
+                            k=k_final)
+        return v, gi
+
+    def _local_topk(self, q: torch.Tensor, k_local: int):
+        """Plain first phase: each shard's top ``k_local``, re-based to
+        global slots."""
+        rows = self.shard_capacity
         l2 = self.metric == "l2"
         # queries out to every device first, results back last: a copy between
         # cards between two shards' work would run the shards one by one
@@ -579,10 +661,14 @@ class DeviceKnnIndex:
                 scores = torch.where(valid[None, :], scores, _NEG)
                 v, i = _topk_lower_index(scores, k_local)
             local.append((v, i + s * rows))
+        return local
+
+    def _merge_local(self, q: torch.Tensor, local, k_final: int):
+        """Plain second phase: one top-k over the shard-major candidates."""
         vals = torch.cat([v.to(self.device) for v, _ in local], dim=1)
-        v, pos = _topk_lower_index(vals, min(fetch, self.n_shards * k_local))
+        v, pos = _topk_lower_index(vals, k_final)
         gi = torch.cat([i.to(self.device) for _, i in local], dim=1).gather(1, pos)
-        if l2:
+        if self.metric == "l2":
             v = v - (q * q).sum(dim=1, keepdim=True)
         return v, gi
 
@@ -605,7 +691,22 @@ class DeviceKnnIndex:
             rows = q if len(todo) == q.shape[0] else q[torch.as_tensor(todo, device=self.device)]
             return self._device_topk(rows, fetch)
 
-        return self._assemble(q.shape[0], k, filter_fns, dispatch)
+        with _trace_span("index_search", index=self.name, queries=q.shape[0], k=k, shards=self.n_shards):
+            out = self._assemble(q.shape[0], k, filter_fns, dispatch)
+        self._record_search(q.shape[0], k)
+        return out
+
+    def _record_search(self, n_queries: int, k: int) -> None:
+        merge_s = self._last_merge_s
+        # every answer served off this index carries the staleness bound
+        # now - min(visible watermark over its shards)
+        FRESHNESS.observe_answer(self)
+        INDEX_METRICS.record_search(self.name, n_queries)
+        flight_recorder.record(
+            "index.search", index=self.name, queries=n_queries, k=k, shards=self.n_shards,
+            merge_ms=round(merge_s * 1e3, 4) if merge_s is not None else 0.0,
+        )
+        self._last_merge_s = None
 
     def _assemble(self, q_n, k, filter_fns, dispatch):
         """Run ``dispatch(todo, fetch)`` for the outstanding queries, map
@@ -706,7 +807,7 @@ class DeviceKnnIndex:
         ids_d = torch.from_numpy(ids).to(self.device)
         lens_d = torch.from_numpy(lens_p).to(self.device)
         mask = torch.arange(L, device=self.device)[None, :] < lens_d[:, None]
-        with torch.no_grad():
+        with torch.no_grad(), CHIP_LEDGER.timed("encode", device=self.device):
             if use_fused_encoder(enc.cfg, L):
                 emb = encoder_forward(enc.params, enc.cfg, ids_d, mask, lens=lens_d)
             else:
@@ -717,10 +818,19 @@ class DeviceKnnIndex:
             rows = emb if len(todo) == n else emb[torch.as_tensor(todo, device=self.device)]
             return self._device_topk(rows.contiguous(), min(fetch, self.capacity))
 
-        return self._assemble(n, k, filter_fns, dispatch)
+        with _trace_span("index_search", index=self.name, queries=n, k=k, shards=self.n_shards):
+            out = self._assemble(n, k, filter_fns, dispatch)
+        self._record_search(n, k)
+        return out
 
     def search_one(self, query, k: int, filter_fn: Callable | None = None):
         return self.search_batch(np.asarray(query)[None, :], k, [filter_fn])[0]
+
+
+def _sync_cards(devices) -> None:
+    """Wait for the work queued on each CUDA device (nothing on the CPU)."""
+    for dev in {d for d in devices if d.type == "cuda"}:
+        torch.cuda.synchronize(dev)
 
 
 def _apply_filter(flt: Callable, metadata) -> bool:

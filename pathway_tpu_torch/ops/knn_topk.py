@@ -290,6 +290,15 @@ def knn_topk_sharded(queries, doc_shards, bias_shards, *, k: int, factor: float 
         raise ValueError("knn_topk_sharded takes shards of equal length")
     if not doc_shards[0].is_cuda:
         return knn_topk_sharded_reference(queries, doc_shards, bias_shards, k=k, factor=factor)
+    return merge_shard_candidates(*shard_candidates(queries, doc_shards, bias_shards, k=k, factor=factor,
+                                                    regime=regime), k)
+
+
+def shard_candidates(queries, doc_shards, bias_shards, *, k: int, factor: float = 1.0, regime: str | None = None):
+    """The first phase of :func:`knn_topk_sharded` on CUDA shards: every
+    shard's top-k with global indices, in the [Q, n_shards, k] block on the
+    first shard's device that :func:`merge_shard_candidates` folds."""
+    rows = doc_shards[0].shape[0]
     dev0 = doc_shards[0].device
     for docs, bias in zip(doc_shards, bias_shards):
         if not docs.is_cuda:
@@ -299,7 +308,7 @@ def knn_topk_sharded(queries, doc_shards, bias_shards, *, k: int, factor: float 
     cand_s = torch.empty((nq, n_shards, k), dtype=torch.float32, device=dev0)
     cand_i = torch.empty((nq, n_shards, k), dtype=torch.int32, device=dev0)
     if nq == 0:
-        return merge_shard_candidates(cand_s, cand_i, k)
+        return cand_s, cand_i
     # the copies between cards come first (queries) and last (results): a
     # copy makes each side's stream wait for the other's earlier work, so
     # one between two shards' launches would run the shards one after another
@@ -320,4 +329,4 @@ def knn_topk_sharded(queries, doc_shards, bias_shards, *, k: int, factor: float 
     for s, own_s, own_i in remote:
         cand_s[:, s].copy_(own_s, non_blocking=True)
         cand_i[:, s].copy_(own_i, non_blocking=True)
-    return merge_shard_candidates(cand_s, cand_i, k)
+    return cand_s, cand_i

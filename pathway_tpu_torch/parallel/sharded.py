@@ -19,7 +19,9 @@ Sources read on shard 0; sinks and captures consolidate on shard 0 so
 delivery stays single-streamed and time-ordered. Shards that run device
 work (an embedder UDF, the KNN index) share one card and one model from
 their threads. Persistence, the overlapped epoch pipeline and
-multi-process clusters are not part of this package.
+multi-process clusters are not part of this package. Each epoch records
+``epoch.begin`` and ``epoch.advance`` in the flight recorder, as the
+reference's cluster does.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 from ..engine import dataflow as df
+from ..internals import flight_recorder
 
 
 class ShardCluster:
@@ -209,6 +212,8 @@ class ShardCluster:
                 if session_batches and scripted_t is not None:
                     t = max(scripted_t, last_time + 1)
                 t = max(t, last_time + 1) if t <= last_time else t
+                _epoch_kw = {"t": int(t), "world": self.world}
+                flight_recorder.record("epoch.begin", batches=len(session_batches), **_epoch_kw)
                 self._sync_watermarks()
                 for e in self.engines:
                     e.current_time = t
@@ -220,6 +225,7 @@ class ShardCluster:
                 self._deliver_mail()
                 self._sweep(t)
                 last_time = t
+                flight_recorder.record("epoch.advance", **_epoch_kw)
                 if monitoring_callback is not None:
                     monitoring_callback(primary)
 

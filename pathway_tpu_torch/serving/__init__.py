@@ -1,9 +1,8 @@
 """The serving plane of the port: per-request deadlines, admission control
 and load shedding, adaptive batching and the serving metrics (the
 reference's ``serving/``). ``DecodeService`` fronts the decode engine with
-the ``AdaptiveBatcher``. ``rest_connector(serving=)``, which puts a REST
-endpoint behind admission and batching, comes with ROADMAP Queue A item 3,
-together with the monitoring and tracing planes."""
+the ``AdaptiveBatcher``; ``rest_connector(serving=)`` puts a REST endpoint
+behind admission and batching."""
 
 from .admission import (
     AdmissionController,

@@ -19,11 +19,13 @@ serves reduced work (for RAG: top-``k`` clamped to ``degrade_top_k``,
 rerank skipped; for decode: ``max_new_tokens`` clamped). A full queue
 still rejects.
 
-Every decision is recorded in ``SERVING_METRICS``. The reference's
-flight-recorder events, chaos site and request tracing come with ROADMAP
-Queue A items 3 and 6; its shard-health gate (``shard=``) with item 5; its
-per-tenant quotas with item 4, so a request that names a tenant while a
-tenancy is configured raises.
+Every decision is recorded in ``SERVING_METRICS`` and the flight recorder
+(``serving.admit`` / ``serving.shed`` / ``serving.deadline_expired``); with
+tracing on, an admitted request gets an ``admission`` span and a typed
+rejection carries the request's trace id. The reference's chaos site
+comes with ROADMAP Queue A item 6; its shard-health gate (``shard=``) with
+item 5; its per-tenant quotas with item 4, so a request that names a
+tenant while a tenancy is configured raises.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import time as _time
 from dataclasses import dataclass
 from typing import Optional
 
+from ..internals import flight_recorder
 from .deadline import Deadline
 from .metrics import SERVING_METRICS, ServingMetrics
 
@@ -51,6 +54,20 @@ __all__ = [
     "Ticket",
     "TokenBucket",
 ]
+
+_tracing_store = None
+
+
+def _tracing_enabled() -> bool:
+    """Cheap gate for the admit hot path (caches the module lookup so the
+    tracing-off cost is one global read + one attribute call)."""
+    global _tracing_store
+    if _tracing_store is None:
+        from ..tracing import store as _ts
+
+        _tracing_store = _ts
+    return _tracing_store.tracing_enabled()
+
 
 _TENANCY_ITEM = "ROADMAP Queue A item 4 (tenant quotas and weights)"
 _CLUSTER_ITEM = "ROADMAP Queue A item 5 (multi-process clusters and their shard health)"
@@ -256,8 +273,19 @@ class AdmissionController:
         to an engine shard, whose health the cluster plane keeps: it
         raises."""
         cfg = self.config
+        t_enter = _time.monotonic()
         if deadline is None:
             deadline = Deadline(cfg.default_deadline_ms)
+        # request-journey tracing: the inbound traceparent (bound by the
+        # HTTP surface) wins; otherwise the journey starts here, and shed
+        # events and typed rejections carry the trace id too
+        trace_ctx = None
+        trace_extra: dict = {}
+        if _tracing_enabled():
+            from .. import tracing as _tracing
+
+            trace_ctx = _tracing.ensure_trace()
+            trace_extra = {"trace": trace_ctx.trace_id}
         if tenant is not None:
             tenant = str(tenant)
             self._check_tenant(tenant)
@@ -268,24 +296,38 @@ class AdmissionController:
         if self._bucket is not None and not self._bucket.try_acquire():
             retry_after = self._bucket.retry_after()
             self.metrics.record_shed("rate_limited")
-            raise RateLimited(f"rate limit ({cfg.rate_limit_qps:g} qps) exceeded", retry_after_s=retry_after)
+            flight_recorder.record("serving.shed", route=self.route, reason="rate_limited", **trace_extra)
+            raise self._traced(
+                RateLimited(f"rate limit ({cfg.rate_limit_qps:g} qps) exceeded", retry_after_s=retry_after),
+                trace_ctx,
+            )
 
         remaining_ms = deadline.remaining_ms()
         if remaining_ms <= cfg.min_service_ms:
             self.metrics.record_shed("deadline_exceeded")
             self.metrics.record_deadline_expired()
-            raise DeadlineExceeded(
-                "request cannot meet its remaining budget "
-                f"({remaining_ms:.0f} ms left, floor {cfg.min_service_ms:g} ms)"
+            flight_recorder.record("serving.deadline_expired", route=self.route,
+                                   remaining_ms=round(min(remaining_ms, 1e12), 3), **trace_extra)
+            raise self._traced(
+                DeadlineExceeded(
+                    "request cannot meet its remaining budget "
+                    f"({remaining_ms:.0f} ms left, floor {cfg.min_service_ms:g} ms)"
+                ),
+                trace_ctx,
             )
 
         with self._lock:
             depth = len(self._live)
             if depth >= cfg.max_queue:
                 self.metrics.record_shed("queue_full")
-                raise QueueFull(
-                    f"admission queue full ({depth}/{cfg.max_queue})",
-                    retry_after_s=deadline.remaining() if remaining_ms < 1e12 else None,
+                flight_recorder.record("serving.shed", route=self.route, reason="queue_full", depth=depth,
+                                       **trace_extra)
+                raise self._traced(
+                    QueueFull(
+                        f"admission queue full ({depth}/{cfg.max_queue})",
+                        retry_after_s=deadline.remaining() if remaining_ms < 1e12 else None,
+                    ),
+                    trace_ctx,
                 )
             degraded = cfg.shed == "degrade" and depth >= cfg.degrade_watermark * cfg.max_queue
             seq = next(self._seq)
@@ -293,11 +335,23 @@ class AdmissionController:
             heapq.heappush(self._heap, (deadline.expires_at, seq))
             new_depth = len(self._live)
 
-        ticket = Ticket(deadline, seq, degraded=degraded, route=self.route, tenant=tenant)
+        ticket = Ticket(deadline, seq, degraded=degraded, route=self.route, trace=trace_ctx, tenant=tenant)
         self.metrics.record_admit(degraded=degraded)
         self.metrics.set_queue_depth(new_depth)
         self.metrics.observe_stage("admission", _time.monotonic() - t0)
+        flight_recorder.record("serving.admit", route=self.route, depth=new_depth, degraded=degraded, **trace_extra)
+        if trace_ctx is not None:
+            from ..tracing import record_span
+
+            record_span("admission", start_mono=t_enter, end_mono=_time.monotonic(), ctx=trace_ctx,
+                        depth=new_depth, degraded=degraded)
         return ticket
+
+    @staticmethod
+    def _traced(exc: "OverloadError", trace_ctx) -> "OverloadError":
+        if trace_ctx is not None:
+            exc.trace_id = trace_ctx.trace_id
+        return exc
 
     def _check_tenant(self, tenant: str) -> None:
         """Per-tenant quota gates, enforced before every endpoint-wide gate
@@ -317,4 +371,7 @@ class AdmissionController:
         and build the typed error for the HTTP surface."""
         self.metrics.record_deadline_expired()
         self.metrics.record_shed("deadline_exceeded")
-        return DeadlineExceeded("deadline expired before the pipeline produced a response")
+        trace_extra = {"trace": ticket.trace.trace_id} if ticket.trace is not None else {}
+        flight_recorder.record("serving.deadline_expired", route=self.route,
+                               waited_ms=round((_time.monotonic() - ticket.admitted_at) * 1000.0, 3), **trace_extra)
+        return self._traced(DeadlineExceeded("deadline expired before the pipeline produced a response"), ticket.trace)

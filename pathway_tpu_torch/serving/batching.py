@@ -20,10 +20,13 @@ dispatches:
   come with the tenancy plane, ROADMAP Queue A item 4, and raise under a
   configured tenancy).
 
-``DecodeService`` (``decode/engine.py``) fronts the decode engine with
-it. The reference's chaos sites, flight-recorder events, request tracing
-and chip-ledger bookings around the dispatch come with ROADMAP Queue A
-items 3 and 6.
+``DecodeService`` (``decode/engine.py``) and ``rest_connector(serving=)``
+(``io/http/_server.py``) front their engines with it. Each dispatch records
+a ``serving.batch`` flight-recorder event; with tracing on, a batch span
+(its own trace) links the member requests' traces and every member gets
+``queue`` and ``dispatch`` spans; tenant items mirror their per-item share
+of the dispatch into the chip ledger's tenant sub-accounts. The
+reference's chaos sites come with ROADMAP Queue A item 6.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import threading
 import time as _time
 from typing import Any, Callable, Optional
 
-from .admission import _TENANCY_ITEM, ServingConfig, tenancy_active
+from ..internals import flight_recorder
+from .admission import _TENANCY_ITEM, ServingConfig, _tracing_enabled, tenancy_active
 from .deadline import Deadline
 from .metrics import SERVING_METRICS, ServingMetrics
 
@@ -73,7 +77,7 @@ class AdaptiveBatcher:
         self.name = name
         self._seq = itertools.count()
         self._lock = threading.Lock()
-        self._heap: list[tuple] = []  # (expires_at, seq, item, enqueued_at)
+        self._heap: list[tuple] = []  # (expires_at, seq, item, enqueued_at, trace, tenant)
         # per-tenant deadline heaps (same entry shape) + deficit
         # round-robin state; empty unless submit() ever names a tenant
         self._tenant_heaps: dict[str, list] = {}
@@ -108,13 +112,17 @@ class AdaptiveBatcher:
 
     def submit(self, item: Any, deadline: Deadline | None = None, trace=None, tenant: str | None = None) -> None:
         """Queue one item for the next fused dispatch (starts the worker on
-        first use). ``tenant`` routes the item into that tenant's fair-share
-        heap; ``None`` keeps the single heap. ``trace`` is accepted as the
-        reference takes it; request tracing comes with ROADMAP Queue A
-        item 3."""
+        first use). ``trace`` (a TraceContext) defaults to the submitter's
+        bound context, so the request journey follows the item onto the
+        batcher thread. ``tenant`` routes the item into that tenant's
+        fair-share heap; ``None`` keeps the single heap."""
         if deadline is None:
             deadline = Deadline.none()
-        entry = (deadline.expires_at, next(self._seq), item, _time.monotonic())
+        if trace is None and _tracing_enabled():
+            from ..tracing import current_trace
+
+            trace = current_trace()
+        entry = (deadline.expires_at, next(self._seq), item, _time.monotonic(), trace, tenant)
         with self._lock:
             if tenant is None:
                 heapq.heappush(self._heap, entry)
@@ -176,34 +184,36 @@ class AdaptiveBatcher:
 
     # -- worker --
 
-    def _take_batch(self) -> tuple[list[Any], list[float]]:
+    def _take_batch(self) -> tuple[list[Any], list[float], list[Any], list[Any]]:
         """Pop up to current_batch_size() live items in deadline order;
         expired items are dropped (never dispatched). With tenant heaps
-        present, items are drained by deficit round-robin."""
+        present, items are drained by deficit round-robin. Returns the items
+        with their enqueue times, traces and tenants."""
         limit = self.current_batch_size()
         now = _time.monotonic()
-        items: list[Any] = []
-        enqueued: list[float] = []
-        expired: list[Any] = []
+        taken: list[tuple] = []
+        expired: list[tuple] = []
         with self._lock:
             if self._tenant_heaps:
-                self._take_weighted(limit, now, items, enqueued, expired)
+                self._take_weighted(limit, now, taken, expired)
             else:
-                while self._heap and len(items) < limit:
-                    expires_at, _seq, item, enq = heapq.heappop(self._heap)
-                    if expires_at <= now:
-                        expired.append(item)
-                    else:
-                        items.append(item)
-                        enqueued.append(enq)
-        for item in expired:
+                while self._heap and len(taken) < limit:
+                    entry = heapq.heappop(self._heap)
+                    (expired if entry[0] <= now else taken).append(entry)
+        for _exp, _seq, item, enq, trace, _tenant in expired:
             self.dropped_expired_total += 1
             self.metrics.record_deadline_expired()
+            if trace is not None:
+                # the journey of a dropped request ends in the queue: record
+                # the wait it paid before expiring
+                from ..tracing import record_span
+
+                record_span("queue", start_mono=enq, end_mono=now, ctx=trace, dropped=True)
             if self._on_expired is not None:
                 self._on_expired(item)
-        return items, enqueued
+        return ([e[2] for e in taken], [e[3] for e in taken], [e[4] for e in taken], [e[5] for e in taken])
 
-    def _take_weighted(self, limit, now, items, enqueued, expired) -> None:
+    def _take_weighted(self, limit, now, taken, expired) -> None:
         """Deficit round-robin drain across the tenant heaps (plus the
         single heap as an anonymous participant). Each pass credits every
         backlogged tenant one unit and pops one item per whole unit, so each
@@ -211,7 +221,7 @@ class AdaptiveBatcher:
         Caller holds ``self._lock``."""
         if tenancy_active():
             raise NotImplementedError(f"AdaptiveBatcher tenant weights under PATHWAY_TENANCY need {_TENANCY_ITEM}")
-        while len(items) < limit:
+        while len(taken) < limit:
             backlog: list[Any] = [t for t in self._rr if self._tenant_heaps.get(t)]
             if self._heap:
                 backlog.append(None)
@@ -220,18 +230,17 @@ class AdaptiveBatcher:
             for t in backlog:
                 heap = self._heap if t is None else self._tenant_heaps[t]
                 self._deficit[t] = self._deficit.get(t, 0.0) + 1.0
-                while heap and self._deficit[t] >= 1.0 and len(items) < limit:
-                    expires_at, _seq, item, enq = heapq.heappop(heap)
-                    if expires_at <= now:
-                        expired.append(item)
+                while heap and self._deficit[t] >= 1.0 and len(taken) < limit:
+                    entry = heapq.heappop(heap)
+                    if entry[0] <= now:
+                        expired.append(entry)
                         continue
                     self._deficit[t] -= 1.0
-                    items.append(item)
-                    enqueued.append(enq)
+                    taken.append(entry)
                 if not heap:
                     # classic DRR: an emptied queue forfeits its credit
                     self._deficit[t] = 0.0
-                if len(items) >= limit:
+                if len(taken) >= limit:
                     break
 
     def _loop(self) -> None:
@@ -249,16 +258,52 @@ class AdaptiveBatcher:
                 if window_s > 0.0 and self.pending() < self.current_batch_size():
                     _time.sleep(window_s)
                 while not self._halt:
-                    items, enqueued = self._take_batch()
+                    items, enqueued, traces, tenants = self._take_batch()
                     if not items:
                         break
                     now = _time.monotonic()
                     for enq in enqueued:
                         self.metrics.observe_stage("queue", now - enq)
                     w0 = _time.monotonic()
-                    self._dispatch(items)
-                    wall = _time.monotonic() - w0
+                    # fan-in tracing: one batch span (its own trace) links
+                    # the member request traces, so one fused dispatch
+                    # explains N requests
+                    traced = [t for t in traces if t is not None]
+                    batch_trace_id = ""
+                    if traced and _tracing_enabled():
+                        from ..tracing import span as _trace_span
+                        from ..tracing import trace_members
+
+                        links = tuple(m.trace_id for t in traced for m in trace_members(t))
+                        with _trace_span("batch", new_trace=True, links=links, size=len(items),
+                                         name=self.name) as bsp:
+                            self._dispatch(items)
+                        batch_trace_id = bsp.trace_id if bsp is not None else ""
+                    else:
+                        self._dispatch(items)
+                    w1 = _time.monotonic()
+                    wall = w1 - w0
+                    if traced:
+                        from ..tracing import record_span
+
+                        for enq, trace in zip(enqueued, traces):
+                            if trace is None:
+                                continue
+                            # queue wait ends when the device takes the batch,
+                            # so the per-stage spans tile the request's wall
+                            record_span("queue", start_mono=enq, end_mono=w0, ctx=trace)
+                            record_span("dispatch", start_mono=w0, end_mono=w1, ctx=trace,
+                                        links=(batch_trace_id,) if batch_trace_id else (), size=len(items))
                     per_item = wall / len(items)
+                    if any(t is not None for t in tenants):
+                        from ..internals.chip_ledger import CHIP_LEDGER
+
+                        if CHIP_LEDGER.on():
+                            # the tenant sub-account mirrors the DRR per-item
+                            # split; the plane work was booked at its site
+                            for t in tenants:
+                                if t is not None:
+                                    CHIP_LEDGER.book_tenant(t, per_item)
                     if self._ewma_item_s == 0.0:
                         self._ewma_item_s = per_item
                     else:
@@ -272,9 +317,13 @@ class AdaptiveBatcher:
                     self.dispatched_total += len(items)
                     self.metrics.record_batch(len(items), self._ewma_item_s)
                     self.metrics.observe_stage("dispatch", wall)
+                    flight_recorder.record("serving.batch", name=self.name, size=len(items),
+                                           wall_ms=round(wall * 1000.0, 3),
+                                           **({"trace": batch_trace_id} if batch_trace_id else {}))
                     # device-time partitioning: yield the ingest stream's
                     # share of the slot before the next query dispatch
                     if cfg.query_share < 1.0 and wall > 0.0:
                         _time.sleep(min(wall * (1.0 / cfg.query_share - 1.0), _MAX_YIELD_S))
         except BaseException as exc:  # surfaced through .error
             self.error = exc
+            flight_recorder.record("serving.batcher_error", name=self.name, error=repr(exc))

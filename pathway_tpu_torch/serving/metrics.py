@@ -5,8 +5,8 @@ thread-safe registry of admission outcomes, queue depth, batch shape and
 per-stage latency. Counters are monotonic; gauges reflect the last
 observation; per-stage latency histograms use fixed buckets, so a
 Prometheus rendering gets cumulative ``_bucket`` / ``_sum`` / ``_count``
-series. The monitoring server that renders it comes with ROADMAP Queue A
-item 3; ``snapshot`` reads it today.
+series. The monitoring HTTP server renders it on ``/metrics``
+(``pathway_serving_*``) and ``/status`` once it has seen traffic.
 """
 
 from __future__ import annotations

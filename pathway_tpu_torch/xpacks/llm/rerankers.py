@@ -109,8 +109,9 @@ class LLMReranker(udfs.UDF):
 class CrossEncoderReranker(udfs.UDF):
     """Joint (query, doc) scoring (reference rerankers.py:186) through
     ``CrossEncoderScorer``: rows batched dynamically, one forward per padded
-    bucket. ``init_kwargs`` go to the scorer (``device=``, ``config=``,
-    ``params=``, ``seed=``...)."""
+    bucket, each batch under the ``rerank`` span and chip-ledger account
+    (``models.reranker.scored``). ``init_kwargs`` go to the scorer
+    (``device=``, ``config=``, ``params=``, ``seed=``...)."""
 
     def __init__(
         self,
@@ -129,10 +130,11 @@ class CrossEncoderReranker(udfs.UDF):
         self._scorer = CrossEncoderScorer(model_name, **init_kwargs)
 
     def __wrapped__(self, doc, query, **kwargs):
+        from ...models.reranker import scored
+
         if isinstance(doc, list):
-            pairs = [(str(q), str(d)) for d, q in zip(doc, query)]
-            return [float(s) for s in self._scorer.score(pairs)]
-        return float(self._scorer.score([(str(query), str(doc))])[0])
+            return scored(self._scorer, [(str(q), str(d)) for d, q in zip(doc, query)])
+        return scored(self._scorer, [(str(query), str(doc))])[0]
 
     def __call__(
         self, doc: ColumnExpression, query: ColumnExpression, **kwargs

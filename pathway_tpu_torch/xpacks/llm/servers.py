@@ -24,8 +24,11 @@ logger = logging.getLogger(__name__)
 
 class BaseRestServer:
     def __init__(self, host: str, port: int, serving=None, **rest_kwargs):
-        """``serving=`` (the reference's serving plane) comes with ROADMAP
-        Queue A item 3 and raises when an endpoint is served."""
+        """``serving=`` (a :class:`pathway_tpu_torch.serving.ServingConfig`)
+        puts every endpoint of this server behind the serving plane:
+        admission control with a bounded deadline-ordered queue, typed
+        429/503 sheds, per-request deadlines and adaptive batching (see
+        ``rest_connector``)."""
         from ...io.http import PathwayWebserver
 
         self.host = host
@@ -107,12 +110,14 @@ class BaseRestServer:
         **run_kwargs,
     ):
         """Start the pipeline (and webserver). threaded=True runs in a
-        daemon thread and returns it."""
+        daemon thread and returns it. ``run_kwargs`` go to ``pw.run`` (the
+        observability planes: ``tracing=``, ``chip_ledger=``, ...), as
+        upstream Pathway passes them."""
 
         def _run():
             from ...internals.run import run as pw_run
 
-            pw_run(monitoring_level=None, terminate_on_error=terminate_on_error)
+            pw_run(terminate_on_error=terminate_on_error, **{"monitoring_level": None, **run_kwargs})
 
         if threaded:
             t = threading.Thread(

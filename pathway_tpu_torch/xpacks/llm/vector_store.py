@@ -409,8 +409,8 @@ class VectorStoreServer:
         """Expose /v1/retrieve, /v1/statistics, /v1/inputs (reference
         :478-585) and run the pipeline (``threaded=True``: on a daemon
         thread, which is returned). The run, and with it the webserver,
-        ends when the engine stops. ``serving=`` (the reference's serving
-        plane) comes with ROADMAP Queue A item 3 and raises."""
+        ends when the engine stops. ``serving=`` (a ``ServingConfig``) puts
+        every endpoint behind the serving plane (``rest_connector``)."""
         from ...io.http import PathwayWebserver, rest_connector
 
         webserver = PathwayWebserver(host=host, port=port)

@@ -265,10 +265,8 @@ def test_embedder_batched_udf_and_dimension(embedders):
 @pytest.mark.parametrize(
     "kwargs",
     [dict(mesh="auto"), dict(index_tiers="hot=64"), dict(tenancy=True), dict(elastic=True),
-     dict(freshness=True), dict(chip_ledger=True), dict(persistence_config=object()), dict(recovery=True),
-     dict(profile=True), dict(tracing=True), dict(watchdog=True), dict(with_http_server=True),
-     dict(ingest_workers=2), dict(pipeline_depth=2), dict(analysis="strict"), dict(cluster_lease_ms=100),
-     dict(monitoring_level="all")],
+     dict(persistence_config=object()), dict(recovery=True), dict(profile=True), dict(license_key="k"),
+     dict(ingest_workers=2), dict(pipeline_depth=2), dict(analysis="strict"), dict(cluster_lease_ms=100)],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_run_options_raise(kwargs):
@@ -284,8 +282,8 @@ def test_unported_run_options_raise(kwargs):
 @pytest.mark.parametrize(
     "var,value",
     [("PATHWAY_MESH", "auto"), ("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_TENANCY", "on"),
-     ("PATHWAY_ELASTIC", "on"), ("PATHWAY_FRESHNESS", "on"), ("PATHWAY_CHIP_LEDGER", "1"), ("PATHWAY_PROFILE", "p.json"),
-     ("PATHWAY_TRACING", "1"), ("PATHWAY_WATCHDOG", "1"), ("PATHWAY_PIPELINE_DEPTH", "2"),
+     ("PATHWAY_ELASTIC", "on"), ("PATHWAY_PROFILE", "p.json"), ("PATHWAY_JOURNAL_DIR", "/tmp/j"),
+     ("PATHWAY_TELEMETRY_SERVER", "http://localhost:1"), ("PATHWAY_LICENSE_KEY", "k"), ("PATHWAY_PIPELINE_DEPTH", "2"),
      ("PATHWAY_INGEST_WORKERS", "2"), ("PATHWAY_PROCESSES", "2"), ("PATHWAY_REPLAY_STORAGE", "/tmp/x"),
      ("PATHWAY_ANALYSIS", "strict")],
 )
@@ -294,6 +292,80 @@ def test_unported_env_options_raise(monkeypatch, var, value):
     assert trun.unported_options({}) and var in trun.unported_options({})[0]
     with pytest.raises(NotImplementedError, match=var):
         tpw.run()
+
+
+def _plane_run(tmp_path, monkeypatch, **kwargs):
+    """One small run with an observability plane on: the trace store and
+    the flight recorder write into ``tmp_path``."""
+    monkeypatch.setenv("PATHWAY_TRACE_DIR", str(tmp_path / "traces"))
+    monkeypatch.setenv("PATHWAY_FLIGHT_RECORDER_DIR", str(tmp_path / "blackbox"))
+    seen = []
+    t = tpw.debug.table_from_markdown("""
+      | a
+    1 | 1
+    2 | 5
+    """)
+    tpw.io.subscribe(t.select(b=tpw.this.a * 2), lambda key, row, time, is_addition: seen.append(row["b"]))
+    result = tpw.run(**kwargs)
+    assert sorted(seen) == [2, 10]
+    return result
+
+
+@pytest.mark.parametrize(
+    "kwargs,field",
+    [(dict(freshness=True), "run_context"), (dict(chip_ledger=True), "run_context"),
+     (dict(tracing=True), "trace_dumps"), (dict(watchdog="interval=0.05"), "health"),
+     (dict(with_http_server=True, monitoring_http_port=0), "monitoring_http_port"),
+     (dict(monitoring_level="all"), "run_context")],
+    ids=lambda v: next(iter(v)) if isinstance(v, dict) else v,
+)
+def test_plane_run_options_run(tmp_path, monkeypatch, kwargs, field):
+    """The observability options the reference's ``pw.run`` takes run in the
+    port and fill their ``RunResult`` field (or the run context)."""
+    from pathway_tpu_torch import tracing as ttr
+    from pathway_tpu_torch.internals.parse_graph import G as TG
+
+    if "tracing" in kwargs:
+        ttr.TRACE_STORE.reset()
+        # a span recorded during the run makes the store dump it
+        tpw.io.subscribe(tpw.debug.table_from_markdown("""
+          | a
+        1 | 1
+        """), lambda **_: ttr.record_span("sink", start_mono=0.0, end_mono=0.0, new_trace=True))
+    result = _plane_run(tmp_path, monkeypatch, **kwargs)
+    ctx = TG.run_context
+    if field == "run_context":
+        name = next(iter(kwargs))
+        want = {"freshness": {"slo_ms": None}, "chip_ledger": True, "monitoring_level": "all"}[name]
+        assert ctx[name] == want
+    elif field == "trace_dumps":
+        assert ctx["tracing"] and len(result.trace_dumps) == 1 and result.trace_dumps[0].startswith(str(tmp_path))
+        ttr.TRACE_STORE.reset()
+    elif field == "health":
+        assert ctx["watchdog"] and result.health["status"] == "green" and result.health["samples"] >= 1
+    else:
+        assert ctx["with_http_server"] and isinstance(result.monitoring_http_port, int)
+        assert result.monitoring_http_port > 0
+    assert not ttr.tracing_enabled()  # restored after the run
+
+
+@pytest.mark.parametrize(
+    "var,value,key,want",
+    [("PATHWAY_FRESHNESS", "slo=250ms", "freshness", {"slo_ms": 250.0}), ("PATHWAY_CHIP_LEDGER", "1", "chip_ledger", True),
+     ("PATHWAY_TRACING", "1", "tracing", True), ("PATHWAY_WATCHDOG", "interval=0.05", "watchdog", True)],
+)
+def test_plane_env_options_run(tmp_path, monkeypatch, var, value, key, want):
+    """Their variables run too, and an explicit keyword wins over them."""
+    from pathway_tpu_torch.internals.parse_graph import G as TG
+
+    monkeypatch.setenv(var, value)
+    assert not trun.unported_options({})
+    result = _plane_run(tmp_path, monkeypatch)
+    assert TG.run_context[key] == want
+    if key == "watchdog":
+        assert result.health is not None
+    _plane_run(tmp_path, monkeypatch, **{key: False})
+    assert TG.run_context[key] in (False, None)
 
 
 def test_run_options_at_their_off_values_pass(monkeypatch):

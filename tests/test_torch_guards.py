@@ -4,7 +4,10 @@ pathway_tpu, also when its dataflow engine runs a ``pw.run`` pipeline
 or serves the RAG document servers over a folder, or shards an index and
 an encoder over a mesh of CPU devices, or runs the decode extensions under
 ``pw.run(decode=)`` through ``DecodeService`` and answers questions through
-the xpack's question answerer; it never imports ``aiohttp`` or
+the xpack's question answerer, or serves a REST endpoint behind the
+serving plane with every observability plane on (``tracing/``,
+``freshness/``, the chip and HBM ledgers, the watchdog, ``/metrics`` and
+``/status``); it never imports ``aiohttp`` or
 ``requests``, which the card's machine lacks (its webserver is the standard
 library's), and imports no service client (``openai``, ``litellm``,
 ``cohere``, ``transformers``, ``flashrank``) at module load; its entry
@@ -218,6 +221,56 @@ print("BAD", bad)
 """
 
 
+_PLANES_PROBE = r"""
+import json, socket, sys, threading, time, urllib.request
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import freshness, tracing
+from pathway_tpu_torch.freshness import report
+from pathway_tpu_torch.internals import chip_ledger, flight_recorder, http_monitoring, ledger, monitoring
+from pathway_tpu_torch.internals.graph_runner import GraphRunner
+from pathway_tpu_torch.ops import index_metrics
+def free():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+port, mport = free(), free()
+q, writer = pw.io.http.rest_connector(host="127.0.0.1", port=port, schema=pw.schema_from_types(value=int),
+                                      serving=pw.serving.ServingConfig(max_queue=8))
+writer(q.select(result=pw.this.value + 1))
+runners = []
+real_init = GraphRunner.__init__
+def recording_init(self, *a, **k):
+    real_init(self, *a, **k)
+    runners.append(self)
+GraphRunner.__init__ = recording_init
+out = {}
+run = threading.Thread(target=lambda: out.update(r=pw.run(tracing=True, chip_ledger=True, freshness=True,
+                                                          watchdog=True, with_http_server=True,
+                                                          monitoring_http_port=mport)), daemon=True)
+run.start()
+for _ in range(400):
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/", data=b'{"value": 41}',
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert json.loads(resp.read()) == 42 and resp.headers["X-Pathway-Trace"]
+        break
+    except OSError:
+        time.sleep(0.05)
+with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=30) as resp:
+    assert "pathway_serving_admitted_total" in resp.read().decode()
+with urllib.request.urlopen(f"http://127.0.0.1:{mport}/status", timeout=30) as resp:
+    assert "serving" in json.loads(resp.read())
+runners[-1].engine.stop()
+run.join(timeout=60)
+assert out["r"].health is not None and out["r"].trace_dumps
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + CLIENTS)
+print("BAD", bad)
+"""
+
+
 def _run_probe(probe: str) -> None:
     out = subprocess.run(
         [sys.executable, "-c", f"FORBIDDEN = {_FORBIDDEN_MODULES!r}\nCLIENTS = {_CLIENTS!r}\n" + probe], cwd=REPO,
@@ -244,6 +297,15 @@ def test_port_decode_extensions_and_qa_import_no_jax_flax_reference_or_clients()
     question answerer over a document store: nothing of JAX or the
     reference, and no service client, is imported."""
     _run_probe(_DECODE_QA_PROBE)
+
+
+def test_port_observability_planes_import_no_jax_flax_or_reference(tmp_path, monkeypatch):
+    """``tracing/``, ``freshness/`` and every plane module imported, then a
+    REST endpoint behind the serving plane under ``pw.run`` with every
+    plane on, its ``/metrics`` and ``/status`` scraped: nothing of JAX or
+    the reference, and no service client, is imported."""
+    monkeypatch.setenv("PATHWAY_TRACE_DIR", str(tmp_path))
+    _run_probe(_PLANES_PROBE)
 
 
 def test_port_sources_and_chip_smoke_have_no_forbidden_imports():

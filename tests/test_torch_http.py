@@ -208,8 +208,18 @@ def test_taken_port_falls_back_to_an_ephemeral_one():
 
 
 def test_unported_http_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-        tpw.io.http.rest_connector(host="127.0.0.1", port=_free_port(), serving=object())
+    """``serving=`` runs now (the REST reader's admission and batching);
+    the HTTP client connectors still raise, naming ROADMAP item 1."""
+    cfg = tpw.serving.ServingConfig(max_queue=8, batch_window_ms=1.0, default_deadline_ms=20_000.0)
+    web, runner, run = _start({}, dict(serving=cfg))
+    try:
+        status, body, headers = _until_up(web, payload={"value": 41})
+        assert (status, body) == (200, 42) and "X-Pathway-Degraded" not in headers
+        assert tpw.parse_graph.serving_endpoints[-1]["protected"] is True
+    finally:
+        runner.engine.stop()
+        run.join(timeout=30)
+    assert not run.is_alive()
     for fn in (tpw.io.http.read, tpw.io.http.write):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
             fn("http://localhost:1/")

@@ -311,8 +311,13 @@ def test_splitter_and_parser_chunks_equal_reference():
 
 
 def test_unported_xpack_options_raise():
+    """``BaseRestServer(serving=)`` serves now; ``OpenParse`` still raises,
+    naming ROADMAP item 1."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
         tpw.xpacks.llm.parsers.OpenParse()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-        server = tpw.xpacks.llm.servers.BaseRestServer("127.0.0.1", _free_port(), serving=object())
-        server.serve("/x", tpw.schema_from_types(a=int), lambda q: q.select(result=tpw.this.a))
+    cfg = tpw.serving.ServingConfig(max_queue=8, default_deadline_ms=20_000.0)
+    server = tpw.xpacks.llm.servers.BaseRestServer("127.0.0.1", _free_port(), serving=cfg)
+    server.serve("/x", tpw.schema_from_types(a=int), lambda q: q.select(result=tpw.this.a * 2))
+    assert tpw.parse_graph.serving_endpoints[-1] == {
+        "route": "/x", "kind": "rest_connector", "protected": True, "deadline_ms": 20_000.0,
+        "batch_window_ms": cfg.batch_window_ms}

@@ -12,7 +12,7 @@ LayerNorm widths 128 and 312, a GEMM with K 300 and N 900, and whole layers
 at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below), times the index's tie-ordered top-k beside
-``torch.topk``, then drives nine paths, each with the launch counters set
+``torch.topk``, then drives twelve paths, each with the launch counters set
 to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -69,6 +69,28 @@ to 0 just before it and read just after:
   burst; gated on equal answers, the ledger's accounts and its bookings
   against a profiled window, the traces, the sheds, the scrape and the
   freshness plane against polling.
+* ``profile_phase`` (after ``engine_path``): its pipeline over 16,384
+  streamed documents under ``pw.run(profile=, chip_ledger=True)`` with
+  ``PATHWAY_JOURNAL_DIR`` set; gated on the Chrome trace's operator
+  self-times (connector, embedder UDF, index), the encoder's kernel
+  statistics and encode MFU, and ``python -m pathway_tpu_torch top --once``
+  and ``perf snapshot`` on the journal;
+* ``tenant_path``: a ``TenantPackedIndex`` of 4,096 tenants x 256
+  documents (2^20 rows, f32); 512 single queries and 128 batches of 64
+  over 256 tenants (B2's two regimes under the tenant mask), each hit
+  checked against its tenant's rows and, for 64 tenants, a private
+  ``DeviceKnnIndex``; a demotion sweep and the demoted tenants' host scans
+  and promotions; ``rest_connector(serving=)`` under ``pw.run(tenancy=)``
+  with weights 1 / 2 / 4 and a capped tenant (typed 429s, every other
+  answer equal to a library replay); ``index.tenant`` against
+  ``index.hot``;
+* ``tier_path``: a ``TieredKnnIndex`` of 2^20 documents round 256 Gaussian
+  centres (int8 cold tier on the host, 2^17 hot rows, 16 of 256 clusters
+  probed), Zipf-skewed single and batched queries, a demote and promote
+  cycle, every cold rescore held against the same rows copied afresh
+  (the staging ring), recall@10 against an exact f32 scan, 4,096
+  self-queries, the int8 recall floor under forced demotion, and an
+  all-hot twin equal to ``DeviceKnnIndex.search_batch``.
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -2102,14 +2124,16 @@ MESH_ENCODER_TOL = dict(rtol=2e-3, atol=1e-3, min_cos=0.9999)
 
 
 def _stream_and_query(torch, pw, embedder, texts: list, singles: list, batch: list, per_epoch: int, cards=None,
-                      **run_kwargs):
+                      embed_in_udf: bool = False, **run_kwargs):
     """``engine_path``'s pipeline: ``texts`` streamed by a subject committing
     every ``per_epoch`` (each commit waits for its delivery) ->
     ``DataIndex(BruteForceKnn(embedder=))`` -> ``singles`` one epoch each,
     then ``batch`` as one epoch, ``query_as_of_now(number_of_matches=10)``,
     under ``pw.run(**run_kwargs)`` -> (per query [(doc_id, score)], ingest
     seconds, run seconds); each clock is read after every card of ``cards``
-    (default: the current one) is done."""
+    (default: the current one) is done. ``embed_in_udf``: documents and
+    queries are embedded by the embedder as a UDF column of their own
+    (an operator of its own in a profile) and the index takes the vectors."""
     import threading
 
     k, n_docs = 10, len(texts)
@@ -2170,9 +2194,18 @@ def _stream_and_query(torch, pw, embedder, texts: list, singles: list, batch: li
     schema = pw.schema_from_types(doc_id=int, text=str)
     docs = pw.io.python.read(Documents(), schema=schema, autocommit_duration_ms=None)
     queries = pw.io.python.read(Queries(), schema=pw.schema_from_types(qid=int, text=str), autocommit_duration_ms=None)
-    index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(
-        docs.text, dimensions=embedder.get_embedding_dimension(), reserved_space=n_docs, embedder=embedder))
-    answers = index.query_as_of_now(queries.text, number_of_matches=k).select(
+    dim = embedder.get_embedding_dimension()
+    if embed_in_udf:
+        docs = docs.select(pw.this.doc_id, pw.this.text, vector=embedder(pw.this.text))
+        queries = queries.select(pw.this.qid, vector=embedder(pw.this.text))
+        index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(docs.vector, dimensions=dim,
+                                                                      reserved_space=n_docs, device=DEV))
+        query_col = queries.vector
+    else:
+        index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(
+            docs.text, dimensions=dim, reserved_space=n_docs, embedder=embedder))
+        query_col = queries.text
+    answers = index.query_as_of_now(query_col, number_of_matches=k).select(
         qid=queries.qid, ids=pw.this.doc_id, scores=pw.this._pw_index_reply_score)
     pw.io.subscribe(docs, on_doc, on_time_end=on_epoch_end)
     pw.io.subscribe(answers, on_answer)
@@ -3205,6 +3238,571 @@ def phase_observe_path(torch, env: dict, n_files: int = OBS_FILES, n_new: int = 
     return dict(launches)
 
 
+# ---------------------------------------------------------------- tenant_path
+
+TENANTS = 4096  # tenants of the shared slab
+TENANT_DOCS = 256  # documents a tenant
+TENANT_QUERY_TENANTS = 256  # tenants the searches spread over
+TENANT_SINGLES = 512  # single-query searches (B2's streaming pass)
+TENANT_BATCHES = 128  # batches of TENANT_BATCH queries (B2's tensor-core pass)
+TENANT_BATCH = 64
+TENANT_CHECKED = 64  # tenants held against a private DeviceKnnIndex
+TENANT_COLD_CHECKED = 8  # demoted tenants held (host scan, then promoted)
+TENANT_SERVED = 48  # requests a served client sends
+TENANT_CLIENTS = 8
+TENANT_WEIGHTS = {"w1": 1.0, "w2": 2.0, "w4": 4.0}
+TENANT_CAP = dict(qps=5.0, burst=2)  # the capped tenant's quota
+HIT_SCORE_TOL = 1e-5  # f32 scores of one row in two indexes (other slab sizes, other sums)
+
+
+def _rows_agree(got: list, want: list, tol: float = HIT_SCORE_TOL) -> bool:
+    """Per query: as many hits, scores within ``tol`` rank by rank, and the
+    same ids but where two scores within ``tol`` trade places (B2 sums a row
+    in another order in a slab of another size)."""
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        ws = [s for _, s in w]
+        for (gk, gs), (wk, wsc) in zip(g, w):
+            if abs(gs - wsc) > tol:
+                return False
+            if gk != wk:
+                ties = {k for k, s in w if abs(s - wsc) <= tol}
+                if gk not in ties and not (gk not in {k for k, _ in w} and abs(gs - ws[-1]) <= tol):
+                    return False
+    return len(got) == len(want)
+
+
+def phase_tenant_path(torch, n_tenants: int = TENANTS, per_tenant: int = TENANT_DOCS,
+                      query_tenants: int = TENANT_QUERY_TENANTS, n_singles: int = TENANT_SINGLES,
+                      n_batches: int = TENANT_BATCHES, batch: int = TENANT_BATCH, n_checked: int = TENANT_CHECKED,
+                      n_cold: int = TENANT_COLD_CHECKED, served: int = TENANT_SERVED,
+                      clients: int = TENANT_CLIENTS) -> dict:
+    """The tenant-packed slab at MiniLM-L6 width (d 384, f32, cos):
+    ``n_tenants`` x ``per_tenant`` documents (keys 0..per_tenant-1 in every
+    tenant) in one ``TenantPackedIndex``; single queries and batches over
+    ``query_tenants`` tenants (B2's two regimes under the tenant mask), each
+    result checked against the tenant's own rows on the host and, for
+    ``n_checked`` tenants, against a private ``DeviceKnnIndex``; a demotion
+    schedule sends the never-searched tenants to the host, whose exact
+    host-scan answers and answers after promotion are held too; then
+    ``rest_connector(serving=)`` under ``pw.run(tenancy=)`` with tenants of
+    weight 1, 2 and 4 and one capped at a small QPS, ``clients`` clients
+    sending at once: the capped tenant's sheds are typed 429
+    ``tenant_rate_limited`` and every other answer equals a library replay.
+    The ``index.tenant`` ledger account reconciles exactly against
+    ``index.hot``."""
+    import concurrent.futures
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DeviceKnnIndex
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.internals.ledger import LEDGER, hot_row_bytes
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.tenancy import TENANCY_METRICS, TenantPackedIndex, use_tenancy
+
+    t_phase = time.perf_counter()
+    now = time.perf_counter
+    dim, k = 384, 10
+    rng = np.random.default_rng(SEED + 30)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    LEDGER.reset()
+    TENANCY_METRICS.reset()
+    rows = n_tenants * per_tenant
+    docs = F.normalize(torch.randn(rows, dim, device=DEV, generator=g), dim=1).cpu().numpy()
+    tenant_docs = lambda t: docs[t * per_tenant:(t + 1) * per_tenant]  # noqa: E731
+    name = lambda t: f"t{t}"  # noqa: E731
+    slab = TenantPackedIndex(dim, reserved_space=rows, name="tenant-slab", device=DEV)
+    t0 = now()
+    for t in range(n_tenants):
+        slab.add_tenant_batch(name(t), list(range(per_tenant)), tenant_docs(t))
+    add_s = now() - t0
+    if len(slab) != rows or slab.capacity != rows:
+        raise AssertionError(f"the slab holds {len(slab)} rows in {slab.capacity}")
+
+    stride = n_tenants // query_tenants
+    searched = [t * stride for t in range(query_tenants)]
+    checked = searched[:n_checked]
+
+    def queries_for(t, n):
+        picks = rng.integers(0, per_tenant, n)
+        return (tenant_docs(t)[picks] + 0.3 * rng.standard_normal((n, dim)).astype(np.float32)).astype(np.float32)
+
+    def own_scores(t, q, res):
+        """Every hit is one of the tenant's own rows at its own score."""
+        qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        for qi, row in enumerate(res):
+            if len(row) != k:
+                return False
+            for key, score in row:
+                if abs(float(qn[qi] @ tenant_docs(t)[key]) - score) > 1e-4:
+                    return False
+        return True
+
+    plan = [(searched[i % query_tenants], 1) for i in range(n_singles)]
+    plan += [(searched[(i * 2) % query_tenants], batch) for i in range(n_batches)]
+    qsets = [(t, queries_for(t, n)) for t, n in plan]
+    slab.search_tenant_batch(searched[0], qsets[0][1], k)  # uploads the slab (not timed)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    results, lat_single, lat_batch = [], [], []
+    t0 = now()
+    for t, q in qsets:
+        t1 = now()
+        res = slab.search_tenant_batch(name(t), q, k)
+        (lat_single if len(q) == 1 else lat_batch).append((now() - t1) * 1e3)
+        results.append(res)
+    search_s = now() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    crossed = [i for i, ((t, q), res) in enumerate(zip(qsets, results)) if not own_scores(t, q, res)]
+    private = {}
+    for t in checked:
+        idx = DeviceKnnIndex(dim, reserved_space=per_tenant, device=DEV)
+        idx.add_batch_arrays(list(range(per_tenant)), tenant_docs(t))
+        private[t] = idx
+    held_private = [i for i, (t, q) in enumerate(qsets) if t in private]
+    disagree = [i for i in held_private if not _rows_agree(results[i], private[qsets[i][0]].search_batch(qsets[i][1], k))]
+
+    # demotion: every never-searched tenant goes to the host at the first sweep
+    never = [t for t in range(n_tenants) if t % stride][:n_cold]
+    cold_private = {}
+    for t in never:
+        idx = DeviceKnnIndex(dim, reserved_space=per_tenant, device=DEV)
+        idx.add_batch_arrays(list(range(per_tenant)), tenant_docs(t))
+        cold_private[t] = idx
+    t0 = now()
+    with use_tenancy("demote_every=16,demote_below=0.3"):
+        probe = queries_for(checked[0], 1)
+        for _ in range(16):
+            slab.search_tenant_batch(name(checked[0]), probe, k)
+        demote_s = now() - t0
+        cold_count = sum(slab.tenant_is_cold(name(t)) for t in range(n_tenants))
+        cold_ok, promoted_ok = [], []
+        for t in never:
+            q = queries_for(t, 4)
+            was_cold = slab.tenant_is_cold(name(t))
+            host = slab.search_tenant_batch(name(t), q, k)  # the first hit: the exact host scan
+            back = slab.search_tenant_batch(name(t), q, k)  # the second hit promoted it
+            want = cold_private[t].search_batch(q, k)
+            cold_ok.append(was_cold and _rows_agree(host, want))
+            promoted_ok.append(not slab.tenant_is_cold(name(t)) and _rows_agree(back, want))
+    slab._publish_metrics()
+    row_b = hot_row_bytes(dim)
+    hot_row = LEDGER._rows.get(("index.hot", slab.name))
+    tenant_rows = [v for (acct, owner), v in LEDGER._rows.items()
+                   if acct == "index.tenant" and owner.startswith(slab.name + "/")]
+    hot_bytes = hot_row[0] if hot_row else 0
+    tenant_bytes = sum(v[0] for v in tenant_rows)
+
+    # the served part: one endpoint, the tenant in the header and the body
+    weights = dict(TENANT_WEIGHTS)
+    spec = {"quotas": {**{t: {"weight": w} for t, w in weights.items()},
+                       "capped": {"qps": TENANT_CAP["qps"], "burst": TENANT_CAP["burst"]}}}
+    served_tenants = list(weights) + ["capped"]
+    # the served tenants first in the registry: its first 50 tenants keep
+    # their own series, later ones fold into tenant="other"
+    TENANCY_METRICS.reset()
+    for i, t in enumerate(served_tenants):  # the served tenants' rows: those of 4 searched tenants
+        slab.add_tenant_batch(t, list(range(per_tenant)), tenant_docs(searched[i]))
+    qbank = {t: queries_for(searched[i], served) for i, t in enumerate(served_tenants)}
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    port, mport = free_port(), free_port()
+    pw.clear_graph()
+    q, writer = pw.io.http.rest_connector(
+        host="127.0.0.1", port=port, schema=pw.schema_from_types(tenant=str, qi=int),
+        serving=pw.serving.ServingConfig(max_queue=256, batch_max=64, batch_window_ms=2.0,
+                                         latency_budget_ms=60_000.0, query_share=1.0))
+
+    def answer(tenant: str, qi: int) -> pw.Json:
+        hits = slab.search_tenant_batch(tenant, qbank[tenant][qi][None, :], k)[0]
+        return pw.Json([[int(key), float(score)] for key, score in hits])
+
+    writer(q.select(result=pw.apply_with_type(answer, pw.Json, pw.this.tenant, pw.this.qi)))
+    runners = []
+    real_init = GraphRunner.__init__
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        runners.append(self)
+
+    def post(tenant, qi):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/", data=json.dumps({"tenant": tenant, "qi": qi}).encode(),
+                                     headers={"Content-Type": "application/json", "X-Pathway-Tenant": tenant})
+        t1 = now()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return tenant, qi, resp.status, json.loads(resp.read().decode()), (now() - t1) * 1e3
+        except urllib.error.HTTPError as e:
+            return tenant, qi, e.code, json.loads(e.read().decode()), (now() - t1) * 1e3
+
+    def client(c):
+        return [post(served_tenants[(c + j) % len(served_tenants)], (c * served + j) % served) for j in range(served)]
+
+    out: dict = {}
+    GraphRunner.__init__ = recording_init
+    try:
+        _build.reset_launches()
+        run = threading.Thread(target=lambda: out.update(r=pw.run(
+            tenancy=spec, chip_ledger=True, with_http_server=True, monitoring_http_port=mport)), daemon=True)
+        run.start()
+        for _ in range(600):
+            try:
+                with socket.create_connection(("127.0.0.1", port), timeout=1):
+                    break
+            except OSError:
+                time.sleep(0.05)
+        t0 = now()
+        with concurrent.futures.ThreadPoolExecutor(clients) as ex:
+            replies = [r for rs in ex.map(client, range(clients)) for r in rs]
+        serve_s = now() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=60) as resp:
+            scrape = resp.read().decode()
+    finally:
+        if runners:
+            runners[-1].engine.stop()
+        GraphRunner.__init__ = real_init
+    run.join(timeout=120)
+    pw.clear_graph()
+    torch.cuda.synchronize()
+    served_launches = dict(_build.LAUNCHES)
+    if run.is_alive() or "r" not in out:
+        raise AssertionError("the served tenant run did not end cleanly")
+    shed = [r for r in replies if r[2] != 200]
+    ok = [r for r in replies if r[2] == 200]
+    bad_sheds = [r for r in shed if r[0] != "capped" or r[2] != 429 or r[3].get("reason") != "tenant_rate_limited"]
+    replay_bad = [r for r in ok if r[3] != [[int(kk), float(s)] for kk, s in
+                                           slab.search_tenant_batch(r[0], qbank[r[0]][r[1]][None, :], k)[0]]]
+
+    def series(metric, tenant):
+        for line in scrape.splitlines():
+            if line.startswith(f'{metric}{{tenant="{tenant}"'):
+                return float(line.rsplit(" ", 1)[1])
+        return None
+
+    chip_share = {t: {"weight": weights.get(t), "served": sum(1 for r in ok if r[0] == t),
+                      "serving_chip_seconds": series("pathway_serving_tenant_chip_seconds_total", t),
+                      "chip_ledger_seconds": series("pathway_chip_tenant_seconds_total", t)}
+                  for t in served_tenants}
+
+    # ---- gates
+    missing = [key for key in ("knn_topk_stream", "knn_topk_tc", "knn_topk_merge") if launches.get(key, 0) == 0]
+    if missing or served_launches.get("knn_topk_stream", 0) == 0:
+        raise AssertionError(f"tenant_path never launched {missing} (served: {served_launches})")
+    if crossed or disagree:
+        raise AssertionError(f"tenant searches crossed tenants ({len(crossed)}) or left their private indexes "
+                             f"({len(disagree)} of {len(held_private)})")
+    if not (all(cold_ok) and all(promoted_ok)) or cold_count < n_tenants - query_tenants:
+        raise AssertionError(f"demotion: {cold_count} tenants cold, host scans {cold_ok}, promoted {promoted_ok}")
+    if hot_bytes != slab.capacity * row_b or tenant_bytes != hot_bytes:
+        raise AssertionError(f"index.tenant {tenant_bytes} bytes against index.hot {hot_bytes}")
+    capped = [r for r in replies if r[0] == "capped"]
+    if bad_sheds or replay_bad or not any(r[2] == 429 for r in capped):
+        raise AssertionError(f"served: {len(bad_sheds)} untyped sheds, {len(replay_bad)} answers off the replay, "
+                             f"{sum(r[2] == 429 for r in capped)} of {len(capped)} capped requests shed")
+    result = dict(
+        tenants=n_tenants, docs_per_tenant=per_tenant, slab_rows=slab.capacity, slab_bytes=slab.capacity * row_b,
+        add_seconds=add_s, search_seconds=search_s, single=_percentiles(lat_single),
+        batch_of_64=_percentiles(lat_batch), singles=len(lat_single), batches=len(lat_batch),
+        tenants_held_private=len(checked), results_held_private=len(held_private), crossed=len(crossed),
+        demote_seconds=demote_s, cold_tenants=cold_count, cold_held=len(never),
+        index_tenant_bytes=tenant_bytes, index_hot_bytes=hot_bytes,
+        served_requests=len(replies), served_ok=len(ok), shed_429=len(shed), serve_seconds=serve_s,
+        served_p50_ms=_percentiles([r[4] for r in ok])["p50_ms"], per_tenant=chip_share,
+        launches=launches, served_launches=served_launches, phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit("tenant_path", **result)
+    launches = collections.Counter(launches)
+    launches.update(served_launches)
+    return dict(launches)
+
+
+# ------------------------------------------------------------------ tier_path
+
+TIER_DOCS = 1 << 20
+TIER_HOT = 1 << 17
+TIER_CLUSTERS = 256
+TIER_PROBE = 16
+TIER_GROUP = 10  # documents of one near-duplicate group (chunks of one source)
+TIER_SINGLES = 1024
+TIER_BATCHES = 8
+TIER_BATCH = 256
+TIER_SELF = 4096
+TIER_RECALL_FLOOR = 0.95  # the reference's floor (tests/test_tiered_index.py)
+TIER_RESCORE_TOL = 1e-5  # a rescore against the same rows copied afresh (f32)
+
+
+def phase_tier_path(torch, n_docs: int = TIER_DOCS, hot_rows: int = TIER_HOT, n_clusters: int = TIER_CLUSTERS,
+                    n_probe: int = TIER_PROBE, n_singles: int = TIER_SINGLES, n_batches: int = TIER_BATCHES,
+                    batch: int = TIER_BATCH, n_self: int = TIER_SELF) -> dict:
+    """The tiered index at MiniLM-L6 width (d 384, cos): ``n_docs``
+    documents drawn round ``n_clusters`` Gaussian centres, in groups of
+    ``TIER_GROUP`` near-duplicates, into a ``TieredKnnIndex`` with an int8
+    cold tier on the host, ``hot_rows`` hot rows on the card (B2) and
+    ``n_probe`` probed clusters; ``n_singles`` single queries and
+    ``n_batches`` batches of ``batch`` on Zipf-skewed clusters (promotion has
+    work), one forced demote and promote cycle, then every document demoted
+    (the int8 recall floor). Every cold rescore is checked against the same
+    rows copied afresh (the staging ring's check); recall@10 against an exact
+    f32 scan on the card; a second index with every document hot equals
+    ``DeviceKnnIndex.search_batch`` exactly."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch import DeviceKnnIndex
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.index_metrics import INDEX_METRICS
+    from pathway_tpu_torch.ops.knn import _topk_lower_index
+    from pathway_tpu_torch.ops.tiered_knn import TierConfig, TieredKnnIndex, cold_scores
+
+    t_phase = time.perf_counter()
+    now = time.perf_counter
+    dim, k = 384, 10
+    rng = np.random.default_rng(SEED + 40)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 40)
+    n_groups = -(-n_docs // TIER_GROUP)
+    centres = torch.randn(n_clusters, dim, device=DEV, generator=g)
+    group_cluster = torch.randint(0, n_clusters, (n_groups,), device=DEV, generator=g)
+    groups = centres[group_cluster] + 0.5 * torch.randn(n_groups, dim, device=DEV, generator=g)
+    group_of = torch.arange(n_docs, device=DEV) // TIER_GROUP
+    docs_dev = F.normalize(groups[group_of] + 0.25 * torch.randn(n_docs, dim, device=DEV, generator=g), dim=1)
+    docs = docs_dev.cpu().numpy()
+    cluster_groups = [np.nonzero(group_cluster.cpu().numpy() == c)[0] for c in range(n_clusters)]
+    groups_h = groups.cpu().numpy()
+    zipf = 1.0 / np.arange(1, n_clusters + 1) ** 1.1
+    cluster_rank = rng.permutation(n_clusters)
+
+    def queries(n):
+        cs = cluster_rank[rng.choice(n_clusters, n, p=zipf / zipf.sum())]
+        gs = np.asarray([rng.choice(cluster_groups[c]) for c in cs])
+        return (groups_h[gs] + 0.25 * rng.standard_normal((n, dim))).astype(np.float32)
+
+    def exact(q):
+        qd = F.normalize(torch.from_numpy(q).to(DEV), dim=1)
+        return _topk_lower_index(qd @ docs_dev.T, k)[1].cpu().numpy()
+
+    def recall(q, res):
+        truth = exact(q)
+        return float(np.mean([len(set(truth[i].tolist()) & {kk for kk, _ in res[i]}) / k for i in range(len(q))]))
+
+    INDEX_METRICS.reset()
+    tier = TieredKnnIndex(dim, reserved_space=n_docs, name="tiered", device=DEV,
+                          tiers=TierConfig(hot_rows=hot_rows, n_clusters=n_clusters, n_probe=n_probe,
+                                           cold_dtype="int8"))
+    t0 = now()
+    step = 1 << 16
+    for lo in range(0, n_docs, step):
+        tier.add_batch_arrays(list(range(lo, min(n_docs, lo + step))), docs[lo:lo + step])
+    ingest_s = now() - t0
+    if tier.hot_docs() != hot_rows or tier.cold_docs() != n_docs - hot_rows:
+        raise AssertionError(f"{tier.hot_docs()} hot and {tier.cold_docs()} cold documents")
+    cold_host_bytes = tier._cold._q.nbytes + tier._cold._scale.nbytes
+
+    rescore_err = []
+    real_score = tier._cold_score
+
+    def checked_score(q, payload):
+        got = real_score(q, payload)
+        fresh = [torch.from_numpy(np.array(a, copy=True)).to(DEV) for a in payload]
+        docs_f = fresh[0].to(torch.float32) * (fresh[1] / 127.0)[:, None]
+        want = cold_scores("cos", torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(DEV), docs_f)
+        rescore_err.append(held("cold rescore", got, want, rtol=0.0, atol=TIER_RESCORE_TOL))
+        return got
+
+    tier._cold_score = checked_score
+    singles = queries(n_singles)
+    batches = [queries(batch) for _ in range(n_batches)]
+    tier.search_batch(singles[:1], k)  # uploads the hot slab (not timed)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lat, res_single = [], []
+    t0 = now()
+    for i in range(n_singles):
+        t1 = now()
+        res_single.append(tier.search_batch(singles[i:i + 1], k)[0])
+        lat.append((now() - t1) * 1e3)
+    single_s = now() - t0
+    res_batches, batch_ms = [], []
+    for q in batches:
+        t1 = now()
+        res_batches.append(tier.search_batch(q, k))
+        batch_ms.append((now() - t1) * 1e3)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    snap = INDEX_METRICS.snapshot()
+    tiers_snap = dict(snap["indexes"]["tiered"]["tiers"])
+    fetch = snap["cold_fetch_seconds"]
+    traffic_recall = recall(np.concatenate([singles] + batches),
+                            res_single + [r for rb in res_batches for r in rb])
+    dups = sum(len(row) != len({kk for kk, _ in row}) for row in res_single + [r for rb in res_batches for r in rb])
+
+    # one forced demote and promote cycle on the most queried hot cluster
+    hot_clusters = [c for c in np.argsort(-tier._hits) if len(tier._members[c]) > len(tier._cold_keys[c])]
+    c = int(hot_clusters[0])
+    promos, demos = tiers_snap["promotions"], tiers_snap["demotions"]
+    moved = tier.force_demote([c])
+    gs = cluster_groups[c]
+    for _ in range(2):
+        tier.search_batch((groups_h[rng.choice(gs, batch)] + 0.25 * rng.standard_normal((batch, dim))
+                           ).astype(np.float32), k)
+    tier.maybe_rebalance(force=True)
+    cyc = INDEX_METRICS.snapshot()["indexes"]["tiered"]["tiers"]
+    cycled = moved > 0 and cyc["demotions"] > demos and cyc["promotions"] > promos
+    # every key still found after the cycle: self-queries
+    sample = rng.choice(n_docs, n_self, replace=False)
+    lost = 0
+    for lo in range(0, n_self, batch):
+        ids = sample[lo:lo + batch]
+        res = tier.search_batch(docs[ids], k)
+        lost += sum(int(i) not in {kk for kk, _ in row} for i, row in zip(ids, res))
+    # every document demoted: the int8 recall floor
+    tier.force_demote()
+    demoted_q = np.concatenate([queries(batch), queries(batch)])
+    demoted_res = tier.search_batch(demoted_q[:batch], k) + tier.search_batch(demoted_q[batch:], k)
+    demoted_recall = recall(demoted_q, demoted_res)
+    ring = tier._cold_ring.stats()
+
+    # a second index with every document hot equals the flat index exactly
+    n_hot = min(hot_rows, n_docs)
+    all_hot = TieredKnnIndex(dim, reserved_space=n_hot, device=DEV,
+                             tiers=TierConfig(hot_rows=n_hot, n_clusters=n_clusters, n_probe=n_probe))
+    flat = DeviceKnnIndex(dim, reserved_space=n_hot, device=DEV)
+    all_hot.add_batch_arrays(list(range(n_hot)), docs[:n_hot])
+    flat.add_batch_arrays(list(range(n_hot)), docs[:n_hot])
+    hq = queries(batch)
+    same = all_hot.cold_docs() == 0 and all(
+        all_hot.search_batch(hq[i:i + 1], k) == flat.search_batch(hq[i:i + 1], k) for i in range(64)
+    ) and all_hot.search_batch(hq, k) == flat.search_batch(hq, k)
+
+    # ---- gates
+    missing = [key for key in ("knn_topk_stream", "knn_topk_merge") if launches.get(key, 0) == 0]
+    if missing:
+        raise AssertionError(f"tier_path never launched {missing}")
+    if dups or lost or not cycled or not same:
+        raise AssertionError(f"tier_path: {dups} results with a key twice, {lost} of {n_self} self-queries lost, "
+                             f"cycle {cycled} (moved {moved}), all-hot equal to flat {same}")
+    if demoted_recall < TIER_RECALL_FLOOR or not rescore_err:
+        raise AssertionError(f"int8 recall@10 under forced demotion {demoted_recall} < {TIER_RECALL_FLOOR}")
+    result = dict(
+        docs=n_docs, hot_rows=hot_rows, clusters=n_clusters, probe=n_probe, cold_host_bytes=cold_host_bytes,
+        ingest_seconds=ingest_s, single=_percentiles(lat), singles_per_s=n_singles / single_s,
+        batch_of_256_ms=batch_ms, recall_at_10=traffic_recall, demoted_recall_at_10=demoted_recall,
+        hot_hit_ratio=tiers_snap["hot_hit_ratio"], promotions=tiers_snap["promotions"],
+        demotions=tiers_snap["demotions"], cold_fetch_seconds=fetch.get("sum"), cold_fetches=fetch.get("count"),
+        cycle_moved=moved, self_queries=n_self, self_lost=lost, rescores_checked=len(rescore_err),
+        rescore_max_abs_err=max(rescore_err), ring=ring, launches=launches,
+        phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit("tier_path", **result)
+    return launches
+
+
+# -------------------------------------------------------------- profile_phase
+
+PROFILE_DOCS = 16_384
+PROFILE_QUERIES = 64
+
+
+def phase_profile(torch, n_docs: int = PROFILE_DOCS, n_queries: int = PROFILE_QUERIES) -> dict:
+    """``engine_path``'s pipeline, the embedder as a UDF column of its own,
+    under ``pw.run(profile=path, chip_ledger=True)`` with
+    ``PATHWAY_JOURNAL_DIR`` set: ``n_docs`` streamed documents,
+    ``n_queries`` single text queries and a batch of as many. The Chrome trace must parse and carry self-times for the
+    connector, the embedder's UDF and the index; ``ENCODER_KERNEL_STATS``
+    its pad fraction and achieved TFLOP/s (the encode MFU against the
+    card's 989 TFLOP/s bf16 peak); ``python -m pathway_tpu_torch top --once``
+    and ``perf snapshot`` run on the journal in a subprocess and exit 0."""
+    import shutil
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.chip_ledger import CHIP_LEDGER
+    from pathway_tpu_torch.internals.profiler import ENCODER_KERNEL_STATS
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.perf.journal import get_journal
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    journal_dir, trace_path = os.path.join(root, "journal"), os.path.join(root, "profile.json")
+    rng = np.random.default_rng(SEED + 50)
+    texts = _synthetic_texts_bulk(rng, n_docs, 20, 220)
+    singles = _synthetic_texts(rng, n_queries, 5, 40)
+    batch_q = _synthetic_texts(rng, n_queries, 5, 40)
+    embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder()
+    embedder(["warm up the encoder"])
+    prev = os.environ.get("PATHWAY_JOURNAL_DIR")
+    os.environ["PATHWAY_JOURNAL_DIR"] = journal_dir
+    try:
+        torch.cuda.synchronize()
+        ENCODER_KERNEL_STATS.reset()
+        CHIP_LEDGER.reset()
+        _build.reset_launches()
+        answers, ingest_s, run_s = _stream_and_query(torch, pw, embedder, texts, singles, batch_q, 1024,
+                                                     embed_in_udf=True, profile=trace_path, chip_ledger=True)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        enc = ENCODER_KERNEL_STATS.snapshot()
+        chip = CHIP_LEDGER.snapshot()
+        journal = get_journal(journal_dir)
+        journal.append("bench", {"suite": "chip_smoke.profile_phase", "records": [
+            {"metric": "profile_phase_docs_per_s", "value": n_docs / ingest_s, "unit": "docs/s"},
+            {"metric": "profile_phase_run_s", "value": run_s, "unit": "s"}],
+            "headline": {"metric": "encode_achieved_tflops", "value": enc["achieved_tflops"], "unit": "TFLOP/s"}})
+    finally:
+        if prev is None:
+            os.environ.pop("PATHWAY_JOURNAL_DIR", None)
+        else:
+            os.environ["PATHWAY_JOURNAL_DIR"] = prev
+    with open(trace_path) as fh:
+        trace = json.load(fh)
+    self_ms: dict[str, float] = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "operator":
+            self_ms[e["name"]] = self_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+    cli = {}
+    for cmd in (["top", "--once", "--journal", journal_dir], ["perf", "snapshot", "--journal", journal_dir]):
+        proc = subprocess.run([sys.executable, "-m", "pathway_tpu_torch", *cmd], capture_output=True, text=True,
+                              timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli[cmd[0]] = {"rc": proc.returncode, "stdout_lines": len(proc.stdout.splitlines()),
+                       "stderr": proc.stderr[-400:]}
+    mfu = chip.get("encode_mfu") or {}
+
+    # ---- gates
+    want_ops = {"connector": ("SessionSourceNode",), "embedder": ("BatchApply", "AsyncApply"),
+                "index": ("ExternalIndex",)}
+    found = {role: sorted(n for n in self_ms if any(p in n for p in pats)) for role, pats in want_ops.items()}
+    missing = [key for key in ("gemm_bias_act", "knn_topk_stream", "knn_topk_merge") if launches.get(key, 0) == 0]
+    if missing or not all(found.values()):
+        raise AssertionError(f"profile_phase: launches missing {missing}; operators found {found} in {sorted(self_ms)}")
+    if not (enc["dispatches"] and 0.0 <= enc["pad_fraction"] < 1.0 and enc["achieved_tflops"] > 0 and mfu):
+        raise AssertionError(f"profile_phase: encoder statistics {enc}, encode MFU {mfu}")
+    if any(v["rc"] != 0 for v in cli.values()) or len(answers) != 2 * n_queries:
+        raise AssertionError(f"profile_phase: CLI {cli}, {len(answers)} answers")
+    result = dict(
+        docs=n_docs, queries=2 * n_queries, ingest_seconds=ingest_s, run_seconds=run_s,
+        trace_events=len(trace["traceEvents"]), operators_found=found,
+        operator_self_ms={n: round(v, 3) for n, v in sorted(self_ms.items(), key=lambda kv: -kv[1])[:12]},
+        encoder=enc, encode_mfu=mfu, cli=cli, launches=launches, phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit("profile_phase", **result)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -3240,12 +3838,15 @@ def main(argv: list[str]) -> int:
     launches.update(rag_launches)
     launches.update(phase_decode_path(torch, cross))
     launches.update(phase_engine_path(torch))
+    launches.update(phase_profile(torch))
     launches.update(phase_server_path(torch))
     launches.update(phase_mesh_path(torch))
     launches.update(phase_decode_ext_path(torch))
     launches.update(phase_qa_path(torch))
     launches.update(phase_observe_path(torch, env))
-    for e in entries:  # launches summed over the nine paths' counted runs
+    launches.update(phase_tenant_path(torch))
+    launches.update(phase_tier_path(torch))
+    for e in entries:  # launches summed over the twelve paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -38,13 +38,19 @@ HTTP server, behind the serving plane with ``serving=``. The observability
 planes (``tracing``, ``freshness``, the chip-time and HBM ledgers with the
 health watchdog, the flight recorder, ``/metrics`` and ``/status``) turn on
 with ``pw.run(tracing=, chip_ledger=, freshness=, watchdog=,
-with_http_server=)``. Entry points run on ``"cuda"`` unless the caller
-passes ``device="cpu"``. The package imports torch and numpy only.
+with_http_server=)``; the run profiler, the metrics journal and the OTLP
+exporter with ``profile=``, ``PATHWAY_JOURNAL_DIR`` and
+``PATHWAY_TELEMETRY_SERVER``. Many tenants share one packed slab
+(``tenancy``, ``pw.run(tenancy=)``), and a tiered index keeps a corpus
+larger than the card (``pw.run(index_tiers=)``). ``python -m
+pathway_tpu_torch`` is the command line. Entry points run on ``"cuda"``
+unless the caller passes ``device="cpu"``. The package imports torch and
+numpy only.
 """
 
 import datetime as _datetime
 
-from . import debug, freshness, io, reducers, serving, stdlib, tracing, xpacks
+from . import debug, freshness, io, reducers, resilience, serving, stdlib, tenancy, tracing, xpacks
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
 from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_make_pointer, wrap_py_object
@@ -67,6 +73,7 @@ from .internals.expression import (
     require,
     unwrap,
 )
+from .internals.licensing import License, LicenseError
 from .internals.parse_graph import G as parse_graph
 from .internals.parse_graph import clear_graph
 from .internals.run import RunResult, run, run_all
@@ -79,6 +86,7 @@ from .internals.schema import (
     schema_from_types,
 )
 from .internals.table import GroupedTable, JoinMode, JoinResult, Table
+from .internals.telemetry import Telemetry
 from .internals.thisclass import left, right, this
 from .internals.udfs import UDF, udf
 from .models.encoder import EncoderConfig
@@ -87,6 +95,7 @@ from .models.sentence_encoder import CrossEncoderScorer, SentenceEncoder
 from .ops.fused_rag import FusedRagPipeline
 from .ops.knn import DeviceKnnIndex
 from .stdlib import indexing, ml
+from .tenancy import TenancyConfig, TenantQuotas
 
 DateTimeNaive = _datetime.datetime
 DateTimeUtc = _datetime.datetime
@@ -119,6 +128,8 @@ __all__ = [
     "JoinMode",
     "JoinResult",
     "Json",
+    "License",
+    "LicenseError",
     "Pointer",
     "PyObjectWrapper",
     "RunResult",
@@ -126,6 +137,9 @@ __all__ = [
     "Schema",
     "SentenceEncoder",
     "Table",
+    "Telemetry",
+    "TenancyConfig",
+    "TenantQuotas",
     "UDF",
     "apply",
     "apply_async",
@@ -140,9 +154,9 @@ __all__ = [
     "declare_type",
     "dt",
     "fill_error",
+    "freshness",
     "if_else",
     "indexing",
-    "freshness",
     "io",
     "left",
     "make_tuple",
@@ -151,6 +165,7 @@ __all__ = [
     "reducers",
     "ref_scalar",
     "require",
+    "resilience",
     "resolve_device",
     "right",
     "run",
@@ -160,6 +175,7 @@ __all__ = [
     "schema_from_types",
     "serving",
     "stdlib",
+    "tenancy",
     "this",
     "tracing",
     "udf",

@@ -559,6 +559,10 @@ class DecodeEngine:
         self._lens = np.zeros(lanes, np.int32)
         self._pending: deque[DecodeTicket] = deque()
         self.steps = 0
+        from ..internals.profiler import wrap_jit
+
+        # the run profiler's build / execute split of each tick
+        self.step = wrap_jit("decode.step", self.step)
         DECODE_METRICS.set_pool(self.pool.pages_in_use, self.pool.n_pages)
         self._ledger_update()
         from ..internals.ledger import LEDGER, pytree_nbytes

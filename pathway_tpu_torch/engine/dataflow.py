@@ -1845,12 +1845,23 @@ class BatchApplyNode(Node):
                     out.append((key, orow, -1))
             else:
                 pending.append((key, row))
+        prof = self.graph.profiler
         for lo in range(0, len(pending), self.max_batch_size):
             chunk = pending[lo : lo + self.max_batch_size]
             arg_cols = list(zip(*[self.row_args_fn(k, r) for k, r in chunk]))
             try:
                 with ROW_TRACES.bind([k for k, _ in chunk]):
-                    results = self.batch_fn(*[list(c) for c in arg_cols])
+                    if prof is not None:
+                        # batch-UDF timing: calls through a wrap_jit'd model
+                        # split build vs execute themselves; a plain batch
+                        # function reports the whole call as execute
+                        t0 = _wall.perf_counter_ns()
+                        results = self.batch_fn(*[list(c) for c in arg_cols])
+                        if not getattr(self.batch_fn, "__wrapped__", None):
+                            prof.record_jit(f"batch_udf/{self.name}", "execute", _wall.perf_counter_ns() - t0,
+                                            len(chunk))
+                    else:
+                        results = self.batch_fn(*[list(c) for c in arg_cols])
                 if len(results) != len(chunk):
                     raise ValueError(
                         f"batch UDF returned {len(results)} results for "
@@ -1923,6 +1934,9 @@ class EngineGraph:
         self._error_seq = 0
         # multi-worker: set by parallel.sharded.ShardCluster
         self.cluster = None
+        # the run profiler (internals.profiler.RunProfiler), attached by
+        # GraphRunner.attach_profiler; None = no timing
+        self.profiler = None
         # epoch-completion observers (time, wall seconds of the epoch's
         # sweep): the serving batcher's query-dispatch slots
         self.epoch_observers: list[Callable[[int, float], None]] = []
@@ -2043,22 +2057,45 @@ class EngineGraph:
 
     # --- execution ---
 
-    def _topo_pass(self, time):
+    def _topo_pass(self, time, end_epoch: bool = True):
         # nodes are created in dependency order, so one ordered pass covers
         # forward edges; operators that emit "later" than their position
         # (external index answering as-of-now, ix pre-joins) create
         # back-edges — keep sweeping until quiescent.
+        prof = self.profiler
+        if prof is None:
+            while self._dirty:
+                for node in self.nodes:
+                    if node.id in self._dirty:
+                        self._dirty.discard(node.id)
+                        node.process(time)
+            # time-end notifications: outputs/captures deliver the epoch's
+            # consolidated changes
+            for node in self.nodes:
+                te = getattr(node, "time_end", None)
+                if te is not None:
+                    te(time)
+            return
+        # profiled sweep: the same control flow with each node's work
+        # timed; within one worker the calls are sequential, so folding
+        # re-processing into one slice per node-epoch is exact
+        wid = self.worker_id
+        prof.begin_epoch(wid)
         while self._dirty:
             for node in self.nodes:
                 if node.id in self._dirty:
                     self._dirty.discard(node.id)
+                    t0 = prof.now_ns()
                     node.process(time)
-        # time-end notifications: outputs/captures deliver the epoch's
-        # consolidated changes
+                    prof.record_process(wid, node, t0, prof.now_ns() - t0)
         for node in self.nodes:
             te = getattr(node, "time_end", None)
             if te is not None:
+                t0 = prof.now_ns()
                 te(time)
+                prof.record_process(wid, node, t0, prof.now_ns() - t0)
+        if end_epoch:
+            prof.end_epoch(wid, self, time)
 
     def _frontier_hooks(self, frontier):
         for node in self.nodes:
@@ -2119,12 +2156,16 @@ class EngineGraph:
             FRESHNESS.epoch_staged(int(t))
             _sweep0 = _wall.perf_counter()
             FRESHNESS.epoch_exec(int(t))
-            self._topo_pass(t)
+            # the profiler folds the epoch after it advanced: outputs were
+            # delivered inside the pass, and the fold is not the epoch's work
+            self._topo_pass(t, end_epoch=False)
             FRESHNESS.epoch_committed(int(t))
             if self.epoch_observers:
                 self._notify_epoch_observers(int(t), _wall.perf_counter() - _sweep0)
             last_time = t
             flight_recorder.record("epoch.advance", **_epoch_kw)
+            if self.profiler is not None:
+                self.profiler.end_epoch(self.worker_id, self, t)
             if monitoring_callback is not None:
                 monitoring_callback(self)
 

@@ -52,9 +52,9 @@ or ``PATHWAY_CHIP_LEDGER=1``; when off every hook is a no-op and every
 surface (``/metrics``, ``/status``) renders nothing, keeping scrapes
 byte-identical.
 
-The encode MFU column needs the encoder's kernel statistics
-(``internals/profiler.py``, still to port) and the card's peak: the port
-has no MFU column until the profiler comes, and none without a card.
+The encode MFU column reads the encoder's kernel statistics
+(``internals/profiler.ENCODER_KERNEL_STATS``) against the card's dense
+bf16 peak (989 TFLOP/s on an H100); without a card there is none.
 
 Import-light: stdlib only at module level; ``torch`` is looked up only when
 a block names a CUDA device.
@@ -318,11 +318,16 @@ class ChipTimeLedger:
 
     def _live_stalls(self) -> dict[str, float]:
         """Merge explicit stall notes with the registries that already
-        measure their own stall walls (the serving queue). Defensive:
-        accounting must never take a run down with it."""
+        measure their own stall walls (the staging rings, the serving
+        queue). Defensive: accounting must never take a run down with it."""
         stalls: dict[str, float]
         with self._lock:
             stalls = dict(self._stalls)
+        from ..engine.device_ring import active_rings
+
+        ring = sum(r.stage_stall_s for r in active_rings())
+        if ring > 0:
+            stalls["ring_stall"] = stalls.get("ring_stall", 0.0) + ring
         try:
             from ..serving.metrics import SERVING_METRICS
 
@@ -337,10 +342,22 @@ class ChipTimeLedger:
         return stalls
 
     def _mfu(self) -> dict[str, Any] | None:
-        """Encode-plane MFU against the card's peak. It reads the encoder's
-        kernel statistics, which come with ``internals/profiler.py``; until
-        then (and without a card) there is no MFU column."""
-        return None
+        """Encode-plane MFU against the card's peak, from the encoder's
+        kernel statistics (dispatch-clock achieved TFLOP/s over a window);
+        None before a dispatch and without a card."""
+        from .profiler import ENCODER_KERNEL_STATS
+
+        peak = chip_peak_tflops()
+        if not ENCODER_KERNEL_STATS.dispatches or peak is None:
+            return None
+        enc = ENCODER_KERNEL_STATS.snapshot()
+        achieved = float(enc.get("achieved_tflops", 0.0))
+        return {
+            "achieved_tflops": round(achieved, 3),
+            "peak_tflops": round(peak, 3),
+            "mfu": round(achieved / peak, 6) if peak > 0 else 0.0,
+            "pad_fraction": enc.get("pad_fraction", 0.0),
+        }
 
     def _tenant_block(self, tenants: dict[str, float]) -> dict[str, dict]:
         """Per-tenant chip-time share reconciled against DRR weights."""
@@ -352,9 +369,16 @@ class ChipTimeLedger:
             other = sum(s for _, s in ranked[_SNAPSHOT_TENANTS:])
             ranked = head + [("other", other)]
         total = sum(s for _, s in ranked) or 1.0
-        # configured DRR weights come with the tenancy plane; until then
-        # a tenant row carries its share only
+        # the configured DRR weights beside each tenant's share
+        from ..tenancy.config import active_tenancy
+
         weights: dict[str, float] = {}
+        plane = active_tenancy()
+        if plane is not None:
+            for t, _ in ranked:
+                q = plane.quota_for(t) if t != "other" else None
+                if q is not None:
+                    weights[t] = float(q.weight)
         wsum = sum(weights.values())
         out: dict[str, dict] = {}
         for t, s in ranked:

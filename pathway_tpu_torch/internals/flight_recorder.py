@@ -11,15 +11,15 @@ costs well under a microsecond and the steady-state overhead is noise.
 
 On a crash the ring is dumped to a timestamped JSON file:
 
-- ``pw.run`` dumps when the run fails, and the health watchdog dumps once
-  on its first critical breach (the chaos and supervisor dumps come with
-  the resilience plane, ROADMAP Queue A item 6).
+- ``pw.run`` dumps when the run fails, the health watchdog once on its
+  first critical breach, and a chaos kill or exit (``resilience/chaos.py``)
+  before its signal; the supervisor's dumps come with ROADMAP Queue A
+  item 6.
 
 Dumps live in ``PATHWAY_FLIGHT_RECORDER_DIR`` (default
 ``<tmp>/pathway-blackbox``) and are read back with :func:`load_dump`,
-:func:`render` and :func:`diff` (the ``pathway blackbox`` CLI comes with
-ROADMAP Queue A item 3). Set
-``PATHWAY_FLIGHT_RECORDER=0`` to disable recording entirely;
+:func:`render` and :func:`diff` (``python -m pathway_tpu_torch blackbox``).
+Set ``PATHWAY_FLIGHT_RECORDER=0`` to disable recording entirely;
 ``PATHWAY_FLIGHT_RECORDER_SIZE`` resizes the ring (default 512 events).
 """
 

@@ -227,6 +227,13 @@ class GraphRunner:
     def _cluster_engines(self) -> list[df.EngineGraph]:
         return [self.engine] + [r.engine for r in self._replicas]
 
+    def attach_profiler(self, profiler) -> None:
+        """Share one RunProfiler across every worker shard's engine (node
+        ids line up between replicas, so the profiler partitions its state
+        by (worker_id, node_id))."""
+        for engine in self._cluster_engines():
+            engine.profiler = profiler
+
     def run(self, monitoring_callback=None) -> None:
         if self._replicas:
             from ..parallel.sharded import ShardCluster

@@ -10,12 +10,12 @@ per-operator self-time histograms (``pathway_operator_self_time_seconds``)
 and event-time lag gauges (``pathway_operator_event_lag_seconds``).
 
 It renders the sections of the planes the port holds: serving, index,
-decode, tracing, the HBM ledger, the chip ledger and freshness, each only
-once its plane has seen activity. The sections of planes still to port
-(resilience and cluster health with ROADMAP Queue A items 5 and 6, the
-host-ingest stage with item 6, tenancy with item 4, elastic reshard with
-item 5) have no renderer yet, so they render nothing, exactly as the
-reference renders nothing for a plane that is off; ``/status`` carries the
+decode, tracing, the HBM ledger, tenancy, the chip ledger and freshness,
+each only once its plane has seen activity. The sections of planes still
+to port (resilience and cluster health with ROADMAP Queue A items 5 and 6,
+the host-ingest stage with item 6, elastic reshard with item 5) have no
+renderer yet, so they render nothing, exactly as the reference renders
+nothing for a plane that is off; ``/status`` carries the
 supervisor's and the retries' empty values. With every
 plane off a scrape is byte-identical to one from a run that never had
 them.
@@ -224,6 +224,7 @@ class MonitoringHttpServer:
         lines.extend(self._decode_lines(wl))
         lines.extend(self._tracing_lines(wl))
         lines.extend(self._ledger_lines(wl))
+        lines.extend(self._tenancy_lines(wl))
         lines.extend(self._chip_lines(wl))
         lines.extend(self._freshness_lines(wl))
         return "\n".join(lines) + "\n"
@@ -637,6 +638,63 @@ class MonitoringHttpServer:
         return lines
 
     @staticmethod
+    def _tenancy_lines(wl: str = "") -> list[str]:
+        """Per-tenant plane (``tenant``-labeled series under the
+        serving/index/hbm prefixes). Rendered only once a tenant was
+        ever named on an admit or index — single-tenant runs scrape
+        byte-identical. Tenants past PATHWAY_METRIC_TENANTS fold into
+        ``tenant="other"`` (the fold happens in snapshot(), so the
+        label set stays bounded no matter how many tenants exist)."""
+        from ..tenancy.metrics import TENANCY_METRICS
+
+        if not TENANCY_METRICS.active():
+            return []
+
+        def series(name: str, value, labels: str = "") -> str:
+            parts = ",".join(p for p in (labels, wl) if p)
+            return f"{name}{{{parts}}} {value}" if parts else f"{name} {value}"
+
+        snap = TENANCY_METRICS.snapshot()
+        tenants = snap["tenants"]
+        lines: list[str] = []
+        for metric, key, kind, fmt in (
+            ("pathway_serving_tenant_admitted_total", "admitted", "counter", str),
+            ("pathway_serving_tenant_degraded_total", "degraded", "counter", str),
+            ("pathway_serving_tenant_inflight", "inflight", "gauge", str),
+            (
+                "pathway_serving_tenant_chip_seconds_total",
+                "chip_seconds",
+                "counter",
+                lambda v: f"{v:.6f}",
+            ),
+            ("pathway_index_tenant_docs", "docs", "gauge", str),
+            ("pathway_index_tenant_searches_total", "searches", "counter", str),
+            ("pathway_hbm_tenant_bytes", "hbm_bytes", "gauge", str),
+        ):
+            lines.append(f"# TYPE {metric} {kind}")
+            for tenant, row in tenants.items():
+                lines.append(
+                    series(metric, fmt(row[key]), f'tenant="{_escape_label(tenant)}"')
+                )
+        shed_lines = [
+            series(
+                "pathway_serving_tenant_shed_total",
+                n,
+                f'tenant="{_escape_label(tenant)}",reason="{_escape_label(reason)}"',
+            )
+            for tenant, row in tenants.items()
+            for reason, n in sorted(row["shed"].items())
+        ]
+        if shed_lines:
+            lines.append("# TYPE pathway_serving_tenant_shed_total counter")
+            lines.extend(shed_lines)
+        lines.append("# TYPE pathway_tenant_count gauge")
+        lines.append(series("pathway_tenant_count", snap["tenant_count"]))
+        lines.append("# TYPE pathway_tenant_folded gauge")
+        lines.append(series("pathway_tenant_folded", snap["folded"]))
+        return lines
+
+    @staticmethod
     def _chip_lines(wl: str = "") -> list[str]:
         """Chip-time attribution plane (``pathway_chip_*``): per-account
         device-seconds/dispatches/share, the stranded residual with its
@@ -874,6 +932,10 @@ class MonitoringHttpServer:
 
         if LEDGER.active():
             status["hbm"] = LEDGER.snapshot()
+        from ..tenancy.metrics import TENANCY_METRICS
+
+        if TENANCY_METRICS.active():
+            status["tenants"] = TENANCY_METRICS.snapshot()
         from .chip_ledger import CHIP_LEDGER
 
         if CHIP_LEDGER.active():

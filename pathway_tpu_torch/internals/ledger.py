@@ -32,8 +32,7 @@ with like.
 * ``p99_burn`` — serving p99 (from the stage histograms) as a fraction
   of the deadline budget;
 * ``shed_rate`` — shed / offered fraction from the admission counters;
-* ``hot_hit_ratio`` — tiered-index hot-tier hit ratio (with the tiered
-  index, ROADMAP Queue A item 4);
+* ``hot_hit_ratio`` — tiered-index hot-tier hit ratio;
 * ``stranded_chip_time`` and ``freshness_slo`` from the chip ledger and
   the freshness plane.
 
@@ -775,9 +774,13 @@ class HealthWatchdog:
 
     @staticmethod
     def _tenants_snapshot() -> dict | None:
-        """Per-tenant block for the verdict; it comes with the tenancy
-        plane (ROADMAP Queue A item 4), None until then."""
-        return None
+        """Per-tenant block for the verdict (the doctor's tenant rows);
+        None unless the tenancy plane saw activity."""
+        from ..tenancy.metrics import TENANCY_METRICS
+
+        if not TENANCY_METRICS.active():
+            return None
+        return TENANCY_METRICS.snapshot()
 
     # -- thread --
 

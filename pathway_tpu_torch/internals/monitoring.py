@@ -8,10 +8,11 @@ operator/connector stats from the engine; ``LiveDashboard`` renders them
 as the reference's PROGRESS DASHBOARD — a connectors table (messages in
 the last minibatch / last minute / since start), an operators table
 (latency to wall clock), and a LOGS panel capturing the root logger —
-refreshed live via ``rich.live.Live``. The snapshot fields of planes the
-port does not hold yet (the profiler's encoder statistics and operator
-self-times, the host-ingest stage, the overlapped epoch pipeline, the
-tiered index) stay at their zero values, so nothing renders for them.
+refreshed live via ``rich.live.Live``. With a profiler attached it adds
+the operators' self-times and event lags; once the encoder dispatched,
+its kernel column (achieved TFLOP/s, pad fraction). The snapshot fields of
+planes the port does not hold yet (the host-ingest stage, the overlapped
+epoch pipeline) stay at their zero values, so nothing renders for them.
 """
 
 from __future__ import annotations
@@ -276,6 +277,14 @@ class StatsMonitor:
                 snap.operator_self_time_s[key] = agg["self_time_s"]
                 if agg["event_lag_s"] is not None:
                     snap.operator_event_lag_s[key] = agg["event_lag_s"]
+        from .profiler import ENCODER_KERNEL_STATS
+
+        if ENCODER_KERNEL_STATS.dispatches:
+            enc = ENCODER_KERNEL_STATS.snapshot()
+            snap.encoder_achieved_tflops = enc["achieved_tflops"]
+            snap.encoder_pad_fraction = enc["pad_fraction"]
+            snap.encoder_dispatches = enc["dispatches"]
+            snap.encoder_skipped_tokens = enc["skipped_tokens"]
         from ..ops.index_metrics import INDEX_METRICS
 
         if INDEX_METRICS.tiered_active():

@@ -29,11 +29,27 @@ env-enabled plane off for the run) and are written into
 
 The flight recorder is always on; a failing run dumps it
 (``RunResult.flight_recorder_dumps`` lists dumps written during a run).
-``profile=`` / ``PATHWAY_PROFILE``, ``PATHWAY_JOURNAL_DIR``,
-``PATHWAY_TELEMETRY_SERVER`` / ``PATHWAY_MONITORING_SERVER`` and
-``license_key`` / ``PATHWAY_LICENSE_KEY`` still raise: the profiler, the
-metrics journal, the OTLP exporter and licensing are the rest of ROADMAP
-Queue A item 3.
+
+- ``profile=`` (``True``: ``pathway_profile.json``, or a path) /
+  ``PATHWAY_PROFILE``: the per-operator run profiler
+  (``internals/profiler.py``), its Chrome trace written at the end; the
+  profiler also attaches when telemetry or ``with_http_server`` is on;
+- ``PATHWAY_JOURNAL_DIR``: the metrics journal's sampler runs for the run
+  (``perf/journal.py``);
+- ``PATHWAY_TELEMETRY_SERVER``: the OTLP exporter (a file path or an
+  http(s) collector; ``internals/telemetry.py``) gets the run span, the
+  operators' spans and, with tracing on, the request traces;
+  ``PATHWAY_MONITORING_SERVER`` is accepted as the reference accepts it;
+- ``license_key=`` / ``PATHWAY_LICENSE_KEY``: the license tier, whose free
+  tier caps the engine workers (``internals/licensing.py``).
+
+``index_tiers=`` (or ``PATHWAY_INDEX_TIERS``) and ``tenancy=`` (or
+``PATHWAY_TENANCY``) are parsed into ``G.run_context["index_tiers"]`` and
+``["tenancy"]`` (the configs' knobs, None when off or malformed); an
+argument is installed as the run-scoped config for the run only
+(``ops.tiered_knn.active_tiers``, ``tenancy.active_tenancy``): the
+indexes built while the run lowers its graph become tiered, and the
+serving plane and the packed slabs read the tenancy.
 
 ``mesh=`` (or ``PATHWAY_MESH``) shards the device-backed indexes over a
 mesh's data axis: the spec is parsed into ``G.run_context["mesh_axes"]``
@@ -62,24 +78,24 @@ from dataclasses import dataclass, field
 from typing import Any
 
 from ..decode.config import parse_decode_spec, use_decode
+from ..ops.tiered_knn import parse_tier_spec, use_tiers
 from ..parallel.mesh import parse_mesh_spec, resolve_mesh, use_mesh
 from ..parallel.sharding import CLUSTER_ITEM
+from ..tenancy.config import parse_tenancy_spec, use_tenancy
 from . import flight_recorder
 from .graph_runner import GraphRunner
+from .licensing import License, check_worker_count
 from .parse_graph import G
 
 logger = logging.getLogger(__name__)
 
 # ROADMAP Queue A items of the planes a run option belongs to
-_PLANES = "ROADMAP Queue A item 3 (the profiler, metrics journal, telemetry exporter and licensing)"
-_TIERS = "ROADMAP Queue A item 4 (tiered and tenant indexes)"
 _MULTI = CLUSTER_ITEM
 _DURABLE = "ROADMAP Queue A item 6 (persistence, recovery and the epoch pipeline)"
 _VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
 
 # keyword -> (value that leaves the plane off, ROADMAP item)
 _UNPORTED_KWARGS = {
-    "profile": (None, _PLANES),
     "persistence_config": (None, _DURABLE),
     "recovery": (None, _DURABLE),
     "ingest_workers": (None, _DURABLE),
@@ -88,26 +104,16 @@ _UNPORTED_KWARGS = {
     "cluster_hello_timeout": (None, _MULTI),
     "cluster_lease_ms": (None, _MULTI),
     "cluster_partial_restarts": (None, _MULTI),
-    "index_tiers": (None, _TIERS),
-    "tenancy": (None, _TIERS),
     "analysis": (None, _VERIFIER),
-    "license_key": (None, _PLANES),
 }
 
 # environment variable -> (values that leave the plane off, ROADMAP item)
 _UNPORTED_ENV = {
-    "PATHWAY_MONITORING_SERVER": ((), _PLANES),
-    "PATHWAY_PROFILE": ((), _PLANES),
-    "PATHWAY_JOURNAL_DIR": ((), _PLANES),
-    "PATHWAY_TELEMETRY_SERVER": ((), _PLANES),
-    "PATHWAY_LICENSE_KEY": ((), _PLANES),
     "PATHWAY_REPLAY_STORAGE": ((), _DURABLE),
     "PATHWAY_PIPELINE_DEPTH": (("1",), _DURABLE),
     "PATHWAY_INGEST_WORKERS": (("0",), _DURABLE),
     "PATHWAY_PROCESSES": (("1",), _MULTI),
     "PATHWAY_ELASTIC": (("0", "false", "no", "off"), _MULTI),
-    "PATHWAY_INDEX_TIERS": ((), _TIERS),
-    "PATHWAY_TENANCY": (("0", "false", "no", "off"), _TIERS),
     "PATHWAY_ANALYSIS": (("off",), _VERIFIER),
 }
 
@@ -181,6 +187,10 @@ def run(
     watchdog: Any = None,
     chip_ledger: Any = None,
     freshness: Any = None,
+    index_tiers: Any = None,
+    tenancy: Any = None,
+    profile: Any = None,
+    license_key: str | None = None,
     **kwargs: Any,
 ) -> RunResult:
     """Execute all registered outputs/subscriptions to completion (static
@@ -206,7 +216,14 @@ def run(
 
     ``decode``: a ``DecodeConfig`` or a spec (``True``, ``"pages=256,
     cache=on,chunk=64"``, a dict, ...) that the decode engines built in
-    this run without a config take."""
+    this run without a config take.
+
+    ``index_tiers``: a ``TierConfig`` or a spec (``"hot=4096,clusters=64,
+    probe=8"``, a dict, ...) that the device-backed indexes built in this
+    run take; ``tenancy``: a ``TenancyConfig`` or a spec (``{"quotas":
+    {...}}``, ``"qps=50,inflight=4"``, ...) for the serving plane and the
+    packed slabs; ``profile`` and ``license_key``: the profiler and the
+    license (module docstring)."""
     unknown = sorted(set(kwargs) - set(_UNPORTED_KWARGS))
     if unknown:
         raise TypeError(f"pw.run() got unexpected keyword arguments {unknown}")
@@ -226,23 +243,42 @@ def run(
             decode_cfg = parse_decode_spec(os.environ.get("PATHWAY_DECODE") or None)
         except ValueError:
             decode_cfg = None  # active_decode() treats it as off too
-    resolved = _resolve_planes(**planes)
+    tier_cfg = _parse_or_none(parse_tier_spec, index_tiers, "PATHWAY_INDEX_TIERS")
+    tenancy_cfg = _parse_or_none(parse_tenancy_spec, tenancy, "PATHWAY_TENANCY")
+    resolved = _resolve_planes(**planes, profile=profile)
     G.run_context = {
         "mesh_axes": mesh_axes,
+        "index_tiers": tier_cfg.as_dict() if tier_cfg is not None else None,
         "decode": decode_cfg.as_dict() if decode_cfg is not None else None,
+        "tenancy": tenancy_cfg.as_dict() if tenancy_cfg is not None else None,
         **resolved["context"],
     }
+    lic = License.new(license_key or os.environ.get("PATHWAY_LICENSE_KEY"))
+    check_worker_count(lic, _threads())  # the free tier's worker cap
     run_mesh = resolve_mesh(mesh)
     with contextlib.ExitStack() as scope:
         if run_mesh is not None:
             scope.enter_context(use_mesh(run_mesh))
+        if index_tiers is not None and tier_cfg is not None:
+            scope.enter_context(use_tiers(tier_cfg))
         if decode is not None and decode_cfg is not None:
             scope.enter_context(use_decode(decode_cfg))
+        if tenancy is not None and tenancy_cfg is not None:
+            scope.enter_context(use_tenancy(tenancy_cfg))
         return _run_observed(terminate_on_error, planes, resolved)
 
 
+def _parse_or_none(parse, spec, env: str):
+    """A run option's config, from the argument else its variable; None
+    when off or malformed (the reference's run context records None)."""
+    try:
+        return parse(spec if spec is not None else (os.environ.get(env) or None))
+    except ValueError:
+        return None
+
+
 def _resolve_planes(*, with_http_server, monitoring_http_port, monitoring_level, tracing, watchdog, chip_ledger,
-                    freshness) -> dict:
+                    freshness, profile=None) -> dict:
     """Resolve the observability options against their variables, as the
     reference does; a malformed watchdog or freshness spec raises here,
     before any sink is built."""
@@ -263,16 +299,23 @@ def _resolve_planes(*, with_http_server, monitoring_http_port, monitoring_level,
     )
     chip_on = bool(chip_ledger) if chip_ledger is not None else chip_ledger_enabled()
     level = MonitoringLevel.coerce(monitoring_level)
+    if profile is True:
+        profile_path: str | None = "pathway_profile.json"
+    elif profile:
+        profile_path = os.fspath(profile)
+    else:
+        profile_path = os.environ.get("PATHWAY_PROFILE") or None
     return {
         "tracing": tracing_on,
         "watchdog": watchdog_cfg,
         "freshness": freshness_cfg,
         "level": level,
+        "profile_path": profile_path,
         "context": {
             "monitoring_level": monitoring_level,
             "with_http_server": bool(with_http_server),
             "tracing": tracing_on,
-            "profile": False,
+            "profile": bool(profile) or bool(os.environ.get("PATHWAY_PROFILE")),
             "watchdog": watchdog_cfg is not None,
             "chip_ledger": chip_on,
             "freshness": freshness_cfg.as_dict() if freshness_cfg is not None else None,
@@ -288,8 +331,11 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
     from .. import tracing as _tracing
     from ..freshness.plane import FRESHNESS
     from ..io.http._server import _BOUND_PORTS
+    from ..perf.journal import JournalSampler, get_journal
     from .chip_ledger import CHIP_LEDGER
     from .monitoring import MonitoringLevel, monitor_stats
+    from .profiler import RunProfiler, set_current_profiler
+    from .telemetry import Telemetry
 
     result = RunResult()
     dumps_before = len(flight_recorder.RECORDER._dumped_paths)
@@ -300,6 +346,17 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
     prev_fresh = FRESHNESS._override
     FRESHNESS.set_enabled((resolved["freshness"] is not None) if planes["freshness"] is not None else None)
     FRESHNESS.configure(resolved["freshness"])
+    telemetry = Telemetry()  # PATHWAY_TELEMETRY_SERVER, else a no-op
+    # the profiler: asked for by profile= / PATHWAY_PROFILE, and along
+    # whenever a surface that shows its numbers is up (telemetry, /metrics)
+    profile_path = resolved["profile_path"]
+    profiler = None
+    if profile_path is not None or telemetry.enabled or planes["with_http_server"]:
+        profiler = RunProfiler()
+    journal = get_journal()
+    sampler = JournalSampler(journal) if journal is not None else None
+    if sampler is not None:
+        sampler.start()
     watchdog = None
     if resolved["watchdog"] is not None:
         from .ledger import HealthWatchdog
@@ -325,8 +382,11 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
                 http_server.start()
                 result.monitoring_http_port = http_server.port
                 monitor.http_port = http_server.port
+            if profiler is not None:
+                set_current_profiler(profiler)  # the wrap_jit and UDF hooks
             try:
-                _run_graph(terminate_on_error, monitor.update if monitor is not None else None)
+                with telemetry.span("graph_runner.run", workers=_threads()) as run_span:
+                    _run_graph(terminate_on_error, monitor.update if monitor is not None else None, profiler)
             except Exception as exc:
                 # unsupervised crash: keep the last engine events
                 path = flight_recorder.dump("crash", exc)
@@ -334,6 +394,22 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
                     logger.error("flight recorder dump written to %s", path)
                 raise
             finally:
+                if profiler is not None:
+                    set_current_profiler(None)
+                if monitor is not None:
+                    telemetry.gauge("rows_in", monitor.snapshot.rows_in)
+                    telemetry.gauge("rows_out", monitor.snapshot.rows_out)
+                if profiler is not None and telemetry.enabled:
+                    # operator spans nest under the run span and land before
+                    # the flush posts /v1/traces
+                    profiler.emit_telemetry(telemetry, parent=run_span)
+                if resolved["tracing"] and telemetry.enabled:
+                    # retained request traces ride the same flush with their
+                    # real trace / span ids
+                    _tracing.emit_telemetry(telemetry)
+                telemetry.flush()
+                if profiler is not None and profile_path is not None:
+                    profiler.write_chrome_trace(profile_path)
                 if http_server is not None:
                     http_server.stop()
     finally:
@@ -343,23 +419,37 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
             # leaves a verdict
             watchdog.evaluate_once()
             result.health = watchdog.verdict()
+            health_out = os.environ.get("PATHWAY_HEALTH_OUT")
+            if health_out:
+                # the doctor command's hand-off (cli.py)
+                import json
+
+                try:
+                    with open(health_out, "w", encoding="utf-8") as fh:
+                        json.dump(result.health, fh, indent=2, sort_keys=True)
+                except OSError:
+                    logger.warning("could not write health verdict to %s", health_out)
         result.flight_recorder_dumps = list(flight_recorder.RECORDER._dumped_paths[dumps_before:])
         if resolved["tracing"]:
             path = _tracing.TRACE_STORE.dump()
             if path:
                 result.trace_dumps.append(path)
         _tracing.set_tracing_enabled(prev_tracing)
+        if sampler is not None:
+            sampler.stop()  # writes one final sample (the run's parting state)
         CHIP_LEDGER.set_enabled(prev_chip)
         FRESHNESS.set_enabled(prev_fresh)
     result.serving_http_ports = sorted(set(_BOUND_PORTS[ports_before:]))
     return result
 
 
-def _run_graph(terminate_on_error: bool, monitoring_callback=None) -> None:
+def _run_graph(terminate_on_error: bool, monitoring_callback=None, profiler=None) -> None:
     runner = GraphRunner(n_workers=_threads())
     runner.engine.terminate_on_error = terminate_on_error
     for r in runner._replicas:
         r.engine.terminate_on_error = terminate_on_error
+    if profiler is not None:
+        runner.attach_profiler(profiler)
     for table, sink in list(G.outputs):
         sink_builder = sink.get("build")
         if sink_builder is not None:

@@ -411,7 +411,24 @@ class _DynamicBatcher:
         args_cols = list(zip(*[a for a, _, _ in batch])) if batch else []
         arg_lists = [list(col) for col in args_cols]
         try:
-            results = self.batch_fn(*arg_lists)
+            from ..profiler import current_profiler
+
+            prof = current_profiler()
+            if prof is not None and not getattr(self.batch_fn, "__wrapped__", None):
+                # batched UDF path: wrap_jit'd models split build / execute
+                # themselves; a plain function reports the whole call
+                import time as _time
+
+                t0 = _time.perf_counter_ns()
+                results = self.batch_fn(*arg_lists)
+                prof.record_jit(
+                    f"batch_udf/{getattr(self.batch_fn, '__name__', 'batch_fn')}",
+                    "execute",
+                    _time.perf_counter_ns() - t0,
+                    len(batch),
+                )
+            else:
+                results = self.batch_fn(*arg_lists)
             if len(results) != len(batch):
                 raise ValueError(
                     f"batch UDF returned {len(results)} results for {len(batch)} inputs"

@@ -27,8 +27,9 @@ request's row key is registered in ``tracing.ROW_TRACES`` while it is in
 flight, so the engine's index search and rerank spans join the request's
 trace on the epoch thread. While the freshness plane is live, every
 response carries ``X-Pathway-Freshness-Ms``. The tenant header
-(``X-Pathway-Tenant``) is carried into admission, whose tenant quotas
-raise under ``PATHWAY_TENANCY`` until the tenancy plane comes.
+(``X-Pathway-Tenant``) is carried into admission (the tenant's quotas
+under an active tenancy), the batcher's weighted fair share and the
+degrade floor (the quota's ``min_top_k``).
 """
 
 from __future__ import annotations
@@ -445,10 +446,20 @@ def rest_connector(
         degraded = ticket is not None and ticket.degraded
         if degraded:
             # shed="degrade": serve reduced top-k instead of rejecting, and
-            # skip the rerank where the endpoint has one
+            # skip the rerank where the endpoint has one. A tenant quota's
+            # min_top_k is that tenant's floor: degradation never clamps
+            # below it.
+            floor_k = serving.degrade_top_k
+            if tenant is not None:
+                from ...tenancy.config import active_tenancy
+
+                cfg = active_tenancy()
+                quota = cfg.quota_for(tenant) if cfg is not None else None
+                if quota is not None and quota.min_top_k is not None:
+                    floor_k = max(floor_k, quota.min_top_k)
             k = values.get("k")
-            if isinstance(k, int) and k > serving.degrade_top_k:
-                values["k"] = serving.degrade_top_k
+            if isinstance(k, int) and k > floor_k:
+                values["k"] = floor_k
             if isinstance(values.get("rerank"), bool):
                 values["rerank"] = False
         key = int(ref_scalar(qid))

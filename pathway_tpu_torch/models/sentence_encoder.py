@@ -46,7 +46,8 @@ import torch
 
 from ..device import as_current, resolve_device
 from ..internals.chip_ledger import CHIP_LEDGER
-from ..ops.fused_layer import encoder_forward, prepare_params, use_fused_encoder
+from ..internals.profiler import ENCODER_KERNEL_STATS, wrap_jit
+from ..ops.fused_layer import encoder_flops, encoder_forward, prepare_params, use_fused_encoder
 from ..parallel.mesh import resolve_mesh
 from ..weights import load_hf_weights
 from .batching import (
@@ -98,6 +99,16 @@ def shelf_pack(lens: np.ndarray, row_len: int, max_segs: int):
         off += ln
         s_i += 1
     return order, lns, row_of, off_of, slot_of
+
+
+def _record_dispatch(cfg, rows: int, seq: int, real_tokens: int, attn_pairs: int) -> None:
+    """One encoder dispatch's geometry for the encode MFU and pad-waste
+    statistics (``internals/profiler.ENCODER_KERNEL_STATS``)."""
+    computed = rows * seq
+    ENCODER_KERNEL_STATS.record_dispatch(
+        seq=seq, batch=rows, real_tokens=real_tokens, computed_tokens=computed,
+        flops=encoder_flops(cfg, computed, attn_pairs),
+    )
 
 
 def _book_weights(owner: str, module) -> None:
@@ -158,6 +169,10 @@ class SentenceEncoder:
                 self._replicas[dev] = replica.to(dev).eval()
         self.tokenizer = default_tokenizer(checkpoint_dir)
         _book_weights(f"encoder:{model}", self.module)
+        # the run profiler's build / execute split of each forward
+        self._run_group = wrap_jit("sentence_encoder.fwd_group", self._run_group)
+        self._run_packed = wrap_jit("sentence_encoder.fwd_packed", self._run_packed)
+        self._run_padded = wrap_jit("sentence_encoder.fwd", self._run_padded)
 
     @property
     def dim(self) -> int:
@@ -256,8 +271,14 @@ class SentenceEncoder:
             mask = torch.arange(ids_dev.shape[1], device=self.device)[None, :] < lens_dev[:, None]
             ids32 = ids_dev.to(torch.int32)
             if use_fused_encoder(self.cfg, ids_dev.shape[1]):
-                return encoder_forward(self.params, self.cfg, ids32, mask, lens=lens_dev)
-            return self.module(ids32, mask)
+                out = encoder_forward(self.params, self.cfg, ids32, mask, lens=lens_dev)
+            else:
+                out = self.module(ids32, mask)
+        rows, seq = ids.shape
+        # every row of the dispatch is computed (the GEMMs run them all),
+        # attention over every (query, key) pair of a row
+        _record_dispatch(self.cfg, rows, seq, int(lens.sum()), rows * seq * seq)
+        return out
 
     def _encode_matrix(self, ids_mat: np.ndarray, lens: np.ndarray) -> np.ndarray:
         out = np.empty((len(lens), self.dim), np.float32)
@@ -399,7 +420,11 @@ class SentenceEncoder:
             sums = torch.zeros((slots + 1, self.dim), dtype=torch.float32, device=self.device)
             sums.index_add_(0, dest, toks.reshape(-1, self.dim).float())
             pooled = sums[:slots] / torch.clamp(counts_d, min=1.0)[:, None]
-            return pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
+            out = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
+        # the GEMMs compute every packed position, B4 attends within segments
+        real = np.asarray(counts, np.int64)
+        _record_dispatch(self.cfg, ids.shape[0], ids.shape[1], int(real.sum()), int((real * real).sum()))
+        return out
 
     def _pack_uniform(self, ids_mat: np.ndarray, lens: np.ndarray):
         """Length-sorted fast path: rows sort by length once and split into

@@ -429,9 +429,16 @@ def encoder_forward(params: dict, cfg, ids, mask, *, lens=None):
 
 def encoder_flops_per_token(cfg, seq: int) -> float:
     """Dense forward FLOPs per token at padded length ``seq`` (multiply-add = 2)."""
+    return encoder_flops(cfg, 1, seq)
+
+
+def encoder_flops(cfg, tokens: int, attn_pairs: int) -> float:
+    """Forward FLOPs of ``tokens`` tokens whose attention scores
+    ``attn_pairs`` (query, key) pairs: the qkv, output and FFN GEMMs per
+    token, QK^T and PV per pair (multiply-add = 2)."""
     d, interm, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    per_layer = 2 * d * 3 * d + 2 * 2 * seq * d + 2 * d * d + 2 * 2 * d * interm
-    return float(layers * per_layer)
+    per_token = 2 * d * 3 * d + 2 * d * d + 2 * 2 * d * interm
+    return float(layers * (tokens * per_token + 2 * 2 * d * attn_pairs))
 
 
 def use_fused_encoder(cfg, seq_len: int) -> bool:

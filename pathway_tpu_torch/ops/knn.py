@@ -54,6 +54,7 @@ from ..device import as_current, resolve_device
 from ..freshness.plane import FRESHNESS
 from ..internals import flight_recorder
 from ..internals.chip_ledger import CHIP_LEDGER
+from ..internals.profiler import wrap_jit
 from ..parallel.sharding import CLUSTER_ITEM
 from ..tracing import current_trace, record_span, tracing_enabled
 from ..tracing import span as _trace_span
@@ -220,6 +221,8 @@ class DeviceKnnIndex:
         self.generation = 0
         self._fenced = False
         self._last_merge_s: float | None = None
+        # the run profiler's build / execute split of each top-k dispatch
+        self._device_topk = wrap_jit("knn.topk", self._device_topk)
 
     def __len__(self) -> int:
         return len(self._slot_of)
@@ -583,11 +586,16 @@ class DeviceKnnIndex:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         return torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
 
-    def _device_topk(self, q: torch.Tensor, fetch: int):
+    def _device_topk(self, q: torch.Tensor, fetch: int, mask=None):
+        """Top-``fetch`` (scores, slots) of ``q`` over the slab. ``mask``, a
+        ``(valid, bias)`` pair shaped like the slab's own, replaces them for
+        this call only (an index without a mesh)."""
         if self.n_shards == 1:
             # one dispatch: the chip ledger (when on) books it, waiting for
             # the card to read its timing events
             matrix, valid, bias = self._slab[0]
+            if mask is not None:
+                valid, bias = mask
             with CHIP_LEDGER.timed("index.search", device=self.device):
                 if _pallas_eligible(self.metric, fetch, self.device):
                     return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
@@ -677,22 +685,31 @@ class DeviceKnnIndex:
         queries,
         k: int,
         filter_fns: list[Callable | None] | None = None,
+        *,
+        mask: Callable | None = None,
+        live: int | None = None,
     ) -> list[list[tuple[Any, float]]]:
         """queries [q, dim] (host array or device tensor) -> per query a
         list of (key, score), best first (score: cosine similarity, inner
         product, or negative squared L2). ``filter_fns[i]`` filters
-        candidate metadata; over-fetch + host filter with exponential refill."""
+        candidate metadata; over-fetch + host filter with exponential refill.
+
+        ``mask``, called after the index syncs, returns a ``(valid, bias)``
+        pair that replaces the slab's own for this search only, and ``live``
+        counts the rows it keeps (the tenant slab's per-tenant view);
+        masked rows score as empty rows do."""
         if len(self._slot_of) == 0 or len(queries) == 0:
             return [[] for _ in range(len(queries))]
         q = self._queries(queries)
         self._sync()
+        override = mask() if mask is not None else None
 
         def dispatch(todo, fetch):
             rows = q if len(todo) == q.shape[0] else q[torch.as_tensor(todo, device=self.device)]
-            return self._device_topk(rows, fetch)
+            return self._device_topk(rows, fetch, override)
 
         with _trace_span("index_search", index=self.name, queries=q.shape[0], k=k, shards=self.n_shards):
-            out = self._assemble(q.shape[0], k, filter_fns, dispatch)
+            out = self._assemble(q.shape[0], k, filter_fns, dispatch, live)
         self._record_search(q.shape[0], k)
         return out
 
@@ -708,10 +725,12 @@ class DeviceKnnIndex:
         )
         self._last_merge_s = None
 
-    def _assemble(self, q_n, k, filter_fns, dispatch):
+    def _assemble(self, q_n, k, filter_fns, dispatch, live=None):
         """Run ``dispatch(todo, fetch)`` for the outstanding queries, map
         slots to keys, apply metadata filters, and refetch exponentially
-        deeper when filters starve a query."""
+        deeper when filters starve a query (of at most ``live`` rows, by
+        default every row of the index)."""
+        live = len(self._slot_of) if live is None else live
         need_filter = filter_fns is not None and any(f is not None for f in filter_fns)
         fetch = min(_k_bucket(4 * k if need_filter else k), self.capacity)
         results: list[list[tuple[Any, float]] | None] = [None] * q_n
@@ -736,7 +755,7 @@ class DeviceKnnIndex:
                     if len(out) == k:
                         break
                 results[qi] = out
-                if len(out) < min(k, len(self._slot_of)) and fetch < self.capacity:
+                if len(out) < min(k, live) and fetch < self.capacity:
                     next_todo.append(qi)  # filters ate too many candidates
             if next_todo:
                 fetch = min(fetch * 4, self.capacity)

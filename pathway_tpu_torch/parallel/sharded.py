@@ -146,12 +146,22 @@ class ShardCluster:
         topological pass (in parallel), mail is exchanged; repeat until
         all shards are quiescent, then fire the time-end hooks."""
 
+        for e in self.engines:
+            if e.profiler is not None:
+                e.profiler.begin_epoch(e.worker_id)
+
         def run_one(e):
+            prof = e.profiler
             while e._dirty:
                 for node in e.nodes:
                     if node.id in e._dirty:
                         e._dirty.discard(node.id)
-                        node.process(time)
+                        if prof is not None:
+                            t0 = prof.now_ns()
+                            node.process(time)
+                            prof.record_process(e.worker_id, node, t0, prof.now_ns() - t0)
+                        else:
+                            node.process(time)
 
         while True:
             dirty_engines = [e for e in self.engines if e._dirty]
@@ -169,10 +179,19 @@ class ShardCluster:
             self._deliver_mail()
             self._sync_watermarks(mark_dirty=True)
         for e in self.engines:
+            prof = e.profiler
             for node in e.nodes:
                 te = getattr(node, "time_end", None)
                 if te is not None:
-                    te(time)
+                    if prof is not None:
+                        t0 = prof.now_ns()
+                        te(time)
+                        prof.record_process(e.worker_id, node, t0, prof.now_ns() - t0)
+                    else:
+                        te(time)
+        for e in self.engines:
+            if e.profiler is not None:
+                e.profiler.end_epoch(e.worker_id, e, time)
 
     def run(self, monitoring_callback: Callable | None = None) -> None:
         primary = self.engines[0]

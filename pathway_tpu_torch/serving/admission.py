@@ -22,17 +22,19 @@ still rejects.
 Every decision is recorded in ``SERVING_METRICS`` and the flight recorder
 (``serving.admit`` / ``serving.shed`` / ``serving.deadline_expired``); with
 tracing on, an admitted request gets an ``admission`` span and a typed
-rejection carries the request's trace id. The reference's chaos site
-comes with ROADMAP Queue A item 6; its shard-health gate (``shard=``) with
-item 5; its per-tenant quotas with item 4, so a request that names a
-tenant while a tenancy is configured raises.
+rejection carries the request's trace id. A request that names a tenant
+(``tenant=``, the REST reader's ``X-Pathway-Tenant`` header) under an
+active tenancy (``tenancy.active_tenancy``: ``pw.run(tenancy=)``, else
+``PATHWAY_TENANCY``) meets its tenant's quotas first: a QPS bucket and an
+in-flight cap, each shedding a typed 429 ``tenant_rate_limited`` before
+any endpoint-wide gate. The reference's chaos site comes with ROADMAP
+Queue A item 6; its shard-health gate (``shard=``) with item 5.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
-import os
 import threading
 import time as _time
 from dataclasses import dataclass
@@ -69,15 +71,15 @@ def _tracing_enabled() -> bool:
     return _tracing_store.tracing_enabled()
 
 
-_TENANCY_ITEM = "ROADMAP Queue A item 4 (tenant quotas and weights)"
 _CLUSTER_ITEM = "ROADMAP Queue A item 5 (multi-process clusters and their shard health)"
 
 
 def tenancy_active() -> bool:
-    """Whether a tenancy config is in effect: the port has no tenancy plane,
-    so only ``PATHWAY_TENANCY`` can name one."""
-    raw = os.environ.get("PATHWAY_TENANCY", "").strip().lower()
-    return bool(raw) and raw not in ("0", "false", "no", "off")
+    """Whether a tenancy config is in effect, with ``active_tenancy``'s
+    precedence (the run-scoped config, then ``PATHWAY_TENANCY``)."""
+    from ..tenancy.config import active_tenancy
+
+    return active_tenancy() is not None
 
 
 class OverloadError(RuntimeError):
@@ -105,8 +107,11 @@ class RateLimited(OverloadError):
 
 
 class TenantRateLimited(RateLimited):
-    """One tenant exhausted its own quota (raised by the tenancy plane,
-    ROADMAP Queue A item 4)."""
+    """One tenant exhausted *its own* quota (QPS bucket or inflight cap of
+    its :class:`~pathway_tpu_torch.tenancy.TenantQuotas`): the endpoint as a
+    whole is healthy, only this tenant backs off. Checked before every
+    endpoint-wide gate, so a tenant at its cap always sees a 429
+    ``tenant_rate_limited``, never a racy 503."""
 
     status = 429
     reason = "tenant_rate_limited"
@@ -251,6 +256,10 @@ class AdmissionController:
         self._bucket: Optional[TokenBucket] = None
         if self.config.rate_limit_qps:
             self._bucket = TokenBucket(self.config.rate_limit_qps, self.config.rate_limit_burst)
+        # per-tenant fair-share state, populated only when a tenant-carrying
+        # request arrives under an active tenancy
+        self._tenant_buckets: dict[str, tuple[float, int, TokenBucket]] = {}
+        self._tenant_inflight: dict[str, int] = {}
 
     @property
     def depth(self) -> int:
@@ -266,12 +275,12 @@ class AdmissionController:
 
     def admit(self, deadline: Deadline | None = None, *, shard: int | None = None,
               tenant: str | None = None) -> Ticket:
-        """Admit or shed. Raises :class:`RateLimited` / :class:`QueueFull` /
-        :class:`DeadlineExceeded`. ``tenant`` attributes the request to a
-        tenant; under a configured tenancy its quotas would apply first,
-        which needs the tenancy plane and raises. ``shard`` pins the request
-        to an engine shard, whose health the cluster plane keeps: it
-        raises."""
+        """Admit or shed. Raises :class:`TenantRateLimited` /
+        :class:`RateLimited` / :class:`QueueFull` / :class:`DeadlineExceeded`.
+        ``tenant`` names the requesting tenant; under an active tenancy its
+        quotas (QPS bucket, inflight cap) are enforced before any
+        endpoint-wide gate. ``shard`` pins the request to an engine shard,
+        whose health the cluster plane keeps: it raises."""
         cfg = self.config
         t_enter = _time.monotonic()
         if deadline is None:
@@ -288,7 +297,7 @@ class AdmissionController:
             trace_extra = {"trace": trace_ctx.trace_id}
         if tenant is not None:
             tenant = str(tenant)
-            self._check_tenant(tenant)
+            self._check_tenant(tenant, trace_ctx, trace_extra)
         if shard is not None:
             raise NotImplementedError(f"AdmissionController.admit(shard=...) needs {_CLUSTER_ITEM}")
 
@@ -334,9 +343,18 @@ class AdmissionController:
             self._live.add(seq)
             heapq.heappush(self._heap, (deadline.expires_at, seq))
             new_depth = len(self._live)
+            tenant_inflight = None
+            if tenant is not None:
+                tenant_inflight = self._tenant_inflight.get(tenant, 0) + 1
+                self._tenant_inflight[tenant] = tenant_inflight
 
         ticket = Ticket(deadline, seq, degraded=degraded, route=self.route, trace=trace_ctx, tenant=tenant)
         self.metrics.record_admit(degraded=degraded)
+        if tenant is not None:
+            from ..tenancy.metrics import TENANCY_METRICS
+
+            TENANCY_METRICS.record_admit(tenant, degraded=degraded)
+            TENANCY_METRICS.set_inflight(tenant, tenant_inflight)
         self.metrics.set_queue_depth(new_depth)
         self.metrics.observe_stage("admission", _time.monotonic() - t0)
         flight_recorder.record("serving.admit", route=self.route, depth=new_depth, degraded=degraded, **trace_extra)
@@ -353,18 +371,63 @@ class AdmissionController:
             exc.trace_id = trace_ctx.trace_id
         return exc
 
-    def _check_tenant(self, tenant: str) -> None:
-        """Per-tenant quota gates, enforced before every endpoint-wide gate
-        in the reference. Without a configured tenancy a tenant carries no
-        quota and the request is only attributed to it."""
-        if tenancy_active():
-            raise NotImplementedError(f"admission for tenant {tenant!r} under PATHWAY_TENANCY needs {_TENANCY_ITEM}")
+    def _check_tenant(self, tenant: str, trace_ctx, trace_extra) -> "TenantQuotas | None":
+        """Per-tenant quota gates (QPS bucket, inflight cap), enforced before
+        every endpoint-wide gate. Returns the tenant's quotas (None when no
+        tenancy config names this tenant: the request is still attributed
+        to it, just without a quota)."""
+        from ..tenancy.config import active_tenancy
+        from ..tenancy.metrics import TENANCY_METRICS
+
+        cfg = active_tenancy()
+        quota = cfg.quota_for(tenant) if cfg is not None else None
+        if quota is None:
+            return None
+        if quota.qps is not None:
+            with self._lock:
+                entry = self._tenant_buckets.get(tenant)
+                if entry is None or entry[0] != quota.qps or entry[1] != quota.burst:
+                    entry = (quota.qps, quota.burst, TokenBucket(quota.qps, quota.burst))
+                    self._tenant_buckets[tenant] = entry
+            bucket = entry[2]
+            if not bucket.try_acquire():
+                self.metrics.record_shed("tenant_rate_limited")
+                TENANCY_METRICS.record_shed(tenant, "tenant_rate_limited")
+                flight_recorder.record("tenant.shed", route=self.route, tenant=tenant, reason="qps", **trace_extra)
+                raise self._traced(
+                    TenantRateLimited(f"tenant {tenant!r} exceeded its rate quota ({quota.qps:g} qps)",
+                                      retry_after_s=bucket.retry_after(), tenant=tenant),
+                    trace_ctx,
+                )
+        if quota.max_inflight is not None:
+            with self._lock:
+                inflight = self._tenant_inflight.get(tenant, 0)
+            if inflight >= quota.max_inflight:
+                self.metrics.record_shed("tenant_rate_limited")
+                TENANCY_METRICS.record_shed(tenant, "tenant_rate_limited")
+                flight_recorder.record("tenant.shed", route=self.route, tenant=tenant, reason="inflight",
+                                       inflight=inflight, **trace_extra)
+                raise self._traced(
+                    TenantRateLimited(f"tenant {tenant!r} is at its inflight cap ({inflight}/{quota.max_inflight})",
+                                      tenant=tenant),
+                    trace_ctx,
+                )
+        return quota
 
     def release(self, ticket: Ticket) -> None:
+        tenant = ticket.tenant
+        tenant_inflight = None
         with self._lock:
             self._live.discard(ticket.seq)
             depth = len(self._live)
+            if tenant is not None:
+                tenant_inflight = max(0, self._tenant_inflight.get(tenant, 0) - 1)
+                self._tenant_inflight[tenant] = tenant_inflight
         self.metrics.set_queue_depth(depth)
+        if tenant is not None:
+            from ..tenancy.metrics import TENANCY_METRICS
+
+            TENANCY_METRICS.set_inflight(tenant, tenant_inflight)
 
     def expire(self, ticket: Ticket) -> DeadlineExceeded:
         """Record a mid-pipeline budget expiry (the response wait ran out)

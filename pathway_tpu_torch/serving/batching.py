@@ -16,9 +16,9 @@ dispatches:
 - queries whose deadline expired while queued are *dropped*, not
   dispatched;
 - queries submitted with a ``tenant=`` go into per-tenant deadline heaps
-  drained by deficit round-robin, each tenant at weight 1 (quota weights
-  come with the tenancy plane, ROADMAP Queue A item 4, and raise under a
-  configured tenancy).
+  drained by weighted deficit round-robin: each tenant at its quota's
+  ``weight`` under an active tenancy (weight 1 without one), the tenant-less
+  heap an anonymous weight-1 participant.
 
 ``DecodeService`` (``decode/engine.py``) and ``rest_connector(serving=)``
 (``io/http/_server.py``) front their engines with it. Each dispatch records
@@ -38,7 +38,7 @@ import time as _time
 from typing import Any, Callable, Optional
 
 from ..internals import flight_recorder
-from .admission import _TENANCY_ITEM, ServingConfig, _tracing_enabled, tenancy_active
+from .admission import ServingConfig, _tracing_enabled
 from .deadline import Deadline
 from .metrics import SERVING_METRICS, ServingMetrics
 
@@ -215,12 +215,21 @@ class AdaptiveBatcher:
 
     def _take_weighted(self, limit, now, taken, expired) -> None:
         """Deficit round-robin drain across the tenant heaps (plus the
-        single heap as an anonymous participant). Each pass credits every
-        backlogged tenant one unit and pops one item per whole unit, so each
-        tenant's share of fused-batch slots converges to an equal one.
-        Caller holds ``self._lock``."""
-        if tenancy_active():
-            raise NotImplementedError(f"AdaptiveBatcher tenant weights under PATHWAY_TENANCY need {_TENANCY_ITEM}")
+        single heap as an anonymous weight-1 participant). Each pass credits
+        every backlogged tenant ``weight`` units of deficit and pops one item
+        per whole unit, so over a window each tenant's share of fused-batch
+        slots converges to its quota weight; expired items are dropped
+        without charging deficit. Caller holds ``self._lock``."""
+        from ..tenancy.config import active_tenancy
+
+        cfg = active_tenancy()
+
+        def weight(t) -> float:
+            if t is None or cfg is None:
+                return 1.0
+            quota = cfg.quota_for(t)
+            return max(float(quota.weight if quota is not None else 1.0), 1e-3)
+
         while len(taken) < limit:
             backlog: list[Any] = [t for t in self._rr if self._tenant_heaps.get(t)]
             if self._heap:
@@ -229,7 +238,7 @@ class AdaptiveBatcher:
                 break
             for t in backlog:
                 heap = self._heap if t is None else self._tenant_heaps[t]
-                self._deficit[t] = self._deficit.get(t, 0.0) + 1.0
+                self._deficit[t] = self._deficit.get(t, 0.0) + weight(t)
                 while heap and self._deficit[t] >= 1.0 and len(taken) < limit:
                     entry = heapq.heappop(heap)
                     if entry[0] <= now:
@@ -297,12 +306,16 @@ class AdaptiveBatcher:
                     per_item = wall / len(items)
                     if any(t is not None for t in tenants):
                         from ..internals.chip_ledger import CHIP_LEDGER
+                        from ..tenancy.metrics import TENANCY_METRICS
 
-                        if CHIP_LEDGER.on():
-                            # the tenant sub-account mirrors the DRR per-item
-                            # split; the plane work was booked at its site
-                            for t in tenants:
-                                if t is not None:
+                        chip_on = CHIP_LEDGER.on()
+                        for t in tenants:
+                            if t is not None:
+                                TENANCY_METRICS.add_chip_seconds(t, per_item)
+                                if chip_on:
+                                    # the tenant sub-account mirrors the DRR
+                                    # per-item split; the plane work was
+                                    # booked at its site
                                     CHIP_LEDGER.book_tenant(t, per_item)
                     if self._ewma_item_s == 0.0:
                         self._ewma_item_s = per_item

@@ -17,8 +17,13 @@ the mesh's data axis (``DeviceKnnIndex(mesh=)``); it resolves when the
 graph is lowered, the explicit ``mesh=`` first (a spec on the CPU when
 ``device="cpu"``), else ``parallel.mesh.active_mesh()`` (``pw.run(mesh=)``
 or ``PATHWAY_MESH``). ``LshKnn`` keeps its host tier on a mesh, as the
-reference does. The ``tiers`` and ``tenant`` options raise
-``NotImplementedError`` until their planes are ported.
+reference does. ``tenant``: the index becomes one tenant's segment of the
+shared ``tenancy.TenantPackedIndex`` slab of its geometry
+(``shared_slab``); it takes precedence over ``tiers``, which makes the
+index a ``ops.tiered_knn.TieredKnnIndex`` (the explicit spec first, else
+``pw.run(index_tiers=)`` / ``PATHWAY_INDEX_TIERS``). Both resolve when the
+graph is lowered, and both raise on a mesh (ROADMAP Queue A item 5).
+``LshKnn`` ignores them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 
 from ...internals.expression import ColumnExpression, ColumnReference
 from ...ops.knn import DeviceKnnIndex, _k_bucket as _pow2_bucket
+from ...ops.tiered_knn import TieredKnnIndex, active_tiers, parse_tier_spec
 from ...parallel.mesh import active_mesh, parse_mesh_spec, resolve_mesh
 from .data_index import InnerIndex
 from .retrievers import InnerIndexFactory
@@ -84,6 +90,78 @@ class _VectorPayloadIndex(DeviceKnnIndex):
         return super().search_batch(q, k, filter_fns)
 
 
+class _TieredPayloadIndex(TieredKnnIndex):
+    """TieredKnnIndex with the same payload coercion + text-query routing
+    as :class:`_VectorPayloadIndex`."""
+
+    def add(self, key, payload, metadata=None):
+        super().add(key, _as_vector(payload), metadata)
+
+    def search_batch(self, payloads, k, filter_fns=None):
+        if not len(payloads):
+            return []
+        if self._encoder is not None:
+            probe = next((p for p in payloads if p is not None), None)
+            if probe is None or isinstance(probe, str):
+                return self.search_texts_batch(["" if p is None else p for p in payloads], k, filter_fns)
+        q = np.stack([_as_vector(p) for p in payloads])
+        return super().search_batch(q, k, filter_fns)
+
+
+class _TenantPayloadView:
+    """One tenant's slice of a shared ``TenantPackedIndex`` slab, with the
+    same payload coercion as :class:`_VectorPayloadIndex` — what
+    ``tenant=`` hands the engine instead of a private index."""
+
+    def __init__(self, view):
+        self._view = view
+        self._encoder = None
+
+    def attach_encoder(self, encoder) -> None:
+        """Text queries (the fused query configuration) embed through
+        ``encoder`` before the tenant's search."""
+        self._encoder = encoder
+
+    @property
+    def dim(self):
+        return self._view.dim
+
+    @property
+    def metric(self):
+        return self._view.metric
+
+    def __len__(self):
+        return len(self._view)
+
+    def add(self, key, payload, metadata=None):
+        self._view.add(key, _as_vector(payload), metadata)
+
+    def add_batch(self, items):
+        self._view.add_batch([(k, _as_vector(p), m) for k, p, m in items])
+
+    def add_batch_arrays(self, keys, vectors, metadatas=None):
+        self._view.add_batch_arrays(keys, vectors, metadatas)
+
+    def add_batch_device(self, keys, dev_vectors, metadatas=None):
+        self._view.add_batch_arrays(keys, dev_vectors[: len(keys)].float().cpu().numpy(), metadatas)
+
+    def remove(self, key):
+        self._view.remove(key)
+
+    def search_batch(self, payloads, k, filter_fns=None):
+        if not len(payloads):
+            return []
+        probe = next((p for p in payloads if p is not None), None)
+        if self._encoder is not None and (probe is None or isinstance(probe, str)):
+            q = np.asarray(self._encoder.encode(["" if p is None else str(p) for p in payloads]), np.float32)
+        else:
+            q = np.stack([_as_vector(p) for p in payloads])
+        return self._view.search_batch(q, k, filter_fns)
+
+    def search_one(self, payload, k, filter_fn=None):
+        return self.search_batch([payload], k, [filter_fn] if filter_fn is not None else None)[0]
+
+
 def fused_query_encoder(embedder) -> Any | None:
     """The SentenceEncoder behind ``embedder`` when its internals
     (module/params/tokenizer) are exposed for the fused query path."""
@@ -103,9 +181,14 @@ class AbstractKnn(InnerIndex):
     #: None defers to the run-scoped mesh from ``pw.run(mesh=...)`` /
     #: ``PATHWAY_MESH`` at lowering time
     mesh: Any = None
-    #: the reference's tier / tenant placements: not ported yet (raise
-    #: when set)
+    #: explicit tier spec (TierConfig / dict / str accepted by
+    #: ops.tiered_knn.parse_tier_spec); None defers to the run-scoped
+    #: config from ``pw.run(index_tiers=...)`` / ``PATHWAY_INDEX_TIERS``
     tiers: Any = None
+    #: tenant id: this index becomes one tenant's segment of the shared
+    #: ``TenantPackedIndex`` slab for its (dimensions, metric, device)
+    #: geometry. Takes precedence over ``tiers`` (the slab manages its own
+    #: residency by cold-tenant demotion).
     tenant: str | None = None
     #: device of the index slab: None -> "cuda" (resolve_device); "cpu"
     #: only when asked
@@ -189,25 +272,37 @@ class AbstractKnn(InnerIndex):
             "encoder": encoder,
         }
 
-    def _check_placement(self) -> None:
-        for name in ("tiers", "tenant"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"{type(self).__name__}({name}=...) needs ROADMAP Queue A item 4")
-
     def _make_device_index(self):
-        self._check_placement()
         dim, metric, res = self.dimensions, self.metric, self.reserved_space
         enc = fused_query_encoder(self.embedder) if self.embedder else None
         # an index fed by an encoder lives on the encoder's device
         device = self.device if self.device is not None or enc is None else enc.device
         mesh_spec = self.mesh
+        tier_spec = self.tiers
+        tenant = self.tenant
 
         def make():
-            # the mesh resolves here, when the graph is lowered inside
-            # pw.run, so retrievers built before the run pick up
-            # pw.run(mesh=...) / PATHWAY_MESH
+            # the mesh and the tiers resolve here, when the graph is lowered
+            # inside pw.run, so retrievers built before the run pick up
+            # pw.run(mesh=..., index_tiers=...) / PATHWAY_MESH /
+            # PATHWAY_INDEX_TIERS
             mesh = resolve_mesh(mesh_spec, device=device) if mesh_spec is not None else active_mesh(device=device)
-            idx = _VectorPayloadIndex(dim=dim, metric=metric, reserved_space=max(64, res), device=device, mesh=mesh)
+            if tenant is not None:
+                from ...tenancy import shared_slab
+
+                slab = shared_slab(dim, metric=metric, reserved_space=max(64, res), mesh=mesh, device=device)
+                view = _TenantPayloadView(slab.view(tenant))
+                if enc is not None:
+                    view.attach_encoder(enc)
+                return view
+            tiers = parse_tier_spec(tier_spec) if tier_spec is not None else active_tiers()
+            if tiers is not None:
+                idx: Any = _TieredPayloadIndex(
+                    dim=dim, metric=metric, reserved_space=max(64, res), tiers=tiers, mesh=mesh, device=device
+                )
+            else:
+                idx = _VectorPayloadIndex(dim=dim, metric=metric, reserved_space=max(64, res), device=device,
+                                          mesh=mesh)
             if enc is not None:
                 idx.attach_encoder(enc)
             return idx
@@ -323,7 +418,6 @@ class LshKnn(AbstractKnn):
     n_and: int = 6
 
     def _index_factory(self):
-        self._check_placement()
         dim, metric = self.dimensions, self.metric
         n_or, n_and = self.n_or, self.n_and
         return lambda: _LshIndex(dim, metric, n_or=n_or, n_and=n_and)
@@ -339,8 +433,8 @@ class KnnIndexFactory(InnerIndexFactory):
     metric: str = "cos"
     embedder: Callable | None = None
     mesh: Any = None  # explicit DeviceMesh/spec; None -> run-scoped mesh
-    tiers: Any = None  # not ported: raises when set
-    tenant: str | None = None  # not ported: raises when set
+    tiers: Any = None  # explicit tier spec; None -> run-scoped tiers
+    tenant: str | None = None  # tenant id -> shared packed slab segment
     device: Any = None  # None -> "cuda"; "cpu" only when asked
 
     def _get_embed_dimensions(self) -> int:

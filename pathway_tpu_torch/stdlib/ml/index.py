@@ -57,8 +57,8 @@ class KNNIndex:
         self.rerank_column = rerank_column
         metric = "l2" if distance_type == "euclidean" else "cos"
         # mesh= (None: the run-scoped mesh) shards the index over a mesh's
-        # data axis; tiers= / tenant= raise in BruteForceKnn until their
-        # planes are ported
+        # data axis; tiers= makes it tiered, tenant= one tenant's segment of
+        # the shared packed slab
         self.inner = BruteForceKnn(
             data_embedding,
             metadata,

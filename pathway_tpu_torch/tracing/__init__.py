@@ -6,9 +6,9 @@ across the serving path — admission, queue wait, adaptive-batch fan-in
 search and rerank (carried from the HTTP thread to the engine's epoch
 thread by :data:`ROW_TRACES`), mesh per-shard top-k and merge, and
 per-tick decode steps — with p99 exemplar retention and a
-tail-attribution aggregator. The OTLP export (:func:`emit_telemetry`)
-and the ``pathway trace`` CLI come with ROADMAP Queue A item 3's
-``telemetry.py`` and ``cli.py``.
+tail-attribution aggregator. :func:`emit_telemetry` exports the retained
+traces through the run's OTLP exporter (``internals/telemetry.py``), and
+``python -m pathway_tpu_torch trace`` reads the dumps.
 
 Enable with ``pw.run(tracing=True)`` or ``PATHWAY_TRACING=1``; with
 tracing off every instrumentation site is a single flag check.
@@ -92,9 +92,26 @@ def set_worker(worker_id: int) -> None:
 
 
 def emit_telemetry(telemetry) -> int:
-    """Export the retained exemplar traces through the run's OTLP
-    exporter. The exporter (``internals/telemetry.py``) is not ported
-    yet."""
-    raise NotImplementedError(
-        "tracing.emit_telemetry needs ROADMAP Queue A item 3 (internals/telemetry.py, the OTLP exporter)"
-    )
+    """Export the retained exemplar traces through the run's OTLP exporter
+    (:class:`~pathway_tpu_torch.internals.telemetry.Telemetry`) with their
+    *real* per-request trace ids, so an OTel collector shows request
+    journeys alongside the run / profiler spans."""
+    count = 0
+    for tr in TRACE_STORE.exemplar_traces():
+        for s in tr["spans"]:
+            start_ns = int(float(s.get("start", 0.0)) * 1e9)
+            end_ns = start_ns + int(float(s.get("dur_ms", 0.0)) * 1e6)
+            attrs = dict(s.get("attrs") or {})
+            attrs["pathway.stage"] = s.get("stage", "?")
+            attrs["pathway.worker"] = s.get("worker", 0)
+            telemetry.add_span(
+                f"request.{s.get('stage', '?')}",
+                start_unix_ns=start_ns,
+                end_unix_ns=end_ns,
+                attrs=attrs,
+                trace_id=s.get("trace", ""),
+                span_id=s.get("span", ""),
+                parent_span_id=s.get("parent", ""),
+            )
+            count += 1
+    return count

@@ -22,6 +22,8 @@ package, on the CPU (the port on ``device="cpu"``):
 
 from __future__ import annotations
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -264,8 +266,7 @@ def test_embedder_batched_udf_and_dimension(embedders):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh="auto"), dict(index_tiers="hot=64"), dict(tenancy=True), dict(elastic=True),
-     dict(persistence_config=object()), dict(recovery=True), dict(profile=True), dict(license_key="k"),
+    [dict(mesh="auto"), dict(elastic=True), dict(persistence_config=object()), dict(recovery=True),
      dict(ingest_workers=2), dict(pipeline_depth=2), dict(analysis="strict"), dict(cluster_lease_ms=100)],
     ids=lambda kw: next(iter(kw)),
 )
@@ -280,10 +281,40 @@ def test_unported_run_options_raise(kwargs):
 
 
 @pytest.mark.parametrize(
+    "kwargs,key,want",
+    [(dict(index_tiers="hot=64"), "index_tiers", 64), (dict(tenancy=True), "tenancy", 0),
+     (dict(profile="p.json"), "profile", True), (dict(license_key="enterprise-k"), "profile", False)],
+    ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
+)
+def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
+    """The options of the profiler, licensing and the tiered and tenant
+    indexes run and land in the run context, as the reference's do."""
+    monkeypatch.chdir(tmp_path)
+    t = tpw.debug.table_from_markdown("""
+      | a
+    1 | 1
+    """)
+    seen = []
+    tpw.io.subscribe(t, lambda key, row, time, is_addition: seen.append(row["a"]))
+    if "profile" in kwargs:
+        kwargs = dict(profile=str(tmp_path / "p.json"))
+    tpw.run(**kwargs)
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    ctx = G.run_context
+    got = ctx[key]
+    if key == "index_tiers":
+        got = got["hot_rows"]
+    elif key == "tenancy":
+        got = got["demote_every"]
+    assert seen == [1] and got == want
+    if "profile" in kwargs:
+        assert json.loads((tmp_path / "p.json").read_text())["traceEvents"]
+
+
+@pytest.mark.parametrize(
     "var,value",
-    [("PATHWAY_MESH", "auto"), ("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_TENANCY", "on"),
-     ("PATHWAY_ELASTIC", "on"), ("PATHWAY_PROFILE", "p.json"), ("PATHWAY_JOURNAL_DIR", "/tmp/j"),
-     ("PATHWAY_TELEMETRY_SERVER", "http://localhost:1"), ("PATHWAY_LICENSE_KEY", "k"), ("PATHWAY_PIPELINE_DEPTH", "2"),
+    [("PATHWAY_MESH", "auto"), ("PATHWAY_ELASTIC", "on"), ("PATHWAY_PIPELINE_DEPTH", "2"),
      ("PATHWAY_INGEST_WORKERS", "2"), ("PATHWAY_PROCESSES", "2"), ("PATHWAY_REPLAY_STORAGE", "/tmp/x"),
      ("PATHWAY_ANALYSIS", "strict")],
 )
@@ -292,6 +323,29 @@ def test_unported_env_options_raise(monkeypatch, var, value):
     assert trun.unported_options({}) and var in trun.unported_options({})[0]
     with pytest.raises(NotImplementedError, match=var):
         tpw.run()
+
+
+@pytest.mark.parametrize(
+    "var,value",
+    [("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_TENANCY", "on"), ("PATHWAY_PROFILE", "p.json"),
+     ("PATHWAY_JOURNAL_DIR", "journal"), ("PATHWAY_TELEMETRY_SERVER", "telemetry.jsonl"),
+     ("PATHWAY_LICENSE_KEY", "k")],
+)
+def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
+    """The variables of the profiler, the journal, telemetry, licensing and
+    the tiered and tenant indexes no longer raise: each runs its plane."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv(var, value)
+    assert not trun.unported_options({})
+    t = tpw.debug.table_from_markdown("""
+      | a
+    1 | 1
+    """)
+    tpw.io.subscribe(t, lambda **_: None)
+    tpw.run()
+    written = {"PATHWAY_PROFILE": "p.json", "PATHWAY_JOURNAL_DIR": "journal",
+               "PATHWAY_TELEMETRY_SERVER": "telemetry.jsonl"}.get(var)
+    assert written is None or (tmp_path / written).exists()
 
 
 def _plane_run(tmp_path, monkeypatch, **kwargs):
@@ -387,13 +441,23 @@ def test_run_options_at_their_off_values_pass(monkeypatch):
 @pytest.mark.parametrize("placement", [dict(tiers="hot=64"), dict(tenant="acme")], ids=lambda kw: next(iter(kw)))
 @pytest.mark.parametrize("kind", ["BruteForceKnn", "LshKnn", "KNNIndex"])
 def test_unported_index_placements_raise(placement, kind):
-    t = tpw.debug.table_from_rows(schema=tpw.schema_from_types(v=tuple), rows=[((1.0, 0.0),)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        if kind == "KNNIndex":
-            idx = TKNNIndex(t.v, t, n_dimensions=2, device="cpu", **placement)
-        else:
-            idx = tpw.indexing.DataIndex(t, getattr(tpw.indexing, kind)(t.v, dimensions=2, device="cpu", **placement))
-        (idx.get_nearest_items(t.v) if kind == "KNNIndex" else idx.query(t.v))
+    """The tiered and tenant placements, which raised until their planes
+    were ported, now build and answer: each row finds itself (LshKnn
+    ignores them, as the reference's does)."""
+    from pathway_tpu_torch.tenancy import reset_slabs
+
+    reset_slabs()
+    t = tpw.debug.table_from_rows(schema=tpw.schema_from_types(v=tuple), rows=[((1.0, 0.0),), ((0.0, 1.0),)])
+    if kind == "KNNIndex":
+        res = TKNNIndex(t.v, t, n_dimensions=2, device="cpu", **placement).get_nearest_items(t.v, k=1)
+    else:
+        idx = tpw.indexing.DataIndex(t, getattr(tpw.indexing, kind)(t.v, dimensions=2, device="cpu", **placement))
+        res = idx.query(t.v, number_of_matches=1)
+    rows = []
+    tpw.io.subscribe(res, lambda key, row, time, is_addition: rows.append(row))
+    tpw.run()
+    reset_slabs()
+    assert len(rows) == 2
 
 
 def _nearest_on_mesh(kind, monkeypatch, **run_kwargs):

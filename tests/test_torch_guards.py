@@ -28,7 +28,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pathway_tpu_torch")
 
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu|aiohttp|requests)(?:\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu|aiohttp|requests|click)(?:\.|\s|$)", re.M)
 _FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "pathway_tpu", "aiohttp", "requests")
 # service clients: imported only inside the function that calls them
 _CLIENTS = ("openai", "litellm", "cohere", "transformers", "flashrank")
@@ -306,6 +306,71 @@ def test_port_observability_planes_import_no_jax_flax_or_reference(tmp_path, mon
     the reference, and no service client, is imported."""
     monkeypatch.setenv("PATHWAY_TRACE_DIR", str(tmp_path))
     _run_probe(_PLANES_PROBE)
+
+
+_TIERS_PROFILE_PROBE = r"""
+import json, os, subprocess, sys, tempfile
+before = set(sys.modules)
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import cli, perf, resilience, tenancy
+from pathway_tpu_torch.engine import device_ring
+from pathway_tpu_torch.internals import licensing, profiler, telemetry
+from pathway_tpu_torch.ops import tiered_knn
+from pathway_tpu_torch.perf import journal, snapshot, top
+from pathway_tpu_torch.stdlib.ml.index import KNNIndex
+tmp = tempfile.mkdtemp()
+os.environ["PATHWAY_JOURNAL_DIR"] = os.path.join(tmp, "journal")
+os.environ["PATHWAY_TELEMETRY_SERVER"] = os.path.join(tmp, "telemetry.jsonl")
+vecs = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+docs = pw.debug.table_from_rows(pw.schema_from_types(i=int), [(i,) for i in range(40)])
+docs = docs.select(docs.i, emb=pw.apply_with_type(lambda i: tuple(map(float, vecs[i])), pw.ANY, docs.i))
+for kw in ({"tenant": "acme"}, {}):
+    idx = KNNIndex(docs.emb, docs, n_dimensions=8, reserved_space=16, device="cpu", **kw)
+    res = idx.get_nearest_items(docs.emb, k=1)
+    pw.io.subscribe(res, lambda **_: None)
+pw.run(index_tiers="hot=16,clusters=4,probe=4", tenancy={"quotas": {"acme": {"weight": 2}}},
+       profile=os.path.join(tmp, "profile.json"), license_key="enterprise-x", tracing=True)
+assert json.load(open(os.path.join(tmp, "profile.json")))["traceEvents"]
+assert os.path.exists(os.path.join(tmp, "telemetry.jsonl")) and journal.get_journal().tail(1)
+cli.main(["top", "--once", "--journal", os.environ["PATHWAY_JOURNAL_DIR"]])
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + CLIENTS + ("click",))
+print("BAD", bad)
+"""
+
+
+def test_port_tiers_tenancy_profiler_and_cli_import_no_jax_flax_reference_or_click(tmp_path, monkeypatch):
+    """Every module of this slice imported, then a run with tiered and
+    tenant indexes, the profiler, the journal, telemetry and a license, and
+    the CLI's ``top``: nothing of JAX, the reference or ``click`` loads."""
+    monkeypatch.setenv("PATHWAY_TRACE_DIR", str(tmp_path))
+    _run_probe(_TIERS_PROFILE_PROBE)
+
+
+def test_cli_help_loads_no_jax_flax_reference_or_click():
+    """``python -m pathway_tpu_torch --help`` runs on argparse alone."""
+    probe = (
+        "import runpy, sys\nsys.argv = ['pathway_tpu_torch', '--help']\n"
+        "try:\n    runpy.run_module('pathway_tpu_torch', run_name='__main__')\nexcept SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('click',))\nprint('BAD', bad)\n"
+    )
+    _run_probe(probe)
+
+
+def test_slice_entry_points_raise_without_a_card(monkeypatch):
+    """The tenant slab, the tiered index and the staging ring run on the
+    card unless given the CPU, and raise without one."""
+    from pathway_tpu_torch.engine.device_ring import DeviceRing
+    from pathway_tpu_torch.ops.tiered_knn import TieredKnnIndex
+    from pathway_tpu_torch.tenancy import TenantPackedIndex, shared_slab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: TenantPackedIndex(4), lambda: shared_slab(4), lambda: TieredKnnIndex(4),
+                 lambda: DeviceRing()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_port_sources_and_chip_smoke_have_no_forbidden_imports():

@@ -78,6 +78,7 @@ from pathway_tpu.models.encoder import EncoderConfig as JCfg
 from pathway_tpu.models.tokenizer import WordPieceTokenizer as JTok
 from pathway_tpu.ops.index_metrics import INDEX_METRICS as JINDEX
 from pathway_tpu.serving import SERVING_METRICS as JSERVING
+from pathway_tpu.tenancy.metrics import TENANCY_METRICS as JTENANCY
 from pathway_tpu_torch import tracing as ttr
 from pathway_tpu_torch.decode import DecodeConfig, DecodeEngine, DecoderConfig, DecodeService
 from pathway_tpu_torch.decode.metrics import DECODE_METRICS as TDECODE
@@ -91,6 +92,7 @@ from pathway_tpu_torch.models.encoder import EncoderConfig as TCfg
 from pathway_tpu_torch.models.tokenizer import WordPieceTokenizer as TTok
 from pathway_tpu_torch.ops.index_metrics import INDEX_METRICS as TINDEX
 from pathway_tpu_torch.serving import SERVING_METRICS as TSERVING
+from pathway_tpu_torch.tenancy.metrics import TENANCY_METRICS as TTENANCY
 from pathway_tpu_torch.weights import from_jax_decoder_params, from_jax_params
 
 F32 = dict(vocab_size=2048, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64, max_position=64)
@@ -116,18 +118,52 @@ def _post(port, payload, headers=None):
         return e.code, json.loads(e.read().decode()), dict(e.headers)
 
 
+def _post_in_turn(recorder, port, payload, headers=None):
+    """Post one request; once it was admitted, wait until the epoch that
+    answered it has advanced. The engine thread records ``epoch.advance``
+    after the answer has left it, so without the wait the next request's
+    ``serving.admit`` can overtake it, in either package, and the flight
+    recorders' orders would compare two thread interleavings."""
+    before = len(recorder.events())
+    answer = _post(port, payload, headers)
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        kinds = [e["kind"] for e in recorder.events()[before:]]
+        if "serving.admit" not in kinds or "epoch.advance" in kinds[kinds.index("serving.admit"):]:
+            break
+        time.sleep(0.002)
+    return answer
+
+
 def _reset_planes():
+    # every process-global registry whose activity gates a /metrics section:
+    # one left active by an earlier test file on the same worker would add
+    # its section to one side's scrape only (the tenancy registries did)
     for reg in (JSERVING, TSERVING, JINDEX, TINDEX, JDECODE, TDECODE, JLEDGER, TLEDGER, JCHIP, TCHIP, JFRESH, TFRESH,
-                jtr.TRACE_STORE, ttr.TRACE_STORE, jtr.TRACING_METRICS, ttr.TRACING_METRICS):
+                JTENANCY, TTENANCY, jtr.TRACE_STORE, ttr.TRACE_STORE, jtr.TRACING_METRICS, ttr.TRACING_METRICS):
         reg.reset()
     jfr.RECORDER.clear()
     tfr.RECORDER.clear()
+
+
+def _settle_reference_servers(timeout: float = 60.0) -> None:
+    """Wait for the reference's served runs that earlier test files left on
+    daemon threads (``BaseRestServer.run(threaded=True)``, threads named
+    ``rest_server:<port>``): such a run returns only after its connectors'
+    joins time out, and its ``pw.run`` then restores the process-global
+    switches it saved (chip ledger, tracing, freshness) in the middle of
+    whatever test runs next on the worker."""
+    deadline = time.monotonic() + timeout
+    for thread in threading.enumerate():
+        if thread.name.startswith("rest_server:") and thread.is_alive():
+            thread.join(max(0.0, deadline - time.monotonic()))
 
 
 @pytest.fixture
 def planes():
     """The reference's planes switched on by hand (the port's through
     ``pw.run``); every registry of both packages reset before and after."""
+    _settle_reference_servers()
     jpw.clear_graph()
     tpw.clear_graph()
     _reset_planes()
@@ -222,7 +258,7 @@ def _serve_reference(embedder, docs, requests, serving):
     _wait(lambda: len(ingested) == len(docs), "the reference's ingest")
     _until_up(port)
     jfr.RECORDER.clear()
-    answers = [_post(port, payload, headers) for payload, headers in requests]
+    answers = [_post_in_turn(jfr.RECORDER, port, payload, headers) for payload, headers in requests]
     runner.engine.stop()  # the reference's endpoint serves until its process ends
     return answers
 
@@ -248,7 +284,7 @@ def _serve_port(embedder, docs, requests, serving, **planes):
         _wait(lambda: len(ingested) == len(docs), "the port's ingest")
         _until_up(port)
         tfr.RECORDER.clear()
-        answers = [_post(port, payload, headers) for payload, headers in requests]
+        answers = [_post_in_turn(tfr.RECORDER, port, payload, headers) for payload, headers in requests]
         scrape = None
         if planes.get("with_http_server"):
             with urllib.request.urlopen(f"http://127.0.0.1:{planes['monitoring_http_port']}/metrics", timeout=30) as r:
@@ -351,6 +387,26 @@ def test_served_pipeline_with_every_plane_matches_the_reference(planes, encoders
     off, _, _ = _serve_port(temb, docs, requests, tcfg)
     for g, o in zip(got, off):
         assert o[1] == g[1] and "X-Pathway-Trace" not in o[2] and "X-Pathway-Freshness-Ms" not in o[2]
+
+
+@pytest.fixture
+def earlier_tenant():
+    """What an earlier test file on the same worker can leave behind: a
+    tenant named in the reference's process-global tenancy registry (and
+    the port's), before the ``planes`` fixture runs."""
+    JTENANCY.record_admit("earlier-file")
+    TTENANCY.record_admit("earlier-file")
+    yield
+    JTENANCY.reset()
+    TTENANCY.reset()
+
+
+def test_scrape_comparison_holds_after_an_earlier_tenant(earlier_tenant, planes, encoders, tmp_path, monkeypatch):
+    """Regression: with a reference tenant named before the test, the scrape
+    comparison of the served pipeline still holds (the reset covers the
+    tenancy registries, so neither scrape carries tenant families)."""
+    assert not JTENANCY.active() and not TTENANCY.active()
+    test_served_pipeline_with_every_plane_matches_the_reference(planes, encoders, tmp_path, monkeypatch)
 
 
 def test_scripted_overload_sheds_and_degrades_like_the_reference(planes, encoders, monkeypatch):

@@ -106,11 +106,13 @@ def test_serving_config_validation(sv):
 
 
 def test_admission_names_the_planes_it_lacks(monkeypatch):
+    """A tenant is attributed with or without a tenancy (its quotas apply
+    under one: tests/test_torch_tenancy.py); the shard-health gate still
+    names its plane."""
     ctl, _ = _controller(tsv)
     assert ctl.admit(tsv.Deadline(5000.0), tenant="acme").tenant == "acme"  # attributed, no quota
     monkeypatch.setenv("PATHWAY_TENANCY", "on")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
-        ctl.admit(tsv.Deadline(5000.0), tenant="acme")
+    assert ctl.admit(tsv.Deadline(5000.0), tenant="acme").tenant == "acme"  # a tenancy without quotas
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
         ctl.admit(tsv.Deadline(5000.0), shard=1)
 
@@ -170,11 +172,17 @@ def test_adaptive_batcher_follows_the_reference():
 
 
 def test_tenant_weights_under_a_tenancy_name_item_4(monkeypatch):
-    b = _idle_batcher(tsv)
-    b.submit("x", tsv.Deadline(5000.0), tenant="a")
-    monkeypatch.setenv("PATHWAY_TENANCY", "on")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
-        b._take_batch()
+    """Under a tenancy the batcher drains the tenant heaps by their quota
+    weights (it raised, naming item 4, until the tenancy plane came)."""
+    from pathway_tpu_torch.tenancy import use_tenancy
+
+    b = _idle_batcher(tsv, batch_max=6)
+    for i in range(6):
+        b.submit(f"a{i}", tsv.Deadline(5000.0 + i), tenant="a")
+        b.submit(f"b{i}", tsv.Deadline(5000.0 + i), tenant="b")
+    with use_tenancy({"quotas": {"a": {"weight": 2}, "b": {"weight": 1}}}):
+        items = b._take_batch()[0]
+    assert items == ["a0", "a1", "b0", "a2", "a3", "b1"]
 
 
 @PACKAGES

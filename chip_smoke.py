@@ -12,8 +12,8 @@ LayerNorm widths 128 and 312, a GEMM with K 300 and N 900, and whole layers
 at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below), times the index's tie-ordered top-k beside
-``torch.topk``, then drives twelve paths, each with the launch counters set
-to 0 just before it and read just after:
+``torch.topk``, then drives thirteen paths, each with the launch counters
+set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
   ``SentenceEncoder.encode_device`` -> ``DeviceKnnIndex.add_batch_device``
@@ -90,7 +90,25 @@ to 0 just before it and read just after:
   cycle, every cold rescore held against the same rows copied afresh
   (the staging ring), recall@10 against an exact f32 scan, 4,096
   self-queries, the int8 recall floor under forced demotion, and an
-  all-hot twin equal to ``DeviceKnnIndex.search_batch``.
+  all-hot twin equal to ``DeviceKnnIndex.search_batch``;
+* ``recovery_path``: persistence, recovery and the overlapped epoch
+  pipeline at ``engine_path``'s width. A live index of 131,072 streamed
+  documents under ``persistence_config`` (snapshots every 2 s) in child
+  processes: run A uninterrupted, run B SIGKILLed past 65,536 delivered
+  documents, run C restarted on B's root (the index rebuilt on the card
+  from the operator snapshot: B1 re-embeds, the device add re-adds),
+  gated on every document delivered once across B and C, C's 256 answers
+  and index rows against A's, C's restore launching B1 and its queries B2,
+  and the snapshot unpickling with the card hidden; time to recover split
+  into its parts. Then an in-process restart under ``pw.run(recovery=2)``
+  through a chaos raise at ``engine.after_sink_flush`` (output equal to an
+  unkilled twin's, one supervisor restart on ``/metrics``, one index on the
+  card after it), the epoch pipeline at depth 1, 2, 1, 2 and depth 2 with
+  four ingest workers (byte-identical sink output; docs/s, host prep,
+  device wait by CUDA events and by wall minus thread time, overlap), and
+  the decode step killed at ``decode.step`` and retried in greedy, sampled
+  and prompt-lookup speculative mode (streams equal to an unkilled twin's,
+  B5 launching).
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -109,6 +127,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -3536,7 +3555,7 @@ TIER_HOT = 1 << 17
 TIER_CLUSTERS = 256
 TIER_PROBE = 16
 TIER_GROUP = 10  # documents of one near-duplicate group (chunks of one source)
-TIER_SINGLES = 1024
+TIER_SINGLES = 512  # 1,024 until the script's thirteenth path needed the time
 TIER_BATCHES = 8
 TIER_BATCH = 256
 TIER_SELF = 4096
@@ -3803,6 +3822,792 @@ def phase_profile(torch, n_docs: int = PROFILE_DOCS, n_queries: int = PROFILE_QU
     return launches
 
 
+# recovery_path: persistence, recovery and the overlapped epoch pipeline at
+# engine_path's width. Documents, epoch size, the crash point, the queries C
+# answers, the snapshot interval; the in-process restart's documents, queries
+# and the epoch its chaos rule raises at; the pipeline runs' documents and
+# queries and the depth / ingest-worker settings in run order; the decode
+# requests and the steps decode.step raises at
+RECOVERY_DOCS, RECOVERY_EPOCH, RECOVERY_KILL_AT, RECOVERY_QUERIES = 131_072, 1024, 65_536, 256
+RECOVERY_SNAPSHOT_MS = 2000
+RECOVERY_RESTART_DOCS, RECOVERY_RESTART_QUERIES, RECOVERY_CHAOS_EPOCH = 32_768, 32, 12
+RECOVERY_PIPE_DOCS, RECOVERY_PIPE_QUERIES = 32_768, 32
+RECOVERY_PIPE_RUNS = ((1, 0), (2, 0), (1, 0), (2, 0), (2, 4))
+RECOVERY_DECODE_REQUESTS, RECOVERY_CHAOS_STEPS = 16, (2, 7)
+RECOVERY_DECODE_MODES = (("greedy", ""), ("sampled", DECODE_EXT_SAMPLED), ("spec_prompt_lookup", ",spec=4,draft=2,ngram=3"))
+RECOVERY_CHILD_TIMEOUT = 300.0
+RECOVERY_TINY = None  # a tiny EncoderConfig's keywords: the CPU rehearsal's stand-in for MiniLM-L6 (children too)
+
+
+@functools.lru_cache(maxsize=2)
+def _recovery_corpus(n_docs: int, n_queries: int) -> tuple[list, list]:
+    """The documents (``_synthetic_texts_bulk``, 20-220 words) and the
+    single queries (half of them documents of the corpus, half new text).
+    Drawn once a process (8 s at 131,072 documents); a child reads the
+    parent's draw from the file ``RECOVERY_CORPUS`` names when it is set."""
+    import numpy as np
+
+    path = os.environ.get("RECOVERY_CORPUS")
+    if path:
+        import pickle
+
+        with open(path, "rb") as f:
+            texts, queries = pickle.load(f)
+        if len(texts) == n_docs and len(queries) == n_queries:
+            return texts, queries
+
+    rng = np.random.default_rng(SEED + 17)
+    texts = _synthetic_texts_bulk(rng, n_docs, 20, 220)
+    own = rng.choice(n_docs, n_queries // 2, replace=False)
+    queries = [texts[i] for i in own] + _synthetic_texts(rng, n_queries - len(own), 5, 40)
+    return texts, queries
+
+
+def _recovery_embedder():
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    embedder = SentenceTransformerEmbedder(device=DEV)
+    if RECOVERY_TINY is not None:  # the CPU rehearsal: a tiny encoder of the same code
+        from pathway_tpu_torch.models.sentence_encoder import SentenceEncoder
+
+        embedder._encoder = SentenceEncoder(config=EncoderConfig(**RECOVERY_TINY), device=DEV)
+    return embedder
+
+
+def _recovery_graph(pw, texts: list, queries: list, per_epoch: int, *, pace: str = "delivered", sink=None,
+                    answers_out=None, on_ingested=None, persistent: bool = True, embedder=None) -> dict:
+    """Build the recovery pipeline in the global graph and return its state:
+    ``pw.io.python.read`` of the documents (``persistent_id="docs"``, offsets:
+    a restarted subject resumes at the ``__seq__`` bookmark, one commit of
+    ``per_epoch`` documents an epoch) -> ``DataIndex(BruteForceKnn(
+    embedder=SentenceTransformerEmbedder()))`` <- single text queries (a
+    second persistent source, one query an epoch once every document was
+    delivered) -> ``pw.io.subscribe``. ``pace``: ``"delivered"`` commits an
+    epoch once the last one reached the sink, ``"drained"`` once the engine
+    took the last commit (so the overlapped pipeline can run ahead while
+    each commit stays one epoch). ``sink``: a file that gets each delivered
+    document's id (flushed at each epoch's end, before the delivered
+    marker); ``answers_out``: one JSON line an answer. ``on_ingested``:
+    called in the query subject's thread once ingest is complete, before
+    the queries. ``embedder``: a ``SentenceTransformerEmbedder`` to reuse
+    (a new one by default)."""
+    import threading
+
+    n_docs = len(texts)
+    mono = time.monotonic
+    cv = threading.Condition()
+    state = {"rows": 0, "delivered": [], "log": [], "answers": {}, "attempts": 0, "t_first": None, "epochs": set(),
+             "pending": []}
+
+    def wait(ctx, cond) -> bool:
+        """Wait for ``cond`` (under ``cv``); False once the engine stopped."""
+        with cv:
+            while not cond():
+                if ctx.wait_stopped(0):
+                    return False
+                cv.wait(0.05)
+        return True
+
+    class Documents(pw.io.python.ConnectorSubject):
+        supports_offsets = True
+
+        def run(self):
+            ctx = self._ctx  # this attempt's context: a restarted run hands the subject a new one
+            start = int(ctx.offsets.get("__seq__", 0))
+            with cv:
+                state["attempts"] += 1
+                state["rows"] = start  # rows at or below the recovered frontier were delivered before
+                state["pending"] = []
+            for b in range(start, n_docs, per_epoch):
+                e = min(n_docs, b + per_epoch)
+                ctx.insert_batch({"doc_id": list(range(b, e)), "text": texts[b:e]})
+                ctx.commit()
+                if pace == "drained":
+                    ok = wait(ctx, lambda: not ctx.session.pending())
+                else:
+                    ok = wait(ctx, lambda e=e: state["rows"] >= e)
+                if not ok:
+                    return
+
+    class Queries(pw.io.python.ConnectorSubject):
+        supports_offsets = True
+
+        def run(self):
+            ctx = self._ctx
+            if not wait(ctx, lambda: state["rows"] >= n_docs):
+                return
+            if on_ingested is not None:
+                on_ingested(state)
+            for i in range(int(ctx.offsets.get("__seq__", 0)), len(queries)):
+                ctx.insert_batch({"qid": [i], "text": [queries[i]]})
+                ctx.commit()
+                if not wait(ctx, lambda i=i: i in state["answers"]):
+                    return
+
+    def on_doc(key, row, time, is_addition):  # (``time``: the epoch)
+        if state["t_first"] is None:
+            state["t_first"] = mono()
+        state["delivered"].append(row["doc_id"])
+        state["log"].append((time, row["doc_id"], int(is_addition)))
+        state["epochs"].add(time)
+        state["pending"].append(row["doc_id"])
+
+    def on_epoch_end(time):
+        # one write an epoch, flushed before the engine marks it delivered
+        if sink is not None and state["pending"]:
+            sink.write("".join(f"{d}\n" for d in state["pending"]))
+            sink.flush()
+        with cv:
+            state["rows"] += len(state["pending"])
+            state["pending"] = []
+            cv.notify_all()
+
+    def on_answer(key, row, time, is_addition):
+        hits = [[int(i), float(s)] for i, s in zip(row["ids"], row["scores"])]
+        if answers_out is not None:
+            answers_out.write(json.dumps({"qid": row["qid"], "hits": hits}) + "\n")
+            answers_out.flush()
+        with cv:
+            state["answers"][row["qid"]] = hits
+            cv.notify_all()
+
+    class DocSchema(pw.Schema, append_only=True):
+        doc_id: int
+        text: str
+
+    class QuerySchema(pw.Schema, append_only=True):
+        qid: int
+        text: str
+
+    embedder = embedder or _recovery_embedder()
+    docs = pw.io.python.read(Documents(), schema=DocSchema, autocommit_duration_ms=None,
+                             persistent_id="docs" if persistent else None)
+    qs = pw.io.python.read(Queries(), schema=QuerySchema, autocommit_duration_ms=None,
+                           persistent_id="queries" if persistent else None)
+    index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(
+        docs.text, dimensions=embedder.get_embedding_dimension(), reserved_space=n_docs, embedder=embedder,
+        device=DEV))
+    replies = index.query_as_of_now(qs.text, number_of_matches=10)
+    answers = replies.select(qid=qs.qid, ids=pw.this.doc_id, scores=pw.this._pw_index_reply_score)
+    pw.io.subscribe(docs, on_doc, on_time_end=on_epoch_end)
+    pw.io.subscribe(answers, on_answer)
+    state["embedder"] = embedder
+    return state
+
+
+def _index_rows(index) -> tuple:
+    """(sorted keys, their rows of the index's device matrix on the host)."""
+    import numpy as np
+
+    keys = sorted(index._slot_of)
+    slots = [index._slot_of[k] for k in keys]
+    rows = index._dev_matrix[slots].float().cpu().numpy() if keys else np.zeros((0, index.dim), np.float32)
+    return np.asarray([int(k) for k in keys], np.uint64), rows
+
+
+def _recovery_child(spec_json: str) -> int:
+    """One run of the recovery pipeline in a process of its own (the
+    crash-and-recover part of ``recovery_path``): A (uninterrupted, writes
+    its index rows), B (the parent SIGKILLs it mid-stream) or C (restarts on
+    B's root, holds its index rows against A's, answers the queries) per
+    ``spec``; the report goes to ``spec["report"]`` as JSON."""
+    global DEV, RECOVERY_TINY
+    spec = json.loads(spec_json)
+    DEV, RECOVERY_TINY = spec["dev"], spec.get("tiny")
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DeviceKnnIndex
+    from pathway_tpu_torch.engine import dataflow as df
+    from pathway_tpu_torch.engine.persistence import EnginePersistence
+    from pathway_tpu_torch.internals.chip_ledger import CHIP_LEDGER
+    from pathway_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = DEV != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    texts, queries = _recovery_corpus(spec["n_docs"], spec["n_queries"])
+    report: dict = {"role": spec["role"]}
+    marks: dict = collections.defaultdict(float)
+    indexes: list = []
+    real = {
+        "init": DeviceKnnIndex.__init__, "add": DeviceKnnIndex.add_batch_device,
+        "src": EnginePersistence.recover_source, "snap": EnginePersistence.recover_operator_snapshot,
+        "setup": df.EngineGraph._setup_persistence, "restore": df.ExternalIndexNode.restore_state,
+        "pass": df.EngineGraph._topo_pass,
+    }
+
+    def init(self, *a, **kw):
+        real["init"](self, *a, **kw)
+        indexes.append(self)
+
+    def add(self, keys, vecs, metas=None):
+        if not marks.get("restoring"):
+            return real["add"](self, keys, vecs, metas)
+        sync()
+        t0 = time.monotonic()
+        out = real["add"](self, keys, vecs, metas)
+        sync()
+        marks["restore_add_s"] += time.monotonic() - t0
+        return out
+
+    def timed_read(name):
+        def wrapped(self, *a, **kw):
+            t0 = time.monotonic()
+            try:
+                return real[name](self, *a, **kw)
+            finally:
+                marks["read_s"] += time.monotonic() - t0
+        return wrapped
+
+    def setup(self):
+        marks["t_setup0"] = time.monotonic()
+        real["setup"](self)
+        marks["t_setup1"] = time.monotonic()
+        report["replay_frontier"] = int(self.replay_frontier)
+        report["snapshot_time"] = int(self._opsnap_time)
+        report["replayed_rows"] = sum(
+            len(ups) for s in self.session_sources for _t, ups in s.replay_batches)
+        report["replayed_epochs"] = sum(len(s.replay_batches) for s in self.session_sources)
+        marks["frontier"] = self.replay_frontier
+
+    def restore(self, state):
+        sync()
+        enc0 = CHIP_LEDGER.snapshot().get("accounts", {}).get("encode", {}).get("seconds", 0.0)
+        launches0 = dict(_build.LAUNCHES)
+        marks["restoring"] = 1.0
+        t0 = time.monotonic()
+        try:
+            real["restore"](self, state)
+            sync()
+        finally:
+            marks["restoring"] = 0.0
+        report["restore_s"] = time.monotonic() - t0
+        report["restored_rows"] = len(self.data_rows)
+        enc1 = CHIP_LEDGER.snapshot().get("accounts", {}).get("encode", {}).get("seconds", 0.0)
+        report["restore_encode_device_s"] = enc1 - enc0
+        report["restore_launches"] = {k: v - launches0.get(k, 0) for k, v in _build.LAUNCHES.items()
+                                      if v - launches0.get(k, 0)}
+
+    def topo(self, t, end_epoch=True):
+        real["pass"](self, t, end_epoch)
+        if t == marks.get("frontier", -2) and "t_replayed" not in marks:
+            sync()
+            marks["t_replayed"] = time.monotonic()
+
+    DeviceKnnIndex.__init__, DeviceKnnIndex.add_batch_device = init, add
+    EnginePersistence.recover_source = timed_read("src")
+    EnginePersistence.recover_operator_snapshot = timed_read("snap")
+    df.EngineGraph._setup_persistence, df.ExternalIndexNode.restore_state = setup, restore
+    df.EngineGraph._topo_pass = topo
+    sink = open(spec["sink"], "a")
+    answers_out = open(spec["answers"], "a")
+    try:
+        pw.clear_graph()
+        state = _recovery_graph(pw, texts, queries, spec["per_epoch"], sink=sink, answers_out=answers_out)
+        state["embedder"]._encoder.encode_device(texts[:8], pad_to=8)  # warm-up: handles, first launches
+        sync()
+        _build.reset_launches()
+        cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(spec["root"]),
+                                                  snapshot_interval_ms=spec["snapshot_ms"])
+        t_run = time.monotonic()
+        pw.run(persistence_config=cfg, chip_ledger=bool(spec.get("chip_ledger")))
+        sync()
+        t_end = time.monotonic()
+    finally:
+        sink.close()
+        answers_out.close()
+        for cls, name, key in ((DeviceKnnIndex, "__init__", "init"), (DeviceKnnIndex, "add_batch_device", "add"),
+                               (EnginePersistence, "recover_source", "src"),
+                               (EnginePersistence, "recover_operator_snapshot", "snap"),
+                               (df.EngineGraph, "_setup_persistence", "setup"),
+                               (df.ExternalIndexNode, "restore_state", "restore"),
+                               (df.EngineGraph, "_topo_pass", "pass")):
+            setattr(cls, name, real[key])
+    index = max(indexes, key=lambda ix: len(ix._slot_of))
+    keys, rows = _index_rows(index)
+    report.update(
+        launches=dict(_build.LAUNCHES), delivered=len(state["delivered"]), answers=len(state["answers"]),
+        index_rows=len(keys), run_s=t_end - t_run, since_spawn_s=t_end - spec["t_spawn"],
+        read_s=marks["read_s"], restore_add_s=marks["restore_add_s"],
+    )
+    if state["t_first"] is not None:
+        report["first_delivery_since_run_s"] = state["t_first"] - t_run
+        report["first_delivery_since_spawn_s"] = state["t_first"] - spec["t_spawn"]
+    if "t_setup0" in marks:
+        report["setup_s"] = marks["t_setup1"] - marks["t_setup0"]
+        report["start_to_setup_s"] = marks["t_setup0"] - t_run
+    if "t_replayed" in marks:
+        report["log_tail_replay_s"] = marks["t_replayed"] - marks["t_setup1"]
+        if state["t_first"] is not None:
+            report["first_live_epoch_s"] = state["t_first"] - marks["t_replayed"]
+    if spec.get("rows_out"):
+        np.save(spec["rows_out"] + ".keys.npy", keys)
+        np.save(spec["rows_out"] + ".rows.npy", rows)
+    if spec.get("rows_ref"):
+        ref_keys = np.load(spec["rows_ref"] + ".keys.npy")
+        ref_rows = np.load(spec["rows_ref"] + ".rows.npy")
+        if not np.array_equal(ref_keys, keys):
+            raise AssertionError(f"C's index holds {len(keys)} keys, A's {len(ref_keys)}, not the same set")
+        err, cos = held_embeddings("recovered index rows against the uninterrupted run's", rows, ref_rows)
+        report.update(rows_max_abs_err=err, rows_min_cos=cos,
+                      rows_bitwise_equal=int((rows == ref_rows).all(axis=1).sum()))
+    with open(spec["report"], "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _unpickle_hidden(path: str) -> dict:
+    """Run in a child with the card hidden: read the operator snapshot log
+    at ``path`` and unpickle its latest snapshot. A CUDA tensor inside would
+    fail to load here."""
+    import pickle
+
+    import torch
+
+    from pathway_tpu_torch.engine.persistence import sniff_log_reader
+
+    records = list(sniff_log_reader(path))
+    if not records:
+        raise AssertionError(f"no operator snapshot in {path}")
+    _kind, t, _key, blob = records[-1]
+    data = pickle.loads(blob)
+    return {"cuda_available": torch.cuda.is_available(), "time": int(t), "nodes": len(data["states"]),
+            "bytes": len(blob)}
+
+
+_CHILDREN: list = []  # every child process recovery_path starts; none outlives the phase
+
+
+def _spawn_child(code: str, arg: str, env=None):
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", code, arg], cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _child_result(proc, what: str, timeout: float) -> str:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what} did not finish in {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{err[-4000:]}")
+    return out
+
+
+def _sink_ids(path: str) -> list[int]:
+    """The document ids a sink file holds (a torn last line is not one)."""
+    with open(path) as f:
+        text = f.read()
+    return [int(x) for x in text[: text.rfind("\n") + 1].split()]
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _d, fs in os.walk(path) for f in fs)
+
+
+def _recovery_crash(torch, folder: str, n_docs: int, per_epoch: int, kill_at: int, n_queries: int,
+                    snapshot_ms: int) -> dict:
+    """Part 1: a real process crash of a live index and its recovery (runs
+    A, B, C and the hidden-card unpickle, each a process of its own)."""
+    import pickle
+    import signal
+
+    child = "import sys, chip_smoke; sys.exit(chip_smoke._recovery_child(sys.argv[1]))"
+    corpus = os.path.join(folder, "corpus.pkl")
+    with open(corpus, "wb") as f:
+        pickle.dump(_recovery_corpus(n_docs, n_queries), f, protocol=4)
+    child_env = dict(os.environ, RECOVERY_CORPUS=corpus)
+
+    def spec(role: str, **kw) -> dict:
+        base = os.path.join(folder, role)
+        return dict(role=role, dev=DEV, tiny=RECOVERY_TINY, n_docs=n_docs, n_queries=n_queries, per_epoch=per_epoch,
+                    snapshot_ms=snapshot_ms, sink=base + ".sink", answers=base + ".answers",
+                    report=base + ".report.json", t_spawn=time.monotonic(), **kw)
+
+    root_a, root_b = os.path.join(folder, "root_a"), os.path.join(folder, "root_b")
+    spec_a = spec("A", root=root_a, rows_out=os.path.join(folder, "rows_a"))
+    proc_a = _spawn_child(child, json.dumps(spec_a), env=child_env)
+    spec_b = spec("B", root=root_b)
+    proc_b = _spawn_child(child, json.dumps(spec_b), env=child_env)
+    snap_b = os.path.join(root_b, "streams", "__operators__.bin")
+    deadline = time.monotonic() + RECOVERY_CHILD_TIMEOUT
+    delivered_b = 0
+    while True:
+        if proc_b.poll() is not None:
+            _out, err = proc_b.communicate()
+            raise AssertionError(f"run B ended (exit {proc_b.returncode}) before the parent killed it:\n{err[-4000:]}")
+        if os.path.exists(spec_b["sink"]):
+            delivered_b = len(_sink_ids(spec_b["sink"]))
+        if delivered_b >= kill_at and os.path.exists(snap_b) and os.path.getsize(snap_b) > 0:
+            break
+        if time.monotonic() > deadline:
+            proc_b.kill()
+            raise AssertionError(f"run B delivered {delivered_b} documents in {RECOVERY_CHILD_TIMEOUT} s")
+        time.sleep(0.02)
+    os.kill(proc_b.pid, signal.SIGKILL)
+    proc_b.communicate()
+    t_killed = time.monotonic()
+    b_ids = _sink_ids(spec_b["sink"])
+    # the snapshot as the crash left it, unpickled with the card hidden
+    import shutil
+
+    hidden_copy = os.path.join(folder, "snapshot_at_crash.bin")
+    shutil.copyfile(snap_b, hidden_copy)
+    hidden_env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc_h = _spawn_child("import sys, json, chip_smoke; print(json.dumps(chip_smoke._unpickle_hidden(sys.argv[1])))",
+                          hidden_copy, env=hidden_env)
+    _child_result(proc_a, "run A", RECOVERY_CHILD_TIMEOUT)
+    hidden = json.loads(_child_result(proc_h, "the hidden-card unpickle", RECOVERY_CHILD_TIMEOUT).splitlines()[-1])
+    if hidden["cuda_available"]:
+        raise AssertionError("the hidden-card child still saw a card")
+    root_bytes_at_crash = _dir_bytes(root_b)
+    spec_c = spec("C", root=root_b, rows_ref=os.path.join(folder, "rows_a"), chip_ledger=True)
+    _child_result(_spawn_child(child, json.dumps(spec_c), env=child_env), "run C", RECOVERY_CHILD_TIMEOUT)
+    rep_a, rep_c = (json.load(open(s["report"])) for s in (spec_a, spec_c))
+    c_ids = _sink_ids(spec_c["sink"])
+
+    # ---- gates
+    both = collections.Counter(b_ids + c_ids)
+    missing = n_docs - len(both)
+    dups = sorted(k for k, v in both.items() if v > 1)
+    extra = [k for k in both if not 0 <= k < n_docs]
+    # the one at-least-once window of the contract: a kill after an epoch's
+    # sink flush and before its delivered marker re-delivers that epoch
+    last_b_epoch = set(b_ids[-per_epoch:]) if b_ids else set()
+    window_ok = not dups or (len(dups) <= per_epoch and set(dups) <= last_b_epoch)
+    if missing or extra or any(v > 2 for v in both.values()) or not window_ok:
+        raise AssertionError(f"across B and C: {missing} documents missing, {len(dups)} delivered twice, "
+                             f"{len(extra)} unknown")
+    answers = {}
+    for role, sp in (("A", spec_a), ("C", spec_c)):
+        with open(sp["answers"]) as f:
+            answers[role] = {rec["qid"]: rec["hits"] for rec in map(json.loads, f)}
+    if sorted(answers["A"]) != list(range(n_queries)) or sorted(answers["C"]) != list(range(n_queries)):
+        raise AssertionError(f"A answered {len(answers['A'])}, C {len(answers['C'])} of {n_queries} queries")
+    share, ok = _hits_agree([answers["C"][i] for i in range(n_queries)], [answers["A"][i] for i in range(n_queries)],
+                            10)
+    if not ok:
+        raise AssertionError(f"C's hits disagree with the uninterrupted run's beyond {HIT_TOL} ({share})")
+    b1 = ("gemm_bias_act", "gemm_bias_residual_layernorm")
+    if DEV != "cpu":
+        restore_b1 = {k: rep_c.get("restore_launches", {}).get(k, 0) for k in b1}
+        b2 = {k: rep_c["launches"].get(k, 0) for k in ("knn_topk_stream", "knn_topk_merge")}
+        if not all(restore_b1.values()) or not all(b2.values()):
+            raise AssertionError(f"C's restore launched {restore_b1}, its run {b2}")
+    if rep_c.get("restored_rows", 0) == 0 or rep_c.get("snapshot_time", -1) < 0:
+        raise AssertionError("C did not restore the index from the operator snapshot")
+    return dict(
+        docs=n_docs, per_epoch=per_epoch, killed_after_docs=len(b_ids), delivered_by_b=len(b_ids),
+        delivered_by_c=len(c_ids), redelivered=len(dups), queries=n_queries, hits_vs_uninterrupted=share,
+        time_to_recover_s=rep_c.get("first_delivery_since_run_s"),
+        time_to_recover_since_spawn_s=rep_c.get("first_delivery_since_spawn_s"),
+        recover_split=dict(read_logs_and_snapshot_s=rep_c.get("read_s"), setup_s=rep_c.get("setup_s"),
+                           restore_s=rep_c.get("restore_s"), re_embed_encode_device_s=rep_c.get(
+                               "restore_encode_device_s"), index_adds_s=rep_c.get("restore_add_s"),
+                           log_tail_replay_s=rep_c.get("log_tail_replay_s"),
+                           first_live_epoch_s=rep_c.get("first_live_epoch_s")),
+        snapshot_time=rep_c.get("snapshot_time"), replay_frontier=rep_c.get("replay_frontier"),
+        rows_restored_from_snapshot=rep_c.get("restored_rows"), rows_replayed_from_log=rep_c.get("replayed_rows"),
+        epochs_replayed_from_log=rep_c.get("replayed_epochs"),
+        restored_rows_max_abs_err=rep_c.get("rows_max_abs_err"), restored_rows_min_cos=rep_c.get("rows_min_cos"),
+        restored_rows_bitwise_equal=rep_c.get("rows_bitwise_equal"), index_rows=rep_c.get("index_rows"),
+        restore_launches=rep_c.get("restore_launches"), c_launches=rep_c.get("launches"),
+        hidden_card_unpickle=hidden, persistence_root_bytes_at_crash=root_bytes_at_crash,
+        persistence_root_bytes_after_c=_dir_bytes(root_b), run_a_seconds=rep_a.get("run_s"),
+        run_c_seconds=rep_c.get("run_s"), c_start_after_kill_s=spec_c["t_spawn"] - t_killed,
+    )
+
+
+def _recovery_restart(torch, folder: str, n_docs: int, per_epoch: int, n_queries: int, chaos_epoch: int) -> dict:
+    """Part 2: an in-process restart under the supervisor. The pipeline over
+    ``n_docs`` documents under ``pw.run(recovery=2, persistence_config=...,
+    with_http_server=True)``; a chaos rule raises at
+    ``engine.after_sink_flush`` at epoch ``chaos_epoch``. Gates: the
+    delivered documents and the answers equal an unkilled twin's (the
+    raised epoch, flushed but never marked delivered, comes again: the
+    contract's one at-least-once window), ``/metrics`` reads one supervisor
+    restart, and after the restart the card holds one index, not two."""
+    import gc
+    import socket
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import run as trun
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.internals.ledger import LEDGER
+    from pathway_tpu_torch.resilience import SUPERVISOR_METRICS, chaos
+
+    texts, queries = _recovery_corpus(n_docs, n_queries)
+    real_release, real_run = trun.release_crashed_attempt, GraphRunner.run
+    embedder = _recovery_embedder()  # one encoder for both runs: the card's memory compares their indexes
+    embedder._encoder.encode_device(texts[:8], pad_to=8)
+
+    def once(root: str, chaotic: bool) -> dict:
+        probe: dict = {}
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+
+        def on_ingested(state):
+            torch.cuda.synchronize()
+            hot = LEDGER.accounts().get("index.hot", {})
+            probe.update(attempt=state["attempts"], memory_allocated=torch.cuda.memory_allocated(),
+                         index_hot_owners=hot.get("owners", 0), index_hot_bytes=hot.get("bytes", 0))
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+                probe["metrics"] = r.read().decode()
+
+        pw.clear_graph()
+        state = _recovery_graph(pw, texts, queries, per_epoch, on_ingested=on_ingested, embedder=embedder)
+        cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(root))
+        SUPERVISOR_METRICS.reset()
+        # the same baseline for both runs: earlier paths' garbage collected, the allocator's cache returned
+        gc.collect()
+        torch.cuda.empty_cache()
+        if chaotic:
+            chaos.activate([{"site": "engine.after_sink_flush", "time": chaos_epoch, "action": "raise"}])
+        release = {"s": 0.0}
+        spans: list = []  # each attempt's (start, end) of GraphRunner.run, from t0
+
+        def timed_release():
+            t = time.perf_counter()
+            real_release()
+            release["s"] += time.perf_counter() - t
+
+        def timed_run(self, *a, **kw):
+            spans.append([time.perf_counter() - t0, None])
+            try:
+                return real_run(self, *a, **kw)
+            finally:
+                spans[-1][1] = time.perf_counter() - t0
+
+        trun.release_crashed_attempt, GraphRunner.run = timed_release, timed_run
+        t0 = time.perf_counter()
+        try:
+            pw.run(recovery=2, persistence_config=cfg, with_http_server=True, monitoring_http_port=port)
+        finally:
+            trun.release_crashed_attempt, GraphRunner.run = real_release, real_run
+            chaos.deactivate()
+            pw.clear_graph()
+        torch.cuda.synchronize()
+        return dict(state=state, probe=probe, seconds=time.perf_counter() - t0, release_s=release["s"],
+                    spans=spans, restarts=SUPERVISOR_METRICS.snapshot()["restarts_total"])
+
+    twin = once(os.path.join(folder, "restart_twin"), False)
+    hit = once(os.path.join(folder, "restart_chaos"), True)
+    tw, ch = twin["state"], hit["state"]
+    dup = collections.Counter(ch["delivered"])
+    twice = sorted(k for k, v in dup.items() if v > 1)
+    window = set(range(chaos_epoch * per_epoch, (chaos_epoch + 1) * per_epoch))
+    if set(dup) != set(tw["delivered"]) or any(v > 2 for v in dup.values()) or set(twice) - window:
+        raise AssertionError(f"the restarted run delivered {len(dup)} documents ({len(twice)} twice), the twin "
+                             f"{len(set(tw['delivered']))}")
+    share, ok = _hits_agree([ch["answers"][i] for i in range(n_queries)], [tw["answers"][i] for i in range(n_queries)],
+                            10)
+    if not ok:
+        raise AssertionError(f"the restarted run's hits disagree with its twin's ({share})")
+    if hit["restarts"] != 1 or ch["attempts"] != 2:
+        raise AssertionError(f"{hit['restarts']} supervisor restarts, {ch['attempts']} attempts of the subject")
+    line = [ln for ln in hit["probe"]["metrics"].splitlines() if ln.startswith("pathway_supervisor_restarts_total")]
+    if [ln.rsplit(" ", 1)[-1] for ln in line] != ["1"]:
+        raise AssertionError(f"/metrics reads {line} for the supervisor's restarts")
+    mem_twin, mem_hit = twin["probe"]["memory_allocated"], hit["probe"]["memory_allocated"]
+    index_bytes = hit["probe"]["index_hot_bytes"]
+    if hit["probe"]["index_hot_owners"] != 1 or mem_hit > mem_twin + index_bytes // 2:
+        raise AssertionError(f"after the restart the ledger books {hit['probe']['index_hot_owners']} indexes and "
+                             f"the card holds {mem_hit} bytes against the twin's {mem_twin}")
+    return dict(docs=n_docs, chaos_epoch=chaos_epoch, redelivered=len(twice), restarts=hit["restarts"],
+                metrics_line=line[0], hits_vs_twin=share, memory_allocated_after_restart=mem_hit,
+                memory_allocated_twin=mem_twin, index_hot_owners=hit["probe"]["index_hot_owners"],
+                index_hot_bytes=index_bytes, twin_seconds=twin["seconds"], restarted_seconds=hit["seconds"],
+                release_seconds=hit["release_s"], attempt_spans=hit["spans"], twin_spans=twin["spans"])
+
+
+def _recovery_pipeline_runs(torch, n_docs: int, per_epoch: int, n_queries: int, runs=RECOVERY_PIPE_RUNS) -> dict:
+    """Part 3: the epoch pipeline and the host-ingest stage. The pipeline
+    (no persistence) over ``n_docs`` documents, paced so that each commit is
+    one epoch while the stager may run ahead, at each (depth, ingest
+    workers) of ``runs`` in turn; the last with the stage's autoscaler on.
+    Gate: the sink output (every delivered row with its epoch and diff, and
+    every answer with its scores) is byte-identical across the runs."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ingest import stage as ingest_stage
+    from pathway_tpu_torch.ingest.metrics import INGEST_METRICS
+    from pathway_tpu_torch.internals import flight_recorder
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+
+    texts, queries = _recovery_corpus(n_docs, n_queries)
+    embedder = _recovery_embedder()
+    embedder._encoder.encode_device(texts[:8], pad_to=8)
+    outs, stats = [], []
+    real_init = GraphRunner.__init__
+    for depth, workers in runs:
+        runners: list = []
+
+        def init(self, *a, **kw):
+            real_init(self, *a, **kw)
+            runners.append(self)
+
+        pw.clear_graph()
+        state = _recovery_graph(pw, texts, queries, per_epoch, pace="drained", persistent=False, embedder=embedder)
+        INGEST_METRICS.reset()
+        seq0 = flight_recorder.RECORDER._seq
+        env_before = os.environ.get("PATHWAY_INGEST_AUTOSCALE")
+        if workers:
+            os.environ["PATHWAY_INGEST_AUTOSCALE"] = "1"
+        GraphRunner.__init__ = init
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            pw.run(pipeline_depth=depth, ingest_workers=workers)
+        finally:
+            GraphRunner.__init__ = real_init
+            if env_before is None:
+                os.environ.pop("PATHWAY_INGEST_AUTOSCALE", None)
+            else:
+                os.environ["PATHWAY_INGEST_AUTOSCALE"] = env_before
+            pw.clear_graph()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ps = runners[-1].engine.pipeline_stats if runners else None
+        ing = INGEST_METRICS.snapshot() if INGEST_METRICS.active() else None
+        if workers:
+            ingest_stage.shutdown_stage()
+        autoscale = [e for e in flight_recorder.RECORDER.events()
+                     if e["seq"] > seq0 and e["kind"] == "ingest.autoscale"]
+        out = [" ".join(map(str, rec)) for rec in state["log"]]
+        out += [json.dumps([i, state["answers"][i]]) for i in sorted(state["answers"])]
+        outs.append("\n".join(out))
+        entry = dict(depth=depth, ingest_workers=workers, seconds=wall, docs_per_s=n_docs / wall,
+                     epochs=len(state["epochs"]), autoscale_events=len(autoscale))
+        if ps is not None:
+            d = ps.as_dict()
+            entry.update(host_prep_s=d["host_prep_s"], device_wait_s=d["device_wait_s"],
+                         device_wait_cpu_s=d["device_wait_cpu_s"], device_wait_events_s=d["device_wait_events_s"],
+                         overlap_s=d["overlap_s"], overlap_ratio=d["overlap_ratio"], exec_s=d["exec_s"])
+        if ing is not None:
+            entry.update(ingest_utilization=ing["utilization"], ingest_workers_final=ing["host_workers"],
+                         ingest_scale_up=ing["scale_up"], ingest_scale_down=ing["scale_down"],
+                         ingest_committed=ing["committed"])
+        stats.append(entry)
+    if any(o != outs[0] for o in outs[1:]):
+        raise AssertionError("the sink output differs between depths / ingest-worker settings: "
+                             f"{[hash(o) for o in outs]}")
+    if len(outs[0].splitlines()) != n_docs + n_queries:
+        raise AssertionError(f"{len(outs[0].splitlines())} sink lines for {n_docs} documents and {n_queries} queries")
+    return dict(docs=n_docs, runs=stats, identical_outputs=len(outs))
+
+
+def _recovery_decode(torch, n_requests: int, steps=RECOVERY_CHAOS_STEPS) -> dict:
+    """Part 4: the decode step's crash discipline. ``decode_ext_path``'s
+    seeded decoder (B5 paged attention), ``n_requests`` requests in greedy,
+    sampled and prompt-lookup speculative mode; ``decode.step`` raises at
+    each of ``steps`` and the drain is retried. Gates: every stream equals
+    an unkilled twin's exactly, and B5 launches in the chaotic runs."""
+    from pathway_tpu_torch import DecodeEngine, DecoderConfig
+    from pathway_tpu_torch.decode import parse_decode_spec
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.resilience import chaos
+
+    mcfg = DecoderConfig()
+    prompts = _decode_ext_prompts(mcfg.vocab_size)[:n_requests]
+    out = {}
+    for mode, extra in RECOVERY_DECODE_MODES:
+        spec = f"{DECODE_EXT_POOL},impl={DECODE_EXT_IMPL}{extra}"
+        twin = DecodeEngine(mcfg, parse_decode_spec(spec), seed=SEED, device=DEV).generate(prompts)
+        eng = DecodeEngine(mcfg, parse_decode_spec(spec), seed=SEED, device=DEV)
+        tickets = [eng.submit(p) for p in prompts]
+        before = dict(_build.LAUNCHES)
+        chaos.activate([{"site": "decode.step", "time": s, "action": "raise"} for s in steps])
+        raised = 0
+        try:
+            while True:
+                try:
+                    eng.drain()
+                    break
+                except chaos.ChaosInjected:
+                    raised += 1
+        finally:
+            chaos.deactivate()
+        b5 = _build.LAUNCHES.get("paged_decode_attention", 0) - before.get("paged_decode_attention", 0)
+        streams = [t.result() for t in tickets]
+        if raised != len(steps) or streams != twin:
+            bad = sum(a != b for a, b in zip(streams, twin))
+            raise AssertionError(f"decode {mode}: {raised} of {len(steps)} kills fired, {bad} streams differ "
+                                 "from the unkilled twin's")
+        if DEV != "cpu" and "spec" not in mode and not b5:  # a speculative tick's verify is plain PyTorch
+            raise AssertionError(f"decode {mode}: B5 never launched")
+        out[mode] = dict(kills=raised, tokens=sum(len(s) for s in streams), b5_launches=b5, steps=eng.steps)
+    return dict(requests=n_requests, chaos_steps=list(steps), modes=out)
+
+
+def phase_recovery_path(torch, n_docs: int = RECOVERY_DOCS, per_epoch: int = RECOVERY_EPOCH,
+                        kill_at: int = RECOVERY_KILL_AT, n_queries: int = RECOVERY_QUERIES,
+                        snapshot_ms: int = RECOVERY_SNAPSHOT_MS, restart_docs: int = RECOVERY_RESTART_DOCS,
+                        restart_queries: int = RECOVERY_RESTART_QUERIES, chaos_epoch: int = RECOVERY_CHAOS_EPOCH,
+                        pipe_docs: int = RECOVERY_PIPE_DOCS, pipe_queries: int = RECOVERY_PIPE_QUERIES,
+                        decode_requests: int = RECOVERY_DECODE_REQUESTS) -> dict:
+    """Persistence, recovery and the overlapped epoch pipeline on the card,
+    at ``engine_path``'s width (MiniLM-L6, seeded weights; B1, B4 where the
+    embedder packs, B2). Four parts, each gated (see their functions): a
+    live index's crash and recovery across processes, an in-process
+    supervisor restart, the epoch pipeline at depth 1 and 2 with the
+    host-ingest stage, and the decode step's crash discipline. Returns the
+    launch counts of the parts' counted runs (the launch counters are set
+    to 0 just before this phase; its children count their own)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix="recovery_", dir=build_dir)
+    # the children need the card's memory that the earlier paths' garbage and
+    # this process's allocator cache still hold
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        crash = _recovery_crash(torch, folder, n_docs, per_epoch, kill_at, n_queries, snapshot_ms)
+        crash["seconds"] = time.perf_counter() - t0
+        emit("recovery_crash", **crash)
+        t0 = time.perf_counter()
+        restart = _recovery_restart(torch, folder, restart_docs, per_epoch, restart_queries, chaos_epoch)
+        restart["seconds"] = time.perf_counter() - t0
+        emit("recovery_restart", **restart)
+        t0 = time.perf_counter()
+        pipe = _recovery_pipeline_runs(torch, pipe_docs, per_epoch, pipe_queries)
+        pipe["seconds"] = time.perf_counter() - t0
+        emit("recovery_pipeline", **pipe)
+        t0 = time.perf_counter()
+        dec = _recovery_decode(torch, decode_requests)
+        dec["seconds"] = time.perf_counter() - t0
+        emit("recovery_decode", **dec)
+        launches = collections.Counter(_build.LAUNCHES)
+        # the children's own counted runs: C's restore and its queries
+        launches.update(crash["c_launches"] or {})
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(folder, ignore_errors=True)
+    emit("recovery_path", seconds=time.perf_counter() - t_phase, launches=dict(launches))
+    return dict(launches)
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -3846,7 +4651,8 @@ def main(argv: list[str]) -> int:
     launches.update(phase_observe_path(torch, env))
     launches.update(phase_tenant_path(torch))
     launches.update(phase_tier_path(torch))
-    for e in entries:  # launches summed over the twelve paths' counted runs
+    launches.update(phase_recovery_path(torch))
+    for e in entries:  # launches summed over the thirteen paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

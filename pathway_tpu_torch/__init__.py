@@ -50,7 +50,7 @@ numpy only.
 
 import datetime as _datetime
 
-from . import debug, freshness, io, reducers, resilience, serving, stdlib, tenancy, tracing, xpacks
+from . import debug, freshness, io, persistence, reducers, resilience, serving, stdlib, tenancy, tracing, xpacks
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
 from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_make_pointer, wrap_py_object
@@ -94,12 +94,23 @@ from .models.reranker import DeviceReranker, as_reranker
 from .models.sentence_encoder import CrossEncoderScorer, SentenceEncoder
 from .ops.fused_rag import FusedRagPipeline
 from .ops.knn import DeviceKnnIndex
+from .resilience import Recovery, RecoveryEscalated, RetryPolicy
 from .stdlib import indexing, ml
 from .tenancy import TenancyConfig, TenantQuotas
 
 DateTimeNaive = _datetime.datetime
 DateTimeUtc = _datetime.datetime
 Duration = _datetime.timedelta
+
+
+class PersistenceMode:
+    """Upstream ``api.PersistenceMode`` names; the engine takes the same
+    values as ``persistence_config.persistence_mode`` strings."""
+
+    BATCH = "batch"
+    PERSISTING = "persisting"
+    OPERATOR_PERSISTING = "operator_persisting"
+    SPEEDRUN_REPLAY = "speedrun_replay"
 
 __all__ = [
     "ANY",
@@ -162,6 +173,11 @@ __all__ = [
     "make_tuple",
     "ml",
     "parse_graph",
+    "persistence",
+    "PersistenceMode",
+    "Recovery",
+    "RecoveryEscalated",
+    "RetryPolicy",
     "reducers",
     "ref_scalar",
     "require",

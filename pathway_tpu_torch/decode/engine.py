@@ -16,12 +16,26 @@ decodes to the same tokens alone or among others. Everything is f32; the
 caller turns TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
 PyTorch's default) so the card's f32 products are full f32.
 
-Where the JAX step is functional (it returns a new pool, for a chaos site
-between compute and commit), the port writes each step's new K/V rows into
-the pool in place: at position ``lens`` of the live lanes in a step, at the
-chunk's positions in a chunked prefill, at every window position inside the
-lane's pages in a verify. Rewriting the same row is harmless, and rows past
-a lane's commit point stay masked until a later write.
+A step computes, then commits. The ``decode.step`` chaos site sits between
+the two, in the greedy step, the sampled step and the speculative tick,
+as in the reference. Where the JAX step is functional (it returns a new
+pool, and the commit swaps it in), the port writes each step's new K/V
+rows into the pool in place during the compute and does not copy the
+pool; what makes a kill at the site harmless:
+
+* every row a step writes lies at or past its lane's ``lens`` (at
+  ``lens`` in a step, at ``lens .. lens + spec_tokens - 1`` in a verify),
+  and attention reads a lane's rows below its context length only, so
+  those rows stay masked until the commit moves ``lens``;
+* the step's inputs (the tokens, the lens, the rows below ``lens``, the
+  sampling key and position) are unchanged by a killed step, so a retry
+  computes and writes identical values;
+* those rows lie in the lane's own pages: the prefix cache shares only
+  full pages of a prompt's prefix, and a prompt's last token is always
+  re-prefilled into a page of the lane's own, so no step writes into a
+  page that another lane shares.
+
+Chunked prefill writes the chunk's rows at ``filled ..`` in the same way.
 
 The serving extensions are the reference's, all off by default:
 
@@ -51,8 +65,7 @@ chip ledger's ``decode``, a speculative tick under ``decode.draft`` and
 ``decode.preempt``; a ticket made under a request trace gets
 ``decode_prefill`` and ``decode_step`` spans (each in a trace of its own
 that links the member requests); the weights and the KV pool report to the
-HBM ledger. The reference's chaos site (``decode.step``) comes with ROADMAP
-Queue A item 6.
+HBM ledger.
 """
 
 from __future__ import annotations
@@ -80,6 +93,7 @@ from ..ops.paged_attention import (
     paged_decode_attention,
     pages_for,
 )
+from ..resilience import chaos
 from .config import DecodeConfig, active_decode
 from .metrics import DECODE_METRICS
 
@@ -879,6 +893,11 @@ class DecodeEngine:
             else:
                 nxt = _argmax(logits).cpu().numpy()
         wall = _time.monotonic() - w0
+        # ---- the point of no state: the step's K/V rows sit at each lane's
+        # ``lens``, masked until the commit below moves it (time = the step
+        # counter, so plans can target the Nth step) ----
+        chaos.inject("decode.step", time=self.steps)
+        # ---- commit ----
         emitted = 0
         for i in live:
             lane = self._lanes[i]
@@ -945,6 +964,10 @@ class DecodeEngine:
             both = torch.stack([drafts, targets]).cpu().numpy()
         drafts, targets = both[0], both[1]
         wall = _time.monotonic() - w0
+        # ---- the point of no state (as in the greedy step): the verify's
+        # rows sit at lens .. lens + spec_tokens - 1 ----
+        chaos.inject("decode.step", time=self.steps)
+        # ---- commit ----
         emitted = proposed = accepted = 0
         for i in live:
             lane = self._lanes[i]

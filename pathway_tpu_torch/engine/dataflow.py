@@ -31,6 +31,7 @@ they work, so a request's trace follows its row into the epoch thread.
 from __future__ import annotations
 
 import itertools
+import sys
 import threading
 import time as _wall
 from typing import Any, Callable, Iterable, Sequence
@@ -57,6 +58,32 @@ from ..tracing.context import ROW_TRACES
 Update = tuple
 
 INF_TIME = float("inf")
+
+
+def dumps_host(obj) -> bytes:
+    """Pickle an operator snapshot with host data only: every torch tensor
+    inside is written as a numpy array (bf16 as f32, which numpy lacks). A
+    pickled CUDA tensor would reload onto the card it came from, and fail
+    to load on a host without one. The pickler meets only the objects the
+    C pickler does not handle itself (no plain str, int, tuple, list or
+    dict), so a snapshot of text rows costs what ``pickle.dumps`` does."""
+    import io
+    import pickle
+
+    torch = sys.modules.get("torch")
+
+    class HostPickler(pickle.Pickler):
+        def reducer_override(self, o):
+            if torch is not None and isinstance(o, torch.Tensor):
+                t = o.detach()
+                if t.dtype == torch.bfloat16:
+                    t = t.float()
+                return t.cpu().numpy().__reduce__()
+            return NotImplemented
+
+    buf = io.BytesIO()
+    HostPickler(buf, protocol=4).dump(obj)
+    return buf.getvalue()
 
 
 class EngineError(Exception):
@@ -177,6 +204,29 @@ class Node:
     # consolidation and retraction bookkeeping can be skipped
     append_only = False
 
+    # attribute names forming the node's recoverable state (operator
+    # snapshots, upstream src/persistence/operator_snapshot.rs); empty
+    # for stateless operators
+    _snap_attrs: tuple = ()
+
+    def snapshot_state(self):
+        if not self._snap_attrs:
+            return None
+        return {a: getattr(self, a) for a in self._snap_attrs}
+
+    def restore_state(self, state) -> None:
+        for a, v in state.items():
+            setattr(self, a, v)
+
+    def snapshot_signature(self):
+        """Structural identity for snapshot compatibility. Restoring
+        state into a CHANGED program silently corrupts results, so nodes
+        expose their distinguishing configuration here; subclasses add
+        what the generic name cannot see (reducer kinds, join shape).
+        User expressions cannot be fingerprinted — same-program across
+        restarts remains the documented persistence contract (as in
+        upstream Pathway) — but common edits are caught."""
+        return (self.name, tuple(sorted((c.id, p) for c, p in self.consumers)))
 
     def __init__(self, graph: "EngineGraph", name: str = ""):
         self.graph = graph
@@ -363,6 +413,7 @@ class SessionSourceNode(Node):
     snapshot protocols."""
 
     n_inputs = 0
+    _snap_attrs = ("state", "_ao_seen")
 
     def __init__(self, graph):
         super().__init__(graph)
@@ -383,7 +434,42 @@ class SessionSourceNode(Node):
         # (python/kafka — every key provably fresh) never do and so pay
         # zero state, matching the reference's insert-only sessions.
         self._ao_seen: set[int] | None = None
+        # recovery: finalized batches to replay, in time order
+        self.replay_batches: list[tuple[int, list[Update]]] = []
         graph.session_sources.append(self)
+
+    def next_replay_time(self):
+        return self.replay_batches[0][0] if self.replay_batches else None
+
+    def feed_replay(self, time) -> None:
+        while self.replay_batches and self.replay_batches[0][0] == time:
+            _, ups = self.replay_batches.pop(0)
+            self._apply_replay(ups, time)
+
+    def flush_replay(self, time) -> bool:
+        """Emit ALL remaining recovered batches at ``time`` (one
+        dedicated replay round instead of per-logged-epoch feeding)."""
+        fed = False
+        while self.replay_batches:
+            _, ups = self.replay_batches.pop(0)
+            self._apply_replay(ups, time)
+            fed = True
+        return fed
+
+    def _apply_replay(self, ups, time) -> None:
+        if self.append_only:
+            # scanner sources dedupe across restarts via their reader
+            # offsets; the seen-set only needs refreshing when one was
+            # already in play (restored from an operator snapshot)
+            if self._ao_seen is not None:
+                self._ao_seen.update(k for k, _r, d in ups if d > 0)
+        else:
+            for key, row, diff in ups:
+                if diff > 0:
+                    self.state[key] = row
+                else:
+                    self.state.pop(key, None)
+        self.emit(list(ups), time)
 
     def feed_batch(self, raw: list[Update], time) -> list[Update]:
         resolved = self.resolve_batch(raw)
@@ -475,6 +561,11 @@ class ExprMapNode(Node):
         self.deterministic = deterministic
         self.batch_eval = batch_eval  # (keys, rows) -> list of out rows
         self.memo: dict[int, tuple] = {}
+        if not deterministic:
+            self._snap_attrs = ("memo",)
+
+    def snapshot_signature(self):
+        return (super().snapshot_signature(), len(self.exprs), self.deterministic)
 
     def process(self, time):
         updates = self.take()
@@ -624,6 +715,7 @@ class ConcatNode(Node):
         super().__init__(graph, "Concat")
         self.owners: dict[int, int] = {}
         self.check = check_disjoint
+        self._snap_attrs = ("owners",)
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of(key, n_shards)
@@ -710,6 +802,7 @@ class _KeyedStateNode(Node):
         super().__init__(graph, name)
         self.state: list[dict[int, tuple]] = [dict() for _ in range(n_inputs)]
         self.emitted: dict[int, tuple] = {}
+        self._snap_attrs = ("state", "emitted")
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of(key, n_shards)
@@ -838,6 +931,14 @@ class GroupByNode(Node):
         self.groups: dict[int, Any] = {}  # gk -> key set (light) | key->args dict
         self.sg_state: dict[int, list[Any]] = {}
         self.emitted: dict[int, tuple] = {}
+        self._snap_attrs = ("groups", "sg_state", "emitted")
+
+    def snapshot_signature(self):
+        return (
+            super().snapshot_signature(),
+            tuple(type(r).__name__ for r, _fns in self.specs),
+            self._light,
+        )
 
     def route_owner(self, key, row, port, n_shards):
         # exchange on the GROUP key: all rows of a group reduce on one
@@ -1006,6 +1107,7 @@ class DeduplicateNode(Node):
         self.instance_fn = instance_fn
         self.acceptor = acceptor
         self.accepted: dict[Any, tuple[int, tuple]] = {}
+        self._snap_attrs = ("accepted",)
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of_value(self.instance_fn(key, row), n_shards)
@@ -1061,6 +1163,10 @@ class JoinNode(Node):
         self.exact_match = exact_match
         self.left: dict[Any, dict[int, tuple]] = {}
         self.right: dict[Any, dict[int, tuple]] = {}
+        self._snap_attrs = ("left", "right")
+
+    def snapshot_signature(self):
+        return (super().snapshot_signature(), self.how, self.lw, self.rw)
 
     def route_owner(self, key, row, port, n_shards):
         jk = self.left_jk_fn(key, row) if port == 0 else self.right_jk_fn(key, row)
@@ -1151,6 +1257,7 @@ class AsofNowJoinNode(JoinNode):
         # left key -> (input_row, [(out_key, out_row)]): the input row
         # disambiguates which version a late retraction refers to
         self.frozen: dict[int, tuple] = {}
+        self._snap_attrs = ("right", "frozen")  # left side is never stored
 
     def process(self, time):
         out: list[Update] = []
@@ -1212,6 +1319,7 @@ class SortNode(Node):
         self.rows: dict[int, tuple[Any, Any]] = {}  # key -> (instance, sort_key)
         self.instances: dict[Any, dict[int, Any]] = {}  # inst -> key -> sort_key
         self.emitted: dict[int, tuple[Any, tuple]] = {}  # key -> (inst, (prev, next))
+        self._snap_attrs = ("rows", "instances", "emitted")
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of_value(self.instance_fn(key, row), n_shards)
@@ -1280,6 +1388,7 @@ class BufferNode(Node):
         self.released: set[int] = set()
         self.flush_on_end = flush_on_end
         self.watermark: Any = None
+        self._snap_attrs = ("pending", "released", "watermark")
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of(key, n_shards)
@@ -1362,6 +1471,7 @@ class ForgetNode(Node):
         self.time_fn = time_fn
         self.live: dict[int, tuple[Any, tuple]] = {}
         self.watermark: Any = None
+        self._snap_attrs = ("live", "watermark")
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of(key, n_shards)
@@ -1398,6 +1508,8 @@ class ForgetNode(Node):
 class FreezeNode(Node):
     """Graph::freeze: once the watermark passes threshold, changes to the
     row are ignored."""
+
+    _snap_attrs = ("watermark",)
 
     def __init__(self, graph, threshold_fn: Callable, time_fn: Callable | None = None):
         super().__init__(graph, "Freeze")
@@ -1437,6 +1549,7 @@ class GradualBroadcastNode(Node):
         self.apx = None  # currently-attached approximate value
         self.rows: dict[int, tuple] = {}
         self.attached: dict[int, Any] = {}
+        self._snap_attrs = ("apx", "rows", "attached")
 
     def route_owner(self, key, row, port, n_shards):
         return BROADCAST if port == 1 else None
@@ -1534,6 +1647,33 @@ class ExternalIndexNode(Node):
     # (ops/tiered_knn.py) additionally persist their tier layout:
     # centroid table, per-key cluster assignment, and the hot-resident
     # set, so recovery restores the EXACT tier assignment.
+
+    def snapshot_state(self):
+        state = {
+            "data_rows": self.data_rows,
+            "answered": self.answered,
+            "queries": self.queries,
+        }
+        tier_state = getattr(self.index, "tier_state", None)
+        if tier_state is not None:
+            state["index_tiers"] = tier_state()
+        return state
+
+    def restore_state(self, state) -> None:
+        self.data_rows = state["data_rows"]
+        self.answered = state["answered"]
+        self.queries = state["queries"]
+        tiers = state.get("index_tiers")
+        restore_tiers = getattr(self.index, "restore_tier_state", None)
+        if tiers is not None and restore_tiers is not None:
+            # install BEFORE the re-add so replayed rows land in their
+            # snapshotted clusters (cold), then promote the hot set
+            restore_tiers(tiers)
+        # re-embed and re-add through the same path as live ingest: on the
+        # card the encoder (B1) and the index's device add (B2's slab)
+        self._index_add([(k, *self.data_fn(k, r)) for k, r in self.data_rows.items()])
+        if tiers is not None and restore_tiers is not None:
+            self.index.finish_tier_restore()
 
     def _index_add(self, adds) -> None:
         """Embed (optionally) and insert (key, payload, metadata) triples."""
@@ -1702,10 +1842,12 @@ class OutputNode(Node):
             self._saw_data = True
             if self.sort_by_key:
                 updates = sorted(updates, key=lambda u: (u[0], u[2]))
-            if self.on_change is not None:
+            # recovered epochs rebuild state but are not re-delivered to
+            # sinks (exactly-once across restarts)
+            if self.on_change is not None and time > self.graph.replay_frontier:
                 for key, row, diff in updates:
                     self.on_change(key, row, time, diff)
-        if self.on_time_end_cb is not None:
+        if self.on_time_end_cb is not None and time > self.graph.replay_frontier:
             self.on_time_end_cb(time)
 
     def on_end(self):
@@ -1722,6 +1864,7 @@ class CaptureNode(Node):
         self.state: dict[int, tuple] = {}
         self.stream: list[tuple[int, tuple, int, int]] = []  # key,row,time,diff
         self._epoch_buf: list[Update] = []
+        self._snap_attrs = ("state", "stream")
 
     def route_owner(self, key, row, port, n_shards):
         return 0
@@ -1757,6 +1900,7 @@ class AsyncApplyNode(Node):
         super().__init__(graph, name)
         self.async_fn = async_fn  # async (key, row) -> value tuple appended to row
         self.memo: dict[int, tuple] = {}
+        self._snap_attrs = ("memo",)
         # row-failure policy: "raise" (terminate_on_error routing),
         # "dead_letter" (row dropped from output, routed to the
         # dead_letter_id sessions), or "skip" (row silently dropped)
@@ -1827,6 +1971,7 @@ class BatchApplyNode(Node):
         self.row_args_fn = row_args_fn  # (key, row) -> tuple of args
         self.max_batch_size = max(1, int(max_batch_size))
         self.memo: dict[int, tuple] = {}
+        self._snap_attrs = ("memo",)
         # same row-failure policy surface as AsyncApplyNode
         self.on_error = "raise"
         self.dead_letter_id: int | None = None
@@ -1934,9 +2079,27 @@ class EngineGraph:
         self._error_seq = 0
         # multi-worker: set by parallel.sharded.ShardCluster
         self.cluster = None
+        # checkpoint/recovery (engine/persistence.py); epochs at or below
+        # replay_frontier are recovered state: rebuilt, not re-emitted
+        self.persistence_config = None
+        self.persistence = None
+        self.replay_frontier = -1
+        # speedrun replay: recompute outputs purely from the recorded
+        # stream, never starting readers (upstream
+        # PersistenceMode::SpeedrunReplay, connectors/mod.rs:108)
+        self._speedrun = False
+        self._opsnap_time = -1       # operator-snapshot restore point
+        self._last_opsnap_wall = 0.0
         # the run profiler (internals.profiler.RunProfiler), attached by
         # GraphRunner.attach_profiler; None = no timing
         self.profiler = None
+        # overlapped host/device epoch pipeline (engine/pipeline.py):
+        # depth 1 = the strict loop, depth >= 2 stages epoch N+1 (drain,
+        # resolve, KIND_FEED) while epoch N executes. pipeline_stats is a
+        # PipelineStats once running.
+        self.pipeline_depth = 1
+        self.pipeline_stats = None
+        self._stage_commit_lock = None
         # epoch-completion observers (time, wall seconds of the epoch's
         # sweep): the serving batcher's query-dispatch slots
         self.epoch_observers: list[Callable[[int, float], None]] = []
@@ -2101,35 +2264,224 @@ class EngineGraph:
         for node in self.nodes:
             node.on_frontier(frontier)
 
+    def _setup_persistence(self) -> None:
+        from .persistence import EnginePersistence
+
+        self.persistence = EnginePersistence(self.persistence_config)
+        mode = str(
+            getattr(self.persistence_config, "persistence_mode", "batch") or "batch"
+        ).lower()
+        self._speedrun = "speedrun" in mode
+        # record/replay (CLI --record / --replay-mode): every source is
+        # recorded; ids auto-assign by construction order, deterministic
+        # across runs of the same program (reference cli.py:180-186)
+        record_mode = "record" in mode
+        if (
+            getattr(self.persistence_config, "auto_persistent_ids", False)
+            or record_mode
+            or self._speedrun
+        ):
+            for i, s in enumerate(self.session_sources):
+                if s.persistent_id is not None or s.is_error_log:
+                    continue
+                # batch-mode recovery only suits offset-aware readers: an
+                # offset-unaware one would re-read everything ON TOP of
+                # the replayed log, duplicating its input. Speedrun never
+                # starts readers, and record mode resets such logs below.
+                if self._speedrun or record_mode or s.supports_offsets:
+                    s.persistent_id = f"auto_{i}"
+        frontier = -1
+        for s in self.session_sources:
+            if s.persistent_id is None:
+                continue
+            if (record_mode or not self._speedrun) and not s.supports_offsets:
+                # offset-unaware reader: run() re-produces all input from
+                # scratch, so replaying a stale log on top would double
+                # it — start the recording over (speedrun never starts
+                # readers, so there replay stays safe)
+                self.persistence.reset_source(s.persistent_id)
+                continue
+            batches, offsets, f = self.persistence.recover_source(
+                s.persistent_id,
+                delivered_frontier=self.persistence.delivered_frontier(),
+            )
+            s.replay_batches = list(batches)
+            s.session.restore_offsets(offsets)
+            frontier = max(frontier, f)
+        # speedrun recomputes sink output from the recorded stream, so
+        # replayed epochs are NOT suppressed there
+        self.replay_frontier = -1 if self._speedrun else frontier
+        # layer 2 — operator snapshots (operator_snapshot.rs): restore
+        # the whole graph's state at the snapshot time and skip replaying
+        # the input events it already covers. Only sound when EVERY real
+        # source is persistent: a snapshot also contains state derived
+        # from non-persistent sources, whose readers re-feed on restart
+        # and would double-count on top of the restored state.
+        all_persistent = all(
+            s.persistent_id is not None
+            for s in self.session_sources
+            if not s.is_error_log
+        )
+        if not self._speedrun and frontier >= 0 and not all_persistent:
+            import warnings
+
+            warnings.warn(
+                "only a subset of sources has a persistent_id: "
+                "non-persistent sources re-feed at fresh epochs after a "
+                "restart, so rows derived from them may be delivered to "
+                "sinks again — exactly-once only holds when every source "
+                "is persisted",
+                stacklevel=2,
+            )
+        restored_t: int | None = None
+        if not self._speedrun and frontier >= 0 and all_persistent:
+            rec = self.persistence.recover_operator_snapshot(frontier)
+            if rec is not None:
+                import pickle
+
+                t0, blob = rec
+                data = pickle.loads(blob)
+                sig_ok = len(data["sig"]) == len(self.nodes) and all(
+                    nid < len(self.nodes)
+                    and self.nodes[nid].snapshot_signature() == node_sig
+                    for nid, node_sig in data["sig"]
+                )
+                # signature mismatch (program changed) → ignore snapshot,
+                # fall back to full input replay
+                if sig_ok:
+                    # restored index contents are visible as-of the
+                    # snapshot epoch: route the restore's index adds
+                    # through the freshness epoch lifecycle so the
+                    # per-shard watermark re-advances to the exact
+                    # pre-crash epoch (wall restarts at recovery time —
+                    # pre-crash arrival timestamps did not survive)
+                    FRESHNESS.begin_epoch(int(t0))
+                    FRESHNESS.epoch_staged(int(t0))
+                    FRESHNESS.epoch_exec(int(t0))
+                    for nid, st in data["states"].items():
+                        self.nodes[nid].restore_state(st)
+                    FRESHNESS.epoch_committed(int(t0))
+                    for s in self.session_sources:
+                        s.replay_batches = [
+                            (tt, ups) for tt, ups in s.replay_batches if tt > t0
+                        ]
+                    # static sources re-produce deterministically and are
+                    # already inside the restored state: fast-forward past
+                    # the covered epochs (feeding them would double-count;
+                    # not feeding while they queue would livelock run())
+                    for st_src in self.static_sources:
+                        while (
+                            st_src.pos < len(st_src.batches)
+                            and st_src.batches[st_src.pos][0] <= t0
+                        ):
+                            st_src.pos += 1
+                    self._opsnap_time = t0
+                    restored_t = t0
+        # trimmed input logs (compact_inputs_on_snapshot) are only
+        # recoverable THROUGH a compatible snapshot that covers the
+        # trimmed range — every other path, INCLUDING speedrun replay
+        # (which never restores snapshots), fails loudly
+        self.persistence.check_compaction_covered(
+            [
+                s.persistent_id
+                for s in self.session_sources
+                if s.persistent_id is not None
+            ],
+            restored_t,
+        )
+
+    def _snapshot_operators(self, t) -> None:
+        """Write layer-2 state. Called AFTER every ADVANCE of epoch t is
+        durable — a snapshot must never cover unfinalized input."""
+        # a staging ring's copies in flight finish before pickling: a slot
+        # still being written would be captured half old, half new
+        from . import device_ring
+
+        device_ring.quiesce_all()
+        states = {}
+        for n in self.nodes:
+            s = n.snapshot_state()
+            if s is not None:
+                states[n.id] = s
+        # the signature covers EVERY node: a restored snapshot skips
+        # replay, so any topology change (even a new sink) must fall
+        # back to full replay or the new node would stay empty
+        sig = [(n.id, n.snapshot_signature()) for n in self.nodes]
+        blob = dumps_host({"sig": sig, "time": t, "states": states})
+        self.persistence.save_operator_snapshot(int(t), blob)
+        # opt-in: the snapshot covers all input <= t, so trim the input
+        # logs to keep them bounded on long-running jobs (background
+        # compaction role, reference operator_snapshot.rs:491)
+        if getattr(self.persistence_config, "compact_inputs_on_snapshot", False):
+            self.persistence.compact_inputs(
+                [
+                    s.persistent_id
+                    for s in self.session_sources
+                    if s.persistent_id is not None and not s.is_error_log
+                ],
+                int(t),
+            )
+        self._last_opsnap_wall = _wall.monotonic()
+
+    def _maybe_snapshot_operators(self, t) -> None:
+        if self.persistence is None or self._speedrun:
+            return
+        interval_ms = getattr(self.persistence_config, "snapshot_interval_ms", 0) or 0
+        if interval_ms <= 0:
+            return  # end-of-run snapshot only
+        if (_wall.monotonic() - self._last_opsnap_wall) * 1000.0 >= interval_ms:
+            self._snapshot_operators(t)
+
     def run(self, monitoring_callback: Callable | None = None) -> None:
-        """Run to completion: process scripted batches in time order, then
-        live sessions until all close or ``stop()``. (Persistence, its
-        recovery replay and the overlapped epoch pipeline are not part of
-        this package.) ``stopped`` is set when the run ends, however it
-        ends."""
+        """Run to completion: replay recovered epochs, then process
+        scripted batches in time order, then live sessions until all
+        close or ``stop()``. ``pipeline_depth > 1`` runs the overlapped
+        pipeline (engine/pipeline.py). ``stopped`` is set when the run
+        ends, however it ends."""
         try:
-            self._run(monitoring_callback)
+            if self.pipeline_depth > 1:
+                from .pipeline import run_pipelined
+
+                run_pipelined(self, monitoring_callback)
+            else:
+                self._run(monitoring_callback)
         finally:
             self.stopped.set()
 
     def _run(self, monitoring_callback: Callable | None) -> None:
-        for t in self.connector_threads:
-            t.start()
-        self._threads_started = True
+        if self.persistence_config is not None:
+            self._setup_persistence()
+        if not self._speedrun:
+            for t in self.connector_threads:
+                t.start()
+            self._threads_started = True
         last_time = -1
         while not self._stop:
             self._raise_connector_failure()
+            # next scripted time: static sources + recovery replay queues
             times = [s.next_time() for s in self.static_sources]
+            replay_pending = False
+            for s in self.session_sources:
+                rt = s.next_replay_time()
+                if rt is not None:
+                    times.append(rt)
+                    replay_pending = True
             times = [t for t in times if t is not None]
             scripted_t = min(times) if times else None
 
             session_batches = []
-            for s in self.session_sources:
-                b = s.session.drain()
-                if b:
-                    session_batches.append((s, b))
+            if not replay_pending:
+                # live epochs must land strictly past the recovered frontier
+                if last_time < self.replay_frontier:
+                    last_time = self.replay_frontier
+                for s in self.session_sources:
+                    b = s.session.drain()
+                    if b:
+                        session_batches.append((s, b))
 
             if scripted_t is None and not session_batches:
+                if self._speedrun:
+                    break  # recorded stream exhausted
                 # error-log sessions are engine-fed and never close
                 if all(
                     s.session.closed for s in self.session_sources if not s.is_error_log
@@ -2147,12 +2499,28 @@ class EngineGraph:
             self.current_time = t
             FRESHNESS.begin_epoch(int(t))
             _epoch_kw = {"t": int(t), "worker": self.worker_id}
+            if self.cluster_generation():
+                _epoch_kw["generation"] = self.cluster_generation()
             flight_recorder.record("epoch.begin", batches=len(session_batches), **_epoch_kw)
             self._frontier_hooks(t)
             for s in self.static_sources:
                 s.feed(t)
+            for s in self.session_sources:
+                s.feed_replay(t)
             for s, b in session_batches:
-                s.feed_batch(b, t)
+                resolved = s.feed_batch(b, t)
+                if self.persistence is not None and s.persistent_id is not None and resolved:
+                    # feed offsets ride along durably (KIND_FEED) so a
+                    # crash after the sink flush but before ADVANCE can
+                    # finalize this epoch on recovery instead of
+                    # re-reading and re-delivering it. At depth 1 the
+                    # staging-commit point coincides with feed time, so
+                    # the pipeline's chaos sites fire here too.
+                    from ..resilience import chaos as _chaos
+
+                    _chaos.inject("engine.before_stage_commit", time=int(t))
+                    self.persistence.log_batch(s.persistent_id, t, resolved, s.last_offsets or {})
+                    _chaos.inject("engine.after_stage_commit", time=int(t))
             FRESHNESS.epoch_staged(int(t))
             _sweep0 = _wall.perf_counter()
             FRESHNESS.epoch_exec(int(t))
@@ -2162,6 +2530,21 @@ class EngineGraph:
             FRESHNESS.epoch_committed(int(t))
             if self.epoch_observers:
                 self._notify_epoch_observers(int(t), _wall.perf_counter() - _sweep0)
+            if self.persistence is not None:
+                if session_batches:
+                    # sinks flushed this epoch's output in the topo pass;
+                    # durably mark it delivered BEFORE advancing offset
+                    # cursors — a crash in between must finalize (not
+                    # re-deliver) the epoch on recovery
+                    from ..resilience import chaos as _chaos
+
+                    _chaos.inject("engine.after_sink_flush", time=int(t))
+                    self.persistence.mark_delivered(int(t))
+                for s, _b in session_batches:
+                    if s.persistent_id is not None:
+                        self.persistence.advance(s.persistent_id, t, s.last_offsets or {})
+                if session_batches:
+                    self._maybe_snapshot_operators(t)
             last_time = t
             flight_recorder.record("epoch.advance", **_epoch_kw)
             if self.profiler is not None:
@@ -2173,7 +2556,26 @@ class EngineGraph:
             # a failure recorded as the loop exited (reader appended just
             # before closing its session) must not look like clean EOF
             self._raise_connector_failure()
-        # end of input: flush time-based operators at a final epoch
+        # final snapshot BEFORE the end-of-input flush: the flush assumes
+        # input is over, which a restarted run cannot know
+        if self._final_snapshot_due(last_time):
+            self._snapshot_operators(last_time)
+        self._finish_run(last_time)
+
+    def _final_snapshot_due(self, last_time) -> bool:
+        return (
+            self.persistence is not None
+            and not self._speedrun
+            and last_time >= 0
+            and last_time != self._opsnap_time  # something actually changed
+            and bool(self.session_sources)
+            and all(s.persistent_id is not None for s in self.session_sources if not s.is_error_log)
+        )
+
+    def _finish_run(self, last_time) -> None:
+        """The end-of-input tail of both loops: flush time-based operators
+        at a final epoch, deliver late errors, end every node, close the
+        logs and join the readers."""
         self.current_time = last_time + 1
         self._frontier_hooks(INF_TIME)
         if self._dirty:
@@ -2193,10 +2595,18 @@ class EngineGraph:
             self._topo_pass(self.current_time)
         for node in self.nodes:
             node.on_end()
+        if self.persistence is not None:
+            self.persistence.close()
         if self._threads_started:
             self.stopped.set()
             for t in self.connector_threads:
                 t.join(timeout=5.0)
+
+    def cluster_generation(self) -> int:
+        """The cluster fault-domain generation this engine runs under (0
+        outside a multi-process cluster, which comes with ROADMAP item 5).
+        Monitoring stamps it on /status and epoch telemetry."""
+        return int(getattr(self.cluster, "generation", 0) or 0)
 
     def _raise_connector_failure(self) -> None:
         if self.connector_failures:
@@ -2207,3 +2617,21 @@ class EngineGraph:
     def stop(self):
         self._stop = True
         self.wake()
+
+    def release(self) -> None:
+        """Drop every operator of this graph (after ``stop()``): with each
+        node's consumers and queues cut, nothing that still holds the graph
+        or one of its sources (a reader thread, a connector subject, a
+        traceback) keeps the rest of the dataflow alive."""
+        for node in self.nodes:
+            node.consumers = []
+            node.queues = []
+        self.nodes = []
+        self.static_sources = []
+        self.session_sources = []
+        self.outputs = []
+        self.captures = []
+        if self.persistence is not None:
+            self.persistence.close()
+            self.persistence = None
+        self._dirty = set()

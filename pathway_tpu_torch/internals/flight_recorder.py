@@ -13,8 +13,10 @@ On a crash the ring is dumped to a timestamped JSON file:
 
 - ``pw.run`` dumps when the run fails, the health watchdog once on its
   first critical breach, and a chaos kill or exit (``resilience/chaos.py``)
-  before its signal; the supervisor's dumps come with ROADMAP Queue A
-  item 6.
+  before its signal (the injector runs in-process, so the evidence survives
+  even SIGKILL);
+- a :class:`~pathway_tpu_torch.resilience.RecoveryEscalated` dump is
+  attached to the raised error as ``flight_recorder_dump``.
 
 Dumps live in ``PATHWAY_FLIGHT_RECORDER_DIR`` (default
 ``<tmp>/pathway-blackbox``) and are read back with :func:`load_dump`,

@@ -170,8 +170,9 @@ class GraphRunner:
     """One-shot compiler + executor (reference GraphRunner._run
     graph_runner/__init__.py:129 → engine run)."""
 
-    def __init__(self, *, debug: bool = False, n_workers: int = 1):
+    def __init__(self, *, debug: bool = False, n_workers: int = 1, pipeline_depth: int = 1):
         self.engine = df.EngineGraph(n_workers=n_workers)
+        self.engine.pipeline_depth = max(1, int(pipeline_depth))
         self.lowered: dict[int, Lowered] = {}
         self.debug = debug
         # multi-worker (PATHWAY_THREADS>1): replica runners lower the
@@ -233,6 +234,18 @@ class GraphRunner:
         by (worker_id, node_id))."""
         for engine in self._cluster_engines():
             engine.profiler = profiler
+
+    def release(self) -> None:
+        """Tear down a finished (or crashed) runner: stop its engines and
+        cut every engine graph loose from its operators. A reader thread
+        of the run, a connector subject or a recorded traceback may still
+        reach an engine; once cut, they no longer keep its operators (an
+        index's device slab among them) alive."""
+        for engine in self._cluster_engines():
+            engine.stop()
+            engine.release()
+        self.lowered.clear()
+        self._cluster = None
 
     def run(self, monitoring_callback=None) -> None:
         if self._replicas:

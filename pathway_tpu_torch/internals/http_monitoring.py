@@ -9,16 +9,15 @@ profiler is attached to the run, ``/metrics`` additionally exposes
 per-operator self-time histograms (``pathway_operator_self_time_seconds``)
 and event-time lag gauges (``pathway_operator_event_lag_seconds``).
 
-It renders the sections of the planes the port holds: serving, index,
-decode, tracing, the HBM ledger, tenancy, the chip ledger and freshness,
-each only once its plane has seen activity. The sections of planes still
-to port (resilience and cluster health with ROADMAP Queue A items 5 and 6,
-the host-ingest stage with item 6, elastic reshard with item 5) have no
-renderer yet, so they render nothing, exactly as the reference renders
-nothing for a plane that is off; ``/status`` carries the
-supervisor's and the retries' empty values. With every
-plane off a scrape is byte-identical to one from a run that never had
-them.
+It renders the sections of the planes the port holds: resilience (retry
+attempts per scope, supervisor restarts), cluster health, serving, index,
+decode, tracing, the HBM ledger, tenancy, the host-ingest stage, the chip
+ledger and freshness, each only once its plane has seen activity; the
+epoch pipeline's host-prep, device-wait and overlap series come with a
+pipelined run. Elastic reshard (ROADMAP Queue A item 5) has no renderer
+yet, so it renders nothing, exactly as the reference renders nothing for a
+plane that is off. With every plane off a scrape is byte-identical to one
+from a run that never had them.
 """
 
 from __future__ import annotations
@@ -219,8 +218,11 @@ class MonitoringHttpServer:
             )
         if workers:
             lines.extend(self._worker_lines(workers))
+        lines.extend(self._resilience_lines(wl))
+        lines.extend(self._cluster_lines(wl))
         lines.extend(self._serving_lines(wl))
         lines.extend(self._index_lines(wl))
+        lines.extend(self._ingest_lines(wl))
         lines.extend(self._decode_lines(wl))
         lines.extend(self._tracing_lines(wl))
         lines.extend(self._ledger_lines(wl))
@@ -272,6 +274,137 @@ class MonitoringHttpServer:
                 f'pathway_worker_restarts_total{{worker="{wid}"}} '
                 f'{workers[wid].get("restarts", 0)}'
             )
+        return lines
+
+    @staticmethod
+    def _resilience_lines(wl: str = "") -> list[str]:
+        """Retry-policy attempt counters and supervisor restart counters
+        (reference telemetry: one series per connector/udf scope).
+        ``wl`` is the worker label in cluster runs (these registries are
+        process-scoped, so they carry the process's primary shard id)."""
+        from ..resilience import RETRY_METRICS, SUPERVISOR_METRICS
+
+        def series(name: str, value, labels: str = "") -> str:
+            parts = ",".join(p for p in (labels, wl) if p)
+            return f"{name}{{{parts}}} {value}" if parts else f"{name} {value}"
+
+        lines: list[str] = []
+        retries = RETRY_METRICS.snapshot()
+        if retries:
+            for metric in ("attempts", "retries", "successes", "failures"):
+                lines.append(f"# TYPE pathway_retry_{metric}_total counter")
+                for scope in sorted(retries):
+                    lines.append(
+                        series(
+                            f"pathway_retry_{metric}_total",
+                            retries[scope][metric],
+                            f'scope="{_escape_label(scope)}"',
+                        )
+                    )
+        sup = SUPERVISOR_METRICS.snapshot()
+        if sup["restarts_total"] or sup["escalations"]:
+            lines.append("# TYPE pathway_supervisor_restarts_total counter")
+            for cause in sorted(sup["restarts"]):
+                lines.append(
+                    series(
+                        "pathway_supervisor_restarts_total",
+                        sup["restarts"][cause],
+                        f'cause="{_escape_label(cause)}"',
+                    )
+                )
+            lines.append("# TYPE pathway_supervisor_escalations_total counter")
+            lines.append(
+                series("pathway_supervisor_escalations_total", sup["escalations"])
+            )
+        return lines
+
+    @staticmethod
+    def _cluster_lines(wl: str = "") -> list[str]:
+        """Cluster fault-domain counters (``pathway_cluster_*``): lease
+        expiries, partial restarts, fenced writes, snapshot barriers and
+        the current cluster generation. Rendered only once the fault
+        domain has seen an event (or a shard is marked down), so
+        single-process ``/metrics`` output stays byte-identical."""
+        from ..resilience import CLUSTER_HEALTH, CLUSTER_METRICS
+
+        if not (CLUSTER_METRICS.active() or CLUSTER_HEALTH.any_down()):
+            return []
+
+        def series(name: str, value, labels: str = "") -> str:
+            parts = ",".join(p for p in (labels, wl) if p)
+            return f"{name}{{{parts}}} {value}" if parts else f"{name} {value}"
+
+        snap = CLUSTER_METRICS.snapshot()
+        lines = ["# TYPE pathway_cluster_lease_expiries_total counter"]
+        for pid in sorted(snap["lease_expiries"]):
+            lines.append(
+                series(
+                    "pathway_cluster_lease_expiries_total",
+                    snap["lease_expiries"][pid],
+                    f'process="{_escape_label(pid)}"',
+                )
+            )
+        lines.extend(
+            [
+                "# TYPE pathway_cluster_partial_restarts_total counter",
+                series(
+                    "pathway_cluster_partial_restarts_total",
+                    snap["partial_restarts_total"],
+                ),
+                "# TYPE pathway_cluster_fenced_writes_total counter",
+                series(
+                    "pathway_cluster_fenced_writes_total",
+                    snap["fenced_writes_total"],
+                ),
+                "# TYPE pathway_cluster_barriers_total counter",
+                series("pathway_cluster_barriers_total", snap["barriers_total"]),
+                "# TYPE pathway_cluster_generation gauge",
+                series("pathway_cluster_generation", snap["generation"]),
+            ]
+        )
+        down = CLUSTER_HEALTH.down_shards()
+        if down:
+            lines.append("# TYPE pathway_cluster_shard_down gauge")
+            for shard in sorted(down):
+                lines.append(
+                    series(
+                        "pathway_cluster_shard_down", 1, f'shard="{int(shard)}"'
+                    )
+                )
+        return lines
+
+    @staticmethod
+    def _ingest_lines(wl: str = "") -> list[str]:
+        """Collaborative host-ingest plane (``pathway_ingest_*``): queue
+        depth, pool size, stage utilization and the short/long routing
+        split. Rendered only once a stage has run — ``/metrics`` stays
+        byte-identical for pipelines without one."""
+        from ..ingest.metrics import INGEST_METRICS
+
+        if not INGEST_METRICS.active():
+            return []
+
+        def series(name: str, value, labels: str = "") -> str:
+            parts = ",".join(p for p in (labels, wl) if p)
+            return f"{name}{{{parts}}} {value}" if parts else f"{name} {value}"
+
+        snap = INGEST_METRICS.snapshot()
+        lines: list[str] = []
+        for metric, key, kind in (
+            ("pathway_ingest_queue_depth", "queue_depth", "gauge"),
+            ("pathway_ingest_queue_high_water", "queue_high_water", "gauge"),
+            ("pathway_ingest_host_workers", "host_workers", "gauge"),
+            ("pathway_ingest_host_stage_utilization", "utilization", "gauge"),
+            ("pathway_ingest_enqueued_total", "enqueued", "counter"),
+            ("pathway_ingest_committed_total", "committed", "counter"),
+            ("pathway_ingest_retried_total", "retried", "counter"),
+            ("pathway_ingest_scale_up_total", "scale_up", "counter"),
+            ("pathway_ingest_scale_down_total", "scale_down", "counter"),
+            ("pathway_ingest_routed_short_total", "routed_short", "counter"),
+            ("pathway_ingest_routed_long_total", "routed_long", "counter"),
+        ):
+            lines.append(f"# TYPE {metric} {kind}")
+            lines.append(series(metric, snap[key]))
         return lines
 
     @staticmethod
@@ -883,9 +1016,9 @@ class MonitoringHttpServer:
 
     def _status(self) -> str:
         snap = self.monitor.snapshot
-        # the supervisor and retry registries come with the resilience
-        # plane (ROADMAP Queue A item 6): their values stay empty until then
-        sup = {"restarts": {}, "restarts_total": 0, "escalations": 0}
+        from ..resilience import RETRY_METRICS, SUPERVISOR_METRICS
+
+        sup = SUPERVISOR_METRICS.snapshot()
         status: dict = {
             "epoch": snap.time,
             "rows_in": snap.rows_in,
@@ -896,7 +1029,7 @@ class MonitoringHttpServer:
             # one JSON poll gives run health: the resilience + pipeline
             # state already rendered on /metrics
             "restarts_total": sup["restarts_total"],
-            "retries": {},
+            "retries": RETRY_METRICS.snapshot(),
             "supervisor": sup,
             "pipeline": {
                 "depth": getattr(snap, "pipeline_depth", 1),
@@ -909,6 +1042,12 @@ class MonitoringHttpServer:
         workers = getattr(snap, "workers", {}) or {}
         if workers:
             status["workers"] = {str(wid): workers[wid] for wid in sorted(workers)}
+        from ..resilience import CLUSTER_HEALTH, CLUSTER_METRICS
+
+        if CLUSTER_METRICS.active() or CLUSTER_HEALTH.any_down():
+            cluster = CLUSTER_METRICS.snapshot()
+            cluster["down_shards"] = sorted(CLUSTER_HEALTH.down_shards())
+            status["cluster"] = cluster
         from ..serving import SERVING_METRICS
 
         if SERVING_METRICS.active():
@@ -917,6 +1056,10 @@ class MonitoringHttpServer:
 
         if INDEX_METRICS.active():
             status["index"] = INDEX_METRICS.snapshot()
+        from ..ingest.metrics import INGEST_METRICS
+
+        if INGEST_METRICS.active():
+            status["ingest"] = INGEST_METRICS.snapshot()
         from ..decode.metrics import DECODE_METRICS
 
         if DECODE_METRICS.active():

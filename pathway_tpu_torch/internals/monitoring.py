@@ -10,9 +10,10 @@ the last minibatch / last minute / since start), an operators table
 (latency to wall clock), and a LOGS panel capturing the root logger —
 refreshed live via ``rich.live.Live``. With a profiler attached it adds
 the operators' self-times and event lags; once the encoder dispatched,
-its kernel column (achieved TFLOP/s, pad fraction). The snapshot fields of
-planes the port does not hold yet (the host-ingest stage, the overlapped
-epoch pipeline) stay at their zero values, so nothing renders for them.
+its kernel column (achieved TFLOP/s, pad fraction); with the overlapped
+epoch pipeline, its host-prep, device-wait and overlap columns; with a
+host-ingest stage, the stage's workers, queue and utilisation. A plane that
+is off leaves its fields at their zero values, so nothing renders for it.
 """
 
 from __future__ import annotations
@@ -225,6 +226,9 @@ def sample_worker(engine) -> dict:
         ]
         if lags:
             out["event_lag_s"] = max(lags)
+    pipeline = getattr(engine, "pipeline_stats", None)
+    if pipeline is not None:
+        out["overlap_ratio"] = pipeline.overlap_ratio
     from .ledger import LEDGER
 
     if LEDGER.active():
@@ -277,6 +281,12 @@ class StatsMonitor:
                 snap.operator_self_time_s[key] = agg["self_time_s"]
                 if agg["event_lag_s"] is not None:
                     snap.operator_event_lag_s[key] = agg["event_lag_s"]
+        pipeline = getattr(engine, "pipeline_stats", None)
+        if pipeline is not None:
+            snap.pipeline_depth = pipeline.depth
+            snap.host_prep_s = pipeline.host_prep_s
+            snap.device_wait_s = pipeline.device_wait_s
+            snap.overlap_ratio = pipeline.overlap_ratio
         from .profiler import ENCODER_KERNEL_STATS
 
         if ENCODER_KERNEL_STATS.dispatches:
@@ -285,6 +295,14 @@ class StatsMonitor:
             snap.encoder_pad_fraction = enc["pad_fraction"]
             snap.encoder_dispatches = enc["dispatches"]
             snap.encoder_skipped_tokens = enc["skipped_tokens"]
+        from ..ingest.metrics import INGEST_METRICS
+
+        if INGEST_METRICS.active():
+            ing = INGEST_METRICS.snapshot()
+            snap.ingest_workers = ing["host_workers"]
+            snap.ingest_queue_depth = ing["queue_depth"]
+            snap.ingest_utilization = ing["utilization"]
+            snap.ingest_committed = ing["committed"]
         from ..ops.index_metrics import INDEX_METRICS
 
         if INDEX_METRICS.tiered_active():
@@ -383,7 +401,9 @@ class StatsMonitor:
         directly; remote multiprocess workers are merged from the stats
         they piggybacked on the coordinator's protocol replies
         (``cluster.worker_telemetry``)."""
-        restarts = 0  # the supervisor comes with the resilience plane
+        from ..resilience import SUPERVISOR_METRICS
+
+        restarts = SUPERVISOR_METRICS.snapshot()["restarts_total"]
         workers: dict[int, dict] = {}
         for e in cluster.engines:
             w = sample_worker(e)

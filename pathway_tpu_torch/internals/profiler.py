@@ -169,6 +169,10 @@ class RunProfiler:
         self.events: list[dict] = []  # chrome trace events
         self.dropped_events = 0
         self.jit_stats: dict[str, dict[str, float]] = {}
+        #: the overlapped epoch pipeline's attribution (engine/pipeline.py):
+        #: host_prep_s / device_wait_s / overlap_s / overlap_ratio /
+        #: staged_epochs; None until a pipelined run reports in
+        self.pipeline: dict | None = None
         self._lock = threading.Lock()
         # per-worker per-epoch scratch: node_id -> [ns, batches, start_ns]
         self._scratch: dict[int, dict[int, list]] = {}
@@ -277,6 +281,16 @@ class RunProfiler:
             )
 
     # ---- jit compile/execute split (models + jit-batched UDFs) ----
+
+    # ---- overlapped epoch pipeline (engine/pipeline.py) ----
+
+    def observe_pipeline(self, stats) -> None:
+        """Fold the pipeline's host-prep, device-wait and overlap
+        attribution into the profile (called once per executed epoch with
+        the run's cumulative ``PipelineStats``; the last observation wins,
+        the stats are monotone)."""
+        with self._lock:
+            self.pipeline = stats.as_dict()
 
     def record_jit(
         self, name: str, phase: str, dur_ns: int, n_rows: int = 0
@@ -480,6 +494,7 @@ class RunProfiler:
                 "producer": "pathway_tpu_torch.profiler",
                 "dropped_events": self.dropped_events,
                 "trace_start_unix_ns": str(self._t0_unix_ns),
+                **({"pipeline": self.pipeline} if self.pipeline else {}),
             },
         }
 

@@ -59,6 +59,21 @@ argument is resolved and installed as the run-scoped mesh
 ``use_mesh`` survives a run without one. ``PATHWAY_MESH`` is read when an
 index is built. ``"auto"`` arms the elastic plane and raises.
 
+``persistence_config=`` checkpoints the run: every source with a
+``persistent_id`` logs its committed batches, operator snapshots land
+every ``snapshot_interval_ms``, and a run started on the same root
+recovers (``engine/persistence.py``). Without it, ``PATHWAY_REPLAY_STORAGE``
+(with ``PATHWAY_REPLAY_MODE``: the CLI's ``spawn --record`` /
+``--replay-mode``) records or replays every source on a filesystem root.
+``recovery=`` (``True``, a restart budget or a ``Recovery``) runs the graph
+under the supervisor: each attempt builds a fresh runner (sinks append on
+a restart), and a crashed attempt's runner is torn down and its device
+memory handed back before the next one builds its own.
+``pipeline_depth=`` (or ``PATHWAY_PIPELINE_DEPTH``) above 1 runs the
+overlapped epoch pipeline (``engine/pipeline.py``); ``ingest_workers=``
+(or ``PATHWAY_INGEST_WORKERS``) sizes the host-ingest stage
+(``ingest/stage.py``).
+
 ``decode=`` (or ``PATHWAY_DECODE``) is parsed into
 ``G.run_context["decode"]`` (the config's knobs, None when off or
 malformed), and a ``decode=`` argument is installed as the run-scoped
@@ -91,14 +106,10 @@ logger = logging.getLogger(__name__)
 
 # ROADMAP Queue A items of the planes a run option belongs to
 _MULTI = CLUSTER_ITEM
-_DURABLE = "ROADMAP Queue A item 6 (persistence, recovery and the epoch pipeline)"
 _VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
 
 # keyword -> (value that leaves the plane off, ROADMAP item)
 _UNPORTED_KWARGS = {
-    "persistence_config": (None, _DURABLE),
-    "recovery": (None, _DURABLE),
-    "ingest_workers": (None, _DURABLE),
     "elastic": (None, _MULTI),
     "cluster_accept_timeout": (None, _MULTI),
     "cluster_hello_timeout": (None, _MULTI),
@@ -109,9 +120,6 @@ _UNPORTED_KWARGS = {
 
 # environment variable -> (values that leave the plane off, ROADMAP item)
 _UNPORTED_ENV = {
-    "PATHWAY_REPLAY_STORAGE": ((), _DURABLE),
-    "PATHWAY_PIPELINE_DEPTH": (("1",), _DURABLE),
-    "PATHWAY_INGEST_WORKERS": (("0",), _DURABLE),
     "PATHWAY_PROCESSES": (("1",), _MULTI),
     "PATHWAY_ELASTIC": (("0", "false", "no", "off"), _MULTI),
     "PATHWAY_ANALYSIS": (("off",), _VERIFIER),
@@ -150,10 +158,7 @@ def unported_options(kwargs: dict[str, Any], environ=None) -> list[str]:
         if auto:
             out.append(f"{name} 'auto' arms the elastic plane: it needs {_MULTI}")
     for name, value in kwargs.items():
-        if name == "pipeline_depth":
-            if value is not None and int(value) > 1:
-                out.append(f"pw.run(pipeline_depth={value}) needs {_DURABLE}")
-        elif name in _UNPORTED_KWARGS:
+        if name in _UNPORTED_KWARGS:
             off, item = _UNPORTED_KWARGS[name]
             if value is not off and value != off:
                 out.append(f"pw.run({name}=...) needs {item}")
@@ -172,12 +177,24 @@ def _threads() -> int:
         raise ValueError(f"PATHWAY_THREADS={value!r} is not a worker count") from exc
 
 
+def _env_int(name: str, default: int) -> int:
+    """An integer variable; unset or malformed reads ``default``, as the
+    reference's run configuration reads it."""
+    try:
+        return int(os.environ.get(name) or default)
+    except ValueError:
+        return default
+
+
 def run(
     *,
     debug: bool = False,
     runtime_typechecking: bool = True,
     terminate_on_error: bool = True,
+    persistence_config: Any = None,
+    recovery: Any = None,
     pipeline_depth: int | None = None,
+    ingest_workers: int | None = None,
     mesh: Any = None,
     decode: Any = None,
     monitoring_level: Any = None,
@@ -203,6 +220,10 @@ def run(
     the reference accepts them. Every other keyword of the reference's
     ``pw.run`` belongs to a plane not yet ported and raises
     ``NotImplementedError`` unless it is at its "off" value.
+
+    ``persistence_config``, ``recovery``, ``pipeline_depth`` (1: the strict
+    loop) and ``ingest_workers`` (0: no stage): persistence, the supervisor,
+    the epoch pipeline and the host-ingest stage (module docstring).
 
     ``tracing``, ``chip_ledger``, ``freshness`` (``True`` or a spec such as
     ``"slo=250ms"``), ``watchdog`` (``True`` or a spec such as
@@ -230,7 +251,7 @@ def run(
     planes = dict(with_http_server=with_http_server, monitoring_http_port=monitoring_http_port,
                   monitoring_level=monitoring_level, tracing=tracing, watchdog=watchdog, chip_ledger=chip_ledger,
                   freshness=freshness)
-    missing = unported_options({**kwargs, "pipeline_depth": pipeline_depth, "mesh": mesh})
+    missing = unported_options({**kwargs, "mesh": mesh})
     if missing:
         raise NotImplementedError("; ".join(missing))
     try:
@@ -246,7 +267,15 @@ def run(
     tier_cfg = _parse_or_none(parse_tier_spec, index_tiers, "PATHWAY_INDEX_TIERS")
     tenancy_cfg = _parse_or_none(parse_tenancy_spec, tenancy, "PATHWAY_TENANCY")
     resolved = _resolve_planes(**planes, profile=profile)
+    depth = max(1, int(pipeline_depth) if pipeline_depth is not None else _env_int("PATHWAY_PIPELINE_DEPTH", 1))
+    n_ingest = max(0, int(ingest_workers) if ingest_workers is not None else _env_int("PATHWAY_INGEST_WORKERS", 0))
+    if persistence_config is None and os.environ.get("PATHWAY_REPLAY_STORAGE"):
+        persistence_config = _replay_config()
     G.run_context = {
+        "recovery": bool(recovery),
+        "persistence": persistence_config is not None,
+        "pipeline_depth": depth,
+        "ingest_workers": n_ingest,
         "mesh_axes": mesh_axes,
         "index_tiers": tier_cfg.as_dict() if tier_cfg is not None else None,
         "decode": decode_cfg.as_dict() if decode_cfg is not None else None,
@@ -256,6 +285,15 @@ def run(
     lic = License.new(license_key or os.environ.get("PATHWAY_LICENSE_KEY"))
     check_worker_count(lic, _threads())  # the free tier's worker cap
     run_mesh = resolve_mesh(mesh)
+    if ingest_workers is not None:
+        # PATHWAY_INGEST_WORKERS alone is honoured lazily by get_stage()
+        from ..ingest import stage as _ingest_stage
+
+        if n_ingest > 0:
+            _ingest_stage.configure_stage(n_ingest)
+        else:
+            _ingest_stage.shutdown_stage()
+    durable = {"persistence_config": persistence_config, "recovery": recovery, "pipeline_depth": depth}
     with contextlib.ExitStack() as scope:
         if run_mesh is not None:
             scope.enter_context(use_mesh(run_mesh))
@@ -265,7 +303,22 @@ def run(
             scope.enter_context(use_decode(decode_cfg))
         if tenancy is not None and tenancy_cfg is not None:
             scope.enter_context(use_tenancy(tenancy_cfg))
-        return _run_observed(terminate_on_error, planes, resolved)
+        return _run_observed(terminate_on_error, planes, resolved, durable)
+
+
+def _replay_config():
+    """The CLI's record / replay wiring (``spawn --record`` /
+    ``--replay-mode`` set ``PATHWAY_REPLAY_STORAGE`` and
+    ``PATHWAY_REPLAY_MODE``): a filesystem root that records or replays
+    every source, not only those with a ``persistent_id``."""
+    from .. import persistence as _persistence
+
+    cfg = _persistence.Config.simple_config(
+        _persistence.Backend.filesystem(os.environ["PATHWAY_REPLAY_STORAGE"]),
+        persistence_mode=os.environ.get("PATHWAY_REPLAY_MODE") or "batch",
+    )
+    cfg.auto_persistent_ids = True
+    return cfg
 
 
 def _parse_or_none(parse, spec, env: str):
@@ -324,7 +377,7 @@ def _resolve_planes(*, with_http_server, monitoring_http_port, monitoring_level,
     }
 
 
-def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> RunResult:
+def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict, durable: dict) -> RunResult:
     """Install the observability planes for the run, run the graph, and
     restore every plane's previous setting at the end (nested runs in one
     process do not leak them)."""
@@ -332,6 +385,7 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
     from ..freshness.plane import FRESHNESS
     from ..io.http._server import _BOUND_PORTS
     from ..perf.journal import JournalSampler, get_journal
+    from ..resilience import RecoveryEscalated
     from .chip_ledger import CHIP_LEDGER
     from .monitoring import MonitoringLevel, monitor_stats
     from .profiler import RunProfiler, set_current_profiler
@@ -386,7 +440,10 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
                 set_current_profiler(profiler)  # the wrap_jit and UDF hooks
             try:
                 with telemetry.span("graph_runner.run", workers=_threads()) as run_span:
-                    _run_graph(terminate_on_error, monitor.update if monitor is not None else None, profiler)
+                    _run_graph(terminate_on_error, monitor.update if monitor is not None else None, profiler,
+                               **durable)
+            except RecoveryEscalated:
+                raise  # the supervisor already dumped the flight recorder
             except Exception as exc:
                 # unsupervised crash: keep the last engine events
                 path = flight_recorder.dump("crash", exc)
@@ -443,25 +500,78 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict) -> Run
     return result
 
 
-def _run_graph(terminate_on_error: bool, monitoring_callback=None, profiler=None) -> None:
-    runner = GraphRunner(n_workers=_threads())
-    runner.engine.terminate_on_error = terminate_on_error
-    for r in runner._replicas:
-        r.engine.terminate_on_error = terminate_on_error
-    if profiler is not None:
-        runner.attach_profiler(profiler)
-    for table, sink in list(G.outputs):
-        sink_builder = sink.get("build")
-        if sink_builder is not None:
-            sink_builder(runner, table)
-    for spec in list(G.subscriptions):
-        runner.subscribe(
-            spec["table"],
-            on_change=spec.get("on_change"),
-            on_time_end=spec.get("on_time_end"),
-            on_end=spec.get("on_end"),
+def _run_graph(terminate_on_error: bool, monitoring_callback=None, profiler=None, *, persistence_config=None,
+               recovery=None, pipeline_depth: int = 1) -> None:
+    from ..resilience import Recovery, Supervisor
+
+    def build_runner(is_restart: bool) -> GraphRunner:
+        """A fresh runner, sinks and subscriptions for each attempt: a
+        crashed attempt's engine state is not recoverable in place, the
+        persistence layer replays into a clean graph instead."""
+        runner = GraphRunner(n_workers=_threads(), pipeline_depth=pipeline_depth)
+        # sinks read it: fs.write appends instead of truncating on a restart
+        runner.recovery_restart = is_restart
+        runner.engine.terminate_on_error = terminate_on_error
+        for r in runner._replicas:
+            r.engine.terminate_on_error = terminate_on_error
+        if profiler is not None:
+            runner.attach_profiler(profiler)
+        if persistence_config is not None:
+            for engine in runner._cluster_engines():
+                engine.persistence_config = persistence_config
+        for table, sink in list(G.outputs):
+            sink_builder = sink.get("build")
+            if sink_builder is not None:
+                sink_builder(runner, table)
+        for spec in list(G.subscriptions):
+            runner.subscribe(
+                spec["table"],
+                on_change=spec.get("on_change"),
+                on_time_end=spec.get("on_time_end"),
+                on_end=spec.get("on_end"),
+            )
+        return runner
+
+    def attempt(is_restart: bool) -> None:
+        if is_restart:
+            release_crashed_attempt()
+        runner = build_runner(is_restart)
+        try:
+            runner.run(monitoring_callback=monitoring_callback)
+        except BaseException:
+            runner.release()
+            raise
+
+    rec = Recovery.coerce(recovery)
+    if rec is None:
+        attempt(False)
+        return
+    if persistence_config is None:
+        import warnings
+
+        warnings.warn(
+            "pw.run(recovery=...) without persistence_config: restarts re-read every source from scratch and may "
+            "re-deliver output already flushed before the crash; configure persistence for exactly-once resumption",
+            stacklevel=3,
         )
-    runner.run(monitoring_callback=monitoring_callback)
+    Supervisor(rec).run(attempt)
+
+
+def release_crashed_attempt() -> None:
+    """Hand a crashed attempt's device memory back before the next attempt
+    builds its own. The attempt's runner was torn down as it failed
+    (``GraphRunner.release``), so its index slabs, staging rings and
+    bookings are garbage once the engine graph's reference cycles are
+    collected; the collection drops the HBM ledger's bookings of the
+    freed indexes too. The caching allocator's free blocks go back to the
+    card as well."""
+    import gc
+
+    gc.collect()
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def run_all(**kwargs: Any) -> RunResult:

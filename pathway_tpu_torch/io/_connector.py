@@ -237,10 +237,13 @@ def input_table_from_reader(
     (upstream Pathway's src/engine/graph.rs:943-950); otherwise the source
     reads on process 0 only and rows are forwarded by key shard.
 
-    ``retry_policy``: the reference's retrying readers come with ROADMAP
-    Queue A item 6 and raise here."""
-    if retry_policy is not None:
-        raise NotImplementedError("connector retry_policy needs ROADMAP Queue A item 6 (persistence and recovery)")
+    ``retry_policy``: a :class:`~pathway_tpu_torch.resilience.RetryPolicy`
+    — transient reader exceptions re-run ``reader(ctx)`` with backoff
+    instead of failing the run; rows already committed before the
+    failure are not re-read (readers resume from ``ctx.offsets``).
+    Attempt counts land in ``resilience.RETRY_METRICS`` under scope
+    ``connector:<name>`` and show up on ``/metrics``. Each attempt first
+    passes the ``connector.<name>`` chaos site."""
     dtypes = schema.dtypes()
     # schema-declared append-only: the engine trusts the declaration
     # (like the reference's SessionType::Native sources) and skips
@@ -264,9 +267,19 @@ def input_table_from_reader(
             # src/persistence/tracker.rs:49
             ctx._key_salt = ctx.process_id
 
+        from ..resilience import chaos
+
+        def attempt():
+            # scripted transient failures for the retry tests
+            chaos.inject(f"connector.{name}")
+            reader(ctx)
+
         def run():
             try:
-                reader(ctx)
+                if retry_policy is not None:
+                    retry_policy.execute(attempt, scope=f"connector:{name}")
+                else:
+                    attempt()
             except Exception as exc:
                 # record BEFORE close(): the engine loop must see the
                 # failure when it sees the closed session, or a crashed

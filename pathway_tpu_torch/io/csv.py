@@ -39,8 +39,8 @@ def read(
         csv_settings: (kwarg) a :class:`pw.io.CsvParserSettings` fixing
             the dialect — delimiter, quote/escape characters, comment
             character. Drives both parsing and schema inference.
-        persistent_id: (kwarg) names the source; checkpoint/recovery
-            comes with ROADMAP Queue A item 6.
+        persistent_id: (kwarg) enable checkpoint/recovery for this
+            source.
     """
     if schema is None:
         import os

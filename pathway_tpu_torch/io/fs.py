@@ -129,10 +129,11 @@ def read(
     ``pw.io.fs.read``). ``mode="static"`` reads a snapshot;
     ``"streaming"`` polls the directory, upserting rows keyed
     ``(path, index)`` and retracting the rows of modified and deleted
-    files, one commit per scan that found a change. ``retry_policy``
-    comes with ROADMAP Queue A item 6 and raises."""
-    if retry_policy is not None:
-        raise NotImplementedError("fs.read(retry_policy=...) needs ROADMAP Queue A item 6 (persistence and recovery)")
+    files, one commit per scan that found a change. With
+    ``persistent_id`` and a persistence config on the run, the scanner's
+    bookmarks ``{path: (mtime, n_rows)}`` are the source's offsets, so a
+    recovered run skips unchanged files. ``retry_policy`` (a
+    ``RetryPolicy``) re-runs a failed scan with backoff."""
     if schema is None:
         schema = _binary_schema(with_metadata) if format == "binary" else _plaintext_schema(with_metadata)
     elif with_metadata and "_metadata" not in schema.column_names():
@@ -196,6 +197,7 @@ def read(
         autocommit_duration_ms=autocommit_duration_ms,
         persistent_id=persistent_id,
         supports_offsets=True,  # the scanner resumes from {path: (mtime, n)}
+        retry_policy=retry_policy,
     )
 
 
@@ -210,12 +212,19 @@ def write(table: Table, filename: str, *, format: str = "csv", name: str = "fs.w
     state: dict = {}
 
     def on_build(runner):
-        # opened at build time, on the process that delivers changes
-        f = open(filename, "w", newline="")
+        # opened at build time, on the process that delivers changes. A
+        # supervisor restart (pw.run(recovery=...)) appends: persistence
+        # suppresses replayed epochs, so rows flushed before the crash stay
+        # and the recovered run delivers only what comes after them
+        append = bool(getattr(runner, "recovery_restart", False)) and (
+            os.path.exists(filename) and os.path.getsize(filename) > 0
+        )
+        f = open(filename, "a" if append else "w", newline="")
         state["f"] = f
         if format == "csv":
             writer = _csv.writer(f)
-            writer.writerow(names + ["time", "diff"])
+            if not append:
+                writer.writerow(names + ["time", "diff"])
             state["writer"] = writer
 
     if format == "csv":

@@ -35,8 +35,9 @@ def read(
             mtime, seen_at, owner) per row.
         autocommit_duration_ms: epoch granularity — how often buffered
             rows are committed to the engine as one atomic batch.
-        persistent_id: (kwarg) names the source; checkpoint/recovery
-            comes with ROADMAP Queue A item 6.
+        persistent_id: (kwarg) log batches for checkpoint/recovery; a
+            restarted run resumes from the last committed offset
+            instead of re-reading.
 
     Schemas declared ``append_only=True`` skip upsert bookkeeping
     engine-side; a typical pattern::

@@ -233,7 +233,22 @@ class SentenceEncoder:
         return self._encode_matrix(*self._tokenize_matrix(texts))
 
     def _tokenize_matrix(self, texts):
-        return self.tokenizer.batch_encode_matrix(texts, self.max_seq_len)
+        """Tokenize through the host-ingest stage when one is configured
+        (``PATHWAY_INGEST_WORKERS`` / ``pw.run(ingest_workers=)``), else
+        inline. The values are the same either way: the stage runs the
+        native tokenizer's GIL-free shard calls on its workers and records
+        the short / long split of the rows for the sequence buckets."""
+        from ..ingest import stage as ingest_stage
+
+        st = ingest_stage.get_stage()
+        m = self.tokenizer.batch_encode_matrix(texts, self.max_seq_len, stage=st)
+        if st is not None:
+            from .batching import DEFAULT_SEQ_BUCKETS, bucket
+
+            # short = fits the sequence bucket at half this encoder's window
+            threshold = bucket(max(1, self.max_seq_len // 2), DEFAULT_SEQ_BUCKETS)
+            ingest_stage.route_by_length(m[1].tolist(), threshold)
+        return m
 
     def _matrix_groups(self, ids_mat: np.ndarray, lens: np.ndarray):
         """Bucketed dispatch straight from the tokenizer's padded ids

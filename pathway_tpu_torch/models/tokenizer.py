@@ -82,12 +82,18 @@ class WordPieceTokenizer:
         ids.append(self.sep_id)
         return ids
 
-    def batch_encode_matrix(self, texts, max_len: int = 128):
+    def batch_encode_matrix(self, texts, max_len: int = 128, stage=None):
         """-> (ids [n, max_len] int32, lens [n] int32). Rows are
         pad_id-filled past their length, ready for the encoder's
         bucketed batching. ASCII rows go through the native batched
         tokenizer (its scanner is ASCII-only); the others, and all rows
-        when native is disabled, through the Python ``encode``."""
+        when native is disabled, through the Python ``encode``.
+
+        ``stage``: an optional ``ingest.HostIngestStage``; the ASCII rows
+        are then encoded as shard calls on its workers
+        (``pn_tok_encode_shard`` releases the GIL), each writing a disjoint
+        row range of the shared matrices: the same values at any worker
+        count."""
         from .. import native
 
         texts = list(texts)
@@ -95,17 +101,41 @@ class WordPieceTokenizer:
         native_rows = [i for i, t in enumerate(texts) if t.isascii()] if native.is_available() else []
         if native_rows and self._native is None:
             self._native = native.NativeTokenizer(self._vocab_file, self.vocab_size, self.lowercase, self.max_chars)
+
+        def encode_native(rows):
+            if stage is not None and len(rows) >= 2:
+                return self._encode_matrix_staged(rows, max_len, stage)
+            return self._native.encode_batch(rows, max_len)
+
         if len(native_rows) == n and n:
-            return self._native.encode_batch(texts, max_len)
+            return encode_native(texts)
         ids = np.full((n, max_len), self.pad_id, np.int32)
         lens = np.zeros(n, np.int32)
         if native_rows:
-            ids[native_rows], lens[native_rows] = self._native.encode_batch([texts[i] for i in native_rows], max_len)
+            ids[native_rows], lens[native_rows] = encode_native([texts[i] for i in native_rows])
         for i in sorted(set(range(n)) - set(native_rows)):
             row = self.encode(texts[i], max_len=max_len)
             ids[i, : len(row)] = row
             lens[i] = len(row)
         return ids, lens
+
+    def _encode_matrix_staged(self, texts, max_len: int, stage):
+        """ASCII rows sharded over the ingest stage's workers into one
+        shared output: each shard call covers a disjoint row range, so the
+        rows are what one ``encode_batch`` call gives."""
+        n = len(texts)
+        blob, offsets = self._native.prepare_blob(texts)
+        out_ids = np.empty((n, max_len), np.int32)
+        out_lens = np.empty(n, np.int32)
+        shard = max(64, -(-n // max(1, stage.workers * 2)))
+        spans = [(b, min(b + shard, n)) for b in range(0, n, shard)]
+
+        def run(span):
+            self._native.encode_shard(blob, offsets, span[0], span[1], max_len, out_ids, out_lens)
+
+        for _ in stage.map_ordered(run, spans):
+            pass
+        return out_ids, out_lens
 
     def encode_pair(self, a: str, b: str, max_len: int = 256) -> tuple[list[int], list[int]]:
         """(ids, token_type_ids) for cross-encoder input [CLS] a [SEP] b [SEP]."""

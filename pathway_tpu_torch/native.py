@@ -2,8 +2,10 @@
 
 The library holds the engine's host hot paths: update consolidation
 (``pn_consolidate``), batched keyed blake2b row hashing
-(``pn_blake2b8_batch``) and the batched WordPiece tokenizer
-(``pn_tok_encode_batch``). It is built with ``g++`` at first use (never at
+(``pn_blake2b8_batch``), the batched WordPiece tokenizer
+(``pn_tok_encode_batch``, and ``pn_tok_encode_shard`` for the ingest
+stage's workers) and the CRC-checked snapshot log of the persistence
+plane (``pn_log_*``: :class:`SnapshotLogWriter`, :class:`SnapshotLogReader`). It is built with ``g++`` at first use (never at
 import) into ``build/pathway_tpu_torch/`` at the repository root, keyed by
 the hash of the source and the flags, and bound with ``ctypes``.
 
@@ -17,9 +19,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import pickle
 import struct
 import subprocess
 import threading
+from typing import Any, Iterator
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "csrc", "host", "pathway_native.cc")
@@ -39,6 +43,18 @@ _SIGS = {
     "pn_tok_free": ([ctypes.c_void_p], None),
     "pn_tok_info": ([ctypes.c_void_p] + [_i32p] * 5, None),
     "pn_tok_encode_batch": ([ctypes.c_void_p, _u8p, _u64p, ctypes.c_uint64, ctypes.c_int32, _i32p, _i32p], None),
+    "pn_tok_encode_shard": (
+        [ctypes.c_void_p, _u8p, _u64p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int32, _i32p, _i32p], None
+    ),
+    "pn_log_open_write": ([ctypes.c_char_p, ctypes.c_int32], ctypes.c_void_p),
+    "pn_log_append": ([ctypes.c_void_p, ctypes.c_uint8, ctypes.c_uint64, ctypes.c_uint64, _u8p, ctypes.c_uint64],
+                      ctypes.c_int32),
+    "pn_log_flush": ([ctypes.c_void_p], ctypes.c_int32),
+    "pn_log_close_write": ([ctypes.c_void_p], None),
+    "pn_log_open_read": ([ctypes.c_char_p], ctypes.c_void_p),
+    "pn_log_next": ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), _u64p, _u64p, ctypes.POINTER(_u8p), _u64p],
+                    ctypes.c_int32),
+    "pn_log_close_read": ([ctypes.c_void_p], None),
     "pn_version": ([], ctypes.c_char_p),
 }
 
@@ -195,3 +211,105 @@ class NativeTokenizer:
             out_ids.ctypes.data_as(_i32p), out_lens.ctypes.data_as(_i32p),
         )
         return out_ids, out_lens
+
+    @staticmethod
+    def prepare_blob(texts: list[str]):
+        """-> (concatenated utf-8 bytes, [n+1] uint64 offsets) for
+        :meth:`encode_shard`."""
+        import numpy as np
+
+        blobs = [t.encode("utf-8") for t in texts]
+        offsets = np.zeros(len(blobs) + 1, np.uint64)
+        np.cumsum([len(b) for b in blobs], out=offsets[1:])
+        return b"".join(blobs), offsets
+
+    def encode_shard(self, blob, offsets, row_begin: int, row_end: int, max_len: int, out_ids, out_lens) -> None:
+        """Encode rows ``[row_begin, row_end)`` of a prepared blob into the
+        shared ``(n, max_len)`` matrices. ctypes drops the GIL for the
+        call, so ingest workers encoding disjoint shards run in parallel."""
+        self._lib.pn_tok_encode_shard(
+            self._h, _as_u8p(blob), offsets.ctypes.data_as(_u64p), row_begin, row_end, max_len,
+            out_ids.ctypes.data_as(_i32p), out_lens.ctypes.data_as(_i32p),
+        )
+
+
+class SnapshotLogWriter:
+    """CRC-checked append-only log (``pn_log_*``). A record is
+    ``(kind, time, key, blob)``; the file format is the reference
+    package's, byte for byte."""
+
+    def __init__(self, path: str, append: bool = True):
+        lib = library()
+        if lib is None:
+            raise RuntimeError("SnapshotLogWriter: PATHWAY_DISABLE_NATIVE is set")
+        self._lib = lib
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+        self._h = lib.pn_log_open_write(path.encode(), 1 if append else 0)
+        if not self._h:
+            raise OSError(f"cannot open snapshot log for write: {path}")
+
+    def append(self, kind: int, time: int, key: int, blob: bytes) -> None:
+        ok = self._lib.pn_log_append(
+            self._h, kind, ctypes.c_uint64(time), ctypes.c_uint64(int(key) & 0xFFFFFFFFFFFFFFFF), _as_u8p(blob),
+            len(blob),
+        )
+        if not ok:
+            raise OSError("snapshot log append failed")
+
+    def append_obj(self, kind: int, time: int, key: int, obj: Any) -> None:
+        self.append(kind, time, key, pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+
+    def flush(self) -> None:
+        self._lib.pn_log_flush(self._h)
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.pn_log_close_write(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class SnapshotLogReader:
+    """Reads a :class:`SnapshotLogWriter` log's records until the end of
+    the file or the first torn or corrupt record."""
+
+    def __init__(self, path: str):
+        lib = library()
+        if lib is None:
+            raise RuntimeError("SnapshotLogReader: PATHWAY_DISABLE_NATIVE is set")
+        self._lib = lib
+        self._h = lib.pn_log_open_read(path.encode())
+        if not self._h:
+            raise FileNotFoundError(path)
+
+    def __iter__(self) -> Iterator[tuple[int, int, int, bytes]]:
+        kind = ctypes.c_uint8()
+        time = ctypes.c_uint64()
+        key = ctypes.c_uint64()
+        ptr = _u8p()
+        length = ctypes.c_uint64()
+        while self._lib.pn_log_next(
+            self._h, ctypes.byref(kind), ctypes.byref(time), ctypes.byref(key), ctypes.byref(ptr),
+            ctypes.byref(length),
+        ):
+            yield kind.value, time.value, key.value, ctypes.string_at(ptr, length.value)
+
+    def iter_objects(self) -> Iterator[tuple[int, int, int, Any]]:
+        for kind, time, key, blob in self:
+            yield kind, time, key, pickle.loads(blob)
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.pn_log_close_read(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import itertools
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -176,6 +177,12 @@ def _take(t: torch.Tensor, sel) -> torch.Tensor:
     return t if isinstance(sel, slice) else t.index_select(0, torch.as_tensor(sel, device=t.device))
 
 
+def _ledger_drop(name: str) -> None:
+    from ..internals.ledger import LEDGER
+
+    LEDGER.drop("index.hot", name)
+
+
 class DeviceKnnIndex:
     """Growable device slab (one per shard on a mesh) + host-side key and
     metadata mirror."""
@@ -199,6 +206,9 @@ class DeviceKnnIndex:
         self.dim = dim
         self.metric = metric
         self.name = name if name is not None else f"knn{next(_NAME_SEQ)}"
+        # an index that is dropped (a crashed run's, say) gives its HBM
+        # ledger booking back with its slab
+        weakref.finalize(self, _ledger_drop, self.name)
         # one logical slot range [0, n_shards * shard_capacity), split
         # contiguously: shard s holds [s * c, (s + 1) * c)
         self.shard_capacity = -(-max(64, int(reserved_space)) // self.n_shards)
@@ -221,8 +231,6 @@ class DeviceKnnIndex:
         self.generation = 0
         self._fenced = False
         self._last_merge_s: float | None = None
-        # the run profiler's build / execute split of each top-k dispatch
-        self._device_topk = wrap_jit("knn.topk", self._device_topk)
 
     def __len__(self) -> int:
         return len(self._slot_of)
@@ -601,6 +609,11 @@ class DeviceKnnIndex:
                     return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
                 return _topk_fn(self.metric)(matrix, valid, q, fetch)
         return self._sharded_topk(q, fetch)
+
+    # the run profiler's build / execute split of each top-k dispatch (wrapped
+    # on the class: a wrapper on the instance would hold the index in a
+    # reference cycle, which only a full collection frees)
+    _device_topk = wrap_jit("knn.topk", _device_topk)
 
     def _sharded_topk(self, q: torch.Tensor, fetch: int):
         """The two-phase search over the shards: each shard's top

@@ -29,8 +29,8 @@ When every document is hot-resident the search delegates wholesale to
 Snapshots: ``tier_state()`` captures the centroid table, per-key cluster
 assignment, hit counters, and the exact hot-resident key set;
 ``restore_tier_state`` + ``finish_tier_restore`` replay them around a
-re-add (the engine's persistence that calls them comes with ROADMAP Queue
-A item 6). On a mesh, and for the elastic reshard (``spawn_like``,
+re-add (the engine's index node does, restoring from an operator
+snapshot). On a mesh, and for the elastic reshard (``spawn_like``,
 ``reshard_*``), the tiered index raises: ROADMAP Queue A item 5.
 """
 

@@ -18,10 +18,11 @@ join key, row key, instance) — see ``Node.route_owner`` overrides.
 Sources read on shard 0; sinks and captures consolidate on shard 0 so
 delivery stays single-streamed and time-ordered. Shards that run device
 work (an embedder UDF, the KNN index) share one card and one model from
-their threads. Persistence, the overlapped epoch pipeline and
-multi-process clusters are not part of this package. Each epoch records
-``epoch.begin`` and ``epoch.advance`` in the flight recorder, as the
-reference's cluster does.
+their threads. Persistence (input logs on shard 0's sources, one
+operator snapshot over every shard's state) and the overlapped epoch
+pipeline run here as in the reference's cluster; multi-process clusters
+are ROADMAP item 5. Each epoch records ``epoch.begin`` and
+``epoch.advance`` in the flight recorder, as the reference's cluster does.
 """
 
 from __future__ import annotations
@@ -32,6 +33,40 @@ from typing import Callable
 
 from ..engine import dataflow as df
 from ..internals import flight_recorder
+
+
+def recover_sources(persistence, sources, cfg, auto_prefix: str = "auto", delivered_frontier: int = -1,
+                    speedrun: bool = False) -> int:
+    """The source-recovery pass: assign auto ids, reset offset-unaware
+    logs, restore offsets and replay batches; returns the largest
+    recovered frontier. ``delivered_frontier`` is the durable delivered
+    marker: epochs fed (and delivered) but never ADVANCEd finalize instead
+    of re-delivering (``EnginePersistence.recover_source``)."""
+    mode = str(getattr(cfg, "persistence_mode", "batch") or "batch").lower()
+    record_mode = "record" in mode
+    if getattr(cfg, "auto_persistent_ids", False) or record_mode or speedrun:
+        for i, s in enumerate(sources):
+            if s.persistent_id is not None or s.is_error_log:
+                continue
+            # speedrun never starts readers, so offset-unaware sources are
+            # safe to replay; otherwise only offset-aware (or freshly reset
+            # record-mode) sources get ids
+            if speedrun or record_mode or s.supports_offsets:
+                s.persistent_id = f"{auto_prefix}_{i}"
+    frontier = -1
+    for s in sources:
+        if s.persistent_id is None:
+            continue
+        if not s.supports_offsets and not speedrun:
+            # offset-unaware reader: run() re-produces all input, so
+            # replaying a stale log on top would double it — reset
+            persistence.reset_source(s.persistent_id)
+            continue
+        batches, offsets, f = persistence.recover_source(s.persistent_id, delivered_frontier=delivered_frontier)
+        s.replay_batches = list(batches)
+        s.session.restore_offsets(offsets)
+        frontier = max(frontier, f)
+    return frontier
 
 
 class ShardCluster:
@@ -50,6 +85,11 @@ class ShardCluster:
         self._mail_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(max_workers=self.n) if self.n > 1 else None
         self._stop = False
+        self._persistence = None
+        self._speedrun = False
+        self._opsnap_ok = False
+        self._opsnap_time = -1
+        self._last_opsnap_wall = 0.0
 
     # -- routing (called from Node.emit during topo sweeps) --
 
@@ -77,24 +117,6 @@ class ShardCluster:
                 for j, nid, p, u in mail:
                     self._mail[j].append((nid, p, u))
         return local
-
-    def _deliver_mail(self) -> bool:
-        """Move local-shard mailbox contents into target shard queues;
-        True if any. Remote-shard boxes stay for the transport."""
-        boxes = {}
-        with self._mail_lock:
-            for shard in range(self.base, self.base + self.n):
-                if self._mail[shard]:
-                    boxes[shard] = self._mail[shard]
-                    self._mail[shard] = []
-        delivered = False
-        for shard, box in boxes.items():
-            delivered = True
-            engine = self.engines[shard - self.base]
-            for nid, port, u in box:
-                engine.nodes[nid].queues[port].append(u)
-                engine._dirty.add(nid)
-        return delivered
 
     def _deliver_mail(self) -> bool:
         """Move mailbox contents into the target shards' queues; True if any."""
@@ -189,99 +211,428 @@ class ShardCluster:
                         prof.record_process(e.worker_id, node, t0, prof.now_ns() - t0)
                     else:
                         te(time)
+        if self._persistence is not None:
+            # sinks flushed above, offset cursors advance after: a crash in
+            # between must finalize the epoch on recovery
+            self._persistence.mark_delivered(int(time))
         for e in self.engines:
             if e.profiler is not None:
                 e.profiler.end_epoch(e.worker_id, e, time)
 
-    def run(self, monitoring_callback: Callable | None = None) -> None:
-        primary = self.engines[0]
-        for t in primary.connector_threads:
-            t.start()
-        primary._threads_started = True
-        last_time = -1
-        try:
-            while not (self._stop or primary._stop):
-                primary._raise_connector_failure()
-                times = [s.next_time() for s in primary.static_sources]
-                times = [t for t in times if t is not None]
-                scripted_t = min(times) if times else None
+    # -- persistence: input logs on shard 0's sources, one operator
+    #    snapshot over the state of every shard --
 
-                session_batches = []
-                for s in primary.session_sources:
+    def _setup_persistence(self) -> None:
+        import pickle
+
+        from ..engine.persistence import EnginePersistence
+
+        primary = self.engines[0]
+        cfg = primary.persistence_config
+        mode = str(getattr(cfg, "persistence_mode", "batch") or "batch").lower()
+        if "speedrun" in mode:
+            # speedrun across all shards: readers never start, the recorded
+            # stream replays through the normal epoch loop sharded like a
+            # live run, and sinks re-deliver every epoch. The log is
+            # read-only here: no batch logging, no snapshots.
+            self._speedrun = True
+            p = EnginePersistence(cfg)
+            recover_sources(p, primary.session_sources, cfg, speedrun=True)
+            # a snapshot-compacted log has no full stream to replay
+            p.check_compaction_covered(
+                [s.persistent_id for s in primary.session_sources if s.persistent_id is not None], None
+            )
+            p.close()
+            for e in self.engines:
+                e.replay_frontier = -1
+            return
+        p = EnginePersistence(cfg)
+        self._persistence = p
+        frontier = recover_sources(p, primary.session_sources, cfg, delivered_frontier=p.delivered_frontier())
+        for e in self.engines:
+            e.replay_frontier = frontier
+        all_persistent = all(s.persistent_id is not None for s in primary.session_sources if not s.is_error_log)
+        if frontier >= 0 and not all_persistent:
+            import warnings
+
+            warnings.warn(
+                "only a subset of sources has a persistent_id: non-persistent sources re-feed at fresh epochs "
+                "after a restart, so rows derived from them may be delivered to sinks again — exactly-once "
+                "only holds when every source is persisted",
+                stacklevel=2,
+            )
+        self._opsnap_ok = all_persistent
+        restored_t = None
+        if frontier >= 0 and all_persistent:
+            rec = p.recover_operator_snapshot(frontier)
+            if rec is not None:
+                t0, blob = rec
+                data = pickle.loads(blob)
+                if data.get("sig") == self._cluster_signature():
+                    for (shard, nid), st in data["states"].items():
+                        self.engines[shard].nodes[nid].restore_state(st)
+                    for s in primary.session_sources:
+                        s.replay_batches = [(tt, ups) for tt, ups in s.replay_batches if tt > t0]
+                    for st_src in primary.static_sources:
+                        while st_src.pos < len(st_src.batches) and st_src.batches[st_src.pos][0] <= t0:
+                            st_src.pos += 1
+                    self._opsnap_time = t0
+                    restored_t = t0
+        # trimmed logs are only recoverable through a compatible snapshot
+        p.check_compaction_covered(
+            [s.persistent_id for s in primary.session_sources if s.persistent_id is not None], restored_t
+        )
+
+    def _cluster_signature(self):
+        return [(shard, n.id, n.snapshot_signature()) for shard, e in enumerate(self.engines) for n in e.nodes]
+
+    def _maybe_snapshot_operators(self, t: int) -> None:
+        """Interval snapshots (``snapshot_interval_ms``), as the single
+        engine's ``_maybe_snapshot_operators``."""
+        import time as _wall
+
+        if not self._opsnap_ok:
+            return
+        interval_ms = getattr(self.engines[0].persistence_config, "snapshot_interval_ms", 0) or 0
+        if interval_ms <= 0:
+            return
+        if (_wall.monotonic() - self._last_opsnap_wall) * 1000.0 >= interval_ms:
+            self._snapshot_operators(t)
+
+    def _snapshot_operators(self, t: int) -> None:
+        import time as _wall
+
+        from ..engine import device_ring
+
+        # no staging-ring slot whose copy is still in flight is pickled
+        device_ring.quiesce_all()
+        states = {}
+        for shard, e in enumerate(self.engines):
+            for n in e.nodes:
+                st = n.snapshot_state()
+                if st is not None:
+                    states[(shard, n.id)] = st
+        blob = df.dumps_host({"sig": self._cluster_signature(), "time": int(t), "states": states})
+        self._persistence.save_operator_snapshot(int(t), blob)
+        cfg = self.engines[0].persistence_config
+        if getattr(cfg, "compact_inputs_on_snapshot", False):
+            self._persistence.compact_inputs(
+                [s.persistent_id for s in self.engines[0].session_sources
+                 if s.persistent_id is not None and not s.is_error_log],
+                int(t),
+            )
+        self._last_opsnap_wall = _wall.monotonic()
+        if self.world > 1:
+            # a multi-worker snapshot is the barrier all shards agree on
+            from ..resilience.cluster import CLUSTER_METRICS
+
+            flight_recorder.record("cluster.barrier", t=int(t), generation=0, world=self.world)
+            CLUSTER_METRICS.record_barrier()
+
+    # -- the epoch loops --
+
+    def _next_epoch(self, last_time: int):
+        """Form the next epoch's inputs on shard 0: ``(scripted time or
+        None, session batches, last_time)``; None when every source has
+        closed (or a speedrun's recorded stream is exhausted)."""
+        primary = self.engines[0]
+        times = [s.next_time() for s in primary.static_sources]
+        replay_pending = False
+        for s in primary.session_sources:
+            rt = s.next_replay_time()
+            if rt is not None:
+                times.append(rt)
+                replay_pending = True
+        times = [t for t in times if t is not None]
+        scripted_t = min(times) if times else None
+        session_batches = []
+        if not replay_pending:
+            # live epochs land strictly past the recovered frontier
+            last_time = max(last_time, primary.replay_frontier)
+            for s in primary.session_sources:
+                b = s.session.drain()
+                if b:
+                    session_batches.append((s, b))
+        # row errors reported on replica shards land in THEIR error
+        # sessions; drain them all (delivery routes to shard 0)
+        for e in self.engines[1:]:
+            for s in e.session_sources:
+                if s.is_error_log:
                     b = s.session.drain()
                     if b:
                         session_batches.append((s, b))
-                # row errors reported on replica shards land in THEIR error
-                # sessions; drain them all (delivery routes to shard 0)
-                for e in self.engines[1:]:
-                    for s in e.session_sources:
-                        if s.is_error_log:
-                            b = s.session.drain()
-                            if b:
-                                session_batches.append((s, b))
+        if scripted_t is None and not session_batches:
+            if self._speedrun or all(s.session.closed for s in primary.session_sources if not s.is_error_log):
+                return None
+            return (None, [], last_time)
+        return (scripted_t, session_batches, last_time)
 
-                if scripted_t is None and not session_batches:
-                    if all(s.session.closed for s in primary.session_sources if not s.is_error_log):
-                        break
-                    primary._wake.wait(timeout=0.05)
-                    primary._wake.clear()
-                    continue
+    @staticmethod
+    def _epoch_time(scripted_t, session_batches, last_time) -> int:
+        t = scripted_t if scripted_t is not None else last_time + 1
+        if session_batches and scripted_t is not None:
+            t = max(scripted_t, last_time + 1)
+        return max(t, last_time + 1) if t <= last_time else t
 
-                t = scripted_t if scripted_t is not None else last_time + 1
-                if session_batches and scripted_t is not None:
-                    t = max(scripted_t, last_time + 1)
-                t = max(t, last_time + 1) if t <= last_time else t
-                _epoch_kw = {"t": int(t), "world": self.world}
-                flight_recorder.record("epoch.begin", batches=len(session_batches), **_epoch_kw)
-                self._sync_watermarks()
-                for e in self.engines:
-                    e.current_time = t
-                    e._frontier_hooks(t)
-                for s in primary.static_sources:
-                    s.feed(t)
-                for s, b in session_batches:
-                    s.feed_batch(b, t)
-                self._deliver_mail()
-                self._sweep(t)
-                last_time = t
-                flight_recorder.record("epoch.advance", **_epoch_kw)
-                if monitoring_callback is not None:
-                    monitoring_callback(primary)
+    def _log_feed(self, s, t, resolved, offsets) -> bool:
+        """The staging-commit point: KIND_FEED for a persisted source's
+        resolved batch, between the chaos sites that bracket it."""
+        if self._persistence is None or s.persistent_id is None or not resolved:
+            return False
+        from ..resilience import chaos as _chaos
 
-            if not (self._stop or primary._stop):
-                primary._raise_connector_failure()
-            # end of input: final flush on every shard
-            self._sync_watermarks()
-            for e in self.engines:
-                e.current_time = last_time + 1
-                e._frontier_hooks(df.INF_TIME)
-            self._deliver_mail()
-            # only run (and fire time_end for) the flush epoch if it has work
-            if any(e._dirty for e in self.engines):
-                self._sweep(last_time + 1)
-            # trailing error deliveries
-            err = []
-            for e in self.engines:
-                for s in e.session_sources:
-                    if s.is_error_log:
-                        b = s.session.drain()
-                        if b:
-                            err.append((s, b))
-            if err:
-                for s, b in err:
-                    s.feed_batch(b, last_time + 2)
-                self._deliver_mail()
-                self._sweep(last_time + 2)
-            for e in self.engines:
-                for node in e.nodes:
-                    node.on_end()
-            primary.stopped.set()
+        _chaos.inject("engine.before_stage_commit", time=int(t))
+        self._persistence.log_batch(s.persistent_id, t, resolved, offsets)
+        _chaos.inject("engine.after_stage_commit", time=int(t))
+        return True
+
+    def _begin_epoch(self, t) -> None:
+        self._sync_watermarks()
+        for e in self.engines:
+            e.current_time = t
+            e._frontier_hooks(t)
+
+    def _start(self) -> None:
+        primary = self.engines[0]
+        if primary.persistence_config is not None:
+            self._setup_persistence()
+        if not self._speedrun:
             for t in primary.connector_threads:
-                t.join(timeout=5.0)
+                t.start()
+            primary._threads_started = True
+
+    def run(self, monitoring_callback: Callable | None = None) -> None:
+        primary = self.engines[0]
+        try:
+            self._start()
+            if primary.pipeline_depth > 1:
+                last_time = self._run_pipelined(monitoring_callback)
+            else:
+                last_time = self._run_strict(monitoring_callback)
+            self._finish(last_time)
         finally:
             primary.stopped.set()
             if self._pool is not None:
                 self._pool.shutdown(wait=False)
+
+    def _run_strict(self, monitoring_callback: Callable | None) -> int:
+        primary = self.engines[0]
+        last_time = -1
+        while not (self._stop or primary._stop):
+            primary._raise_connector_failure()
+            nxt = self._next_epoch(last_time)
+            if nxt is None:
+                break
+            scripted_t, session_batches, last_time = nxt
+            if scripted_t is None and not session_batches:
+                primary._wake.wait(timeout=0.05)
+                primary._wake.clear()
+                continue
+            t = self._epoch_time(scripted_t, session_batches, last_time)
+            _epoch_kw = {"t": int(t), "world": self.world}
+            flight_recorder.record("epoch.begin", batches=len(session_batches), **_epoch_kw)
+            self._begin_epoch(t)
+            for s in primary.static_sources:
+                s.feed(t)
+            for s in primary.session_sources:
+                s.feed_replay(t)
+            for s, b in session_batches:
+                # depth 1: the staging-commit point is feed time
+                self._log_feed(s, t, s.feed_batch(b, t), s.last_offsets or {})
+            self._deliver_mail()
+            self._sweep(t)
+            if self._persistence is not None:
+                for s, _b in session_batches:
+                    if s.persistent_id is not None:
+                        self._persistence.advance(s.persistent_id, t, s.last_offsets or {})
+                if session_batches:
+                    self._maybe_snapshot_operators(t)
+            last_time = t
+            flight_recorder.record("epoch.advance", **_epoch_kw)
+            if monitoring_callback is not None:
+                monitoring_callback(primary)
+        return last_time
+
+    def _run_pipelined(self, monitoring_callback: Callable | None) -> int:
+        """The sharded loop with staged epoch formation (``pipeline_depth
+        >= 2``): a stager thread drains shard 0's sessions, resolves their
+        wire protocols and commits KIND_FEED for epoch N+1 while the sweep
+        of epoch N runs. Sweeps execute strictly in staged order, so the
+        output is the strict loop's."""
+        import queue as _queue
+        import time as _wall
+
+        from ..engine.pipeline import PipelineStats, StagedEpoch, _SweepClock
+
+        primary = self.engines[0]
+        stats = PipelineStats(depth=primary.pipeline_depth)
+        for e in self.engines:
+            e.pipeline_stats = stats
+        clock = _SweepClock(stats)
+        commit_lock = threading.Lock()
+        q: "_queue.Queue" = _queue.Queue(maxsize=max(1, primary.pipeline_depth - 1))
+        sentinel = object()
+        stage_error: list[BaseException] = []
+        stop_staging = threading.Event()
+
+        def halted() -> bool:
+            return stop_staging.is_set() or self._stop or primary._stop
+
+        def stage_loop() -> None:
+            last_time = -1
+            try:
+                while not halted():
+                    primary._raise_connector_failure()
+                    nxt = self._next_epoch(last_time)
+                    if nxt is None:
+                        break
+                    scripted_t, session_batches, last_time = nxt
+                    if scripted_t is None and not session_batches:
+                        primary._wake.wait(timeout=0.05)
+                        primary._wake.clear()
+                        continue
+                    stats.begin("prep")
+                    t = self._epoch_time(scripted_t, session_batches, last_time)
+                    ep = StagedEpoch(time=t, scripted=scripted_t is not None)
+                    with commit_lock:
+                        for s, b in session_batches:
+                            resolved = s.resolve_batch(b)
+                            offsets = dict(s.last_offsets or {})
+                            ep.resolved.append((s, resolved))
+                            ep.offsets[id(s)] = offsets
+                            ep.fed |= self._log_feed(s, t, resolved, offsets)
+                    stats.staged_epochs += 1
+                    stats.end("prep")
+                    flight_recorder.record("pipeline.staged", t=int(t), fed=ep.fed, scripted=ep.scripted)
+                    last_time = t
+                    placed = False
+                    while not halted():
+                        try:
+                            q.put(ep, timeout=0.05)
+                            placed = True
+                            break
+                        except _queue.Full:
+                            continue
+                    if placed and ep.scripted:
+                        # scripted feeds (static tables, recovery replay) are
+                        # consumed at execute time: staging ahead would
+                        # re-observe the same pending time, so hand them off
+                        # synchronously
+                        while not ep.done.wait(timeout=0.05):
+                            if halted():
+                                return
+            except BaseException as exc:
+                stage_error.append(exc)
+            finally:
+                try:
+                    q.put_nowait(sentinel)
+                except _queue.Full:
+                    pass
+                primary.wake()
+
+        stager = threading.Thread(target=stage_loop, name="pathway-shard-stager", daemon=True)
+        stager.start()
+        last_time = -1
+        try:
+            while not (self._stop or primary._stop):
+                primary._raise_connector_failure()
+                if stage_error:
+                    raise stage_error[0]
+                try:
+                    item = q.get(timeout=0.05)
+                except _queue.Empty:
+                    if not stager.is_alive() and q.empty():
+                        break
+                    continue
+                if item is sentinel:
+                    break
+                t = item.time
+                self._begin_epoch(t)
+                if item.scripted:
+                    for s in primary.static_sources:
+                        s.feed(t)
+                    for s in primary.session_sources:
+                        s.feed_replay(t)
+                for s, resolved in item.resolved:
+                    s.emit(resolved, t)
+                self._deliver_mail()
+                stats.begin("exec")
+                clock.start()
+                cpu0 = _wall.thread_time()
+                w0 = _wall.perf_counter()
+                self._sweep(t)
+                clock.stop((_wall.perf_counter() - w0) - (_wall.thread_time() - cpu0))
+                stats.end("exec")
+                if self._persistence is not None:
+                    for s, _resolved in item.resolved:
+                        if s.persistent_id is not None:
+                            self._persistence.advance(s.persistent_id, t, item.offsets.get(id(s)) or {})
+                    if item.resolved:
+                        with commit_lock:
+                            self._maybe_snapshot_operators(t)
+                stats.executed_epochs += 1
+                item.done.set()
+                flight_recorder.record("pipeline.executed", t=int(t))
+                if primary.profiler is not None:
+                    primary.profiler.observe_pipeline(stats)
+                last_time = t
+                if monitoring_callback is not None:
+                    monitoring_callback(primary)
+            if stage_error:
+                raise stage_error[0]
+        finally:
+            stop_staging.set()
+            primary.wake()
+            stager.join(timeout=5.0)
+            clock.drain()
+        return last_time
+
+    def _finish(self, last_time: int) -> None:
+        """The end-of-input tail of both loops."""
+        primary = self.engines[0]
+        if not (self._stop or primary._stop):
+            primary._raise_connector_failure()
+        # final snapshot BEFORE the end-of-input flush (the flush assumes
+        # input is over, which a restarted run cannot know)
+        if (
+            self._persistence is not None
+            and self._opsnap_ok
+            and last_time >= 0
+            and last_time != self._opsnap_time
+            and primary.session_sources
+        ):
+            self._snapshot_operators(last_time)
+        # end of input: final flush on every shard
+        self._sync_watermarks()
+        for e in self.engines:
+            e.current_time = last_time + 1
+            e._frontier_hooks(df.INF_TIME)
+        self._deliver_mail()
+        # only run (and fire time_end for) the flush epoch if it has work
+        if any(e._dirty for e in self.engines):
+            self._sweep(last_time + 1)
+        # trailing error deliveries
+        err = []
+        for e in self.engines:
+            for s in e.session_sources:
+                if s.is_error_log:
+                    b = s.session.drain()
+                    if b:
+                        err.append((s, b))
+        if err:
+            for s, b in err:
+                s.feed_batch(b, last_time + 2)
+            self._deliver_mail()
+            self._sweep(last_time + 2)
+        for e in self.engines:
+            for node in e.nodes:
+                node.on_end()
+        if self._persistence is not None:
+            self._persistence.close()
+        primary.stopped.set()
+        if primary._threads_started:
+            for t in primary.connector_threads:
+                t.join(timeout=5.0)
 
     def stop(self) -> None:
         self._stop = True

@@ -1,11 +1,26 @@
 """Deterministic fault-injection harness.
 
 The port's copy of the reference's ``resilience/chaos.py``, the module
-whole. Instrumented code calls :func:`inject` at named *sites*; the port
-has the tiered index's promotion site, ``index.tier.promote``, which fires
-before each chunk of a cluster's promotion (``ops/tiered_knn.py``). The
-reference's persistence, pipeline, serving, cluster, ingest, elastic and
-decode sites come with their planes (ROADMAP Queue A items 5 and 6).
+whole. Instrumented code calls :func:`inject` at named *sites*:
+
+- ``engine.before_stage_commit`` / ``engine.after_stage_commit`` bracket
+  the KIND_FEED write at the staging commit of the epoch pipeline
+  (``engine/pipeline.py``; at ``pipeline_depth=1`` they fire at feed time)
+  and ``engine.after_sink_flush`` sits between an epoch's sink flush and
+  its delivered marker (``engine/dataflow.py``);
+- ``connector.<name>`` starts every attempt of a reader
+  (``io/_connector.py``), ``ingest.worker`` every task of the host-ingest
+  stage (``ingest/stage.py``);
+- ``decode.step`` sits between a decode step's compute and its commit
+  (``decode/engine.py``);
+- ``serving.admit`` (inside ``AdmissionController.admit``, before any shed
+  decision), ``serving.before_dispatch`` (just before the adaptive batcher
+  hands a fused batch to the engine) and ``serving.batch_inflight`` (after
+  dispatch returns, while request futures are still pending);
+- ``index.tier.promote`` fires before each chunk of a tiered index's
+  promotion (``ops/tiered_knn.py``).
+
+The reference's cluster and elastic sites come with ROADMAP Queue A item 5.
 
 A *chaos plan* (rules loaded from the
 ``PATHWAY_CHAOS`` environment variable, or activated in-process via
@@ -82,7 +97,15 @@ def registered_sites(plane: str | None = None) -> list[str]:
     return sorted(s for s, p in SITE_REGISTRY.items() if p.startswith(plane))
 
 
-for _site, _plane in (("index.tier.promote", "index"),):
+for _site, _plane in (
+    ("engine.before_stage_commit", "pipeline"),
+    ("engine.after_stage_commit", "pipeline"),
+    ("serving.admit", "serving"),
+    ("serving.before_dispatch", "serving"),
+    ("serving.batch_inflight", "serving"),
+    ("ingest.worker", "ingest"),
+    ("index.tier.promote", "index"),
+):
     register_site(_site, _plane)
 del _site, _plane
 # channel verdict actions apply only at sites that call channel()
@@ -287,6 +310,18 @@ def _load_env() -> None:
             with open(spec) as f:
                 spec = f.read()
         _active = ChaosPlan.from_spec(json.loads(spec))
+
+
+def armed(site: str | None = None) -> bool:
+    """True when a plan is active (with ``site``: when one of its rules
+    names that site). A site whose arguments cost something to compute (a
+    log's byte offset, a stat of the file) computes them only then."""
+    if not _env_loaded:
+        _load_env()
+    plan = _active
+    if plan is None:
+        return False
+    return site is None or any(rule["site"] == site for rule in plan.rules)
 
 
 def inject(site: str, *, time: int | None = None, offset: int | None = None) -> None:

@@ -27,8 +27,9 @@ rejection carries the request's trace id. A request that names a tenant
 active tenancy (``tenancy.active_tenancy``: ``pw.run(tenancy=)``, else
 ``PATHWAY_TENANCY``) meets its tenant's quotas first: a QPS bucket and an
 in-flight cap, each shedding a typed 429 ``tenant_rate_limited`` before
-any endpoint-wide gate. The reference's chaos site comes with ROADMAP
-Queue A item 6; its shard-health gate (``shard=``) with item 5.
+any endpoint-wide gate. The ``serving.admit`` chaos site fires before any
+shed decision (a delay rule there models a burst piling up at the front
+door). The shard-health gate (``shard=``) comes with ROADMAP Queue A item 5.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from ..internals import flight_recorder
+from ..resilience import chaos as _chaos
 from .deadline import Deadline
 from .metrics import SERVING_METRICS, ServingMetrics
 
@@ -295,6 +297,9 @@ class AdmissionController:
 
             trace_ctx = _tracing.ensure_trace()
             trace_extra = {"trace": trace_ctx.trace_id}
+        # burst-arrival chaos site: a delay rule here simulates a thundering
+        # herd piling up at the front door
+        _chaos.inject("serving.admit")
         if tenant is not None:
             tenant = str(tenant)
             self._check_tenant(tenant, trace_ctx, trace_extra)

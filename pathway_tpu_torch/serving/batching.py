@@ -25,8 +25,13 @@ dispatches:
 a ``serving.batch`` flight-recorder event; with tracing on, a batch span
 (its own trace) links the member requests' traces and every member gets
 ``queue`` and ``dispatch`` spans; tenant items mirror their per-item share
-of the dispatch into the chip ledger's tenant sub-accounts. The
-reference's chaos sites come with ROADMAP Queue A item 6.
+of the dispatch into the chip ledger's tenant sub-accounts.
+
+Chaos sites (``resilience/chaos.py`` rules target these):
+``serving.before_dispatch`` just before a fused batch goes to the engine
+(a delay there models a device that stopped keeping up) and
+``serving.batch_inflight`` after the dispatch returns, while the request
+futures are still pending (a raise there models a stuck batch).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import time as _time
 from typing import Any, Callable, Optional
 
 from ..internals import flight_recorder
+from ..resilience import chaos as _chaos
 from .admission import ServingConfig, _tracing_enabled
 from .deadline import Deadline
 from .metrics import SERVING_METRICS, ServingMetrics
@@ -273,6 +279,7 @@ class AdaptiveBatcher:
                     now = _time.monotonic()
                     for enq in enqueued:
                         self.metrics.observe_stage("queue", now - enq)
+                    _chaos.inject("serving.before_dispatch")
                     w0 = _time.monotonic()
                     # fan-in tracing: one batch span (its own trace) links
                     # the member request traces, so one fused dispatch
@@ -287,9 +294,13 @@ class AdaptiveBatcher:
                         with _trace_span("batch", new_trace=True, links=links, size=len(items),
                                          name=self.name) as bsp:
                             self._dispatch(items)
+                            # stuck-batch chaos site: the batch is in
+                            # flight on the device here
+                            _chaos.inject("serving.batch_inflight")
                         batch_trace_id = bsp.trace_id if bsp is not None else ""
                     else:
                         self._dispatch(items)
+                        _chaos.inject("serving.batch_inflight")
                     w1 = _time.monotonic()
                     wall = w1 - w0
                     if traced:

@@ -67,3 +67,11 @@ class Deadline:
     def remaining_ms(self) -> float:
         rem = self.remaining()
         return rem if math.isinf(rem) else rem * 1000.0
+
+
+def coerce_deadline(value) -> Deadline | None:
+    """Accept a :class:`Deadline`, a plain number of *seconds* from now,
+    or None — the shapes the retry layer takes."""
+    if value is None or isinstance(value, Deadline):
+        return value
+    return Deadline(float(value) * 1000.0)

@@ -266,8 +266,7 @@ def test_embedder_batched_udf_and_dimension(embedders):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh="auto"), dict(elastic=True), dict(persistence_config=object()), dict(recovery=True),
-     dict(ingest_workers=2), dict(pipeline_depth=2), dict(analysis="strict"), dict(cluster_lease_ms=100)],
+    [dict(mesh="auto"), dict(elastic=True), dict(analysis="strict"), dict(cluster_lease_ms=100)],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_run_options_raise(kwargs):
@@ -283,12 +282,17 @@ def test_unported_run_options_raise(kwargs):
 @pytest.mark.parametrize(
     "kwargs,key,want",
     [(dict(index_tiers="hot=64"), "index_tiers", 64), (dict(tenancy=True), "tenancy", 0),
-     (dict(profile="p.json"), "profile", True), (dict(license_key="enterprise-k"), "profile", False)],
+     (dict(profile="p.json"), "profile", True), (dict(license_key="enterprise-k"), "profile", False),
+     (dict(persistence_config=tpw.persistence.Config.simple_config(tpw.persistence.Backend.mock())), "persistence",
+      True), (dict(recovery=True), "recovery", True), (dict(ingest_workers=2), "ingest_workers", 2),
+     (dict(pipeline_depth=2), "pipeline_depth", 2)],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
 )
 def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
-    """The options of the profiler, licensing and the tiered and tenant
-    indexes run and land in the run context, as the reference's do."""
+    """The options of the profiler, licensing, the tiered and tenant
+    indexes, persistence, the supervisor, the host-ingest stage and the
+    epoch pipeline run and land in the run context, as the reference's
+    do."""
     monkeypatch.chdir(tmp_path)
     t = tpw.debug.table_from_markdown("""
       | a
@@ -301,6 +305,10 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
     tpw.run(**kwargs)
     from pathway_tpu_torch.internals.parse_graph import G
 
+    if "ingest_workers" in kwargs:
+        from pathway_tpu_torch.ingest import stage
+
+        stage.shutdown_stage()
     ctx = G.run_context
     got = ctx[key]
     if key == "index_tiers":
@@ -314,8 +322,7 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
 
 @pytest.mark.parametrize(
     "var,value",
-    [("PATHWAY_MESH", "auto"), ("PATHWAY_ELASTIC", "on"), ("PATHWAY_PIPELINE_DEPTH", "2"),
-     ("PATHWAY_INGEST_WORKERS", "2"), ("PATHWAY_PROCESSES", "2"), ("PATHWAY_REPLAY_STORAGE", "/tmp/x"),
+    [("PATHWAY_MESH", "auto"), ("PATHWAY_ELASTIC", "on"), ("PATHWAY_PROCESSES", "2"),
      ("PATHWAY_ANALYSIS", "strict")],
 )
 def test_unported_env_options_raise(monkeypatch, var, value):
@@ -329,11 +336,13 @@ def test_unported_env_options_raise(monkeypatch, var, value):
     "var,value",
     [("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_TENANCY", "on"), ("PATHWAY_PROFILE", "p.json"),
      ("PATHWAY_JOURNAL_DIR", "journal"), ("PATHWAY_TELEMETRY_SERVER", "telemetry.jsonl"),
-     ("PATHWAY_LICENSE_KEY", "k")],
+     ("PATHWAY_LICENSE_KEY", "k"), ("PATHWAY_PIPELINE_DEPTH", "2"), ("PATHWAY_INGEST_WORKERS", "2"),
+     ("PATHWAY_REPLAY_STORAGE", "replay")],
 )
 def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
-    """The variables of the profiler, the journal, telemetry, licensing and
-    the tiered and tenant indexes no longer raise: each runs its plane."""
+    """The variables of the profiler, the journal, telemetry, licensing,
+    the tiered and tenant indexes, the epoch pipeline, the ingest stage and
+    record / replay no longer raise: each runs its plane."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(var, value)
     assert not trun.unported_options({})
@@ -344,7 +353,11 @@ def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
     tpw.io.subscribe(t, lambda **_: None)
     tpw.run()
     written = {"PATHWAY_PROFILE": "p.json", "PATHWAY_JOURNAL_DIR": "journal",
-               "PATHWAY_TELEMETRY_SERVER": "telemetry.jsonl"}.get(var)
+               "PATHWAY_TELEMETRY_SERVER": "telemetry.jsonl", "PATHWAY_REPLAY_STORAGE": "replay"}.get(var)
+    if var == "PATHWAY_INGEST_WORKERS":
+        from pathway_tpu_torch.ingest import stage
+
+        stage.shutdown_stage()
     assert written is None or (tmp_path / written).exists()
 
 

@@ -348,6 +348,54 @@ def test_port_tiers_tenancy_profiler_and_cli_import_no_jax_flax_reference_or_cli
     _run_probe(_TIERS_PROFILE_PROBE)
 
 
+_DURABLE_PROBE = r"""
+import json, os, sys, tempfile, time
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import ingest, native, persistence
+from pathway_tpu_torch.engine import persistence as engine_persistence, pipeline
+from pathway_tpu_torch.parallel import sharded
+from pathway_tpu_torch.resilience import chaos, cluster, retry, supervisor
+tmp = tempfile.mkdtemp()
+log = native.SnapshotLogWriter(os.path.join(tmp, "n.bin"), append=False)
+log.append(1, 2, 3, b"x")
+log.close()
+assert list(native.SnapshotLogReader(os.path.join(tmp, "n.bin"))) == [(1, 2, 3, b"x")]
+class S(pw.Schema):
+    word: str
+def run_once(out, rules):
+    class Words(pw.io.python.ConnectorSubject):
+        supports_offsets = True
+        def run(self):
+            for i in range(int(self.offsets.get("pos", 0)), 6):
+                self.next_with_offset("pos", i + 1, word="abc"[i % 3])
+                self.commit()
+    t = pw.io.python.read(Words(), schema=S, autocommit_duration_ms=None, persistent_id="w")
+    pw.io.jsonlines.write(t.groupby(pw.this.word).reduce(pw.this.word, n=pw.reducers.count()), out)
+    chaos.activate(rules)
+    pw.run(persistence_config=persistence.Config.simple_config(persistence.Backend.filesystem(os.path.join(tmp, "p")),
+                                                               snapshot_interval_ms=1),
+           recovery=pw.Recovery(max_restarts=2, backoff=pw.RetryPolicy(first_delay_ms=1, jitter_ms=0)),
+           pipeline_depth=2, ingest_workers=2)
+    chaos.deactivate()
+    pw.clear_graph()
+run_once(os.path.join(tmp, "a.jsonl"), [{"site": "persistence.append_data", "hit": 3, "action": "raise"}])
+run_once(os.path.join(tmp, "b.jsonl"), [])
+ingest.shutdown_stage()
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + CLIENTS + ("click",))
+print("BAD", bad)
+"""
+
+
+def test_port_persistence_recovery_and_pipeline_import_no_jax_flax_reference_or_click():
+    """The modules of persistence, recovery, the epoch pipeline and the
+    ingest stage imported, then a persisted, supervised, pipelined run with
+    the ingest stage through a chaos crash, and its restart from the
+    snapshot: nothing of JAX, the reference or ``click`` loads."""
+    _run_probe(_DURABLE_PROBE)
+
+
 def test_cli_help_loads_no_jax_flax_reference_or_click():
     """``python -m pathway_tpu_torch --help`` runs on argparse alone."""
     probe = (

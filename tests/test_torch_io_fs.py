@@ -172,6 +172,6 @@ def test_fs_read_errors_and_unported_options(tmp_path):
     for pw in (jpw, tpw):
         with pytest.raises(FileNotFoundError):
             pw.io.fs.read(str(tmp_path / "missing"), mode="static")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        tpw.io.fs.read(str(tmp_path), retry_policy=object())
+    # retry_policy= runs since persistence and recovery came over
+    assert tpw.io.fs.read(str(tmp_path), retry_policy=tpw.RetryPolicy(max_retries=1)) is not None
     assert isinstance(tpw.io.CsvParserSettings(delimiter=";").reader_kwargs(), dict)

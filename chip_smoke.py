@@ -11,8 +11,9 @@ staged in column tiles, 512 and 320; attention and packed attention at S
 LayerNorm widths 128 and 312, a GEMM with K 300 and N 900, and whole layers
 at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
-rows on the mesh below), times the index's tie-ordered top-k beside
-``torch.topk``, then drives thirteen paths, each with the launch counters
+rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
+2-shard generation), times the index's tie-ordered top-k beside
+``torch.topk``, then drives fourteen paths, each with the launch counters
 set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -36,7 +37,7 @@ set to 0 just before it and read just after:
   every ingest epoch, hits equal to the library path's, and a KNNIndex's
   neighbour sets equal on 1 and 4 engine workers;
 * ``server_path``: the README's RAG document server as written, on the
-  port: 4,096 files of synthetic prose (about 11,000 chunks) ->
+  port: 2,048 files of synthetic prose (about 5,500 chunks) ->
   ``pw.io.fs.read(format="binary", mode="streaming", with_metadata=True)``
   -> ``VectorStoreServer(embedder=SentenceTransformerEmbedder(),
   parser=ParseUtf8(), splitter=TokenCountSplitter())`` ->
@@ -109,6 +110,25 @@ set to 0 just before it and read just after:
   the decode step killed at ``decode.step`` and retried in greedy, sampled
   and prompt-lookup speculative mode (streams equal to an unkilled twin's,
   B5 launching).
+* ``elastic_path``: the elastic reshard plane. A ``DeviceKnnIndex`` of
+  2^20 seeded rows (d 384, cos, added on the card, 10 % removed)
+  registered with ``pw.elastic`` and resharded live 1 -> 2 -> 4 -> 2 (one
+  shard a card on four or more cards; 1 -> 2 -> 1 on two; on one card the
+  device pool of ``parallel/mesh.py`` holds ``mesh_devices``' four shards
+  on ``cuda:0``) while a reader sends single queries and a batch of 256
+  probes at every chunk boundary and a writer adds and removes 64-row
+  batches through the handle; gated on every read served, every row of the
+  new generation equal to the old's byte for byte, the old slabs released,
+  a write through the old generation raising ``StaleGeneration``, B2 / B2s
+  at each generation against the plain top-k over the whole slab, and the
+  probes answering as before any reshard. Then a ``TieredKnnIndex`` (2^18
+  rows, 2^15 hot, int8 cold) and a ``TenantPackedIndex`` (1,024 tenants x
+  256 rows) resharded 1 -> 2 -> 1 (membership, extents and answers
+  unchanged), and in child processes a ``pw.run(mesh="auto", elastic=)``
+  run whose controller grows the index it embeds 16,384 documents into
+  (B1) on its HBM watermark (``/metrics`` scraped) and a reshard of 2^18
+  rows SIGKILLed at ``elastic.migrate_chunk`` and completed on restart by
+  ``recover_pending_reshard`` (answers equal to an unkilled twin's).
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -605,10 +625,7 @@ def knn_sharded_entries(torch, g, d: int, rows: int = 1 << 20) -> list[dict]:
     from pathway_tpu_torch.ops.knn import _pallas_bias
 
     try:
-        from pathway_tpu_torch.ops.knn_topk import (
-            knn_topk_reference, knn_topk_sharded, knn_topk_sharded_reference, merge_shard_candidates,
-            topk_agreement,
-        )
+        from pathway_tpu_torch.ops.knn_topk import knn_topk_sharded  # noqa: F401
     except ImportError:
         if not ALT_TREE:
             raise
@@ -616,16 +633,33 @@ def knn_sharded_entries(torch, g, d: int, rows: int = 1 << 20) -> list[dict]:
         return []
     mesh, where = mesh_devices(torch)
     devs = mesh.data_devices()
-    cards = len(set(devs))
     doc_shards, bias_shards = [], []
     for dev in devs:
         docs = F.normalize(torch.randn(rows, d, device=DEV, generator=g), dim=1).to(dev)
         valid = (torch.rand(rows, device=DEV, generator=g) >= 0.1).to(dev)
         doc_shards.append(docs)
         bias_shards.append(_pallas_bias("cos", docs, valid))
+    queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
+    entries = sharded_entries(torch, doc_shards, bias_shards, queries, where)
+    del doc_shards, bias_shards, queries
+    torch.cuda.empty_cache()
+    return entries
+
+
+def sharded_entries(torch, doc_shards, bias_shards, queries, where: str, suffix: str = "") -> list[dict]:
+    """The ``knn_topk_sharded`` rows of ``doc_shards`` (f32, one a shard,
+    with their biases) at 1, 16 and 256 of ``queries``, cos k 16: each held
+    against its plain version and the plain top-k over the shards
+    concatenated, timed beside them and the yardstick."""
+    from pathway_tpu_torch.ops.knn_topk import (
+        knn_topk_reference, knn_topk_sharded, knn_topk_sharded_reference, merge_shard_candidates, topk_agreement,
+    )
+
+    devs = [t.device for t in doc_shards]
+    cards = len(set(devs))
+    rows, d = doc_shards[0].shape
     cat_docs = torch.cat([t.to(DEV) for t in doc_shards])
     cat_bias = torch.cat([t.to(DEV) for t in bias_shards])
-    queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
     N, k, entries = rows * len(devs), 16, []
     for Q in (1, 16, 256):
         q = queries[:Q].contiguous()
@@ -651,15 +685,14 @@ def knn_sharded_entries(torch, g, d: int, rows: int = 1 << 20) -> list[dict]:
         extra["cross_shard_merge_ms"] = cuda_ms(lambda: merge_shard_candidates(cand_s, cand_i, k), reps=20)
         lib = lambda: torch.topk(torch.addmm(cat_bias, q, cat_docs.T), k, dim=1)  # noqa: E731
         entries.append(_entry(
-            f"knn_topk_sharded[cos,k={k},q={Q}]", "pathway_tpu_torch/csrc/knn_topk.cu",
+            f"knn_topk_sharded[cos,k={k},q={Q}{suffix}]", "pathway_tpu_torch/csrc/knn_topk.cu",
             "pathway_tpu/ops/pallas_knn.py:181", "knn_topk_sharded_merge", (vk - vp).abs().max().item(),
             cuda_ms(lambda: knn_topk_sharded(q, doc_shards, bias_shards, k=k), reps=reps),
             cuda_ms(lambda: knn_topk_sharded_reference(q, doc_shards, bias_shards, k=k), reps=2, warmup=1),
             flops / cards, nbytes / cards, PEAK_F32, cuda_ms(lib, reps=reps), index_agreement=share,
             shape=[Q, len(devs), rows, d], **extra,
         ))
-    del doc_shards, bias_shards, cat_docs, cat_bias, queries
-    torch.cuda.empty_cache()
+    del cat_docs, cat_bias
     return entries
 
 
@@ -1136,7 +1169,7 @@ def _first_split(torch, params, cfg, prompt, got, want):
 
 # engine_path: documents streamed through the dataflow engine, epochs of them,
 # and the documents of the 1- vs 4-worker KNNIndex comparison
-ENGINE_DOCS, ENGINE_EPOCH, ENGINE_QUERIES, ENGINE_WORKER_DOCS = 131_072, 1024, 512, 4_096
+ENGINE_DOCS, ENGINE_EPOCH, ENGINE_QUERIES, ENGINE_WORKER_DOCS = 131_072, 1024, 512, 2_048  # 4,096 until the fourteenth path needed the time
 HIT_TOL = 1e-5  # topk_agreement tolerance of the engine's hits against the library path's
 
 
@@ -1390,7 +1423,7 @@ def phase_engine_path(torch, n_docs: int = ENGINE_DOCS, per_epoch: int = ENGINE_
 # server_path: the README's RAG document server. Files of the corpus, the
 # sequential, filtered and burst queries, the burst's client threads, and the
 # live changes: new files (bursts x files), modified and deleted files
-SERVER_FILES, SERVER_QUERIES, SERVER_FILTERED, SERVER_BURST, SERVER_BURST_THREADS = 4096, 512, 64, 64, 8
+SERVER_FILES, SERVER_QUERIES, SERVER_FILTERED, SERVER_BURST, SERVER_BURST_THREADS = 2048, 512, 64, 64, 8  # 4,096 files until the fourteenth path needed the time
 SERVER_NEW_BURSTS, SERVER_NEW_PER_BURST, SERVER_MODIFIED, SERVER_DELETED = 4, 64, 64, 64
 
 
@@ -1889,7 +1922,7 @@ def phase_decode_path(torch, cross) -> dict:
 
 # decode_ext_path: the traffic (requests, of them long ones, their shared
 # prefixes), the pool and lanes, the request deadline, and the configurations
-DECODE_EXT_REQUESTS, DECODE_EXT_LONG, DECODE_EXT_PREFIXES, DECODE_EXT_DEADLINE_MS = 64, 8, 4, 120_000.0
+DECODE_EXT_REQUESTS, DECODE_EXT_LONG, DECODE_EXT_PREFIXES, DECODE_EXT_DEADLINE_MS = 32, 8, 4, 120_000.0  # 64 requests until the fourteenth path needed the time
 DECODE_EXT_POOL = "pages=1024,page=16,lanes=8,max_new=32,degrade=8,max_seq=512"
 DECODE_EXT_IMPL = "paged"  # kernel B5
 DECODE_EXT_CONFIGS = (
@@ -1907,10 +1940,10 @@ DECODE_EXT_SERVING = dict(max_queue=256, batch_max=64, batch_window_ms=20.0, lat
 
 
 def _decode_ext_prompts(vocab: int) -> list[list[int]]:
-    """64 seeded requests: each starts with one of 4 shared system prefixes
-    of 64-256 tokens (whole pages of 16), then a 4-63-token question; 8 of
-    them are long, 300-440 tokens, so chunked prefill interleaves with
-    decoding."""
+    """``DECODE_EXT_REQUESTS`` seeded requests: each starts with one of 4
+    shared system prefixes of 64-256 tokens (whole pages of 16), then a
+    4-63-token question; 8 of them are long, 300-440 tokens, so chunked
+    prefill interleaves with decoding."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 13)
@@ -2647,7 +2680,7 @@ def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
 # observe_path: the corpus and the files written while serving, the traffic
 # and its clients, the overload burst at an admission queue bounded well
 # below it, the decode burst, and the freshness probe
-OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 1024, 256, 256, 64, 8
+OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 1024, 256, 128, 64, 8  # 256 answers until the fourteenth path needed the time
 OBS_BURST, OBS_QUEUE, OBS_DECODE, OBS_PROBE, OBS_WINDOW, OBS_WRITE_GROUP = 256, 32, 16, 32, 6, 8
 # the questions and retrievals read the corpus only: the files written while
 # they are asked cannot change their answers, so the twin's must be equal
@@ -3555,7 +3588,7 @@ TIER_HOT = 1 << 17
 TIER_CLUSTERS = 256
 TIER_PROBE = 16
 TIER_GROUP = 10  # documents of one near-duplicate group (chunks of one source)
-TIER_SINGLES = 512  # 1,024 until the script's thirteenth path needed the time
+TIER_SINGLES = 256  # 1,024 until the thirteenth path, 512 until the fourteenth needed the time
 TIER_BATCHES = 8
 TIER_BATCH = 256
 TIER_SELF = 4096
@@ -4608,6 +4641,694 @@ def phase_recovery_path(torch, n_docs: int = RECOVERY_DOCS, per_epoch: int = REC
     return dict(launches)
 
 
+ELASTIC_ROWS, ELASTIC_DIM, ELASTIC_REMOVED, ELASTIC_CHUNK = 1 << 20, 384, 0.10, 8192
+ELASTIC_PROBES, ELASTIC_SINGLES = 256, 256  # fixed probes; single queries timed before and after each reshard
+ELASTIC_WRITE_BATCH = 64
+ELASTIC_TIER_ROWS, ELASTIC_TIER_HOT, ELASTIC_TIER_CLUSTERS = 1 << 18, 1 << 15, 64
+ELASTIC_TENANTS, ELASTIC_TENANT_DOCS, ELASTIC_TENANT_PROBED, ELASTIC_TENANT_COLD = 1024, 256, 64, 8
+ELASTIC_RUN_DOCS, ELASTIC_RUN_EPOCH, ELASTIC_CRASH_ROWS, ELASTIC_CRASH_HIT = 16_384, 1024, 1 << 18, 5
+ELASTIC_CHILD_TIMEOUT = 300.0
+
+
+def elastic_plan(torch) -> tuple[list | None, tuple, str]:
+    """(device pool, the flat index's shard steps, a line that says which):
+    with four or more cards it reshards across cards 1 -> 2 -> 4 -> 2, with
+    two 1 -> 2 -> 1; on one card ``mesh_devices``' list (4 shards on
+    ``cuda:0``) becomes the private device pool of ``parallel/mesh.py`` and
+    the steps are 1 -> 2 -> 4 -> 2 within it."""
+    if DEV == "cpu":  # the CPU rehearsal
+        return ["cpu"] * MESH_ONE_CARD_SHARDS, (2, 4, 2), "the CPU: a pool of 4 CPU devices"
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return None, (2, 4, 2), f"{n} cards, one shard a card"
+    if n == 2:
+        return None, (2, 1), "2 cards, one shard a card"
+    mesh, _ = mesh_devices(torch)
+    return [str(d) for d in mesh.data_devices()], (2, 4, 2), (
+        f"one card: the device pool of {MESH_ONE_CARD_SHARDS} shards on cuda:0 (mesh_devices' list)")
+
+
+def _card_bytes(torch, devices) -> int:
+    """Bytes allocated on the distinct cards of ``devices`` (0 on the CPU)."""
+    return sum(torch.cuda.memory_allocated(d) for d in {str(d) for d in devices} if d.startswith("cuda"))
+
+
+def _slab_bytes(index) -> int:
+    return sum(t.element_size() * t.numel() for part in index._slab for t in part)
+
+
+def _key_rows(index, keys) -> "object":
+    """The rows of ``keys`` as ``index`` holds them (pulled from its slabs)."""
+    import numpy as np
+
+    slots = np.fromiter((index._slot_of[k] for k in keys), np.int64, len(keys))
+    return index._rows_at(slots)
+
+
+def _kept_launches(fn):
+    """Run ``fn`` (a comparison with a plain version, or a timing) without
+    its launches counting toward the path."""
+    from pathway_tpu_torch.ops import _build
+
+    saved = dict(_build.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved)
+
+
+def _hold_generation(torch, index, probes) -> dict:
+    """B2 (one shard) or B2s (several) on this generation's slabs against the
+    plain top-k over the whole slab: ids exact and scores at 1e-5 up to 16
+    queries, ``topk_agreement`` above."""
+    from pathway_tpu_torch.ops.knn_topk import knn_topk, knn_topk_reference, knn_topk_sharded, topk_agreement
+
+    docs = [p[0] for p in index._slab]
+    biases = [p[2] for p in index._slab]
+    cat_docs = torch.cat([t.to(DEV) for t in docs])
+    cat_bias = torch.cat([t.to(DEV) for t in biases])
+    out = {}
+    for Q in (1, 16, len(probes)):
+        q = probes[:Q].contiguous()
+        if len(docs) == 1:
+            vk, ik = knn_topk(q, docs[0], k=10, bias=biases[0])
+        else:
+            vk, ik = knn_topk_sharded(q, docs, biases, k=10)
+        vp, ip = knn_topk_reference(q, cat_docs, k=10, bias=cat_bias)
+        if Q <= 16:
+            err = float((vk - vp).abs().max())
+            if not torch.equal(ik.long().cpu(), ip.long().cpu()) or err > 1e-5:
+                raise AssertionError(f"B2{'s' if len(docs) > 1 else ''} at {len(docs)} shards, q {Q}: ids or scores "
+                                     f"differ from the whole slab's plain top-k (max abs err {err})")
+            out[f"q{Q}_max_abs_err"] = err
+        else:
+            share, ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
+            if not ok:
+                raise AssertionError(f"B2s at {len(docs)} shards, q {Q}: disagrees with the plain top-k ({share})")
+            out[f"q{Q}_agreement"] = share
+    del cat_docs, cat_bias
+    return out
+
+
+def _reshard_timed(pw, torch, h, to: int, chunk: int, probes_dev, singles_dev, key_base: int) -> dict:
+    """One live reshard of the flat index behind ``h`` with a reader (single
+    queries without pause, a batch of the probes at every chunk boundary)
+    and a writer (64-row device adds and removes of its own earlier rows,
+    through the handle while the migration runs) beside it. Returns the
+    reshard's numbers; the gates are the caller's."""
+    import threading
+
+    import numpy as np
+
+    from pathway_tpu_torch.elastic import controller
+    from pathway_tpu_torch.elastic.metrics import ELASTIC_METRICS
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    sync = (lambda: sync_cards(torch, h.index.shard_devices)) if DEV != "cpu" else (lambda: None)
+    marks = collections.defaultdict(float)
+    real = {"export": DeviceKnnIndex.reshard_export_chunks, "import": DeviceKnnIndex.reshard_import_chunk,
+            "finish": DeviceKnnIndex.reshard_finish, "barrier": controller._barrier}
+
+    def export(self, chunk_rows):
+        gen = real["export"](self, chunk_rows)
+        while True:
+            t0 = time.perf_counter()
+            item = next(gen, None)
+            marks["export_s"] += time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
+
+    def timed(name):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                marks[f"{name}_s"] += time.perf_counter() - t0
+        return wrapped
+
+    def single_window() -> list[float]:
+        lat = []
+        for i in range(len(singles_dev)):
+            t0 = time.perf_counter()
+            res = h.search_batch(singles_dev[i : i + 1], 10)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if len(res[0]) != 10:
+                raise AssertionError("a single query returned fewer than 10 neighbours")
+        return lat
+
+    launches0 = dict(_build.LAUNCHES)
+    before = single_window()
+    reads = {"issued": 0, "served": 0, "lat": [], "batches": 0, "errors": []}
+    writes = {"added": 0, "removed": 0, "ops": 0, "mine": []}
+    stop = threading.Event()
+    rng = np.random.default_rng(SEED + 40 + to)
+
+    def reader():
+        seen, i = ELASTIC_METRICS._chunks, 0
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                res = h.search_batch(singles_dev[i % len(singles_dev) : i % len(singles_dev) + 1], 10)
+                ok = len(res) == 1 and len(res[0]) == 10
+            except Exception as exc:  # noqa: BLE001 (counted: the gate reads it)
+                ok = False
+                reads["errors"].append(repr(exc)[:200])
+            reads["lat"].append((time.perf_counter() - t0) * 1e3)
+            reads["issued"] += 1
+            reads["served"] += ok
+            i += 1
+            done = ELASTIC_METRICS._chunks
+            if done > seen:  # a chunk boundary passed: one batch of the probes
+                seen = done
+                res = h.search_batch(probes_dev, 10)
+                reads["issued"] += 1
+                reads["served"] += len(res) == len(probes_dev) and all(len(r) == 10 for r in res)
+                reads["batches"] += 1
+
+    def writer():
+        while not stop.is_set() and not h._migrating:
+            time.sleep(0.0005)
+        n = 0
+        while not stop.is_set():
+            vecs = torch.from_numpy(rng.standard_normal((ELASTIC_WRITE_BATCH, ELASTIC_DIM), dtype=np.float32))
+            vecs = vecs.to(h.index.device)
+            with h._lock:  # every write lands in the migrating generation and its delta log
+                if not h._migrating:
+                    break
+                if writes["ops"] % 2 == 0 or not writes["mine"]:
+                    keys = list(range(key_base + n, key_base + n + ELASTIC_WRITE_BATCH))
+                    n += ELASTIC_WRITE_BATCH
+                    h.add_batch_device(keys, vecs)
+                    writes["mine"].append(keys)
+                    writes["added"] += len(keys)
+                else:
+                    for key in writes["mine"].pop(0):
+                        h.remove(key)
+                        writes["removed"] += 1
+                writes["ops"] += 1
+            time.sleep(0.002)
+
+    DeviceKnnIndex.reshard_export_chunks = export
+    DeviceKnnIndex.reshard_import_chunk = timed("import")
+    DeviceKnnIndex.reshard_finish = timed("finish")
+    controller._barrier = timed("barrier")
+    threads = [threading.Thread(target=reader, daemon=True), threading.Thread(target=writer, daemon=True)]
+    try:
+        for t in threads:
+            t.start()
+        pulls0 = h.index._host_pulls
+        old = h.index
+        t0 = time.perf_counter()
+        summary = pw.elastic.reshard(to, chunk_rows=chunk, reason="manual")
+        mttr_wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        DeviceKnnIndex.reshard_export_chunks = real["export"]
+        DeviceKnnIndex.reshard_import_chunk = real["import"]
+        DeviceKnnIndex.reshard_finish = real["finish"]
+        controller._barrier = real["barrier"]
+    sync()
+    launches_old = {k: v - launches0.get(k, 0) for k, v in _build.LAUNCHES.items() if v - launches0.get(k, 0)}
+    return dict(
+        summary=summary, old=old, mttr_wall=mttr_wall, marks=dict(marks), before=before, reads=reads,
+        writes=writes, host_pulls=old._host_pulls - pulls0, launches_during=launches_old,
+        single_window=single_window,
+    )
+
+
+def _elastic_flat(pw, torch, steps, chunk, n_rows, n_probes, n_singles) -> tuple[dict, list, dict]:
+    """Part 1: the flat index (cos, d 384, ``n_rows`` seeded rows added on
+    the card, 10 % removed) resharded along ``steps`` under traffic."""
+    import gc
+
+    import numpy as np
+
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex, StaleGeneration
+
+    devs = [DEV] if DEV == "cpu" else sorted({f"cuda:{i}" for i in range(torch.cuda.device_count())})
+    rng = np.random.default_rng(SEED + 31)
+    probes = rng.standard_normal((n_probes, ELASTIC_DIM), dtype=np.float32)
+    singles = rng.standard_normal((n_singles, ELASTIC_DIM), dtype=np.float32)
+    probes_dev, singles_dev = torch.from_numpy(probes).to(DEV), torch.from_numpy(singles).to(DEV)
+    if DEV != "cpu":  # this thread's cuBLAS workspace on every card belongs to the base, not to a generation
+        for d in devs:
+            torch.ones(8, 8, device=d) @ torch.ones(8, 8, device=d)
+        sync_cards(torch, devs)
+    gc.collect()
+    base_bytes = _card_bytes(torch, devs)
+    index = DeviceKnnIndex(ELASTIC_DIM, "cos", reserved_space=n_rows, device=DEV)
+    t0 = time.perf_counter()
+    batch = max(1, min(1 << 16, n_rows))
+    for start in range(0, n_rows, batch):
+        rows = rng.standard_normal((min(batch, n_rows - start), ELASTIC_DIM), dtype=np.float32)
+        index.add_batch_device(list(range(start, start + len(rows))), torch.from_numpy(rows).to(DEV))
+    removed = rng.choice(n_rows, int(n_rows * ELASTIC_REMOVED), replace=False)
+    for key in removed.tolist():
+        index.remove(key)
+    build_s = time.perf_counter() - t0
+    h = pw.elastic.register_handle(index)
+    del index  # the handle holds the live generation; an old one must be free to go
+    ref0 = h.search_batch(probes_dev, 10)
+    steps_out, entries = [], []
+    for step, to in enumerate(steps):
+        out = _reshard_timed(pw, torch, h, to, chunk, probes_dev, singles_dev, key_base=n_rows + (step + 1) * 10**7)
+        summary, old = out["summary"], out["old"]
+        new = h.index
+        reads = out["reads"]
+        if reads["served"] != reads["issued"] or reads["errors"]:
+            raise AssertionError(f"reshard to {to}: {reads['issued'] - reads['served']} of {reads['issued']} "
+                                 f"reads failed or came back short ({reads['errors'][:3]})")
+        if new.n_shards != to or summary["to_shards"] != to:
+            raise AssertionError(f"reshard to {to} left {new.n_shards} shards")
+        if out["host_pulls"] > 1:  # the rows leave the card once a reshard, chunk by chunk
+            raise AssertionError(f"reshard to {to} copied the whole slab to the host {out['host_pulls']} times")
+        # the new generation's rows equal the old's (the source plus the
+        # replayed delta) byte for byte, shard by shard
+        keys_old, keys_new = sorted(old._slot_of), sorted(new._slot_of)
+        if keys_old != keys_new:
+            raise AssertionError(f"reshard to {to}: {len(keys_old)} keys before, {len(keys_new)} after")
+        rows_old, rows_new = _key_rows(old, keys_old), _key_rows(new, keys_new)
+        if not np.array_equal(rows_old.view(np.uint32), rows_new.view(np.uint32)):
+            bad = int((rows_old.view(np.uint32) != rows_new.view(np.uint32)).any(axis=1).sum())
+            raise AssertionError(f"reshard to {to}: {bad} rows differ from the old generation's")
+        shard_rows = [len(free) for free in new._free_shard]
+        try:
+            old.add_batch_arrays(["stale"], np.zeros((1, ELASTIC_DIM), np.float32))
+            raise AssertionError(f"reshard to {to}: a write through the old generation went through")
+        except StaleGeneration:
+            pass
+        del old, out["old"], rows_old, rows_new
+        # the writer's rows go again (through the live handle), so every
+        # probe meets the rows it met before any reshard
+        for keys in out["writes"]["mine"]:
+            for key in keys:
+                h.remove(key)
+        gc.collect()
+        if DEV != "cpu":
+            sync_cards(torch, devs)
+        extra_bytes = _card_bytes(torch, devs) - base_bytes - _slab_bytes(new)
+        chunk_bytes = chunk * (ELASTIC_DIM * 4 + 1 + 4)
+        if extra_bytes > chunk_bytes:
+            raise AssertionError(f"reshard to {to}: {extra_bytes} bytes on the cards beyond one generation's slabs "
+                                 f"(a chunk is {chunk_bytes}): the old slabs were not released")
+        launches_new0 = dict(_build.LAUNCHES)
+        after = out["single_window"]()
+        got = h.search_batch(probes_dev, 10)
+        bitwise = sum(g == r for g, r in zip(got, ref0))
+        for g, r in zip(got, ref0):
+            if [k for k, _ in g] != [k for k, _ in r] or max(abs(a - b) for (_, a), (_, b) in zip(g, r)) > 1e-5:
+                raise AssertionError(f"after the reshard to {to} a probe answers otherwise than before any reshard")
+        launches_new = {k: v - launches_new0.get(k, 0) for k, v in _build.LAUNCHES.items()}
+        held = _kept_launches(lambda: _hold_generation(torch, new, probes_dev))
+        if to == 2 and not entries and DEV != "cpu":
+            entries = _kept_launches(lambda: sharded_entries(
+                torch, [p[0] for p in new._slab], [p[2] for p in new._slab], probes_dev, "elastic_path's 2-shard "
+                "generation", suffix=",2 shards"))
+        m = out["marks"]
+        during = reads["lat"]
+        rec = dict(
+            to_shards=to, from_shards=summary["from_shards"], generation=summary["generation"],
+            rows_migrated=summary["rows_migrated"], chunks=-(-summary["rows_migrated"] // chunk),
+            mttr_s=summary["mttr_s"], mttr_wall_s=out["mttr_wall"], export_s=m.get("export_s", 0.0),
+            import_s=m.get("import_s", 0.0), finish_s=m.get("finish_s", 0.0), barrier_s=m.get("barrier_s", 0.0),
+            delta_and_cutover_s=summary["mttr_s"] - sum(m.get(k, 0.0) for k in ("export_s", "import_s", "finish_s",
+                                                                               "barrier_s")),
+            rows_per_s=summary["rows_migrated"] / max(summary["mttr_s"], 1e-9), whole_slab_host_copies=out[
+                "host_pulls"], reads_issued=reads["issued"], served_fraction=reads["served"] / max(1, reads["issued"]),
+            probe_batches_during=reads["batches"], writes_added=out["writes"]["added"],
+            writes_removed=out["writes"]["removed"], query_before=_percentiles(out["before"]),
+            query_during=_percentiles(during), query_after=_percentiles(after),
+            elastic_p99_blowup_ratio=float(np.percentile(during, 99) / np.percentile(out["before"], 99)),
+            probes_bitwise_equal=bitwise, free_slots_a_shard=shard_rows, bytes_beyond_one_generation=extra_bytes,
+            launches_old_generation=out["launches_during"], launches_new_generation={
+                k: v for k, v in launches_new.items() if v}, held=held,
+        )
+        emit("elastic_reshard", step=step, **rec)
+        steps_out.append(rec)
+    return dict(rows=n_rows, removed=len(removed), build_s=build_s, steps=steps_out), entries, ref0
+
+
+def _same_answers(got, want) -> bool:
+    """The answers of a resharded index against its answers before: byte for
+    byte on the card (B2 scores a row the same on any shard); on the CPU's
+    plain path, keys equal and scores at 1e-5 (the CPU's matrix product sums
+    in an order that depends on the slab's shape)."""
+    if DEV != "cpu":
+        return got == want
+    return [[k for k, _ in r] for r in got] == [[k for k, _ in r] for r in want] and all(
+        abs(a - b) <= 1e-5 for g, w in zip(got, want) for (_, a), (_, b) in zip(g, w))
+
+
+def _elastic_tiered_packed(pw, torch, n_tier, tier_hot, tier_clusters, n_tenants, per_tenant, probed, n_cold,
+                           chunk) -> dict:
+    """Part 2: a tiered index (int8 cold tier on the host) and a tenant-packed
+    slab, each resharded 1 -> 2 -> 1: hot and cold membership and tenant
+    extents preserved, the probes answered byte for byte as before."""
+    import numpy as np
+
+    from pathway_tpu_torch.ops.tiered_knn import TierConfig, TieredKnnIndex
+    from pathway_tpu_torch.tenancy import TenantPackedIndex
+
+    rng = np.random.default_rng(SEED + 33)
+    probes = rng.standard_normal((ELASTIC_PROBES, ELASTIC_DIM), dtype=np.float32)
+    out = {}
+    t0 = time.perf_counter()
+    tier = TieredKnnIndex(ELASTIC_DIM, reserved_space=n_tier, device=DEV, tiers=TierConfig(
+        hot_rows=tier_hot, n_clusters=tier_clusters, cold_dtype="int8"))
+    for start in range(0, n_tier, 1 << 14):
+        rows = rng.standard_normal((min(1 << 14, n_tier - start), ELASTIC_DIM), dtype=np.float32)
+        tier.add_batch_arrays(list(range(start, start + len(rows))), rows)
+    ht = pw.elastic.register_handle(tier)
+    ref = ht.search_batch(probes, 10)
+    member = (sorted(tier.hot._slot_of), tier._cold_total)
+    build_s = time.perf_counter() - t0
+    tier_steps = []
+    for to in (2, 1):
+        s = pw.elastic.reshard(to, chunk_rows=chunk)
+        got = ht.search_batch(probes, 10)
+        now = (sorted(ht.index.hot._slot_of), ht.index._cold_total)
+        if now != member or sum(ht.index._cold_docs_shard) != member[1] or ht.index.n_shards != to:
+            raise AssertionError(f"tiered reshard to {to}: hot or cold membership changed")
+        if not _same_answers(got, ref):
+            raise AssertionError(f"tiered reshard to {to}: the probes answer otherwise than before")
+        tier_steps.append(dict(to_shards=to, mttr_s=s["mttr_s"], rows_migrated=s["rows_migrated"]))
+    out["tiered"] = dict(rows=n_tier, hot=len(member[0]), cold=member[1], build_s=build_s, steps=tier_steps)
+    del ht, tier
+
+    t0 = time.perf_counter()
+    packed = TenantPackedIndex(ELASTIC_DIM, reserved_space=n_tenants * per_tenant, device=DEV)
+    tenants = [f"t{i}" for i in range(n_tenants)]
+    for t in tenants:
+        packed.add_tenant_batch(t, list(range(per_tenant)),
+                                rng.standard_normal((per_tenant, ELASTIC_DIM), dtype=np.float32))
+    for t in tenants[:n_cold]:
+        packed._demote(t)
+    hp = pw.elastic.register_handle(packed)
+    # half the cold tenants (one search each way: two would promote them) and hot ones
+    asked = tenants[: n_cold // 2] + [tenants[n_cold + i] for i in rng.choice(n_tenants - n_cold, probed,
+                                                                              replace=False)]
+    tq = probes[:16]
+
+    def layout(idx):
+        """A tenant's rows, granted rows and residency (its extents may split
+        where a target shard's room ended, but never across two shards)."""
+        c = idx.shard_capacity
+        for t, segs in idx._segments.items():
+            if any(start // c != (start + size - 1) // c for start, size in segs):
+                raise AssertionError(f"tenant {t}'s extent {segs} spans two shards")
+        return {t: (idx.tenant_docs(t), idx.tenant_is_cold(t), idx._tenant_rows.get(t, 0)) for t in tenants}
+
+    before = layout(packed)
+    ref = {t: hp.search_tenant_batch(t, tq, 10) for t in asked}
+    build_s = time.perf_counter() - t0
+    packed_steps = []
+    for to in (2, 1):
+        s = pw.elastic.reshard(to, chunk_rows=chunk)
+        if layout(hp.index) != before or hp.index.n_shards != to:
+            raise AssertionError(f"packed reshard to {to}: tenant extents or cold tenants changed")
+        for t in asked:
+            if not _same_answers(hp.search_tenant_batch(t, tq, 10), ref[t]):
+                raise AssertionError(f"packed reshard to {to}: tenant {t} answers otherwise than before")
+        packed_steps.append(dict(to_shards=to, mttr_s=s["mttr_s"], rows_migrated=s["rows_migrated"]))
+    out["packed"] = dict(tenants=n_tenants, per_tenant=per_tenant, cold_tenants=n_cold, probed_tenants=len(asked),
+                         build_s=build_s, steps=packed_steps)
+    return out
+
+
+def _elastic_rows(n: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).standard_normal((n, ELASTIC_DIM), dtype=np.float32)
+
+
+def _elastic_child(spec_json: str) -> int:
+    """A process of part 3: ``controller`` (a ``pw.run(mesh="auto",
+    elastic=)`` run that embeds documents with B1 into a registered index
+    until the controller grows it on its HBM watermark; its ``/metrics``
+    scraped), ``crash`` (a reshard of a persisted index SIGKILLed at
+    ``elastic.migrate_chunk``) or ``recover`` (the restart: the intent
+    found and the reshard completed). The report goes to ``spec["report"]``."""
+    global DEV, RECOVERY_TINY
+    spec = json.loads(spec_json)
+    DEV, RECOVERY_TINY = spec["dev"], spec.get("tiny")
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.persistence import EnginePersistence
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.parallel.mesh import set_device_pool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spec.get("pool"):
+        set_device_pool(spec["pool"])
+    report: dict = {"role": spec["role"]}
+    if spec["role"] == "controller":
+        report.update(_elastic_controller_run(pw, torch, spec))
+    else:
+        persistence = EnginePersistence(pw.persistence.Config.simple_config(
+            pw.persistence.Backend.filesystem(spec["root"])))
+        index = pw.DeviceKnnIndex(ELASTIC_DIM, reserved_space=spec["rows"], device=DEV)
+        rows = _elastic_rows(spec["rows"], SEED + 61)
+        index.add_batch_device(list(range(spec["rows"])), torch.from_numpy(rows).to(DEV))
+        h = pw.elastic.register_handle(index)
+        if spec["role"] == "crash":
+            pw.elastic.reshard(2, chunk_rows=spec["chunk"])  # the chaos rule kills this process mid-migration
+            return 3
+        probes = torch.from_numpy(_elastic_rows(spec["probes"], SEED + 62)).to(DEV)
+        report["intent"] = persistence.reshard_intent()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        summary = pw.elastic.recover_pending_reshard(complete=True)
+        report["recover_s"] = time.perf_counter() - t0
+        report.update(recovered=summary is not None, n_shards=h.index.n_shards, generation=h.generation,
+                      answers=h.search_batch(probes, 10), intent_after=persistence.reshard_intent(),
+                      launches=dict(_build.LAUNCHES))
+    with open(spec["report"], "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _elastic_controller_run(pw, torch, spec) -> dict:
+    """The controller child's run (see :func:`_elastic_child`)."""
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from pathway_tpu_torch.internals.ledger import LEDGER
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import topk_agreement
+
+    n_docs, per_epoch = spec["docs"], spec["per_epoch"]
+    texts = _synthetic_texts_bulk(np.random.default_rng(SEED + 51), n_docs, 20, 220)
+    embedder = _recovery_embedder()
+    dim = embedder.get_embedding_dimension()
+    # the slab starts small and doubles as the documents arrive
+    index = pw.DeviceKnnIndex(dim, reserved_space=n_docs // 16, device=DEV)
+    h = pw.elastic.register_handle(index)
+    slab = n_docs * (dim * 4 + 1 + 4)
+    # the budget: the booked weights plus the slab of every document, so the
+    # index's booking crosses the watermark once it holds about half of them
+    weights = LEDGER.total_bytes()
+    os.environ["PATHWAY_HBM_BYTES"] = str(weights + slab)
+    frac = (weights + 0.5 * slab) / (weights + slab)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cv = threading.Condition()
+    state = {"rows": 0, "pending": [], "scrape": None, "grown_at": None}
+
+    class Documents(pw.io.python.ConnectorSubject):
+        def run(self):
+            ctx = self._ctx
+            for b in range(0, n_docs, per_epoch):
+                e = min(n_docs, b + per_epoch)
+                ctx.insert_batch({"doc_id": list(range(b, e)), "text": texts[b:e]})
+                ctx.commit()
+                with cv:
+                    while state["rows"] < e and not ctx.wait_stopped(0):
+                        cv.wait(0.05)
+
+    class DocSchema(pw.Schema, append_only=True):
+        doc_id: int
+        text: str
+
+    docs = pw.io.python.read(Documents(), schema=DocSchema, autocommit_duration_ms=None)
+    vecs = docs.select(doc_id=pw.this.doc_id, vec=embedder(pw.this.text))
+
+    def on_row(key, row, time, is_addition):
+        state["pending"].append((row["doc_id"], np.asarray(row["vec"], np.float32)))
+
+    def on_epoch_end(time_):
+        batch, state["pending"] = state["pending"], []
+        if batch:
+            dev = torch.from_numpy(np.stack([v for _, v in batch])).to(h.index.device)
+            h.add_batch_device([k for k, _ in batch], dev)
+        if state["rows"] + len(batch) >= n_docs and state["scrape"] is None:
+            deadline = time.monotonic() + 120.0
+            while (h.generation < 1 or h._migrating) and time.monotonic() < deadline:
+                time.sleep(0.02)
+            state["grown_at"] = h.generation
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+                state["scrape"] = resp.read().decode()
+        with cv:
+            state["rows"] += len(batch)
+            cv.notify_all()
+
+    pw.io.subscribe(vecs, on_row, on_time_end=on_epoch_end)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    pw.run(mesh="auto", elastic=f"hbm_frac={frac:.6f},max=2,interval=0.05", with_http_server=True,
+           monitoring_http_port=port)
+    run_s = time.perf_counter() - t0
+    scrape = state["scrape"] or ""
+    lines = [ln for ln in scrape.splitlines() if ln.startswith("pathway_elastic_")]
+    gen = [float(ln.split()[-1]) for ln in lines if ln.startswith("pathway_elastic_generation")]
+    if not gen or gen[0] < 1 or 'reason="hbm_watermark"' not in scrape:
+        raise AssertionError(f"the run's scrape shows no grown generation: {lines}")
+    if h.index.n_shards != 2 or len(h) != n_docs:
+        raise AssertionError(f"the controller left {h.index.n_shards} shards and {len(h)} of {n_docs} rows")
+    # the answers: the index's top-k against the plain top-k over its rows
+    q = embedder._encoder.encode_device(texts[:64]).float()
+    keys = sorted(h.index._slot_of)
+    rows = torch.from_numpy(_key_rows(h.index, keys)).to(q.device)
+    qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    vp, ip = torch.topk(qn @ rows.T, 10, dim=1)
+    got = h.search_batch(q, 10)
+    vk = torch.tensor([[s for _, s in r] for r in got])
+    ik = torch.tensor([[k for k, _ in r] for r in got])
+    share, ok = topk_agreement(vk, ik, vp.cpu(), torch.tensor(keys)[ip.cpu()], atol=1e-5, rtol=1e-5)
+    if not ok:
+        raise AssertionError(f"the grown index's answers disagree with the plain top-k over its rows ({share})")
+    self_top1 = float(np.mean([r[0][0] == i for i, r in enumerate(got)]))
+    return dict(docs=n_docs, run_s=run_s, shards=h.index.n_shards, generation=h.generation,
+                generation_when_scraped=state["grown_at"], hbm_frac=frac, budget_bytes=weights + slab,
+                elastic_lines=lines, answers_agreement=share, self_top1=self_top1, launches=dict(_build.LAUNCHES))
+
+
+def phase_elastic_path(torch, n_rows: int = ELASTIC_ROWS, chunk: int = ELASTIC_CHUNK, n_probes: int = ELASTIC_PROBES,
+                       n_singles: int = ELASTIC_SINGLES, n_tier: int = ELASTIC_TIER_ROWS,
+                       tier_hot: int = ELASTIC_TIER_HOT, tier_clusters: int = ELASTIC_TIER_CLUSTERS,
+                       n_tenants: int = ELASTIC_TENANTS, per_tenant: int = ELASTIC_TENANT_DOCS,
+                       probed: int = ELASTIC_TENANT_PROBED, n_cold: int = ELASTIC_TENANT_COLD,
+                       run_docs: int = ELASTIC_RUN_DOCS, run_epoch: int = ELASTIC_RUN_EPOCH,
+                       crash_rows: int = ELASTIC_CRASH_ROWS, crash_hit: int = ELASTIC_CRASH_HIT) -> tuple[dict, list]:
+    """The elastic reshard plane on the card (see the module docstring):
+    part 1 the flat index under traffic, part 2 the tiered and packed
+    indexes, part 3 the run wiring, the controller and a crash in child
+    processes. Returns the launch counts of the path's counted runs and the
+    2-shard ``knn_topk_sharded`` kernel rows."""
+    import gc
+    import shutil
+    import signal
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.elastic.metrics import ELASTIC_METRICS
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.parallel.mesh import set_device_pool
+
+    t_phase = time.perf_counter()
+    pool, steps, where = elastic_plan(torch)
+    gc.collect()
+    if DEV != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix="elastic_", dir=build_dir)
+    prev_pool = set_device_pool(pool)
+    children = []
+    try:
+        # part 3's children start first and run beside parts 1 and 2
+        child = "import sys, chip_smoke; sys.exit(chip_smoke._elastic_child(sys.argv[1]))"
+
+        def spec(role: str, **kw) -> dict:
+            return dict(role=role, dev=DEV, tiny=RECOVERY_TINY, report=os.path.join(folder, f"{role}.json"),
+                        pool=(["cpu"] * 2 if DEV == "cpu" else pool[:2]) if pool else None, **kw)
+
+        spec_ctl = spec("controller", docs=run_docs, per_epoch=run_epoch)
+        spec_crash = spec("crash", root=os.path.join(folder, "root"), rows=crash_rows, chunk=chunk)
+        children.append(_spawn_child(child, json.dumps(spec_ctl)))
+        chaos_env = dict(os.environ, PATHWAY_CHAOS=json.dumps(
+            [{"site": "elastic.migrate_chunk", "action": "kill", "hit": crash_hit}]))
+        proc_crash = _spawn_child(child, json.dumps(spec_crash), env=chaos_env)
+        children.append(proc_crash)
+
+        pw.elastic.reset_registry()
+        ELASTIC_METRICS.reset()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        flat, entries, _ = _elastic_flat(pw, torch, steps, chunk, n_rows, n_probes, n_singles)
+        flat["seconds"] = time.perf_counter() - t0
+        flat["cards"] = where
+        pw.elastic.reset_registry()
+        gc.collect()
+        t0 = time.perf_counter()
+        parts = _elastic_tiered_packed(pw, torch, n_tier, tier_hot, tier_clusters, n_tenants, per_tenant, probed,
+                                       n_cold, chunk)
+        parts["seconds"] = time.perf_counter() - t0
+        emit("elastic_tiered_packed", **parts)
+        pw.elastic.reset_registry()
+        launches = collections.Counter(_build.LAUNCHES)
+
+        # part 3: the crash, its restart, and the controller run
+        t0 = time.perf_counter()
+        proc_crash.communicate(timeout=ELASTIC_CHILD_TIMEOUT)
+        if proc_crash.returncode != -signal.SIGKILL:
+            raise AssertionError(f"the crash child exited {proc_crash.returncode}, not killed at "
+                                 "elastic.migrate_chunk")
+        spec_rec = dict(spec_crash, role="recover", probes=n_probes, report=os.path.join(folder, "recover.json"))
+        _child_result(_spawn_child(child, json.dumps(spec_rec)), "the restarted child", ELASTIC_CHILD_TIMEOUT)
+        rec = json.load(open(spec_rec["report"]))
+        twin = pw.DeviceKnnIndex(ELASTIC_DIM, reserved_space=crash_rows, device=DEV)
+        twin.add_batch_device(list(range(crash_rows)), torch.from_numpy(_elastic_rows(crash_rows, SEED + 61)).to(DEV))
+        want = _kept_launches(lambda: twin.search_batch(
+            torch.from_numpy(_elastic_rows(n_probes, SEED + 62)).to(DEV), 10))
+        del twin
+        if rec["intent"] is None or rec["intent"][0] != 2 or not rec["recovered"] or rec["n_shards"] != 2:
+            raise AssertionError(f"the restart found intent {rec['intent']} and left {rec['n_shards']} shards")
+        if rec["intent_after"] is not None:
+            raise AssertionError("the recovered reshard left its intent behind")
+        got = [[(k, s) for k, s in row] for row in rec["answers"]]
+        if [[k for k, _ in r] for r in got] != [[k for k, _ in r] for r in want] or max(
+                abs(a - b) for g, w in zip(got, want) for (_, a), (_, b) in zip(g, w)) > 1e-5:
+            raise AssertionError("the recovered index answers otherwise than its unkilled twin")
+        crash = dict(rows=crash_rows, killed_at_chunk=crash_hit, intent=rec["intent"], generation=rec["generation"],
+                     recover_s=rec["recover_s"], answers_bitwise_equal=sum(g == w for g, w in zip(got, want)))
+        _child_result(children[0], "the controller child", ELASTIC_CHILD_TIMEOUT)
+        ctl = json.load(open(spec_ctl["report"]))
+        crash["seconds"] = time.perf_counter() - t0
+        emit("elastic_run_and_crash", controller=ctl, crash=crash)
+        launches.update(rec.get("launches") or {})
+        launches.update(ctl.get("launches") or {})
+    finally:
+        set_device_pool(prev_pool)
+        pw.elastic.reset_registry()
+        for proc in children + [p for p in _CHILDREN if p not in children]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(folder, ignore_errors=True)
+    if DEV != "cpu":
+        needed = ("knn_topk_stream", "knn_topk_tc", "knn_topk_merge", "knn_topk_sharded_merge", "gemm_bias_act",
+                  "gemm_bias_residual_layernorm")
+        missing = [k for k in needed if launches.get(k, 0) == 0]
+        if missing or not (launches.get("masked_attention", 0) or launches.get("segment_attention", 0)):
+            raise AssertionError(f"elastic_path never launched {missing} (or B1's attention)")
+    emit("elastic_path", seconds=time.perf_counter() - t_phase, cards=where, flat=flat, launches=dict(launches))
+    return dict(launches), entries
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -4652,7 +5373,10 @@ def main(argv: list[str]) -> int:
     launches.update(phase_tenant_path(torch))
     launches.update(phase_tier_path(torch))
     launches.update(phase_recovery_path(torch))
-    for e in entries:  # launches summed over the thirteen paths' counted runs
+    elastic_launches, elastic_entries = phase_elastic_path(torch)
+    launches.update(elastic_launches)
+    entries += elastic_entries
+    for e in entries:  # launches summed over the fourteen paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -41,8 +41,10 @@ with ``pw.run(tracing=, chip_ledger=, freshness=, watchdog=,
 with_http_server=)``; the run profiler, the metrics journal and the OTLP
 exporter with ``profile=``, ``PATHWAY_JOURNAL_DIR`` and
 ``PATHWAY_TELEMETRY_SERVER``. Many tenants share one packed slab
-(``tenancy``, ``pw.run(tenancy=)``), and a tiered index keeps a corpus
-larger than the card (``pw.run(index_tiers=)``). ``python -m
+(``tenancy``, ``pw.run(tenancy=)``), a tiered index keeps a corpus
+larger than the card (``pw.run(index_tiers=)``), and the elastic plane
+grows and shrinks a live index's mesh under traffic (``pw.elastic``,
+``pw.run(elastic=, mesh="auto")``). ``python -m
 pathway_tpu_torch`` is the command line. Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``. The package imports torch and
 numpy only.
@@ -50,9 +52,10 @@ numpy only.
 
 import datetime as _datetime
 
-from . import debug, freshness, io, persistence, reducers, resilience, serving, stdlib, tenancy, tracing, xpacks
+from . import debug, elastic, freshness, io, persistence, reducers, resilience, serving, stdlib, tenancy, tracing, xpacks
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
+from .elastic import ElasticConfig
 from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_make_pointer, wrap_py_object
 from .internals import dtype as dt
 from .internals import udfs
@@ -131,6 +134,7 @@ __all__ = [
     "DeviceKnnIndex",
     "DeviceReranker",
     "Duration",
+    "ElasticConfig",
     "EncoderConfig",
     "FLOAT",
     "FusedRagPipeline",
@@ -164,6 +168,7 @@ __all__ = [
     "debug",
     "declare_type",
     "dt",
+    "elastic",
     "fill_error",
     "freshness",
     "if_else",

@@ -457,8 +457,14 @@ class EnginePersistence:
         self._writers: dict[str, Any] = {}
         # per-source trim frontier discovered at recovery (KIND_COMPACT)
         self.compacted_to: dict[str, int] = {}
-        # the elastic plane, which enrolls this object as its durable token
-        # store (generation bumps and reshard intents), is ROADMAP item 5
+        pid = os.environ.get("PATHWAY_PROCESS_ID")
+        if not pid or pid == "0":
+            # enrol as the elastic plane's durable token store (weakly held):
+            # reshard generation bumps and intents write through the same
+            # single-record logs as the cluster generation
+            from ..elastic.controller import register_persistence
+
+            register_persistence(self)
 
     @staticmethod
     def _parse_s3_root(backend) -> tuple[str, str]:

@@ -19,8 +19,9 @@ process-wide registry (:data:`FRESHNESS`) tracks three things:
   monotonically. The watermark value is the epoch's *drain cutoff*:
   every row that arrived before it is queryable on that shard. An
   elastic cutover carries the old generation's index-level minimum onto
-  every new shard (:meth:`FreshnessPlane.carry_over`; the elastic plane
-  comes with ROADMAP Queue A item 5).
+  every new shard (:meth:`FreshnessPlane.carry_over`, called by
+  ``elastic/controller.py`` at the cutover), and a finished migration
+  accrues its wall time under ``migration``.
 
 At query time ``staleness = now − min(visible_wm over shards
 touched)``: REST replies carry ``X-Pathway-Freshness-Ms``, RAG answers

@@ -12,12 +12,10 @@ and event-time lag gauges (``pathway_operator_event_lag_seconds``).
 It renders the sections of the planes the port holds: resilience (retry
 attempts per scope, supervisor restarts), cluster health, serving, index,
 decode, tracing, the HBM ledger, tenancy, the host-ingest stage, the chip
-ledger and freshness, each only once its plane has seen activity; the
-epoch pipeline's host-prep, device-wait and overlap series come with a
-pipelined run. Elastic reshard (ROADMAP Queue A item 5) has no renderer
-yet, so it renders nothing, exactly as the reference renders nothing for a
-plane that is off. With every plane off a scrape is byte-identical to one
-from a run that never had them.
+ledger, the elastic reshard plane and freshness, each only once its plane
+has seen activity; the epoch pipeline's host-prep, device-wait and overlap
+series come with a pipelined run. With every plane off a scrape is
+byte-identical to one from a run that never had them.
 """
 
 from __future__ import annotations
@@ -228,6 +226,7 @@ class MonitoringHttpServer:
         lines.extend(self._ledger_lines(wl))
         lines.extend(self._tenancy_lines(wl))
         lines.extend(self._chip_lines(wl))
+        lines.extend(self._elastic_lines(wl))
         lines.extend(self._freshness_lines(wl))
         return "\n".join(lines) + "\n"
 
@@ -926,6 +925,81 @@ class MonitoringHttpServer:
         return lines
 
     @staticmethod
+    def _elastic_lines(wl: str = "") -> list[str]:
+        """Elastic reshard plane (``pathway_elastic_*``): completed
+        reshards by trigger reason, migrated chunk/row counters, cutover
+        and rollback totals, the dual-window dedup and fence counters,
+        last reshard MTTR, the generation gauge, and — while a migration
+        is in flight — its progress. Rendered only once the plane saw a
+        migration, so elastic-off runs scrape byte-identical."""
+        from ..elastic.metrics import ELASTIC_METRICS
+
+        if not ELASTIC_METRICS.active():
+            return []
+
+        def series(name: str, value, labels: str = "") -> str:
+            parts = ",".join(p for p in (labels, wl) if p)
+            return f"{name}{{{parts}}} {value}" if parts else f"{name} {value}"
+
+        snap = ELASTIC_METRICS.snapshot()
+        lines = ["# TYPE pathway_elastic_reshards_total counter"]
+        for reason in sorted(snap["reshards"]):
+            lines.append(
+                series(
+                    "pathway_elastic_reshards_total",
+                    snap["reshards"][reason],
+                    f'reason="{_escape_label(reason)}"',
+                )
+            )
+        lines.extend(
+            [
+                "# TYPE pathway_elastic_chunks_migrated_total counter",
+                series(
+                    "pathway_elastic_chunks_migrated_total", snap["chunks_migrated"]
+                ),
+                "# TYPE pathway_elastic_rows_migrated_total counter",
+                series("pathway_elastic_rows_migrated_total", snap["rows_migrated"]),
+                "# TYPE pathway_elastic_cutovers_total counter",
+                series("pathway_elastic_cutovers_total", snap["cutovers_total"]),
+                "# TYPE pathway_elastic_rollbacks_total counter",
+                series("pathway_elastic_rollbacks_total", snap["rollbacks_total"]),
+                "# TYPE pathway_elastic_dedup_dropped_total counter",
+                series(
+                    "pathway_elastic_dedup_dropped_total", snap["dedup_dropped_total"]
+                ),
+                "# TYPE pathway_elastic_fenced_writes_total counter",
+                series(
+                    "pathway_elastic_fenced_writes_total", snap["fenced_writes_total"]
+                ),
+                "# TYPE pathway_elastic_last_mttr_seconds gauge",
+                series(
+                    "pathway_elastic_last_mttr_seconds", f"{snap['last_mttr_s']:.6f}"
+                ),
+                "# TYPE pathway_elastic_generation gauge",
+                series("pathway_elastic_generation", snap["generation"]),
+            ]
+        )
+        mig = snap.get("migration")
+        if mig:
+            lines.extend(
+                [
+                    "# TYPE pathway_elastic_migration_chunks_done gauge",
+                    series(
+                        "pathway_elastic_migration_chunks_done", mig["chunks_done"]
+                    ),
+                    "# TYPE pathway_elastic_migration_chunks_total gauge",
+                    series(
+                        "pathway_elastic_migration_chunks_total", mig["chunks_total"]
+                    ),
+                    "# TYPE pathway_elastic_migration_target_shards gauge",
+                    series(
+                        "pathway_elastic_migration_target_shards", mig["to_shards"]
+                    ),
+                ]
+            )
+        return lines
+
+    @staticmethod
     def _freshness_lines(wl: str = "") -> list[str]:
         """Freshness plane (``pathway_freshness_*``): per-plane lag
         accrual (ingest queue / staging / epoch / publish / promotion /
@@ -1083,6 +1157,10 @@ class MonitoringHttpServer:
 
         if CHIP_LEDGER.active():
             status["chip"] = CHIP_LEDGER.snapshot()
+        from ..elastic.metrics import ELASTIC_METRICS
+
+        if ELASTIC_METRICS.active():
+            status["elastic"] = ELASTIC_METRICS.snapshot()
         from ..freshness.plane import FRESHNESS
 
         if FRESHNESS.active():

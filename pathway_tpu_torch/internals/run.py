@@ -57,7 +57,17 @@ first (None when malformed; the resolve then raises), and a ``mesh=``
 argument is resolved and installed as the run-scoped mesh
 (``parallel.mesh.active_mesh``) for the run only, so an enclosing
 ``use_mesh`` survives a run without one. ``PATHWAY_MESH`` is read when an
-index is built. ``"auto"`` arms the elastic plane and raises.
+index is built. ``"auto"`` puts the data axis over every visible device.
+
+``elastic=`` (or ``PATHWAY_ELASTIC``) is parsed into
+``G.run_context["elastic"]`` (the config's knobs, None when off or
+malformed); an ``elastic=`` argument is installed as the run-scoped
+elastic config (``elastic.active_elastic``) for the run only, and
+``mesh="auto"`` without one installs ``ElasticConfig(auto=True)``. When
+the config has a target shard count or a watermark, the reshard
+controller (``elastic.ElasticController``) watches the HBM and chip
+ledgers for the run and stops at its end; it reshards the indexes
+registered with ``pw.elastic.register_handle``.
 
 ``persistence_config=`` checkpoints the run: every source with a
 ``persistent_id`` logs its committed batches, operator snapshots land
@@ -93,6 +103,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 from ..decode.config import parse_decode_spec, use_decode
+from ..elastic.config import ElasticConfig, parse_elastic_spec, use_elastic
 from ..ops.tiered_knn import parse_tier_spec, use_tiers
 from ..parallel.mesh import parse_mesh_spec, resolve_mesh, use_mesh
 from ..parallel.sharding import CLUSTER_ITEM
@@ -110,7 +121,6 @@ _VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
 
 # keyword -> (value that leaves the plane off, ROADMAP item)
 _UNPORTED_KWARGS = {
-    "elastic": (None, _MULTI),
     "cluster_accept_timeout": (None, _MULTI),
     "cluster_hello_timeout": (None, _MULTI),
     "cluster_lease_ms": (None, _MULTI),
@@ -121,7 +131,6 @@ _UNPORTED_KWARGS = {
 # environment variable -> (values that leave the plane off, ROADMAP item)
 _UNPORTED_ENV = {
     "PATHWAY_PROCESSES": (("1",), _MULTI),
-    "PATHWAY_ELASTIC": (("0", "false", "no", "off"), _MULTI),
     "PATHWAY_ANALYSIS": (("off",), _VERIFIER),
 }
 
@@ -150,13 +159,6 @@ def unported_options(kwargs: dict[str, Any], environ=None) -> list[str]:
     plane is not ported (an option at its "off" value passes)."""
     environ = os.environ if environ is None else environ
     out = []
-    for name, spec in (("pw.run(mesh=...)", kwargs.get("mesh")), ("PATHWAY_MESH", environ.get("PATHWAY_MESH"))):
-        try:
-            auto = bool((parse_mesh_spec(spec) or {}).get("auto"))
-        except ValueError:
-            auto = False  # a malformed spec fails when the run resolves it
-        if auto:
-            out.append(f"{name} 'auto' arms the elastic plane: it needs {_MULTI}")
     for name, value in kwargs.items():
         if name in _UNPORTED_KWARGS:
             off, item = _UNPORTED_KWARGS[name]
@@ -197,6 +199,7 @@ def run(
     ingest_workers: int | None = None,
     mesh: Any = None,
     decode: Any = None,
+    elastic: Any = None,
     monitoring_level: Any = None,
     with_http_server: bool = False,
     monitoring_http_port: int | None = None,
@@ -239,6 +242,10 @@ def run(
     cache=on,chunk=64"``, a dict, ...) that the decode engines built in
     this run without a config take.
 
+    ``elastic``: an ``ElasticConfig`` or a spec (``"auto"``, ``4``,
+    ``"min=2,max=8,hbm_frac=0.85"``, ...) for the reshard controller of
+    this run (module docstring).
+
     ``index_tiers``: a ``TierConfig`` or a spec (``"hot=4096,clusters=64,
     probe=8"``, a dict, ...) that the device-backed indexes built in this
     run take; ``tenancy``: a ``TenancyConfig`` or a spec (``{"quotas":
@@ -251,7 +258,7 @@ def run(
     planes = dict(with_http_server=with_http_server, monitoring_http_port=monitoring_http_port,
                   monitoring_level=monitoring_level, tracing=tracing, watchdog=watchdog, chip_ledger=chip_ledger,
                   freshness=freshness)
-    missing = unported_options({**kwargs, "mesh": mesh})
+    missing = unported_options(kwargs)
     if missing:
         raise NotImplementedError("; ".join(missing))
     try:
@@ -264,6 +271,11 @@ def run(
             decode_cfg = parse_decode_spec(os.environ.get("PATHWAY_DECODE") or None)
         except ValueError:
             decode_cfg = None  # active_decode() treats it as off too
+    elastic_cfg = _parse_or_none(parse_elastic_spec, elastic, "PATHWAY_ELASTIC")
+    run_elastic = elastic_cfg if elastic is not None else None
+    if run_elastic is None and elastic_cfg is None and (mesh_axes or {}).get("auto"):
+        # mesh="auto" with no elastic= arms the default watermark envelope
+        run_elastic = elastic_cfg = ElasticConfig(auto=True)
     tier_cfg = _parse_or_none(parse_tier_spec, index_tiers, "PATHWAY_INDEX_TIERS")
     tenancy_cfg = _parse_or_none(parse_tenancy_spec, tenancy, "PATHWAY_TENANCY")
     resolved = _resolve_planes(**planes, profile=profile)
@@ -280,6 +292,7 @@ def run(
         "index_tiers": tier_cfg.as_dict() if tier_cfg is not None else None,
         "decode": decode_cfg.as_dict() if decode_cfg is not None else None,
         "tenancy": tenancy_cfg.as_dict() if tenancy_cfg is not None else None,
+        "elastic": elastic_cfg.as_dict() if elastic_cfg is not None else None,
         **resolved["context"],
     }
     lic = License.new(license_key or os.environ.get("PATHWAY_LICENSE_KEY"))
@@ -303,6 +316,14 @@ def run(
             scope.enter_context(use_decode(decode_cfg))
         if tenancy is not None and tenancy_cfg is not None:
             scope.enter_context(use_tenancy(tenancy_cfg))
+        if run_elastic is not None:
+            scope.enter_context(use_elastic(run_elastic))
+        if elastic_cfg is not None and (elastic_cfg.watermarks_armed() or elastic_cfg.shards is not None):
+            from ..elastic.controller import ElasticController
+
+            controller = ElasticController(elastic_cfg)
+            controller.start()
+            scope.callback(controller.stop)
         return _run_observed(terminate_on_error, planes, resolved, durable)
 
 

@@ -28,8 +28,18 @@ cross-shard merge); otherwise a per-shard plain top-k re-based to global
 slots and one top-k over the ``[q, n_shards * k]`` candidates. The
 reference replicates the index over the mesh's ``model`` axis; that
 changes no answer, so the port places shard ``s`` on ``devices[s][0]``
-only. ``mesh=None`` is the single-device index. The elastic reshard
-(``spawn_like``, ``reshard_*``) raises until that plane is ported.
+only. ``mesh=None`` is the single-device index.
+
+The elastic reshard protocol (``spawn_like``, ``reshard_export_chunks``,
+``reshard_import_chunk``, ``reshard_finish``; ``elastic/controller.py``
+drives it) moves the live rows to an empty index on another mesh in
+bounded chunks through the host. The export reads each chunk's rows from
+the slabs when the host mirror is stale (rows added on the device), so a
+reshard copies every row off the card once and never the whole slab per
+chunk; the import lands the rows as they are (cos rows are not normalised
+again), so the new generation's rows equal the old ones byte for byte.
+``fence`` freezes a dead generation: its writes raise
+:class:`StaleGeneration`, its reads still serve.
 
 The observability planes hook in at the reference's sites: every add and
 remove publishes the index's per-shard counts to ``INDEX_METRICS``, its
@@ -56,7 +66,6 @@ from ..freshness.plane import FRESHNESS
 from ..internals import flight_recorder
 from ..internals.chip_ledger import CHIP_LEDGER
 from ..internals.profiler import wrap_jit
-from ..parallel.sharding import CLUSTER_ITEM
 from ..tracing import current_trace, record_span, tracing_enabled
 from ..tracing import span as _trace_span
 from .index_metrics import INDEX_METRICS
@@ -91,6 +100,18 @@ def _shard_of_key(key, n_shards: int) -> int:
     if isinstance(key, (int, np.integer)) and not isinstance(key, bool):
         return shard_of(int(key), n_shards)
     return shard_of(int(ref_scalar(key)), n_shards)
+
+
+def _shards_of_keys(keys, n_shards: int) -> np.ndarray:
+    """``_shard_of_key`` of every key in bulk: integer keys (row pointers
+    included) take the key rule without a Python call each."""
+    if n_shards <= 1:
+        return np.zeros(len(keys), np.int64)
+    if all(isinstance(k, (int, np.integer)) and not isinstance(k, bool) for k in keys):
+        from ..engine.value import SHARD_MASK
+
+        return np.fromiter((int(k) & SHARD_MASK for k in keys), np.int64, len(keys)) % n_shards
+    return np.fromiter((_shard_of_key(k, n_shards) for k in keys), np.int64, len(keys))
 
 
 def _topk_lower_index(scores: torch.Tensor, k: int):
@@ -207,8 +228,9 @@ class DeviceKnnIndex:
         self.metric = metric
         self.name = name if name is not None else f"knn{next(_NAME_SEQ)}"
         # an index that is dropped (a crashed run's, say) gives its HBM
-        # ledger booking back with its slab
-        weakref.finalize(self, _ledger_drop, self.name)
+        # ledger booking back with its slab (a fenced generation hands it to
+        # the next one, which books under the same name)
+        self._ledger_finalizer = weakref.finalize(self, _ledger_drop, self.name)
         # one logical slot range [0, n_shards * shard_capacity), split
         # contiguously: shard s holds [s * c, (s + 1) * c)
         self.shard_capacity = -(-max(64, int(reserved_space)) // self.n_shards)
@@ -228,8 +250,14 @@ class DeviceKnnIndex:
         self._pending: dict[int, np.ndarray | None] = {}  # slot -> vec | tombstone
         self._slab: list[list[torch.Tensor]] | None = None  # per shard [matrix, valid, bias]
         self._encoder = None
+        # elastic reshard plumbing: the cluster generation that owns this
+        # index, whether its writes are fenced (a post-cutover zombie
+        # guard), and whether adds take rows as they are (migration chunks
+        # carry rows normalised at their first add)
         self.generation = 0
         self._fenced = False
+        self._import_raw = False
+        self._host_pulls = 0  # whole-slab copies into the host mirror
         self._last_merge_s: float | None = None
 
     def __len__(self) -> int:
@@ -255,13 +283,20 @@ class DeviceKnnIndex:
 
     def _check_fence(self) -> None:
         if self._fenced:
+            from ..elastic.metrics import ELASTIC_METRICS
+
+            ELASTIC_METRICS.record_fenced_write()
             flight_recorder.record("elastic.fenced_write", index=self.name, generation=self.generation)
             raise StaleGeneration(self.name, self.generation)
 
     def fence(self, generation: int | None = None) -> None:
         """Freeze this index as a dead generation: later writes raise
-        :class:`StaleGeneration`; reads still work."""
+        :class:`StaleGeneration`; reads still work (the cutover's dual-answer
+        window reads the old generation). Its HBM ledger booking now belongs
+        to the generation that took its name, so dropping this index no
+        longer drops it."""
         self._fenced = True
+        self._ledger_finalizer.detach()
         if generation is not None:
             self.generation = max(self.generation, int(generation))
 
@@ -274,7 +309,7 @@ class DeviceKnnIndex:
                 self._grow()
             free = self._free_shard[0]
             return [free.pop() for _ in keys]
-        shards = np.fromiter((_shard_of_key(k, self.n_shards) for k in keys), np.int64, len(keys))
+        shards = _shards_of_keys(keys, self.n_shards)
         need = np.bincount(shards, minlength=self.n_shards)
         while any(len(self._free_shard[s]) < need[s] for s in range(self.n_shards)):
             self._grow()
@@ -331,7 +366,7 @@ class DeviceKnnIndex:
             if key in self._slot_of:
                 self.remove(key)
         slots = self._alloc_slots(keys)
-        if self.metric == "cos":
+        if self.metric == "cos" and not self._import_raw:
             norms = np.linalg.norm(vecs, axis=1, keepdims=True)
             vecs = vecs / np.maximum(norms, 1e-12)
         sl = np.asarray(slots)
@@ -400,19 +435,72 @@ class DeviceKnnIndex:
         FRESHNESS.note_index_add(self, (shard,))
         self._publish_metrics()
 
-    # --- elastic reshard protocol: not ported ---
+    # --- elastic reshard protocol (elastic/controller.py drives) ---
 
     def spawn_like(self, mesh, reserved_space: int | None = None):
-        raise NotImplementedError(f"DeviceKnnIndex.spawn_like needs {CLUSTER_ITEM}")
+        """An EMPTY index with this one's schema on a target mesh (``None``:
+        this index's first device), the destination of a live reshard. It
+        starts small unless told otherwise: imports grow it shard by shard,
+        as the reference's target grows."""
+        return DeviceKnnIndex(
+            self.dim, metric=self.metric, reserved_space=int(reserved_space) if reserved_space else 64,
+            name=self.name, device=self.device, mesh=mesh,
+        )
 
     def reshard_export_chunks(self, chunk_rows: int):
-        raise NotImplementedError(f"DeviceKnnIndex.reshard_export_chunks needs {CLUSTER_ITEM}")
+        """Yield this index's live rows in chunks of at most ``chunk_rows``,
+        in slot order. The key list is snapshotted at the first chunk; rows
+        removed between chunks are skipped (the delta replay carries the
+        removal), rows re-added keep their snapshot value here and are
+        overwritten by the replay, so the target converges to the source's
+        final state."""
+        # the snapshot is taken under the caller's lock: a sort of the slots
+        # in numpy, not of a million tuples in Python
+        owned = list(self._slot_of)
+        order = np.argsort(np.fromiter(self._slot_of.values(), np.int64, len(owned)), kind="stable")
+        keys = [owned[i] for i in order.tolist()]
+        step = max(1, int(chunk_rows))
+        for i in range(0, len(keys), step):
+            batch = [k for k in keys[i : i + step] if k in self._slot_of]
+            if not batch:
+                continue
+            slots = np.fromiter((self._slot_of[k] for k in batch), np.int64, len(batch))
+            yield {"kind": "rows", "keys": batch, "vecs": self._rows_at(slots),
+                   "metas": [self._meta.get(k) for k in batch]}
+
+    def _rows_at(self, slots: np.ndarray) -> np.ndarray:
+        """The rows at ``slots`` as the index holds them: the host mirror
+        when it is current, else the slabs' rows (copied chunk by chunk,
+        never the whole slab) overlaid with host-staged updates."""
+        if not self._host_stale or self._slab is None:
+            return self._host[slots]
+        out = np.empty((len(slots), self.dim), np.float32)
+        for s, sel, local in self._by_shard(slots):
+            matrix = self._slab[s][0]
+            out[sel] = matrix.index_select(0, torch.as_tensor(local, device=matrix.device)).cpu().numpy()
+        for i, slot in enumerate(slots.tolist()):
+            vec = self._pending.get(slot)
+            if vec is not None:
+                out[i] = vec
+        return out
 
     def reshard_import_chunk(self, chunk: dict) -> None:
-        raise NotImplementedError(f"DeviceKnnIndex.reshard_import_chunk needs {CLUSTER_ITEM}")
+        """Land one exported chunk. Its rows were normalised at their first
+        add; the import must not normalise them again, or the transplant
+        stops being bit-exact."""
+        if chunk.get("kind") != "rows":
+            raise ValueError(f"flat index cannot import chunk kind {chunk.get('kind')!r}")
+        self._import_raw = True
+        try:
+            self.add_batch_arrays(chunk["keys"], chunk["vecs"], chunk["metas"])
+        finally:
+            self._import_raw = False
 
     def reshard_finish(self) -> None:
-        raise NotImplementedError(f"DeviceKnnIndex.reshard_finish needs {CLUSTER_ITEM}")
+        """Every chunk landed: commit the staged rows to the slabs (the
+        barrier before the cutover waits for them) and book them."""
+        self._sync()
+        self._publish_metrics()
 
     # --- device slabs ---
 
@@ -455,17 +543,21 @@ class DeviceKnnIndex:
         valid = self._valid_host.reshape(S, old)
         self._valid_host = np.concatenate([valid, np.zeros((S, old), bool)], axis=1).reshape(self.capacity)
 
-        def remap(g: int) -> int:
-            return (g // old) * new + g % old
+        def remap(g: np.ndarray) -> list[int]:
+            return ((g // old) * new + g % old).tolist()
 
-        keys: list[Any] = [None] * self.capacity
-        for g, key in enumerate(self._keys):
-            if key is not None:
-                keys[remap(g)] = key
+        # every map rebuilt in bulk: a target index that grows from 64 rows to
+        # millions during a reshard remaps at each doubling
+        keys: list[Any] = []
+        for s in range(S):
+            keys += self._keys[s * old : (s + 1) * old]
+            keys += [None] * old
         self._keys = keys
-        self._slot_of = {k: remap(g) for k, g in self._slot_of.items()}
-        self._pending = {remap(g): vec for g, vec in self._pending.items()}
-        self._free_shard = [[remap(g) for g in free] for free in self._free_shard]
+        self._slot_of = dict(zip(self._slot_of, remap(np.fromiter(self._slot_of.values(), np.int64,
+                                                                  len(self._slot_of)))))
+        self._pending = dict(zip(remap(np.fromiter(self._pending, np.int64, len(self._pending))),
+                                 self._pending.values()))
+        self._free_shard = [remap(np.asarray(free, np.int64)) for free in self._free_shard]
         for s in range(S):
             # new rows join each shard's LIFO free list low slots first, as
             # the single-shard growth extends its list
@@ -483,6 +575,7 @@ class DeviceKnnIndex:
             if vec is not None:
                 self._host[slot] = vec
         self._host_stale = False
+        self._host_pulls += 1
 
     def _upload_full(self) -> None:
         self._refresh_host()
@@ -595,9 +688,10 @@ class DeviceKnnIndex:
         return torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
 
     def _device_topk(self, q: torch.Tensor, fetch: int, mask=None):
-        """Top-``fetch`` (scores, slots) of ``q`` over the slab. ``mask``, a
-        ``(valid, bias)`` pair shaped like the slab's own, replaces them for
-        this call only (an index without a mesh)."""
+        """Top-``fetch`` (scores, slots) of ``q`` over the slab. ``mask``
+        replaces the slab's validity and bias for this call only: a
+        ``(valid, bias)`` pair shaped like the slab's own, or on a mesh one
+        such pair a shard."""
         if self.n_shards == 1:
             # one dispatch: the chip ledger (when on) books it, waiting for
             # the card to read its timing events
@@ -608,15 +702,16 @@ class DeviceKnnIndex:
                 if _pallas_eligible(self.metric, fetch, self.device):
                     return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
                 return _topk_fn(self.metric)(matrix, valid, q, fetch)
-        return self._sharded_topk(q, fetch)
+        return self._sharded_topk(q, fetch, mask)
 
     # the run profiler's build / execute split of each top-k dispatch (wrapped
     # on the class: a wrapper on the instance would hold the index in a
     # reference cycle, which only a full collection frees)
     _device_topk = wrap_jit("knn.topk", _device_topk)
 
-    def _sharded_topk(self, q: torch.Tensor, fetch: int):
-        """The two-phase search over the shards: each shard's top
+    def _sharded_topk(self, q: torch.Tensor, fetch: int, mask=None):
+        """The two-phase search over the shards (under ``mask``, one
+        ``(valid, bias)`` pair a shard, when given): each shard's top
         ``min(fetch, rows)`` re-based to global slots, then one top-k over
         the shard-major ``[q, n_shards * k_local]`` candidates (ties to the
         lower global slot); for L2, ``-|q|^2`` after the top-k, on every
@@ -637,12 +732,13 @@ class DeviceKnnIndex:
         l0 = time.monotonic()
         with CHIP_LEDGER.timed("index.search", device=self.shard_devices):
             if kernel:
+                biases = [p[2] for p in self._slab] if mask is None else [m[1] for m in mask]
                 cand = shard_candidates(
-                    q.contiguous(), [p[0] for p in self._slab], [p[2] for p in self._slab], k=fetch,
+                    q.contiguous(), [p[0] for p in self._slab], biases, k=fetch,
                     factor=2.0 if self.metric == "l2" else 1.0,
                 )
             else:
-                cand = self._local_topk(q, k_local)
+                cand = self._local_topk(q, k_local, mask)
             if timing:
                 _sync_cards(self.shard_devices)
         m0 = time.monotonic()
@@ -665,7 +761,7 @@ class DeviceKnnIndex:
                             k=k_final)
         return v, gi
 
-    def _local_topk(self, q: torch.Tensor, k_local: int):
+    def _local_topk(self, q: torch.Tensor, k_local: int, mask=None):
         """Plain first phase: each shard's top ``k_local``, re-based to
         global slots."""
         rows = self.shard_capacity
@@ -675,6 +771,8 @@ class DeviceKnnIndex:
         on_device = {dev: q.to(dev) for dev in set(self.shard_devices)}
         local = []
         for s, (matrix, valid, _) in enumerate(self._slab):
+            if mask is not None:
+                valid = mask[s][0]
             with as_current(matrix.device):
                 scores = on_device[matrix.device] @ matrix.T
                 if l2:
@@ -708,9 +806,9 @@ class DeviceKnnIndex:
         candidate metadata; over-fetch + host filter with exponential refill.
 
         ``mask``, called after the index syncs, returns a ``(valid, bias)``
-        pair that replaces the slab's own for this search only, and ``live``
-        counts the rows it keeps (the tenant slab's per-tenant view);
-        masked rows score as empty rows do."""
+        pair (on a mesh, one a shard) that replaces the slab's own for this
+        search only, and ``live`` counts the rows it keeps (the tenant
+        slab's per-tenant view); masked rows score as empty rows do."""
         if len(self._slot_of) == 0 or len(queries) == 0:
             return [[] for _ in range(len(queries))]
         q = self._queries(queries)

@@ -30,8 +30,18 @@ Snapshots: ``tier_state()`` captures the centroid table, per-key cluster
 assignment, hit counters, and the exact hot-resident key set;
 ``restore_tier_state`` + ``finish_tier_restore`` replay them around a
 re-add (the engine's index node does, restoring from an operator
-snapshot). On a mesh, and for the elastic reshard (``spawn_like``,
-``reshard_*``), the tiered index raises: ROADMAP Queue A item 5.
+snapshot).
+
+On a mesh (``mesh=``) the hot tier is a sharded ``DeviceKnnIndex``: keys
+route to their shard by the engine's key rule, each shard's free slots
+gate its hot inserts and promotions, and the cold counts are kept per
+shard. The reference stages the cold rows replicated over the mesh, so
+every device computes the same scores; the port stages them onto the
+first shard's device and scores them there, once, which gives the same
+answers. The elastic reshard (``spawn_like``, ``reshard_*``) streams one
+tier-state chunk, then every document's cold bytes as stored, then the
+hot rows as the hot slab holds them, so a resharded index keeps its hot
+and cold membership and answers byte for byte as before.
 """
 
 from __future__ import annotations
@@ -53,8 +63,7 @@ from ..internals.ledger import (  # noqa: F401  (re-exported; the shared
     hot_row_bytes,
     parse_bytes,
 )
-from ..parallel.sharding import CLUSTER_ITEM
-from .knn import _NEG, DeviceKnnIndex, _apply_filter, _topk_lower_index
+from .knn import _NEG, DeviceKnnIndex, _apply_filter, _shard_of_key, _topk_lower_index
 
 _COLD_DTYPES = ("int8", "f32")
 _HOT_DTYPES = ("f32", "int8")
@@ -320,6 +329,33 @@ class ColdStore:
             return dequantize_int8(self._q[sl], self._scale[sl])
         return self._f[sl].copy()
 
+    def export_rows(self, slots) -> dict:
+        """The stored bytes of ``slots`` for an elastic migration chunk, not
+        a dequantised view: quantising a dequantised vector again is not an
+        identity in general, so the codes and scales (or f32 rows) move as
+        they are and cold scores stay bit-identical across a reshard."""
+        sl = np.asarray(slots, np.int64)
+        if self.dtype == "int8":
+            return {"dtype": "int8", "q": self._q[sl].copy(), "scale": self._scale[sl].copy()}
+        return {"dtype": self.dtype, "f": self._f[sl].copy()}
+
+    def import_rows(self, payload: dict) -> np.ndarray:
+        """Land an :meth:`export_rows` payload byte for byte; returns the
+        slots the rows were placed in."""
+        if payload.get("dtype") != self.dtype:
+            raise ValueError(f"cold store dtype mismatch: {payload.get('dtype')!r} vs {self.dtype!r}")
+        n = len(payload["q" if self.dtype == "int8" else "f"])
+        while len(self._free) < n:
+            self._grow()
+        slots = np.array([self._free.pop() for _ in range(n)], np.int64)
+        if self.dtype == "int8":
+            self._q[slots] = payload["q"]
+            self._scale[slots] = payload["scale"]
+        else:
+            self._f[slots] = payload["f"]
+        self.rows += n
+        return slots
+
 
 # ---------------------------------------------------------------------------
 # cold rescoring (on the card, on the flat index's score scale)
@@ -354,27 +390,26 @@ class TieredKnnIndex:
     ):
         from .knn import _NAME_SEQ
 
-        if mesh is not None:
-            raise NotImplementedError(f"TieredKnnIndex(mesh=...) needs {CLUSTER_ITEM}")
         cfg = parse_tier_spec(tiers)
         if cfg is None:
             cfg = TierConfig()
         self.tiers = cfg
         self.dim = int(dim)
         self.metric = metric
-        self.mesh = None
+        self.mesh = mesh
         self.name = name if name is not None else f"knn{next(_NAME_SEQ)}"
+        n_shards = int(mesh.shape["data"]) if mesh is not None else 1
         if cfg.hot_rows > 0:
             hot_rows = cfg.hot_rows
         else:
             # budget-derived hot tier, capped by the caller's reserved
             # space: the hot slab is a device cache sized to the SMALLER
             # of what the budget allows and what the corpus expects
-            hot_rows = min(max(64, int(reserved_space)), cfg.resolve_hot_rows(self.dim, 1))
+            hot_rows = min(max(64, int(reserved_space)), cfg.resolve_hot_rows(self.dim, n_shards))
         # the hot tier carries the logical index name: its flight events
         # and search records ARE this index's, and the tiered
         # _publish_metrics below replaces its accounting with both tiers'
-        self.hot = DeviceKnnIndex(dim, metric, reserved_space=hot_rows, name=self.name, device=device)
+        self.hot = DeviceKnnIndex(dim, metric, reserved_space=hot_rows, name=self.name, device=device, mesh=mesh)
         self.hot._publish_metrics = self._publish_metrics
         self.device = self.hot.device
         self.n_shards = self.hot.n_shards
@@ -562,7 +597,7 @@ class TieredKnnIndex:
         clusters = self._assign_keys(list(keys), unit)
         slots = self._cold.put(unit)
         restoring = self._restore_assign is not None
-        free = len(self.hot._free_shard[0])
+        free = [len(f) for f in self.hot._free_shard]
         cap_before = self.hot.shard_capacity
         hot_keys: list = []
         hot_idx: list[int] = []
@@ -573,16 +608,17 @@ class TieredKnnIndex:
             self._cold_slot[key] = int(slots[i])
             if metadatas is not None and metadatas[i] is not None:
                 self._meta[key] = metadatas[i]
-            # fresh inserts go hot while the slab has room (a brand-new doc
-            # is as hot as it gets); during snapshot replay everything lands
-            # cold and the recorded hot set is promoted afterward
-            if not restoring and free > 0:
-                free -= 1
+            sh = _shard_of_key(key, self.n_shards)
+            # fresh inserts go hot while their shard has room (a brand-new
+            # doc is as hot as it gets); during snapshot replay everything
+            # lands cold and the recorded hot set is promoted afterward
+            if not restoring and free[sh] > 0:
+                free[sh] -= 1
                 hot_keys.append(key)
                 hot_idx.append(i)
             else:
                 self._cold_add(c, key)
-                self._cold_docs_shard[0] += 1
+                self._cold_docs_shard[sh] += 1
                 self._cold_total += 1
         if hot_keys:
             hv = vecs[hot_idx] if self.tiers.hot_dtype != "int8" else self._hot_vectors(unit[hot_idx])
@@ -608,7 +644,7 @@ class TieredKnnIndex:
             self.hot.remove(key)  # publishes via the tiered override
         else:
             self._cold_discard(c, key)
-            self._cold_docs_shard[0] -= 1
+            self._cold_docs_shard[_shard_of_key(key, self.n_shards)] -= 1
             self._cold_total -= 1
             self._publish_metrics()
 
@@ -773,6 +809,8 @@ class TieredKnnIndex:
         return scores
 
     def _stage_ring(self):
+        # on a mesh the ring stages onto the first shard's device, where the
+        # rows are scored once (module docstring)
         if self._cold_ring is None:
             from ..engine.device_ring import DeviceRing
 
@@ -844,7 +882,7 @@ class TieredKnnIndex:
         cold_cands.sort(key=lambda c: -self._hits[c])
         hot_cands = [c for c in range(C) if len(self._members[c]) > len(self._cold_keys[c])]
         hot_cands.sort(key=lambda c: self._hits[c])  # coldest first
-        free_total = len(self.hot._free_shard[0])
+        free_total = sum(len(f) for f in self.hot._free_shard)
         changed = False
         for c in cold_cands:
             need = len(self._cold_keys[c])
@@ -875,12 +913,18 @@ class TieredKnnIndex:
         from ..freshness.plane import FRESHNESS
         from ..resilience import chaos
 
-        free = len(self.hot._free_shard[0])
-        keys = list(self._cold_keys[c])[: max(0, free)]
+        free = [len(f) for f in self.hot._free_shard]
+        keys: list = []
+        for key in list(self._cold_keys[c]):
+            sh = _shard_of_key(key, self.n_shards)
+            if free[sh] > 0:
+                free[sh] -= 1
+                keys.append(key)
         if not keys:
             return 0
         moved = 0
         t0 = time.perf_counter()
+        touched: set[int] = set()
         half = max(1, len(keys) // 2)
         for chunk in (keys[:half], keys[half:]):
             if not chunk:
@@ -889,15 +933,17 @@ class TieredKnnIndex:
             vecs = self._hot_vectors(self._cold.fetch([self._cold_slot[key] for key in chunk]))
             self.hot.add_batch_arrays(chunk, vecs, [self._meta.get(key) for key in chunk])
             for key in chunk:
+                sh = _shard_of_key(key, self.n_shards)
+                touched.add(sh)
                 self._cold_discard(c, key)
-                self._cold_docs_shard[0] -= 1
+                self._cold_docs_shard[sh] -= 1
                 self._cold_total -= 1
             moved += len(chunk)
         self._promotions += 1
         # promotion-completion watermark: the promoted cluster is fully
         # hot-resident now; the wall spent is off-hot-path lag accrual
         FRESHNESS.accrue("promotion", time.perf_counter() - t0)
-        FRESHNESS.note_index_add(self, {0})
+        FRESHNESS.note_index_add(self, touched)
         self._tier_event("index.tier.promote", c, moved)
         return moved
 
@@ -909,7 +955,7 @@ class TieredKnnIndex:
         hot_keys = [key for key in self._members[c] if key in self.hot._slot_of]
         for key in hot_keys:
             self._cold_add(c, key)
-            self._cold_docs_shard[0] += 1
+            self._cold_docs_shard[_shard_of_key(key, self.n_shards)] += 1
             self._cold_total += 1
             self.hot.remove(key)
         if hot_keys:
@@ -998,7 +1044,13 @@ class TieredKnnIndex:
         self._restore_assign = None
         self._restore_hot = None
         todo = [key for key in hot_keys if key in self._cluster_of and key not in self.hot._slot_of]
-        fit = todo[: max(0, len(self.hot._free_shard[0]))]
+        free = [len(f) for f in self.hot._free_shard]
+        fit: list = []
+        for key in todo:
+            sh = _shard_of_key(key, self.n_shards)
+            if free[sh] > 0:
+                free[sh] -= 1
+                fit.append(key)
         if fit:
             vecs = self._hot_vectors(self._cold.fetch([self._cold_slot[key] for key in fit]))
             self.hot.add_batch_arrays(fit, vecs, [self._meta.get(key) for key in fit])
@@ -1006,11 +1058,11 @@ class TieredKnnIndex:
                 c = self._cluster_of[key]
                 if key in self._cold_keys[c]:
                     self._cold_discard(c, key)
-                    self._cold_docs_shard[0] -= 1
+                    self._cold_docs_shard[_shard_of_key(key, self.n_shards)] -= 1
                     self._cold_total -= 1
         self._publish_metrics()
 
-    # -- elastic reshard protocol: not ported ------------------------------
+    # -- elastic reshard protocol (elastic/controller.py drives) -----------
 
     def fence(self, generation: int | None = None) -> None:
         """Freeze this index as a dead generation (writes raise
@@ -1020,13 +1072,102 @@ class TieredKnnIndex:
             self.generation = max(self.generation, int(generation))
 
     def spawn_like(self, mesh, reserved_space: int | None = None):
-        raise NotImplementedError(f"TieredKnnIndex.spawn_like needs {CLUSTER_ITEM}")
+        """An EMPTY tiered index with this one's tier config on a target
+        mesh. The hot slab re-derives from the same budget (an explicit
+        ``hot_rows`` carries over; a budget-derived size re-splits over the
+        new shard count)."""
+        return TieredKnnIndex(
+            self.dim, metric=self.metric,
+            reserved_space=int(reserved_space) if reserved_space else self.hot.capacity,
+            tiers=self.tiers, mesh=mesh, name=self.name, device=self.device,
+        )
 
     def reshard_export_chunks(self, chunk_rows: int):
-        raise NotImplementedError(f"TieredKnnIndex.reshard_export_chunks needs {CLUSTER_ITEM}")
+        """Migration stream: one tier-state chunk (assignment, centroids,
+        hits, hot set), then every doc's cold payload as stored bytes in
+        bounded chunks, then the hot-resident rows as the hot slab holds
+        them (normalised, or dequantised int8). Raw transplant on both tiers
+        keeps a resharded tiered index score-bit-identical to one that never
+        moved."""
+        yield {"kind": "tier_state", "state": self.tier_state()}
+        step = max(1, int(chunk_rows))
+        keys = list(self._cluster_of)
+        for i in range(0, len(keys), step):
+            batch = [k for k in keys[i : i + step] if k in self._cluster_of]
+            if not batch:
+                continue
+            yield {
+                "kind": "tier_rows", "keys": batch,
+                "payload": self._cold.export_rows([self._cold_slot[k] for k in batch]),
+                "metas": [self._meta.get(k) for k in batch],
+            }
+        hot_keys = [k for k, _ in sorted(self.hot._slot_of.items(), key=lambda kv: kv[1])]
+        for i in range(0, len(hot_keys), step):
+            batch = [k for k in hot_keys[i : i + step] if k in self._cluster_of and k in self.hot._slot_of]
+            if not batch:
+                continue
+            slots = np.fromiter((self.hot._slot_of[k] for k in batch), np.int64, len(batch))
+            yield {"kind": "tier_hot", "keys": batch, "vecs": self.hot._rows_at(slots),
+                   "metas": [self._meta.get(k) for k in batch]}
 
     def reshard_import_chunk(self, chunk: dict) -> None:
-        raise NotImplementedError(f"TieredKnnIndex.reshard_import_chunk needs {CLUSTER_ITEM}")
+        kind = chunk.get("kind")
+        if kind == "tier_state":
+            self.restore_tier_state(chunk["state"])
+            return
+        if kind == "tier_rows":
+            assign = self._restore_assign or {}
+            keys = chunk["keys"]
+            for key in keys:
+                if key in self._cluster_of:
+                    self.remove(key)
+            slots = self._cold.import_rows(chunk["payload"])
+            metas = chunk["metas"]
+            for i, key in enumerate(keys):
+                c = int(assign.get(key, 0))
+                self._cluster_of[key] = c
+                self._members[c].add(key)
+                self._cold_slot[key] = int(slots[i])
+                self._cold_add(c, key)
+                # shard routing under the TARGET shard count
+                self._cold_docs_shard[_shard_of_key(key, self.n_shards)] += 1
+                self._cold_total += 1
+                if metas[i] is not None:
+                    self._meta[key] = metas[i]
+            self._publish_metrics()
+            return
+        if kind == "tier_hot":
+            # promote exactly the source's hot rows, as the hot slab holds
+            # them (the import bypasses normalisation); the hot slab grows
+            # per shard on demand, so the whole hot set transplants and hot
+            # and cold membership is preserved exactly
+            fit: list = []
+            fit_idx: list[int] = []
+            for i, key in enumerate(chunk["keys"]):
+                if key not in self._cluster_of or key in self.hot._slot_of:
+                    continue
+                fit.append(key)
+                fit_idx.append(i)
+            if fit:
+                self.hot.reshard_import_chunk({
+                    "kind": "rows", "keys": fit, "vecs": np.asarray(chunk["vecs"])[fit_idx],
+                    "metas": [self._meta.get(k) for k in fit],
+                })
+                for key in fit:
+                    c = self._cluster_of[key]
+                    if key in self._cold_keys[c]:
+                        self._cold_discard(c, key)
+                        self._cold_docs_shard[_shard_of_key(key, self.n_shards)] -= 1
+                        self._cold_total -= 1
+                self._publish_metrics()
+            return
+        raise ValueError(f"tiered index cannot import chunk kind {kind!r}")
 
     def reshard_finish(self) -> None:
-        raise NotImplementedError(f"TieredKnnIndex.reshard_finish needs {CLUSTER_ITEM}")
+        """Leave restore mode (the hot promotion already happened through
+        the ``tier_hot`` chunks, byte-exact) and commit the hot slab."""
+        if self._restore_hot is not None:
+            self._restore_hot = [k for k in self._restore_hot if k not in self.hot._slot_of]
+        self.finish_tier_restore()
+        self.hot._sync()
+        self._publish_metrics()

@@ -14,8 +14,8 @@ Accepted specs::
     "4x2"        # data=4, model=2
     "data=4,model=2"
     {"data": 4, "model": 2}
-    "auto"       # parsed; resolving it raises (it arms the elastic plane,
-                 # not ported)
+    "auto"       # the data axis over every visible device; arms the
+                 # elastic plane's watermarks (see pathway_tpu_torch/elastic)
     DeviceMesh(...)  # passed through as it is
 
 A spec resolves to ``cuda:0 .. cuda:n-1`` and raises when fewer cards are
@@ -23,6 +23,13 @@ visible (one card cannot hold a mesh spec of 4, as in the reference);
 ``device="cpu"`` resolves it to CPU placements, for the tests. Several
 shards on one card take an explicit device list (``sharding.make_mesh(
 devices=[...])``).
+
+A *device pool* (:func:`set_device_pool`) stands in for the visible
+devices: while one is set, specs on its platform resolve onto its first
+devices and ``"auto"`` onto all of it. It is the port's counterpart of the
+reference tests' ``--xla_force_host_platform_device_count``: the tests set
+eight CPU devices, and ``chip_smoke.py`` several shards on one card. It is
+not a user option (no keyword or variable sets it).
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import threading
 from contextlib import contextmanager
 from typing import Any
 
-from .sharding import CLUSTER_ITEM, DeviceMesh, make_mesh
+import torch
+
+from .sharding import DeviceMesh, make_mesh
 
 __all__ = [
     "parse_mesh_spec",
@@ -44,9 +53,36 @@ __all__ = [
 
 _lock = threading.Lock()
 _active: DeviceMesh | None = None  # run-scoped override
-# PATHWAY_MESH resolution is cached on the raw string (and the placement it
-# resolved for), so active_mesh() on the add/search path stays a dict lookup
-_env_cache: dict[tuple[str, str | None], DeviceMesh | None] = {}
+# PATHWAY_MESH resolution is cached on the raw string (and the placement and
+# pool it resolved for), so active_mesh() on the add/search path stays a dict
+# lookup
+_env_cache: dict[tuple, DeviceMesh | None] = {}
+_pool: tuple[torch.device, ...] | None = None  # stands in for the visible devices
+
+
+def set_device_pool(devices) -> tuple[torch.device, ...] | None:
+    """Install (``None`` clears) the device list that specs and ``"auto"``
+    resolve onto in place of the visible devices; returns the previous
+    pool. For tests and ``chip_smoke.py`` only (module docstring)."""
+    global _pool
+    pool = None if devices is None else tuple(torch.device(d) for d in devices)
+    if pool == ():
+        raise ValueError("a device pool needs at least one device")
+    with _lock:
+        prev, _pool = _pool, pool
+    return prev
+
+
+def _pool_for(device) -> tuple[torch.device, ...] | None:
+    """The pool when one is set on the platform asked for (any platform
+    when ``device`` is None)."""
+    with _lock:
+        pool = _pool
+    if pool is None:
+        return None
+    if device is not None and torch.device(device).type != pool[0].type:
+        return None
+    return pool
 
 
 def parse_mesh_spec(spec: Any) -> dict[str, int] | None:
@@ -102,8 +138,11 @@ def parse_mesh_spec(spec: Any) -> dict[str, int] | None:
 def resolve_mesh(spec: Any, device=None) -> DeviceMesh | None:
     """A :class:`DeviceMesh` for ``spec`` (a DeviceMesh passes through).
     None for empty specs. ``device="cpu"`` places the spec's devices on the
-    CPU; otherwise on the first cards, raising when fewer are visible.
-    ``"auto"`` raises: it arms the elastic plane."""
+    CPU; otherwise on the first cards, raising when fewer are visible. A
+    device pool on the platform asked for takes the place of both, raising
+    when it holds fewer devices. ``"auto"``: every visible device (the
+    pool, else every card, else one CPU device when ``device="cpu"``) on
+    the data axis."""
     if spec is None:
         return None
     if isinstance(spec, DeviceMesh):
@@ -111,10 +150,20 @@ def resolve_mesh(spec: Any, device=None) -> DeviceMesh | None:
     axes = parse_mesh_spec(spec)
     if axes is None:
         return None
+    pool = _pool_for(device)
+    cpu = device is not None and str(device).startswith("cpu")
     if axes.get("auto"):
-        raise NotImplementedError(f"mesh='auto' arms the elastic reshard plane: it needs {CLUSTER_ITEM}")
+        # the elastic controller reshards within [min_shards, max_shards]
+        # from here
+        if pool is not None:
+            return make_mesh(devices=pool, model_parallel=1)
+        return make_mesh(devices=["cpu"], model_parallel=1) if cpu else make_mesh(model_parallel=1)
     want = axes["data"] * axes["model"]
-    if device is not None and str(device).startswith("cpu"):
+    if pool is not None:
+        if want > len(pool):
+            raise ValueError(f"mesh spec {axes} needs {want} devices but the device pool holds {len(pool)}")
+        return make_mesh(devices=pool[:want], model_parallel=axes["model"])
+    if cpu:
         return make_mesh(devices=["cpu"] * want, model_parallel=axes["model"])
     return make_mesh(n_devices=want, model_parallel=axes["model"])
 
@@ -136,8 +185,8 @@ def active_mesh(device=None) -> DeviceMesh | None:
     raw = os.environ.get("PATHWAY_MESH", "").strip()
     if not raw:
         return None
-    key = (raw, None if device is None else str(device))
     with _lock:
+        key = (raw, None if device is None else str(device), _pool)
         if key in _env_cache:
             return _env_cache[key]
     mesh = resolve_mesh(raw, device=device)

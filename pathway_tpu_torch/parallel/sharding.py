@@ -29,9 +29,9 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-# where the multi-GPU planes not ported yet stand (the elastic reshard,
-# mesh="auto", multi-process clusters); their entry points raise naming it
-CLUSTER_ITEM = "ROADMAP Queue A item 5 (elastic reshard and multi-process clusters)"
+# where the multi-process planes not ported yet stand; their entry points
+# raise naming it
+CLUSTER_ITEM = "ROADMAP Queue A item 5 (multi-process clusters)"
 
 
 class DeviceMesh:

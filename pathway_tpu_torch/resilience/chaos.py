@@ -18,9 +18,12 @@ whole. Instrumented code calls :func:`inject` at named *sites*:
   hands a fused batch to the engine) and ``serving.batch_inflight`` (after
   dispatch returns, while request futures are still pending);
 - ``index.tier.promote`` fires before each chunk of a tiered index's
-  promotion (``ops/tiered_knn.py``).
+  promotion (``ops/tiered_knn.py``);
+- ``elastic.migrate_chunk`` fires before each chunk of a live reshard
+  lands on the target, ``elastic.cutover`` before the cutover and
+  ``elastic.abort`` first in a reshard's rollback (``elastic/controller.py``).
 
-The reference's cluster and elastic sites come with ROADMAP Queue A item 5.
+The reference's cluster sites come with ROADMAP Queue A item 5.
 
 A *chaos plan* (rules loaded from the
 ``PATHWAY_CHAOS`` environment variable, or activated in-process via
@@ -105,6 +108,9 @@ for _site, _plane in (
     ("serving.batch_inflight", "serving"),
     ("ingest.worker", "ingest"),
     ("index.tier.promote", "index"),
+    ("elastic.migrate_chunk", "elastic"),
+    ("elastic.cutover", "elastic"),
+    ("elastic.abort", "elastic"),
 ):
     register_site(_site, _plane)
 del _site, _plane

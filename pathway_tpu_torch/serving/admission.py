@@ -29,7 +29,13 @@ active tenancy (``tenancy.active_tenancy``: ``pw.run(tenancy=)``, else
 in-flight cap, each shedding a typed 429 ``tenant_rate_limited`` before
 any endpoint-wide gate. The ``serving.admit`` chaos site fires before any
 shed decision (a delay rule there models a burst piling up at the front
-door). The shard-health gate (``shard=``) comes with ROADMAP Queue A item 5.
+door). While an elastic reshard migrates an index (``elastic``), a
+``shed="degrade"`` endpoint degrades instead of rejecting: requests keep
+flowing against the old generation with the degraded flag, and a shed
+that still happens (a full queue) carries the migration's remaining-time
+estimate as ``Retry-After`` (the cluster-health plane's ETA source, which
+the elastic plane installs). The shard-health gate (``shard=``) comes with
+ROADMAP Queue A item 5.
 """
 
 from __future__ import annotations
@@ -305,6 +311,13 @@ class AdmissionController:
             self._check_tenant(tenant, trace_ctx, trace_extra)
         if shard is not None:
             raise NotImplementedError(f"AdmissionController.admit(shard=...) needs {_CLUSTER_ITEM}")
+        # elastic migration in flight: degrade, not reject: requests keep
+        # flowing against the old generation (the reshard plane drops none)
+        # but carry the degraded flag so later stages can cheapen, and a
+        # shed (a full queue) derives Retry-After from the migration ETA
+        from ..elastic.metrics import ELASTIC_METRICS
+
+        migrating = ELASTIC_METRICS.migrating()
 
         t0 = _time.monotonic()
         if self._bucket is not None and not self._bucket.try_acquire():
@@ -336,14 +349,17 @@ class AdmissionController:
                 self.metrics.record_shed("queue_full")
                 flight_recorder.record("serving.shed", route=self.route, reason="queue_full", depth=depth,
                                        **trace_extra)
+                if migrating:
+                    from ..resilience.cluster import CLUSTER_HEALTH
+
+                    retry_after = CLUSTER_HEALTH.retry_after_s()
+                else:
+                    retry_after = deadline.remaining() if remaining_ms < 1e12 else None
                 raise self._traced(
-                    QueueFull(
-                        f"admission queue full ({depth}/{cfg.max_queue})",
-                        retry_after_s=deadline.remaining() if remaining_ms < 1e12 else None,
-                    ),
+                    QueueFull(f"admission queue full ({depth}/{cfg.max_queue})", retry_after_s=retry_after),
                     trace_ctx,
                 )
-            degraded = cfg.shed == "degrade" and depth >= cfg.degrade_watermark * cfg.max_queue
+            degraded = cfg.shed == "degrade" and (migrating or depth >= cfg.degrade_watermark * cfg.max_queue)
             seq = next(self._seq)
             self._live.add(seq)
             heapq.heappush(self._heap, (deadline.expires_at, seq))

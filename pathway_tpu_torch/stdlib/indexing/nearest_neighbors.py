@@ -22,7 +22,8 @@ shared ``tenancy.TenantPackedIndex`` slab of its geometry
 (``shared_slab``); it takes precedence over ``tiers``, which makes the
 index a ``ops.tiered_knn.TieredKnnIndex`` (the explicit spec first, else
 ``pw.run(index_tiers=)`` / ``PATHWAY_INDEX_TIERS``). Both resolve when the
-graph is lowered, and both raise on a mesh (ROADMAP Queue A item 5).
+graph is lowered, on a mesh too: the tenant slab of a mesh is shared by the
+indexes of that mesh, and a tiered index shards its hot tier over it.
 ``LshKnn`` ignores them, as the reference's does.
 """
 

@@ -34,8 +34,14 @@ every ``demote_every`` searches the per-tenant hit counters decay by
 numpy, frees its extents for reuse, and serves later queries from an exact
 host scan. Two queries while cold promote the tenant back into the slab.
 
-On a mesh the packed slab raises (ROADMAP Queue A item 5), as do the
-elastic reshard methods it inherits.
+On a mesh (``mesh=``) the slab is the parent's sharded slab: extents are
+carved from the shard with the most room left (one never spans two
+shards), the routing column lives beside each shard's slab, and the
+tenant mask reaches B2's per-shard passes as one validity and bias a
+shard. The elastic reshard (``spawn_like``, ``reshard_*``) moves the
+tenants one by one in registration order: a hot tenant's rows as the slab
+holds them, a cold tenant's host store followed by a marker that demotes
+it again on the target, so extents re-grant and cold tenants stay cold.
 """
 
 from __future__ import annotations
@@ -50,7 +56,6 @@ from ..freshness.plane import FRESHNESS
 from ..internals import flight_recorder
 from ..ops.knn import DeviceKnnIndex, _apply_filter
 from ..ops.knn_topk import NEG as _PNEG
-from ..parallel.sharding import CLUSTER_ITEM
 from .config import TenancyConfig, TenantQuotas, active_tenancy
 from .metrics import TENANCY_METRICS
 
@@ -97,20 +102,20 @@ class TenantPackedIndex(DeviceKnnIndex):
         config: TenancyConfig | None = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"TenantPackedIndex(mesh=...) needs {CLUSTER_ITEM}")
-        super().__init__(dim, metric=metric, reserved_space=reserved_space, name=name, device=device)
+        super().__init__(dim, metric=metric, reserved_space=reserved_space, name=name, device=device, mesh=mesh)
         self._config = config
-        self._free_shard = [[]]  # rows are granted per tenant, not from the shard list
+        # rows are granted per tenant, not from the shard lists
+        self._free_shard = [[] for _ in range(self.n_shards)]
+        self._docs_shard = [0] * self.n_shards
         self._tenant_host = np.full((self.capacity,), -1, np.int32)
-        self._dev_tenant: torch.Tensor | None = None
+        self._dev_tenant: list[torch.Tensor] | None = None  # the routing column, a tensor a shard
         self._tenant_dirty = True
         self._tid: dict[str, int] = {}
         self._tenant_free: dict[str, list[int]] = {}
         self._tenant_rows: dict[str, int] = {}
         self._segments: dict[str, list[list[int]]] = {}  # [start, size]
         self._free_extents: list[tuple[int, int]] = []  # demoted tenants' rows
-        self._bump = 0  # next ungranted row
+        self._bump = [0] * self.n_shards  # next ungranted local row of each shard
         self._hits: dict[str, float] = {}
         self._cold: dict[str, dict] = {}
         self._search_count = 0
@@ -152,13 +157,14 @@ class TenantPackedIndex(DeviceKnnIndex):
             t = self._tenant_of_key(k)
             slot = self._tenant_free[t].pop()
             self._tenant_host[slot] = self._tid[t]
+            self._docs_shard[slot // self.shard_capacity] += 1
             out.append(slot)
         self._touched.update(by_tenant)
         self._tenant_dirty = True
         return out
 
     def _live_docs_shard(self) -> list[int]:
-        return [len(self._slot_of)]
+        return list(self._docs_shard)
 
     def _ensure_rows(self, tenant: str, need: int) -> None:
         """Grow ``tenant``'s free pool to at least ``need`` slots,
@@ -202,7 +208,8 @@ class TenantPackedIndex(DeviceKnnIndex):
 
     def _carve(self, want: int) -> tuple[int, int] | None:
         """Take up to ``want`` contiguous rows: freed extents (demoted
-        tenants) first, then the bump tail; None = slab full."""
+        tenants) first, then the bump tail of the shard with the most room;
+        None = slab full."""
         for i, (start, size) in enumerate(self._free_extents):
             if size >= want:
                 rest = (start + want, size - want)
@@ -214,23 +221,40 @@ class TenantPackedIndex(DeviceKnnIndex):
         if self._free_extents:
             i = max(range(len(self._free_extents)), key=lambda j: self._free_extents[j][1])
             return self._free_extents.pop(i)
-        room = self.capacity - self._bump
+        s = min(range(self.n_shards), key=lambda j: self._bump[j])
+        room = self.shard_capacity - self._bump[s]
         if room <= 0:
             return None
         take = min(want, room)
-        start = self._bump
-        self._bump += take
+        start = s * self.shard_capacity + self._bump[s]
+        self._bump[s] += take
         return (start, take)
 
-    # -- growth (parent doubling + tenant column) --
+    # -- growth (parent doubling + tenant column / extent remap) --
 
     def _grow(self) -> None:
         super()._grow()
-        self._free_shard = [[]]
-        pad = self.capacity - len(self._tenant_host)
-        self._tenant_host = np.concatenate([self._tenant_host, np.full((pad,), -1, np.int32)])
+        self._free_shard = [[] for _ in range(self.n_shards)]
+        if self.n_shards == 1:
+            pad = self.capacity - len(self._tenant_host)
+            self._tenant_host = np.concatenate([self._tenant_host, np.full((pad,), -1, np.int32)])
         self._tenant_dirty = True
         self._publish_metrics()
+
+    def _remap_grow(self, old: int) -> None:
+        super()._remap_grow(old)
+        S, new = self.n_shards, self.shard_capacity
+        col = self._tenant_host.reshape(S, old)
+        self._tenant_host = np.concatenate([col, np.full((S, old), -1, np.int32)], axis=1).reshape(self.capacity)
+
+        def remap(g: int) -> int:
+            return (g // old) * new + g % old
+
+        # extents never span a shard boundary, so a remapped extent stays
+        # contiguous (the same local offset, a doubled shard base)
+        self._tenant_free = {t: [remap(g) for g in free] for t, free in self._tenant_free.items()}
+        self._segments = {t: [[remap(s0), size] for s0, size in segs] for t, segs in self._segments.items()}
+        self._free_extents = [(remap(s0), size) for s0, size in self._free_extents]
 
     def _upload_full(self) -> None:
         super()._upload_full()
@@ -269,12 +293,14 @@ class TenantPackedIndex(DeviceKnnIndex):
         self._valid_host[slot] = False
         self._keys[slot] = None
         self._meta.pop(key, None)
+        shard = slot // self.shard_capacity
+        self._docs_shard[shard] -= 1
         # the slot stays reserved to its tenant's segment
         self._tenant_free[tenant].append(slot)
         self._touched.add(tenant)
         if not self._full:
             self._pending[slot] = None
-        FRESHNESS.note_index_add(self, (0,))
+        FRESHNESS.note_index_add(self, (shard,))
         self._publish_metrics()
 
     def _cold_remove(self, key) -> None:
@@ -324,16 +350,21 @@ class TenantPackedIndex(DeviceKnnIndex):
 
         def mask():
             self._sync_tenant_column()
-            _, valid, bias = self._slab[0]
-            return tenant_mask(valid, bias, self._dev_tenant, tid)
+            masks = [tenant_mask(valid, bias, col, tid) for (_, valid, bias), col in zip(self._slab, self._dev_tenant)]
+            return masks[0] if self.n_shards == 1 else masks
 
         rows = DeviceKnnIndex.search_batch(self, q, k, filter_fns, mask=mask, live=live)
         return [[(key[1], score) for key, score in row] for row in rows]
 
     def _sync_tenant_column(self) -> None:
-        if self._dev_tenant is not None and not self._tenant_dirty and int(self._dev_tenant.shape[0]) == self.capacity:
+        """The routing column beside each shard's slab, on its device."""
+        c = self.shard_capacity
+        if self._dev_tenant is not None and not self._tenant_dirty and int(self._dev_tenant[0].shape[0]) == c:
             return
-        self._dev_tenant = torch.from_numpy(self._tenant_host).to(self.device, copy=True)
+        self._dev_tenant = [
+            torch.from_numpy(self._tenant_host[s * c : (s + 1) * c]).to(dev, copy=True)
+            for s, dev in enumerate(self.shard_devices)
+        ]
         self._tenant_dirty = False
 
     # -- hit decay / cold demotion --
@@ -376,6 +407,7 @@ class TenantPackedIndex(DeviceKnnIndex):
                     if nk in self._meta:
                         meta[nk[1]] = self._meta.pop(nk)
                     self._slot_of.pop(nk, None)
+                    self._docs_shard[slot // self.shard_capacity] -= 1
                     self._keys[slot] = None
                     self._valid_host[slot] = False
                     if not self._full:
@@ -441,6 +473,66 @@ class TenantPackedIndex(DeviceKnnIndex):
             out.append(row)
         return out
 
+    # -- elastic reshard protocol (elastic/controller.py drives) --
+
+    def spawn_like(self, mesh, reserved_space: int | None = None):
+        """An EMPTY packed slab with this one's tenancy config on a target
+        mesh; extent grants replay as tenants land again."""
+        return TenantPackedIndex(
+            self.dim, metric=self.metric, reserved_space=int(reserved_space) if reserved_space else 64, mesh=mesh,
+            name=self.name, config=self._config, device=self.device,
+        )
+
+    def reshard_export_chunks(self, chunk_rows: int):
+        """Migration stream, tenant by tenant in registration order: a hot
+        tenant's live rows from the slab (slot order, as the slab holds
+        them: the import does not normalise them again), a cold tenant's
+        host-store rows followed by a ``tenant_cold`` marker, so the target
+        demotes it back to exactly a host store."""
+        step = max(1, int(chunk_rows))
+        for tenant in list(self._tid):
+            if tenant in self._cold:
+                store = self._cold[tenant]
+                keys = list(store["keys"])
+                for i in range(0, len(keys), step):
+                    batch = [k for k in keys[i : i + step] if k in store["index_of"]]
+                    if not batch:
+                        continue
+                    idx = [store["index_of"][k] for k in batch]
+                    yield {"kind": "tenant_rows", "tenant": tenant, "keys": batch, "vecs": store["vecs"][idx].copy(),
+                           "metas": [store["meta"].get(k) for k in batch]}
+                yield {"kind": "tenant_cold", "tenant": tenant, "keys": []}
+                continue
+            slots = sorted(
+                slot for start, size in self._segments.get(tenant, ()) for slot in range(start, start + size)
+                if self._keys[slot] is not None
+            )
+            for i in range(0, len(slots), step):
+                batch = [slot for slot in slots[i : i + step] if self._keys[slot] is not None]
+                if not batch:
+                    continue
+                ns_keys = [self._keys[slot] for slot in batch]
+                yield {"kind": "tenant_rows", "tenant": tenant, "keys": [nk[1] for nk in ns_keys],
+                       "vecs": self._rows_at(np.asarray(batch, np.int64)),
+                       "metas": [self._meta.get(nk) for nk in ns_keys]}
+
+    def reshard_import_chunk(self, chunk: dict) -> None:
+        kind = chunk.get("kind")
+        tenant = str(chunk.get("tenant", ""))
+        if kind == "tenant_rows":
+            self._import_raw = True
+            try:
+                self.add_tenant_batch(tenant, chunk["keys"], chunk["vecs"], chunk["metas"])
+            finally:
+                self._import_raw = False
+            return
+        if kind == "tenant_cold":
+            self._ensure_rows(tenant, 0)  # register the tenant id
+            if tenant not in self._cold:
+                self._demote(tenant)
+            return
+        raise ValueError(f"packed index cannot import chunk kind {kind!r}")
+
     # -- introspection / accounting --
 
     def view(self, tenant: str) -> "TenantView":
@@ -472,7 +564,7 @@ class TenantPackedIndex(DeviceKnnIndex):
         from ..internals.ledger import LEDGER, hot_row_bytes
 
         row_b = hot_row_bytes(self.dim)
-        alloc = 0 if self._slab is None else sum(t.element_size() * t.numel() for t in self._slab[0])
+        alloc = 0 if self._slab is None else sum(t.element_size() * t.numel() for part in self._slab for t in part)
         if alloc != self._booked_alloc:
             self._touched.update(self._tid)
             self._booked_alloc = alloc
@@ -541,9 +633,9 @@ class TenantView:
 
 
 # ---------------------------------------------------------------------------
-# process-wide slab registry: every (dim, metric, device) combination shares
-# ONE packed slab, so 10k tenants with the same geometry share one device
-# allocation and one launch per search
+# process-wide slab registry: every (dim, metric, device or mesh) combination
+# shares ONE packed slab, so 10k tenants with the same geometry share one
+# device allocation and one launch per search
 
 _SLAB_LOCK = threading.Lock()
 _SLABS: dict[tuple, TenantPackedIndex] = {}
@@ -557,19 +649,18 @@ def shared_slab(
     config: TenancyConfig | None = None,
     device=None,
 ) -> TenantPackedIndex:
-    """The shared slab of this geometry (made on first use)."""
-    if mesh is not None:
-        raise NotImplementedError(f"a tenant slab on a mesh needs {CLUSTER_ITEM}")
+    """The shared slab of this geometry and placement (made on first use):
+    one a device without a mesh, one a mesh on a mesh."""
     from ..device import resolve_device
 
-    dev = resolve_device(device)
-    key = (int(dim), str(metric), str(dev))
+    dev = resolve_device(device) if mesh is None else None
+    key = (int(dim), str(metric), str(dev) if mesh is None else mesh)
     with _SLAB_LOCK:
         slab = _SLABS.get(key)
         if slab is None:
             slab = TenantPackedIndex(
                 dim, metric=metric, reserved_space=reserved_space, name=f"tenant-slab-{dim}-{metric}",
-                config=config, device=dev,
+                config=config, device=dev, mesh=mesh,
             )
             _SLABS[key] = slab
         return slab

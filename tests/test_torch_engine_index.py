@@ -266,7 +266,7 @@ def test_embedder_batched_udf_and_dimension(embedders):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh="auto"), dict(elastic=True), dict(analysis="strict"), dict(cluster_lease_ms=100)],
+    [dict(analysis="strict"), dict(cluster_lease_ms=100)],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_run_options_raise(kwargs):
@@ -285,24 +285,51 @@ def test_unported_run_options_raise(kwargs):
      (dict(profile="p.json"), "profile", True), (dict(license_key="enterprise-k"), "profile", False),
      (dict(persistence_config=tpw.persistence.Config.simple_config(tpw.persistence.Backend.mock())), "persistence",
       True), (dict(recovery=True), "recovery", True), (dict(ingest_workers=2), "ingest_workers", 2),
-     (dict(pipeline_depth=2), "pipeline_depth", 2)],
+     (dict(pipeline_depth=2), "pipeline_depth", 2), (dict(mesh="auto"), "elastic", (True, None)),
+     (dict(elastic="shards=2,interval=0.01"), "elastic", (False, 2))],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
 )
 def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
     """The options of the profiler, licensing, the tiered and tenant
-    indexes, persistence, the supervisor, the host-ingest stage and the
-    epoch pipeline run and land in the run context, as the reference's
-    do."""
+    indexes, persistence, the supervisor, the host-ingest stage, the epoch
+    pipeline and the elastic plane run and land in the run context, as the
+    reference's do: ``mesh="auto"`` installs the mesh of every visible
+    device (the device pool stands in for them) and arms the elastic
+    plane's watermarks, and ``elastic=`` a controller that reshards a
+    registered index during the run."""
+    import time as _time
+
+    from pathway_tpu_torch import elastic
+    from pathway_tpu_torch.parallel import mesh as tmesh
+
     monkeypatch.chdir(tmp_path)
     t = tpw.debug.table_from_markdown("""
       | a
     1 | 1
     """)
-    seen = []
-    tpw.io.subscribe(t, lambda key, row, time, is_addition: seen.append(row["a"]))
+    seen, meshes = [], []
+    handle = None
+    if key == "elastic":
+        elastic.reset_registry()  # no persistence enrolled by an earlier test
+        prev_pool = tmesh.set_device_pool(["cpu"] * 2)
+        handle = elastic.register_handle(tknn.DeviceKnnIndex(4, reserved_space=8, device="cpu"))
+        handle.add("x", np.ones(4, np.float32))
+
+    def on_change(key, row, time, is_addition):
+        seen.append(row["a"])
+        meshes.append(tmesh.active_mesh())
+        deadline = _time.monotonic() + 30.0
+        while "elastic" in kwargs and handle.index.n_shards != 2 and _time.monotonic() < deadline:
+            _time.sleep(0.01)  # the run's controller reshards toward its target
+
+    tpw.io.subscribe(t, on_change)
     if "profile" in kwargs:
         kwargs = dict(profile=str(tmp_path / "p.json"))
-    tpw.run(**kwargs)
+    try:
+        tpw.run(**kwargs)
+    finally:
+        if key == "elastic":
+            tmesh.set_device_pool(prev_pool)
     from pathway_tpu_torch.internals.parse_graph import G
 
     if "ingest_workers" in kwargs:
@@ -315,6 +342,15 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
         got = got["hot_rows"]
     elif key == "tenancy":
         got = got["demote_every"]
+    elif key == "elastic":
+        got = (got["auto"], got["shards"])
+        if "mesh" in kwargs:  # the run's mesh: the data axis over the pool
+            assert meshes[0].shape == {"data": 2, "model": 1} and ctx["mesh_axes"]["auto"]
+        else:
+            assert handle.index.n_shards == 2 and elastic.ELASTIC_METRICS.snapshot()["reshards"] == {"target": 1}
+        assert elastic.active_elastic() is None and tmesh.active_mesh() is None
+        elastic.reset_registry()
+        elastic.ELASTIC_METRICS.reset()
     assert seen == [1] and got == want
     if "profile" in kwargs:
         assert json.loads((tmp_path / "p.json").read_text())["traceEvents"]
@@ -322,8 +358,7 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
 
 @pytest.mark.parametrize(
     "var,value",
-    [("PATHWAY_MESH", "auto"), ("PATHWAY_ELASTIC", "on"), ("PATHWAY_PROCESSES", "2"),
-     ("PATHWAY_ANALYSIS", "strict")],
+    [("PATHWAY_PROCESSES", "2"), ("PATHWAY_ANALYSIS", "strict")],
 )
 def test_unported_env_options_raise(monkeypatch, var, value):
     monkeypatch.setenv(var, value)
@@ -337,12 +372,14 @@ def test_unported_env_options_raise(monkeypatch, var, value):
     [("PATHWAY_INDEX_TIERS", "hot=64"), ("PATHWAY_TENANCY", "on"), ("PATHWAY_PROFILE", "p.json"),
      ("PATHWAY_JOURNAL_DIR", "journal"), ("PATHWAY_TELEMETRY_SERVER", "telemetry.jsonl"),
      ("PATHWAY_LICENSE_KEY", "k"), ("PATHWAY_PIPELINE_DEPTH", "2"), ("PATHWAY_INGEST_WORKERS", "2"),
-     ("PATHWAY_REPLAY_STORAGE", "replay")],
+     ("PATHWAY_REPLAY_STORAGE", "replay"), ("PATHWAY_MESH", "auto"), ("PATHWAY_ELASTIC", "on")],
 )
 def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
     """The variables of the profiler, the journal, telemetry, licensing,
-    the tiered and tenant indexes, the epoch pipeline, the ingest stage and
-    record / replay no longer raise: each runs its plane."""
+    the tiered and tenant indexes, the epoch pipeline, the ingest stage,
+    record / replay and the elastic plane no longer raise: each runs its
+    plane (``PATHWAY_MESH=auto`` arms the elastic watermarks, as the
+    reference's does)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(var, value)
     assert not trun.unported_options({})
@@ -359,6 +396,10 @@ def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
 
         stage.shutdown_stage()
     assert written is None or (tmp_path / written).exists()
+    if var in ("PATHWAY_MESH", "PATHWAY_ELASTIC"):
+        from pathway_tpu_torch.internals.parse_graph import G
+
+        assert G.run_context["elastic"]["auto"] == (var == "PATHWAY_MESH")
 
 
 def _plane_run(tmp_path, monkeypatch, **kwargs):

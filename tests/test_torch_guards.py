@@ -7,7 +7,8 @@ an encoder over a mesh of CPU devices, or runs the decode extensions under
 the xpack's question answerer, or serves a REST endpoint behind the
 serving plane with every observability plane on (``tracing/``,
 ``freshness/``, the chip and HBM ledgers, the watchdog, ``/metrics`` and
-``/status``); it never imports ``aiohttp`` or
+``/status``), or grows and shrinks live indexes with the elastic plane
+under ``pw.run(mesh="auto", elastic=)``; it never imports ``aiohttp`` or
 ``requests``, which the card's machine lacks (its webserver is the standard
 library's), and imports no service client (``openai``, ``litellm``,
 ``cohere``, ``transformers``, ``flashrank``) at module load; its entry
@@ -394,6 +395,75 @@ def test_port_persistence_recovery_and_pipeline_import_no_jax_flax_reference_or_
     the ingest stage through a chaos crash, and its restart from the
     snapshot: nothing of JAX, the reference or ``click`` loads."""
     _run_probe(_DURABLE_PROBE)
+
+
+_ELASTIC_PROBE = r"""
+import sys, tempfile, time
+before = set(sys.modules)
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import elastic
+from pathway_tpu_torch.elastic import config, controller, metrics
+from pathway_tpu_torch.engine.persistence import EnginePersistence
+from pathway_tpu_torch.internals.http_monitoring import MonitoringHttpServer
+from pathway_tpu_torch.ops.tiered_knn import TieredKnnIndex
+from pathway_tpu_torch.parallel.mesh import resolve_mesh, set_device_pool
+from pathway_tpu_torch.tenancy import TenantPackedIndex
+set_device_pool(["cpu"] * 4)
+vecs = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
+p = EnginePersistence(pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(tempfile.mkdtemp())))
+flat = pw.DeviceKnnIndex(8, reserved_space=16, device="cpu")
+flat.add_batch_arrays(list(range(64)), vecs)
+tier = TieredKnnIndex(8, reserved_space=32, mesh=resolve_mesh(2, device="cpu"), tiers="clusters=4,probe=2")
+tier.add_batch_arrays(list(range(64)), vecs)
+packed = TenantPackedIndex(8, reserved_space=32, mesh=resolve_mesh(2, device="cpu"))
+packed.add_tenant_batch("t", list(range(64)), vecs)
+handles = [elastic.register_handle(i) for i in (flat, tier, packed)]
+t = pw.debug.table_from_rows(pw.schema_from_types(a=int), [(1,)])
+def wait(**_):
+    deadline = time.monotonic() + 60
+    while any(h.index.n_shards != 4 for h in handles) and time.monotonic() < deadline:
+        time.sleep(0.01)
+pw.io.subscribe(t, wait)
+pw.run(mesh="auto", elastic="shards=4,interval=0.01")
+assert [h.index.n_shards for h in handles] == [4, 4, 4], [h.index.n_shards for h in handles]
+assert "pathway_elastic_generation 1" in "\n".join(MonitoringHttpServer._elastic_lines())
+assert p.cluster_generation() == 1 and p.reshard_intent() is None
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + CLIENTS + ("click",))
+print("BAD", bad)
+"""
+
+
+def test_port_elastic_plane_imports_no_jax_flax_reference_or_click():
+    """The elastic modules imported, then a run with ``mesh="auto"`` over a
+    pool of CPU devices whose controller reshards a flat, a tiered and a
+    tenant-packed index to its target, its generation made durable:
+    nothing of JAX, the reference or ``click`` loads."""
+    _run_probe(_ELASTIC_PROBE)
+
+
+def test_elastic_reshard_on_the_card_never_lands_on_the_cpu(monkeypatch):
+    """A reshard of an index on the card resolves its target on the cards
+    (or the device pool) and raises, before touching anything, when fewer
+    are visible: it never falls back to the CPU."""
+    from pathway_tpu_torch.elastic import controller
+    from pathway_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    card_index = type("CardIndex", (), {"device": torch.device("cuda", 0)})()
+    with pytest.raises(ValueError, match="needs 2 visible CUDA cards, found 1"):
+        controller._resolve_target_mesh(2, card_index)
+    prev = tmesh.set_device_pool(["cuda:0"] * 2)
+    try:
+        assert controller._resolve_target_mesh(2, card_index).data_devices() == [torch.device("cuda", 0)] * 2
+        with pytest.raises(ValueError, match="device pool holds 2"):
+            controller._resolve_target_mesh(4, card_index)
+    finally:
+        tmesh.set_device_pool(prev)
+    cpu_index = type("CpuIndex", (), {"device": torch.device("cpu")})()
+    assert controller._resolve_target_mesh(2, cpu_index).data_devices() == [torch.device("cpu")] * 2
 
 
 def test_cli_help_loads_no_jax_flax_reference_or_click():

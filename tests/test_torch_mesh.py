@@ -195,11 +195,40 @@ def test_mesh_index_filtered_search_refills():
 
 
 def test_mesh_index_reshard_raises_by_name():
-    idx = TIndex(dim=4, mesh=_cpu_mesh(2))
-    for call in (lambda: idx.spawn_like(_cpu_mesh(4)), lambda: idx.reshard_export_chunks(8),
-                 lambda: idx.reshard_import_chunk({"kind": "rows"}), idx.reshard_finish):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-            call()
+    """The elastic reshard protocol runs on a mesh index (it raised before
+    the elastic plane was ported): the exported chunks equal the
+    reference's (keys exact, rows at 1e-5), the import into ``spawn_like``'s
+    empty index on another mesh holds every row byte for byte, and the
+    target answers as the reference's does; a chunk of another kind is
+    refused by both."""
+    rng = np.random.default_rng(11)
+    keys = list(range(0, 300, 2))
+    vecs = rng.normal(size=(len(keys), 8)).astype(np.float32)
+    q = rng.normal(size=(5, 8)).astype(np.float32)
+    out = {}
+    for name, index_cls, mesh_of in (("torch", TIndex, _cpu_mesh), ("jax", JIndex, jmesh.resolve_mesh)):
+        src = index_cls(dim=8, mesh=mesh_of(2), reserved_space=64)
+        src.add_batch_arrays(keys, vecs, [{"i": k} for k in keys])
+        src.remove(4)
+        chunks = list(src.reshard_export_chunks(32))
+        dst = src.spawn_like(mesh_of(4))
+        for chunk in chunks:
+            dst.reshard_import_chunk(chunk)
+        dst.reshard_finish()
+        with pytest.raises(ValueError, match="cannot import chunk kind"):
+            dst.reshard_import_chunk({"kind": "tier_rows"})
+        assert dst.n_shards == 4 and len(dst) == len(src) == len(keys) - 1 and dst.name == src.name
+        out[name] = (src, chunks, dst, dst.search_batch(q, 6))
+    tsrc, tchunks, tdst, tgot = out["torch"]
+    _, jchunks, _, jgot = out["jax"]
+    assert [c["keys"] for c in tchunks] == [c["keys"] for c in jchunks]
+    assert [c["metas"] for c in tchunks] == [c["metas"] for c in jchunks]
+    for tc, jc in zip(tchunks, jchunks):
+        np.testing.assert_allclose(tc["vecs"], jc["vecs"], **TOL)
+    for key, slot in tsrc._slot_of.items():
+        assert tdst._host[tdst._slot_of[key]].tobytes() == tsrc._host[slot].tobytes()
+    assert tgot == tsrc.search_batch(q, 6)
+    _assert_same(tgot, jgot)
 
 
 # ------------------------------------------------------------- mesh specs
@@ -233,8 +262,20 @@ def test_resolve_mesh_places_specs_on_cards_or_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="needs 4 visible CUDA cards, found 1"):
         tmesh.resolve_mesh(4)
     assert tmesh.resolve_mesh(1).data_devices() == [torch.device("cuda", 0)]
-    with pytest.raises(NotImplementedError, match="elastic"):
-        tmesh.resolve_mesh("auto")
+    # "auto": the data axis over every visible card (the elastic plane grows
+    # and shrinks within it)
+    assert tmesh.resolve_mesh("auto").data_devices() == [torch.device("cuda", 0)]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tmesh.resolve_mesh("auto").shape == {"data": 4, "model": 1}
+    # a device pool stands in for the visible devices, and holds a spec to its size
+    prev = tmesh.set_device_pool(["cpu"] * 3)
+    try:
+        assert tmesh.resolve_mesh("auto").data_devices() == [torch.device("cpu")] * 3
+        assert tmesh.resolve_mesh(2).data_devices() == [torch.device("cpu")] * 2
+        with pytest.raises(ValueError, match="device pool holds 3"):
+            tmesh.resolve_mesh(4, device="cpu")
+    finally:
+        tmesh.set_device_pool(prev)
     monkeypatch.setenv("PATHWAY_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="multi-process"):
         host_mesh_from_env()

@@ -378,9 +378,43 @@ def test_stdlib_tenant_kwarg_routes_to_shared_slab():
     assert BruteForceKnn(None, dimensions=8, tenant="a")._index_spec()["tenant"] == "a"
 
 
+def _mesh_slab_script(P, mesh):
+    idx = P.packed.TenantPackedIndex(8, reserved_space=64, mesh=mesh)
+    rng = _rng(21)
+    for t, n in (("a", 5), ("b", 40), ("c", 3), ("d", 70)):  # grants past 64 rows: the sharded growth remaps
+        idx.add_tenant_batch(t, list(range(n)), rng.standard_normal((n, 8)))
+    idx.remove_tenant("b", 7)
+    idx._demote("c")
+    q = rng.standard_normal((3, 8))
+    answers = {t: idx.search_tenant_batch(t, q, 4) for t in ("a", "b", "c", "d")}
+    layout = [idx.n_shards, idx.shard_capacity, idx._live_docs_shard(), {t: sorted(map(tuple, s))
+              for t, s in idx._segments.items()}, list(idx._bump), idx.tenant_is_cold("c")]
+    return answers, layout
+
+
 def test_tenant_slab_on_a_mesh_names_item_5():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-        T.packed.TenantPackedIndex(8, mesh=object(), device="cpu")
+    """The tenant-packed slab on a mesh (it raised before the elastic plane
+    was ported): extents carved per shard, the sharded growth's remap, the
+    tenant mask as one validity and bias a shard, a cold tenant, and the
+    stdlib's ``tenant=`` sharing one slab a mesh; the same layout and
+    answers as the reference's slab on its 2-device mesh."""
+    from pathway_tpu.parallel.mesh import resolve_mesh as jresolve
+    from pathway_tpu_torch.parallel.mesh import resolve_mesh as tresolve
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnn
+
+    got, got_layout = _mesh_slab_script(T, tresolve(2, device="cpu"))
+    want, want_layout = _mesh_slab_script(J, jresolve(2))
+    assert got_layout == want_layout and got_layout[0] == 2
+    for t in want:
+        _assert_rows_close(got[t], want[t])
+    mesh = tresolve(2, device="cpu")
+    ia = BruteForceKnn(None, dimensions=8, reserved_space=64, tenant="a", device="cpu", mesh=mesh)._index_factory()()
+    ib = BruteForceKnn(None, dimensions=8, reserved_space=64, tenant="b", device="cpu", mesh=mesh)._index_factory()()
+    assert ia._view.packed is ib._view.packed and ia._view.packed.n_shards == 2
+    rng = _rng(10)
+    ia.add("x", rng.standard_normal(8))
+    ib.add("y", rng.standard_normal(8))
+    assert [k for k, _ in ia.search_batch(rng.standard_normal((1, 8)), 5)[0]] == ["x"]
 
 
 # ------------------------------------------------------- fair-share admission

@@ -391,14 +391,48 @@ def test_cold_rescore_through_the_ring_equals_a_plain_product(cold_dtype, monkey
     assert checked == [True] * 4 and stats["staged"] == 4 and stats["donated"] > 0 and stats["high_water"] <= 2
 
 
+def _mesh_tier_script(P, mesh_of, cold):
+    rng = np.random.default_rng(31)
+    vecs, qs = _clustered(rng, 300, dim=16, n_centers=12, n_queries=6)
+    tier = P.tk.TieredKnnIndex(dim=16, reserved_space=96, mesh=mesh_of(2),
+                               tiers=P.tk.TierConfig(n_clusters=8, n_probe=4, cold_dtype=cold, promote_every=4))
+    tier.add_batch_arrays(list(range(300)), vecs)
+    for key in range(0, 300, 7):
+        tier.remove(key)
+    answers = [tier.search_batch(qs, 5) for _ in range(5)]  # a rebalance runs after the fourth search
+    layout = [tier.n_shards, sorted(tier.hot._slot_of), tier._cold_docs_shard, tier._cold_total,
+              tier.hot._live_docs_shard()]
+    chunks = list(tier.reshard_export_chunks(64))
+    target = tier.spawn_like(mesh_of(4))
+    for chunk in chunks:
+        target.reshard_import_chunk(chunk)
+    target.reshard_finish()
+    with pytest.raises(ValueError, match="cannot import chunk kind"):
+        target.reshard_import_chunk({"kind": "rows"})
+    moved = [target.n_shards, sorted(target.hot._slot_of), target._cold_total, sum(target._cold_docs_shard),
+             [c["kind"] for c in chunks]]
+    return answers, layout, moved, target.search_batch(qs, 5), tier
+
+
 def test_tiered_index_on_a_mesh_and_reshard_name_item_5():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-        t_tk.TieredKnnIndex(dim=8, mesh=object(), device="cpu")
-    tier = _tiered(T, dim=8)
-    for call in (lambda: tier.spawn_like(None), lambda: tier.reshard_export_chunks(8),
-                 lambda: tier.reshard_import_chunk({}), tier.reshard_finish):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-            call()
+    """The tiered index on a mesh and its reshard protocol (both raised
+    before the elastic plane was ported): per-shard hot admission, cold
+    counts a shard and the rebalance on a 2-device mesh as the reference's;
+    the exported tier state, cold payloads and hot rows rebuild an index on
+    4 devices with the same hot set that answers as the source."""
+    from pathway_tpu.parallel.mesh import resolve_mesh as jresolve
+    from pathway_tpu_torch.parallel.mesh import resolve_mesh as tresolve
+
+    for cold in ("f32", "int8"):
+        got, got_layout, got_moved, got_after, tsrc = _mesh_tier_script(T, lambda n: tresolve(n, device="cpu"),
+                                                                         cold)
+        want, want_layout, want_moved, want_after, _ = _mesh_tier_script(J, jresolve, cold)
+        assert got_layout == want_layout and got_moved == want_moved and got_layout[0] == 2
+        assert got_moved[1] == got_layout[1] and got_moved[2] == got_layout[3] > 0
+        for g, w in zip(got + [got_after], want + [want_after]):
+            _assert_rows_close(g, w)
+        qs = _clustered(np.random.default_rng(31), 300, dim=16, n_centers=12, n_queries=6)[1]
+        assert got_after == tsrc.search_batch(qs, 5)
 
 
 # ------------------------------------------------------------- pw.run wiring

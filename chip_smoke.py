@@ -13,7 +13,7 @@ at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
 2-shard generation), times the index's tie-ordered top-k beside
-``torch.topk``, then drives fourteen paths, each with the launch counters
+``torch.topk``, then drives fifteen paths, each with the launch counters
 set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -93,9 +93,9 @@ set to 0 just before it and read just after:
   self-queries, the int8 recall floor under forced demotion, and an
   all-hot twin equal to ``DeviceKnnIndex.search_batch``;
 * ``recovery_path``: persistence, recovery and the overlapped epoch
-  pipeline at ``engine_path``'s width. A live index of 131,072 streamed
+  pipeline at ``engine_path``'s width. A live index of 65,536 streamed
   documents under ``persistence_config`` (snapshots every 2 s) in child
-  processes: run A uninterrupted, run B SIGKILLed past 65,536 delivered
+  processes: run A uninterrupted, run B SIGKILLed past 32,768 delivered
   documents, run C restarted on B's root (the index rebuilt on the card
   from the operator snapshot: B1 re-embeds, the device add re-adds),
   gated on every document delivered once across B and C, C's 256 answers
@@ -129,6 +129,21 @@ set to 0 just before it and read just after:
   (B1) on its HBM watermark (``/metrics`` scraped) and a reshard of 2^18
   rows SIGKILLed at ``elastic.migrate_chunk`` and completed on restart by
   ``recover_pending_reshard`` (answers equal to an unkilled twin's).
+* ``cluster_path``: the multi-process cluster. One user program spawned
+  through ``python -m pathway_tpu_torch spawn --processes P``: 32,768
+  documents through ``pw.io.python.read`` on process 0 (persisted, a commit
+  of 1,024), keyed by id through a groupby that exchanges them by key
+  shard, embedded by ``SentenceTransformerEmbedder`` (MiniLM-L6, B1) in
+  the process that owns each key, into a ``DeviceKnnIndex`` (cos) on
+  process 0 registered with ``pw.elastic`` and a jsonlines sink, then 512
+  queries at k 10 (B2). Run A in one process, run B in two (process 0
+  reshards the index 1 -> 2 at half the documents), run C in two with
+  worker 1 SIGKILLed at a third and respawned alone; gated on every
+  document delivered once, B's and C's answers against A's, B1 launching in
+  every process, B2 on process 0, the generation ``/status`` shows going
+  0 -> 1 at B's cutover, and one partial restart in C (generation 0 -> 1);
+  reports docs/s, each process's B1 launches and device ms,
+  ``cluster_detection_latency_ms`` and ``cluster_mttr_ms``.
 
 Each phase prints one JSON line. The last three lines are the card's name
 and power limit, the ``kernels`` line and ``{"ok": true, ...}``. Any failure
@@ -269,6 +284,14 @@ def host_ms(fn, reps: int = 200) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def nvidia_smi_line() -> str:
@@ -1519,9 +1542,7 @@ def phase_server_path(torch, n_files: int = SERVER_FILES, n_queries: int = SERVE
     embedder = pw.xpacks.llm.embedders.SentenceTransformerEmbedder(device=DEV)
     enc = embedder._encoder
     enc.encode_device(texts[:256], pad_to=256)  # warm-up: first launches, handles
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = _free_port()
 
     # every operation on the engine's index, in order, for the library replay
     ops: list[tuple] = []
@@ -2460,7 +2481,6 @@ def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
     cross-encoder's attention (``masked_attention``) once a layer a batch and
     nothing else launches during it; the ``rag_evals`` report over the
     questions is printed."""
-    import socket
     import shutil
     import tempfile
     import threading
@@ -2549,9 +2569,7 @@ def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
         def inputs_query(self, queries):
             return self.store.inputs_query(queries)
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
 
     def post(path, payload, timeout=300):
         req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
@@ -2680,7 +2698,8 @@ def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
 # observe_path: the corpus and the files written while serving, the traffic
 # and its clients, the overload burst at an admission queue bounded well
 # below it, the decode burst, and the freshness probe
-OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 1024, 256, 128, 64, 8  # 256 answers until the fourteenth path needed the time
+# 1,024 files, 256 new and 128 answers until the fifteenth path needed the time (256 answers until the fourteenth)
+OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 512, 128, 64, 64, 8
 OBS_BURST, OBS_QUEUE, OBS_DECODE, OBS_PROBE, OBS_WINDOW, OBS_WRITE_GROUP = 256, 32, 16, 32, 6, 8
 # the questions and retrievals read the corpus only: the files written while
 # they are asked cannot change their answers, so the twin's must be equal
@@ -2732,7 +2751,6 @@ def _obs_serve(torch, parts: dict, *, on: bool, questions, retrievals, new_texts
     empty directory, once the run is up (the ledger's ``compile``)."""
     import queue as queue_mod
     import shutil
-    import socket
     import tempfile
     import threading
     import urllib.error
@@ -2762,9 +2780,7 @@ def _obs_serve(torch, parts: dict, *, on: bool, questions, retrievals, new_texts
     shutil.rmtree(folder, ignore_errors=True)
     shutil.rmtree(folder + "_staging", ignore_errors=True)
     os.makedirs(folder)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
 
     def post(path, payload, timeout=600):
         req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
@@ -3466,12 +3482,7 @@ def phase_tenant_path(torch, n_tenants: int = TENANTS, per_tenant: int = TENANT_
         slab.add_tenant_batch(t, list(range(per_tenant)), tenant_docs(searched[i]))
     qbank = {t: queries_for(searched[i], served) for i, t in enumerate(served_tenants)}
 
-    def free_port():
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
-    port, mport = free_port(), free_port()
+    port, mport = _free_port(), _free_port()
     pw.clear_graph()
     q, writer = pw.io.http.rest_connector(
         host="127.0.0.1", port=port, schema=pw.schema_from_types(tenant=str, qi=int),
@@ -3588,7 +3599,7 @@ TIER_HOT = 1 << 17
 TIER_CLUSTERS = 256
 TIER_PROBE = 16
 TIER_GROUP = 10  # documents of one near-duplicate group (chunks of one source)
-TIER_SINGLES = 256  # 1,024 until the thirteenth path, 512 until the fourteenth needed the time
+TIER_SINGLES = 128  # 1,024 until the thirteenth path, 512 until the fourteenth, 256 until the fifteenth needed the time
 TIER_BATCHES = 8
 TIER_BATCH = 256
 TIER_SELF = 4096
@@ -3861,7 +3872,8 @@ def phase_profile(torch, n_docs: int = PROFILE_DOCS, n_queries: int = PROFILE_QU
 # and the epoch its chaos rule raises at; the pipeline runs' documents and
 # queries and the depth / ingest-worker settings in run order; the decode
 # requests and the steps decode.step raises at
-RECOVERY_DOCS, RECOVERY_EPOCH, RECOVERY_KILL_AT, RECOVERY_QUERIES = 131_072, 1024, 65_536, 256
+# 131,072 documents, killed at 65,536, until the fifteenth path needed the time
+RECOVERY_DOCS, RECOVERY_EPOCH, RECOVERY_KILL_AT, RECOVERY_QUERIES = 65_536, 1024, 32_768, 256
 RECOVERY_SNAPSHOT_MS = 2000
 RECOVERY_RESTART_DOCS, RECOVERY_RESTART_QUERIES, RECOVERY_CHAOS_EPOCH = 32_768, 32, 12
 RECOVERY_PIPE_DOCS, RECOVERY_PIPE_QUERIES = 32_768, 32
@@ -4369,7 +4381,6 @@ def _recovery_restart(torch, folder: str, n_docs: int, per_epoch: int, n_queries
     contract's one at-least-once window), ``/metrics`` reads one supervisor
     restart, and after the restart the card holds one index, not two."""
     import gc
-    import socket
     import urllib.request
 
     import pathway_tpu_torch as pw
@@ -4385,9 +4396,7 @@ def _recovery_restart(torch, folder: str, n_docs: int, per_epoch: int, n_queries
 
     def once(root: str, chaotic: bool) -> dict:
         probe: dict = {}
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        port = _free_port()
 
         def on_ingested(state):
             torch.cuda.synchronize()
@@ -5118,7 +5127,6 @@ def _elastic_child(spec_json: str) -> int:
 
 def _elastic_controller_run(pw, torch, spec) -> dict:
     """The controller child's run (see :func:`_elastic_child`)."""
-    import socket
     import threading
     import urllib.request
 
@@ -5141,9 +5149,7 @@ def _elastic_controller_run(pw, torch, spec) -> dict:
     weights = LEDGER.total_bytes()
     os.environ["PATHWAY_HBM_BYTES"] = str(weights + slab)
     frac = (weights + 0.5 * slab) / (weights + slab)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
     cv = threading.Condition()
     state = {"rows": 0, "pending": [], "scrape": None, "grown_at": None}
 
@@ -5329,6 +5335,334 @@ def phase_elastic_path(torch, n_rows: int = ELASTIC_ROWS, chunk: int = ELASTIC_C
     return dict(launches), entries
 
 
+# cluster_path: the documents (65,536 halved for the script's time), a
+# commit's documents, the single queries and their k, the lease
+CLUSTER_DOCS, CLUSTER_EPOCH, CLUSTER_QUERIES, CLUSTER_K = 32_768, 1024, 512, 10
+CLUSTER_LEASE_MS = 2000
+CLUSTER_CHILD_TIMEOUT = 300.0
+
+
+def _status_generation(port: int) -> int:
+    """The cluster generation ``/status`` shows (0 before any)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/status", timeout=30) as resp:
+        return int(json.loads(resp.read().decode()).get("cluster", {}).get("generation", 0))
+
+
+def _cluster_program() -> int:
+    """One process of ``cluster_path``'s user program, which ``python -m
+    pathway_tpu_torch spawn --processes P`` runs in every process of the
+    cluster. The documents (``pw.io.python.read``, persisted, one commit of
+    ``per_epoch`` an epoch, the next once the last was delivered) are read
+    on process 0 and keyed by id through a groupby, which exchanges them by
+    key shard; a ``.select`` embeds them with ``SentenceTransformerEmbedder``
+    (MiniLM-L6 at full width, seeded: B1) in the process that owns each
+    key. On process 0 the embeddings reach a ``DeviceKnnIndex`` (cos)
+    registered with the elastic plane and a jsonlines sink; at
+    ``reshard_at`` delivered documents process 0 reshards the index 1 -> 2
+    and reads the cluster's generation from ``/status`` before and after.
+    When the run ends process 0 answers the single queries (B1, then B2).
+    Every process writes its pid when it starts and a report when it ends
+    (its launch counts and the encoder's device seconds)."""
+    global DEV, RECOVERY_TINY
+    t_entry = time.time()
+    with open(os.environ["CLUSTER_SPEC"]) as f:
+        spec = json.load(f)
+    DEV, RECOVERY_TINY = spec["dev"], spec.get("tiny")
+    import threading
+
+    import numpy as np
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import flight_recorder
+    from pathway_tpu_torch.internals.chip_ledger import CHIP_LEDGER
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.parallel.mesh import set_device_pool
+    from pathway_tpu_torch.resilience.cluster import CLUSTER_METRICS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pid = int(os.environ.get("PATHWAY_PROCESS_ID", "0"))
+    out = spec["out"]
+    with open(f"{out}.pid.{pid}", "w") as f:
+        f.write(str(os.getpid()))
+    on_card = DEV != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n_docs, per_epoch = spec["n_docs"], spec["per_epoch"]
+    texts, queries = _recovery_corpus(n_docs, spec["n_queries"])
+    embedder = _recovery_embedder()
+    embedder._encoder.encode_device(texts[:8], pad_to=8)  # warm-up: handles, first launches
+    sync()
+    cards = torch.cuda.device_count() if on_card else 0
+    set_device_pool([f"cuda:{i % cards}" for i in range(2)] if on_card else ["cpu"] * 2)
+    h = pw.elastic.register_handle(
+        pw.DeviceKnnIndex(embedder.get_embedding_dimension(), reserved_space=n_docs, device=DEV))
+    cv = threading.Condition()
+    state = {"rows": 0, "pending": [], "epochs": [], "status_generation": [], "reshard": None}
+
+    class Documents(pw.io.python.ConnectorSubject):
+        supports_offsets = True
+
+        def run(self):
+            ctx = self._ctx  # a regrouped run hands the subject a new context
+            for b in range(int(ctx.offsets.get("__seq__", 0)), n_docs, per_epoch):
+                e = min(n_docs, b + per_epoch)
+                ctx.insert_batch({"doc_id": list(range(b, e)), "text": texts[b:e]})
+                ctx.commit()
+                with cv:
+                    while state["rows"] < e:
+                        if ctx.wait_stopped(0):
+                            return
+                        cv.wait(0.05)
+
+    class DocSchema(pw.Schema, append_only=True):
+        doc_id: int
+        text: str
+
+    docs = pw.io.python.read(Documents(), schema=DocSchema, autocommit_duration_ms=None, persistent_id="docs")
+    keyed = docs.groupby(pw.this.doc_id).reduce(pw.this.doc_id, text=pw.reducers.any(pw.this.text))
+    vecs = keyed.select(doc_id=pw.this.doc_id, vec=embedder(pw.this.text))
+
+    def on_row(key, row, time, is_addition):  # (``time``: the epoch)
+        state["pending"].append((row["doc_id"], row["vec"]))
+
+    def on_epoch_end(epoch):
+        batch, state["pending"] = state["pending"], []
+        if batch:
+            dev = torch.from_numpy(np.stack([np.asarray(v, np.float32) for _, v in batch])).to(h.index.device)
+            h.add_batch_device([k for k, _ in batch], dev)
+        delivered = state["rows"] + len(batch)
+        state["epochs"].append((time.time(), delivered))
+        if spec["reshard_at"] and delivered >= spec["reshard_at"] and state["reshard"] is None:
+            state["status_generation"].append(_status_generation(spec["status_port"]))
+            t0 = time.perf_counter()
+            state["reshard"] = dict(pw.elastic.reshard(2), seconds=time.perf_counter() - t0, at_docs=delivered)
+            state["status_generation"].append(_status_generation(spec["status_port"]))
+        with open(f"{out}.progress", "w") as f:
+            f.write(str(delivered))
+        with cv:
+            state["rows"] = delivered
+            cv.notify_all()
+
+    pw.io.subscribe(vecs, on_row, on_time_end=on_epoch_end)
+    pw.io.jsonlines.write(vecs.select(pw.this.doc_id), f"{out}.sink")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(spec["root"]))
+    _build.reset_launches()
+    t_ready = time.time()
+    t0 = time.perf_counter()
+    pw.run(persistence_config=cfg, cluster_lease_ms=spec["lease_ms"], chip_ledger=True, monitoring_level="none",
+           with_http_server=pid == 0, monitoring_http_port=spec["status_port"] if pid == 0 else None)
+    sync()
+    run_s = time.perf_counter() - t0
+    t_run_end = time.time()
+    encode = CHIP_LEDGER.snapshot().get("accounts", {}).get("encode", {})
+    report = dict(pid=pid, os_pid=os.getpid(), run_s=run_s, encode_device_s=encode.get("seconds", 0.0),
+                  generation=int(os.environ.get("PATHWAY_CLUSTER_GENERATION", "0") or 0),
+                  run_launches=dict(_build.LAUNCHES))
+    if pid == 0:
+        q = embedder._encoder.encode_device(queries)
+        hits = h.search_batch(q, spec["k"])
+        sync()
+        dumps = [flight_recorder.load_dump(p) for p in flight_recorder.list_dumps(spec["dumps"])]
+        restarts = [e["time"] for d in dumps if d.get("reason") == "cluster.partial_restart" for e in d["events"]
+                    if e["kind"] == "cluster.partial_restart"]
+        report.update(answers=[[[int(i), float(s)] for i, s in row] for row in hits], rows=len(h),
+                      shards=h.index.n_shards, epochs=state["epochs"], reshard=state["reshard"],
+                      status_generation=state["status_generation"], partial_restart_at=sorted(set(restarts)),
+                      cluster=CLUSTER_METRICS.snapshot())
+    report["launches"] = dict(_build.LAUNCHES)
+    # where a process's wall goes: started (interpreter, imports), set up
+    # (encoder, corpus, warm-up), ran, then the queries and the report
+    report["wall"] = dict(entry=t_entry, ready=t_ready, run_end=t_run_end, done=time.time())
+    with open(f"{out}.report.{pid}.json", "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _cluster_dumps_digest(folder: str, last: int = 30) -> str:
+    """The flight-recorder dumps a failed cluster run left: each one's
+    reason, process and last events, for the failure's message."""
+    from pathway_tpu_torch.internals import flight_recorder
+
+    lines = []
+    for path in flight_recorder.list_dumps(folder):
+        d = flight_recorder.load_dump(path)
+        lines.append(f"dump {os.path.basename(path)}: reason={d.get('reason')} process={d.get('process_id')} "
+                     f"error={str(d.get('error'))[:300]}")
+        for e in d["events"][-last:]:
+            fields = {k: v for k, v in e.items() if k not in ("seq", "kind", "time")}
+            lines.append(f"  {e['time']:.3f} {e['kind']} {json.dumps(fields, default=str)[:160]}")
+    return "\n".join(lines)
+
+
+def _cluster_run(folder: str, corpus: str, tag: str, processes: int, n_docs: int, per_epoch: int, n_queries: int,
+                 reshard_at: int = 0, kill_at: int = 0) -> dict:
+    """One spawn of the cluster program (see :func:`_cluster_program`)
+    through the port's CLI, in a session of its own so that every process it
+    starts (the spawned ones and a respawned worker) goes when it ends.
+    ``kill_at``: SIGKILL worker 1 once that many documents are delivered."""
+    import signal
+
+    out = os.path.join(folder, tag)
+    spec = dict(dev=DEV, tiny=RECOVERY_TINY, n_docs=n_docs, per_epoch=per_epoch, n_queries=n_queries,
+                k=CLUSTER_K, root=os.path.join(folder, f"root_{tag}"), out=out, lease_ms=CLUSTER_LEASE_MS,
+                reshard_at=reshard_at, status_port=_free_port(), dumps=os.path.join(folder, f"blackbox_{tag}"))
+    with open(out + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(folder, "prog.py"), "w") as f:
+        f.write("import sys, chip_smoke\nsys.exit(chip_smoke._cluster_program())\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RECOVERY_CORPUS=corpus, CLUSTER_SPEC=out + ".spec.json",
+               PATHWAY_CLUSTER_RESPAWN="1" if kill_at else "0", PATHWAY_FLIGHT_RECORDER_DIR=spec["dumps"])
+    cmd = [sys.executable, "-m", "pathway_tpu_torch", "spawn", "--processes", str(processes), "--first-port",
+           str(_free_port()), os.path.join(folder, "prog.py")]
+    t0 = time.perf_counter()
+    t_spawn = time.time()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    killed = None
+    try:
+        if kill_at:
+            deadline = time.monotonic() + CLUSTER_CHILD_TIMEOUT
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"run {tag} ended (exit {proc.returncode}) before its worker was killed:\n"
+                                         f"{proc.communicate()[1][-4000:]}")
+                try:
+                    with open(out + ".progress") as f:
+                        delivered = int(f.read() or 0)
+                except (OSError, ValueError):
+                    delivered = 0
+                if delivered >= kill_at:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"run {tag} delivered {delivered} documents in {CLUSTER_CHILD_TIMEOUT} s")
+                time.sleep(0.02)
+            with open(out + ".pid.1") as f:
+                victim = int(f.read())
+            killed = dict(at_docs=delivered, wall=time.time(), os_pid=victim)
+            os.kill(victim, signal.SIGKILL)
+        try:
+            _out, err = proc.communicate(timeout=CLUSTER_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"run {tag} did not finish in {CLUSTER_CHILD_TIMEOUT} s") from None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)  # the session: spawn, its processes, a respawned worker
+        except ProcessLookupError:
+            pass
+        if proc.poll() is None:
+            proc.communicate()
+    wall_s = time.perf_counter() - t0
+    t_exit = time.time()
+    # a killed worker makes spawn exit 128 + 9, as the reference's does
+    if proc.returncode != (128 + signal.SIGKILL if killed else 0):
+        raise AssertionError(f"run {tag}: spawn exited {proc.returncode}:\n{err[-3000:]}\n"
+                             f"{_cluster_dumps_digest(spec['dumps'])}")
+    reports = {}
+    for p in range(processes):
+        with open(f"{out}.report.{p}.json") as f:
+            reports[p] = json.load(f)
+    with open(out + ".sink") as f:
+        sink = [json.loads(line) for line in f]
+    w = reports[0]["wall"]
+    split = dict(start_s=w["entry"] - t_spawn, setup_s=w["ready"] - w["entry"], run_s=w["run_end"] - w["ready"],
+                 queries_s=w["done"] - w["run_end"], exit_s=t_exit - w["done"])
+    return dict(reports=reports, sink=sink, killed=killed, wall_s=wall_s, spec=spec, split=split)
+
+
+def phase_cluster_path(torch, n_docs: int = CLUSTER_DOCS, per_epoch: int = CLUSTER_EPOCH,
+                       n_queries: int = CLUSTER_QUERIES) -> dict:
+    """The multi-process cluster on the card: one user program (see
+    :func:`_cluster_program`) spawned through ``python -m pathway_tpu_torch
+    spawn``: run A in one process (the twin), run B in two processes whose
+    process 0 reshards its index 1 -> 2 at half the documents, run C in two
+    processes whose worker 1 is SIGKILLed at a third of them and respawned
+    alone (``PATHWAY_CLUSTER_RESPAWN=1``). Gated on every document delivered
+    once in every run, B's and C's answers against A's (``topk_agreement``
+    at ``HIT_TOL``), B1 launching in both processes of B and C and B2 on
+    process 0, the generation ``/status`` shows going 0 -> 1 at B's cutover,
+    and exactly one partial restart in C that took the generation 0 -> 1.
+    Returns the launches the runs' processes counted."""
+    import pickle
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix="cluster_", dir=build_dir)
+    try:
+        corpus = os.path.join(folder, "corpus.pkl")
+        with open(corpus, "wb") as f:
+            pickle.dump(_recovery_corpus(n_docs, n_queries), f, protocol=4)
+        runs = {}
+        for tag, processes, kw in (("A", 1, {}), ("B", 2, {"reshard_at": n_docs // 2}),
+                                   ("C", 2, {"kill_at": n_docs // 3})):
+            runs[tag] = _cluster_run(folder, corpus, tag, processes, n_docs, per_epoch, n_queries, **kw)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+    # ---- gates
+    for tag, run in runs.items():
+        ids = collections.Counter(rec["doc_id"] for rec in run["sink"])
+        if sorted(ids) != list(range(n_docs)) or max(ids.values()) != 1 or any(r["diff"] != 1 for r in run["sink"]):
+            raise AssertionError(f"run {tag} delivered {len(ids)} of {n_docs} documents, "
+                                 f"{sum(v > 1 for v in ids.values())} of them more than once")
+        p0 = run["reports"][0]
+        if p0["rows"] != n_docs or len(p0["answers"]) != n_queries:
+            raise AssertionError(f"run {tag}: the index holds {p0['rows']} rows, {len(p0['answers'])} answers")
+    a, b, c = (runs[t]["reports"][0] for t in "ABC")
+    agreement = {}
+    for tag, rep in (("B", b), ("C", c)):
+        share, ok = _hits_agree(rep["answers"], a["answers"], CLUSTER_K)
+        agreement[tag] = share
+        if not ok:
+            raise AssertionError(f"run {tag}'s answers disagree with the one-process twin's ({share})")
+    if b["status_generation"] != [0, 1] or b["shards"] != 2 or b["cluster"]["partial_restarts_total"]:
+        raise AssertionError(f"B's reshard: /status generation {b['status_generation']}, {b['shards']} shards, "
+                             f"{b['cluster']['partial_restarts_total']} partial restarts")
+    if c["cluster"]["partial_restarts_total"] != 1 or c["cluster"]["generation"] != 1 or \
+            runs["C"]["reports"][1]["generation"] != 1 or len(c["partial_restart_at"]) != 1:
+        raise AssertionError(f"C: {c['cluster']}, the respawned worker at generation "
+                             f"{runs['C']['reports'][1]['generation']}")
+    b1 = ("gemm_bias_act", "gemm_bias_residual_layernorm")
+    per_process = {f"{t}{p}": {k: rep["run_launches"].get(k, 0) for k in b1 + ("masked_attention",
+                                                                               "segment_attention")}
+                   for t in "ABC" for p, rep in runs[t]["reports"].items()}
+    if DEV != "cpu":
+        dead = [w for w, ks in per_process.items() if not all(ks[k] for k in b1)]
+        b2 = {t: sum(runs[t]["reports"][0]["launches"].get(k, 0) for k in ("knn_topk_stream", "knn_topk_tc"))
+              for t in "ABC"}
+        if dead or not all(b2.values()):
+            raise AssertionError(f"B1 did not launch in {dead}, or B2 on process 0: {b2}")
+
+    # ---- report: rates, the kill's detection and repair (the reference's names)
+    killed = runs["C"]["killed"]
+    restart_at = c["partial_restart_at"][0]
+    before = [t for t, _n in c["epochs"] if t < restart_at]
+    after = [t for t, _n in c["epochs"] if t > restart_at]
+    launches = collections.Counter()
+    for run in runs.values():
+        for rep in run["reports"].values():
+            launches.update(rep["launches"])
+    emit("cluster_path", seconds=time.perf_counter() - t_phase, docs=n_docs, per_epoch=per_epoch,
+         queries=n_queries, docs_per_s={t: n_docs / runs[t]["reports"][0]["run_s"] for t in "ABC"},
+         run_s={t: runs[t]["reports"][0]["run_s"] for t in "ABC"}, spawn_wall_s={t: runs[t]["wall_s"] for t in "ABC"},
+         wall_split={t: runs[t]["split"] for t in "ABC"},
+         b1_launches=per_process,
+         encode_device_ms={f"{t}{p}": rep["encode_device_s"] * 1e3 for t in "ABC"
+                           for p, rep in runs[t]["reports"].items()},
+         answers_agreement=agreement, reshard=b["reshard"], status_generation=b["status_generation"],
+         killed_at_docs=killed["at_docs"], partial_restarts=c["cluster"]["partial_restarts_total"],
+         generation_after_restart=c["cluster"]["generation"],
+         kill_to_detection_ms=(restart_at - killed["wall"]) * 1e3,
+         cluster_detection_latency_ms=(restart_at - before[-1]) * 1e3 if before else None,
+         cluster_mttr_ms=(after[0] - restart_at) * 1e3 if after else None, launches=dict(launches))
+    return dict(launches)
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -5376,7 +5710,8 @@ def main(argv: list[str]) -> int:
     elastic_launches, elastic_entries = phase_elastic_path(torch)
     launches.update(elastic_launches)
     entries += elastic_entries
-    for e in entries:  # launches summed over the fourteen paths' counted runs
+    launches.update(phase_cluster_path(torch))
+    for e in entries:  # launches summed over the fifteen paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -52,13 +52,17 @@ numpy only.
 
 import datetime as _datetime
 
-from . import debug, elastic, freshness, io, persistence, reducers, resilience, serving, stdlib, tenancy, tracing, xpacks
+from . import (debug, decode, elastic, engine, freshness, io, persistence, reducers, resilience, serving, stdlib, tenancy,
+               tracing, xpacks)
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
 from .elastic import ElasticConfig
 from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_make_pointer, wrap_py_object
 from .internals import dtype as dt
 from .internals import udfs
+from .internals import udfs as asynchronous
+from .internals.config import pathway_config, set_license_key, set_monitoring_config
+from .internals.custom_reducers import BaseCustomAccumulator
 from .internals.dtype import ANY, BOOL, BYTES, DATE_TIME_NAIVE, DATE_TIME_UTC, DURATION, FLOAT, INT, STR
 from .internals.expression import (
     ColumnExpression,
@@ -77,33 +81,45 @@ from .internals.expression import (
     unwrap,
 )
 from .internals.licensing import License, LicenseError
+from .internals.monitoring import MonitoringLevel
 from .internals.parse_graph import G as parse_graph
 from .internals.parse_graph import clear_graph
 from .internals.run import RunResult, run, run_all
 from .internals.schema import (
     ColumnDefinition,
     Schema,
+    SchemaProperties,
     column_definition,
     schema_builder,
+    schema_from_csv,
     schema_from_dict,
+    schema_from_pandas,
     schema_from_types,
 )
 from .internals.table import GroupedTable, JoinMode, JoinResult, Table
+from .internals.table_slice import TableSlice
 from .internals.telemetry import Telemetry
 from .internals.thisclass import left, right, this
-from .internals.udfs import UDF, udf
+from .internals.udfs import UDF, UDFAsync, UDFSync, udf, udf_async
 from .models.encoder import EncoderConfig
 from .models.reranker import DeviceReranker, as_reranker
 from .models.sentence_encoder import CrossEncoderScorer, SentenceEncoder
 from .ops.fused_rag import FusedRagPipeline
 from .ops.knn import DeviceKnnIndex
 from .resilience import Recovery, RecoveryEscalated, RetryPolicy
+from .serving import ServingConfig
 from .stdlib import indexing, ml
 from .tenancy import TenancyConfig, TenantQuotas
 
 DateTimeNaive = _datetime.datetime
 DateTimeUtc = _datetime.datetime
 Duration = _datetime.timedelta
+
+# the reference's type aliases (upstream ``pathway/__init__.py``)
+Type = dt.DType
+TableLike = Joinable = Table
+GroupedJoinResult = GroupedTable
+AsofJoinResult = IntervalJoinResult = OuterJoinResult = WindowJoinResult = JoinResult
 
 
 class PersistenceMode:
@@ -115,8 +131,95 @@ class PersistenceMode:
     OPERATOR_PERSISTING = "operator_persisting"
     SPEEDRUN_REPLAY = "speedrun_replay"
 
+
+def assert_table_has_schema(table, schema, *, allow_superset: bool = True, ignore_primary_keys: bool = True) -> None:
+    """Check at run time that ``table`` has the columns of ``schema`` with
+    their dtypes (``ANY`` on either side passes: inference may widen)."""
+    want = schema.dtypes()
+    have = {n: c.dtype for n, c in table._columns.items()}
+    missing = [n for n in want if n not in have]
+    if missing:
+        raise AssertionError(f"table lacks columns {missing}; has {list(have)}")
+    if not allow_superset and set(have) != set(want):
+        raise AssertionError(f"table has extra columns {sorted(set(have) - set(want))}")
+    for n, wt in want.items():
+        ht = have[n]
+        if wt is ANY or ht is ANY:
+            continue
+        if dt.unoptionalize(ht) is not dt.unoptionalize(wt) and ht != wt:
+            raise AssertionError(f"column {n!r} has dtype {ht}, schema wants {wt}")
+
+
+def table_transformer(func=None, **kw):
+    """Decorator of upstream Pathway; its run-time type check is advisory,
+    so the function is returned as it is."""
+    if func is None:
+        return lambda f: f
+    return func
+
+
+def enable_interactive_mode() -> None:
+    """Accepted as the reference accepts it: nothing to switch on."""
+
+
+def join(left, other, *on, **kw):
+    return left.join(other, *on, **kw)
+
+
+def join_inner(left, other, *on, **kw):
+    return left.join(other, *on, **kw)
+
+
+def join_left(left, other, *on, **kw):
+    return left.join_left(other, *on, **kw)
+
+
+def join_right(left, other, *on, **kw):
+    return left.join_right(other, *on, **kw)
+
+
+def join_outer(left, other, *on, **kw):
+    return left.join_outer(other, *on, **kw)
+
+
+def groupby(table, *args, **kw):
+    return table.groupby(*args, **kw)
+
 __all__ = [
     "ANY",
+    "AsofJoinResult",
+    "BaseCustomAccumulator",
+    "GroupedJoinResult",
+    "IntervalJoinResult",
+    "Joinable",
+    "MonitoringLevel",
+    "OuterJoinResult",
+    "SchemaProperties",
+    "ServingConfig",
+    "TableLike",
+    "TableSlice",
+    "Type",
+    "UDFAsync",
+    "UDFSync",
+    "WindowJoinResult",
+    "assert_table_has_schema",
+    "asynchronous",
+    "decode",
+    "enable_interactive_mode",
+    "engine",
+    "groupby",
+    "join",
+    "join_inner",
+    "join_left",
+    "join_outer",
+    "join_right",
+    "pathway_config",
+    "schema_from_csv",
+    "schema_from_pandas",
+    "set_license_key",
+    "set_monitoring_config",
+    "table_transformer",
+    "udf_async",
     "BOOL",
     "BYTES",
     "ColumnDefinition",

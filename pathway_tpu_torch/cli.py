@@ -3,10 +3,13 @@
 The port's copy of the reference's ``cli.py``, written on ``argparse`` (no
 ``click`` anywhere in the port): the same commands, options and output.
 
-- ``spawn`` runs a program with the worker-topology variables
-  (``PATHWAY_THREADS``, ...) in one process; ``--processes`` above 1 and
-  ``spawn-from-env`` need the multi-process cluster (ROADMAP Queue A item
-  5), ``analyze`` the verifier (item 10): they raise.
+- ``spawn`` runs a program as ``--processes`` OS processes with the
+  worker-topology variables (``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``,
+  ``PATHWAY_PROCESS_ID``, ``PATHWAY_FIRST_PORT``) and a random per-cluster
+  ``PATHWAY_CLUSTER_TOKEN``; process 0 coordinates the multi-process
+  cluster (``parallel/multiprocess.py``). ``spawn-from-env`` re-runs it
+  with the arguments in ``PATHWAY_SPAWN_ARGS``. ``analyze`` needs the
+  verifier (ROADMAP Queue A item 10): it raises.
 - ``profile`` runs a program with the per-operator profiler on and writes
   its Chrome trace; ``doctor`` runs it with the health watchdog on and
   renders the verdict (exit 0 green, 1 yellow, 2 red, 3 no verdict).
@@ -25,13 +28,15 @@ import shlex
 import subprocess
 import sys
 
-from .parallel.sharding import CLUSTER_ITEM
-
 _VERIFIER_ITEM = "ROADMAP Queue A item 10 (the deep verifier)"
 
 
 class CommandError(Exception):
     """A command failed: ``Error: <message>`` on stderr, exit 1."""
+
+
+class UsageError(CommandError):
+    """A command was called wrongly: ``Error: <message>`` on stderr, exit 2."""
 
 
 def _echo(text: str = "", err: bool = False) -> None:
@@ -58,15 +63,14 @@ def _with_package_path(env: dict) -> dict:
 
 
 def _spawn(args) -> int:
-    if args.processes > 1:
-        raise NotImplementedError(f"spawn --processes {args.processes} needs {CLUSTER_ITEM}")
     argv = _program_argv(args.program)
     import secrets
 
-    env = os.environ.copy()
+    env = _with_package_path(os.environ.copy())
     env["PATHWAY_THREADS"] = str(args.threads)
     env["PATHWAY_PROCESSES"] = str(args.processes)
     env["PATHWAY_FIRST_PORT"] = str(args.first_port)
+    # the per-cluster secret that authenticates the worker protocol
     env.setdefault("PATHWAY_CLUSTER_TOKEN", secrets.token_hex(16))
     env["PATHWAY_SPAWN_ARGS"] = shlex.join(
         [f"--threads={args.threads}", f"--processes={args.processes}", f"--first-port={args.first_port}"]
@@ -78,20 +82,38 @@ def _spawn(args) -> int:
     if args.record or args.replay_mode:
         env["PATHWAY_REPLAY_STORAGE"] = args.record_path or "./record"
         env["PATHWAY_REPLAY_MODE"] = args.replay_mode or "record"
-    env["PATHWAY_PROCESS_ID"] = "0"
-    proc = subprocess.Popen(argv, env=env)
+    procs: list[subprocess.Popen] = []
     try:
-        code = proc.wait()
+        for pid in range(args.processes):
+            procs.append(subprocess.Popen(argv, env={**env, "PATHWAY_PROCESS_ID": str(pid)}))
+    except OSError:
+        for p in procs:
+            p.terminate()
+        raise
+    rc = 0
+    try:
+        for p in procs:
+            code = p.wait()
+            # killed by a signal: the conventional 128 + N status
+            code = 128 - code if code < 0 else code
+            if code and not rc:
+                rc = code
     except KeyboardInterrupt:
-        proc.terminate()
-        proc.wait()
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait()
         return 130
-    # killed by a signal: the conventional 128 + N status
-    return 128 - code if code < 0 else code
+    return rc
 
 
 def _spawn_from_env(args) -> int:
-    raise NotImplementedError(f"spawn-from-env needs {CLUSTER_ITEM}")
+    """``spawn`` with the arguments of ``PATHWAY_SPAWN_ARGS`` (what a
+    spawned program finds in its environment; container deployments set it)."""
+    raw = os.environ.get("PATHWAY_SPAWN_ARGS", "")
+    if not raw:
+        raise UsageError("PATHWAY_SPAWN_ARGS is not set")
+    return main(["spawn", *shlex.split(raw)])
 
 
 def _analyze(args) -> int:
@@ -507,4 +529,4 @@ def main(argv: list[str] | None = None) -> int:
         return int(args.func(args) or 0)
     except CommandError as exc:
         _echo(f"Error: {exc}", err=True)
-        return 1
+        return 2 if isinstance(exc, UsageError) else 1

@@ -2604,7 +2604,7 @@ class EngineGraph:
 
     def cluster_generation(self) -> int:
         """The cluster fault-domain generation this engine runs under (0
-        outside a multi-process cluster, which comes with ROADMAP item 5).
+        outside a multi-process cluster, and before any partial restart).
         Monitoring stamps it on /status and epoch telemetry."""
         return int(getattr(self.cluster, "generation", 0) or 0)
 

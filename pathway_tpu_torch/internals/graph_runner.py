@@ -175,6 +175,10 @@ class GraphRunner:
         self.engine.pipeline_depth = max(1, int(pipeline_depth))
         self.lowered: dict[int, Lowered] = {}
         self.debug = debug
+        # a worker process of a multi-process cluster (PATHWAY_PROCESS_ID >
+        # 0) builds the same graph but fires no sink callback: delivery
+        # happens on the coordinator (global shard 0) only
+        self.suppress_callbacks = False
         # multi-worker (PATHWAY_THREADS>1): replica runners lower the
         # SAME graph in the same order, so node ids line up across
         # shards and emit-time routing can address peers by id
@@ -207,6 +211,8 @@ class GraphRunner:
     ) -> df.OutputNode:
         for r in self._replicas:
             r.subscribe(table)  # callbacks fire on shard 0 only
+        if self.suppress_callbacks:
+            on_change = on_time_end = on_end = None
         low = self.lower(table)
         names = low.names
 
@@ -255,6 +261,41 @@ class GraphRunner:
             self._cluster.run(monitoring_callback)
         else:
             self.engine.run(monitoring_callback)
+
+    def run_coordinator(self, processes: int, first_port: int, monitoring_callback=None,
+                        accept_timeout: float | None = None, hello_timeout: float | None = None,
+                        lease_ms: float | None = None, fence: dict[int, int] | None = None) -> None:
+        """Process 0 of a ``PATHWAY_PROCESSES`` cluster: local shards
+        [0, T), the sources, sinks and persistence, and the worker protocol.
+        ``accept_timeout`` / ``hello_timeout`` bound cluster formation (None:
+        the ``CoordinatorCluster`` defaults); ``lease_ms`` sets worker-loss
+        detection and ``fence`` maps respawned worker pids to the least
+        generation their hello must carry."""
+        from ..parallel.multiprocess import CoordinatorCluster
+
+        kwargs = {}
+        if accept_timeout is not None:
+            kwargs["accept_timeout"] = accept_timeout
+        if hello_timeout is not None:
+            kwargs["hello_timeout"] = hello_timeout
+        if lease_ms is not None:
+            kwargs["lease_ms"] = lease_ms
+        if fence:
+            kwargs["fence"] = fence
+        self._cluster = CoordinatorCluster(self._cluster_engines(), processes=processes, first_port=first_port,
+                                           **kwargs)
+        self._cluster.run(monitoring_callback)
+
+    def run_worker(self, processes: int, first_port: int, process_id: int, lease_ms: float | None = None) -> None:
+        """Process p > 0: serve the bulk-synchronous rounds for global shards
+        [p*T, (p+1)*T). ``lease_ms`` is the lease when the coordinator's
+        welcome carries none."""
+        from ..parallel import multiprocess as mp
+        from ..parallel.sharded import ShardCluster
+
+        threads = 1 + len(self._replicas)
+        self._cluster = ShardCluster(self._cluster_engines(), base=process_id * threads, world=processes * threads)
+        mp.run_worker(self._cluster, first_port, process_id, lease_ms=lease_ms)
 
     # ---------- lowering ----------
 

@@ -2,7 +2,23 @@
 
 The port's copy of the reference's ``internals/run.py``: build the sinks
 and subscriptions of the global parse graph ``G`` and run the engine to
-completion, on ``PATHWAY_THREADS`` engine workers in this process.
+completion, on ``PATHWAY_THREADS`` engine workers in each of
+``PATHWAY_PROCESSES`` processes. The topology and the cluster's settings
+come from ``internals/config.py`` (:func:`get_pathway_config`).
+
+With ``PATHWAY_PROCESSES`` above 1 (``python -m pathway_tpu_torch spawn
+--processes P``), every process runs the same program: process 0
+(``PATHWAY_PROCESS_ID``) is the coordinator, which owns the sources, the
+sinks and persistence, and the others are workers whose sink callbacks are
+suppressed (``parallel/multiprocess.py``). ``cluster_accept_timeout=`` /
+``cluster_hello_timeout=`` bound cluster formation, ``cluster_lease_ms=``
+(default 30 s, 0 off) detects a dead, hung or partitioned worker, and with
+persistence a lost worker becomes a partial restart: the coordinator bumps
+the durable cluster generation, the survivors regroup at the last snapshot
+barrier and, under ``PATHWAY_CLUSTER_RESPAWN`` (default on), only the dead
+worker is respawned, up to ``cluster_partial_restarts=`` times (default
+3). Each keyword has its ``PATHWAY_CLUSTER_*`` variable. Respawned workers
+are reaped when the run ends.
 
 The run options of planes this package does not hold yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, whether
@@ -40,8 +56,9 @@ The flight recorder is always on; a failing run dumps it
   http(s) collector; ``internals/telemetry.py``) gets the run span, the
   operators' spans and, with tracing on, the request traces;
   ``PATHWAY_MONITORING_SERVER`` is accepted as the reference accepts it;
-- ``license_key=`` / ``PATHWAY_LICENSE_KEY``: the license tier, whose free
-  tier caps the engine workers (``internals/licensing.py``).
+- ``license_key=`` (else ``pw.set_license_key``, else
+  ``PATHWAY_LICENSE_KEY``): the license tier, whose free tier caps the
+  engine workers of the whole cluster (``internals/licensing.py``).
 
 ``index_tiers=`` (or ``PATHWAY_INDEX_TIERS``) and ``tenancy=`` (or
 ``PATHWAY_TENANCY``) are parsed into ``G.run_context["index_tiers"]`` and
@@ -106,31 +123,25 @@ from ..decode.config import parse_decode_spec, use_decode
 from ..elastic.config import ElasticConfig, parse_elastic_spec, use_elastic
 from ..ops.tiered_knn import parse_tier_spec, use_tiers
 from ..parallel.mesh import parse_mesh_spec, resolve_mesh, use_mesh
-from ..parallel.sharding import CLUSTER_ITEM
 from ..tenancy.config import parse_tenancy_spec, use_tenancy
 from . import flight_recorder
+from .config import get_pathway_config, pathway_config
 from .graph_runner import GraphRunner
 from .licensing import License, check_worker_count
 from .parse_graph import G
 
 logger = logging.getLogger(__name__)
 
-# ROADMAP Queue A items of the planes a run option belongs to
-_MULTI = CLUSTER_ITEM
+# the ROADMAP Queue A item of the plane a run option belongs to
 _VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
 
 # keyword -> (value that leaves the plane off, ROADMAP item)
 _UNPORTED_KWARGS = {
-    "cluster_accept_timeout": (None, _MULTI),
-    "cluster_hello_timeout": (None, _MULTI),
-    "cluster_lease_ms": (None, _MULTI),
-    "cluster_partial_restarts": (None, _MULTI),
     "analysis": (None, _VERIFIER),
 }
 
 # environment variable -> (values that leave the plane off, ROADMAP item)
 _UNPORTED_ENV = {
-    "PATHWAY_PROCESSES": (("1",), _MULTI),
     "PATHWAY_ANALYSIS": (("off",), _VERIFIER),
 }
 
@@ -171,23 +182,6 @@ def unported_options(kwargs: dict[str, Any], environ=None) -> list[str]:
     return out
 
 
-def _threads() -> int:
-    value = os.environ.get("PATHWAY_THREADS") or "1"
-    try:
-        return max(1, int(value))
-    except ValueError as exc:
-        raise ValueError(f"PATHWAY_THREADS={value!r} is not a worker count") from exc
-
-
-def _env_int(name: str, default: int) -> int:
-    """An integer variable; unset or malformed reads ``default``, as the
-    reference's run configuration reads it."""
-    try:
-        return int(os.environ.get(name) or default)
-    except ValueError:
-        return default
-
-
 def run(
     *,
     debug: bool = False,
@@ -211,11 +205,16 @@ def run(
     tenancy: Any = None,
     profile: Any = None,
     license_key: str | None = None,
+    cluster_accept_timeout: float | None = None,
+    cluster_hello_timeout: float | None = None,
+    cluster_lease_ms: float | None = None,
+    cluster_partial_restarts: int | None = None,
     **kwargs: Any,
 ) -> RunResult:
     """Execute all registered outputs/subscriptions to completion (static
     sources) or until all streaming connectors close, on
-    ``PATHWAY_THREADS`` engine workers (threads of this process).
+    ``PATHWAY_THREADS`` engine workers (threads) in each of
+    ``PATHWAY_PROCESSES`` processes.
 
     ``terminate_on_error``: True aborts the run at the first failing
     row; False gives failing rows the ERROR value and an entry in the
@@ -251,7 +250,13 @@ def run(
     run take; ``tenancy``: a ``TenancyConfig`` or a spec (``{"quotas":
     {...}}``, ``"qps=50,inflight=4"``, ...) for the serving plane and the
     packed slabs; ``profile`` and ``license_key``: the profiler and the
-    license (module docstring)."""
+    license (module docstring).
+
+    ``cluster_accept_timeout``, ``cluster_hello_timeout``,
+    ``cluster_lease_ms`` and ``cluster_partial_restarts``: the
+    multi-process cluster's formation limits, lease and partial-restart
+    budget (module docstring); None reads the ``PATHWAY_CLUSTER_*``
+    variable."""
     unknown = sorted(set(kwargs) - set(_UNPORTED_KWARGS))
     if unknown:
         raise TypeError(f"pw.run() got unexpected keyword arguments {unknown}")
@@ -279,15 +284,20 @@ def run(
     tier_cfg = _parse_or_none(parse_tier_spec, index_tiers, "PATHWAY_INDEX_TIERS")
     tenancy_cfg = _parse_or_none(parse_tenancy_spec, tenancy, "PATHWAY_TENANCY")
     resolved = _resolve_planes(**planes, profile=profile)
-    depth = max(1, int(pipeline_depth) if pipeline_depth is not None else _env_int("PATHWAY_PIPELINE_DEPTH", 1))
-    n_ingest = max(0, int(ingest_workers) if ingest_workers is not None else _env_int("PATHWAY_INGEST_WORKERS", 0))
-    if persistence_config is None and os.environ.get("PATHWAY_REPLAY_STORAGE"):
-        persistence_config = _replay_config()
+    pwcfg = get_pathway_config()
+    depth = max(1, int(pipeline_depth) if pipeline_depth is not None else pwcfg.pipeline_depth)
+    n_ingest = max(0, int(ingest_workers) if ingest_workers is not None else pwcfg.ingest_workers)
+    if persistence_config is None and pwcfg.replay_storage:
+        persistence_config = _replay_config(pwcfg)
+    lease_ms = float(cluster_lease_ms) if cluster_lease_ms is not None else pwcfg.cluster_lease_ms
     G.run_context = {
         "recovery": bool(recovery),
         "persistence": persistence_config is not None,
         "pipeline_depth": depth,
         "ingest_workers": n_ingest,
+        "processes": max(1, pwcfg.processes),
+        "threads": max(1, pwcfg.threads),
+        "cluster_lease_ms": max(0.0, lease_ms),
         "mesh_axes": mesh_axes,
         "index_tiers": tier_cfg.as_dict() if tier_cfg is not None else None,
         "decode": decode_cfg.as_dict() if decode_cfg is not None else None,
@@ -295,8 +305,9 @@ def run(
         "elastic": elastic_cfg.as_dict() if elastic_cfg is not None else None,
         **resolved["context"],
     }
-    lic = License.new(license_key or os.environ.get("PATHWAY_LICENSE_KEY"))
-    check_worker_count(lic, _threads())  # the free tier's worker cap
+    # an explicit key, then pw.set_license_key, then PATHWAY_LICENSE_KEY
+    lic = License.new(license_key or pathway_config.license_key or pwcfg.license_key)
+    check_worker_count(lic, pwcfg.n_workers)  # the free tier's worker cap
     run_mesh = resolve_mesh(mesh)
     if ingest_workers is not None:
         # PATHWAY_INGEST_WORKERS alone is honoured lazily by get_stage()
@@ -306,7 +317,18 @@ def run(
             _ingest_stage.configure_stage(n_ingest)
         else:
             _ingest_stage.shutdown_stage()
-    durable = {"persistence_config": persistence_config, "recovery": recovery, "pipeline_depth": depth}
+    durable = {"persistence_config": persistence_config, "recovery": recovery, "pipeline_depth": depth,
+               "cluster": _ClusterSpec(
+                   threads=max(1, pwcfg.threads), processes=max(1, pwcfg.processes), process_id=pwcfg.process_id,
+                   first_port=pwcfg.first_port,
+                   accept_timeout=(cluster_accept_timeout if cluster_accept_timeout is not None
+                                   else pwcfg.cluster_accept_timeout),
+                   hello_timeout=(cluster_hello_timeout if cluster_hello_timeout is not None
+                                  else pwcfg.cluster_hello_timeout),
+                   lease_ms=lease_ms,
+                   partial_budget=(max(0, int(cluster_partial_restarts)) if cluster_partial_restarts is not None
+                                   else pwcfg.cluster_partial_restarts),
+                   respawn=pwcfg.cluster_respawn)}
     with contextlib.ExitStack() as scope:
         if run_mesh is not None:
             scope.enter_context(use_mesh(run_mesh))
@@ -327,7 +349,7 @@ def run(
         return _run_observed(terminate_on_error, planes, resolved, durable)
 
 
-def _replay_config():
+def _replay_config(pwcfg):
     """The CLI's record / replay wiring (``spawn --record`` /
     ``--replay-mode`` set ``PATHWAY_REPLAY_STORAGE`` and
     ``PATHWAY_REPLAY_MODE``): a filesystem root that records or replays
@@ -335,11 +357,26 @@ def _replay_config():
     from .. import persistence as _persistence
 
     cfg = _persistence.Config.simple_config(
-        _persistence.Backend.filesystem(os.environ["PATHWAY_REPLAY_STORAGE"]),
-        persistence_mode=os.environ.get("PATHWAY_REPLAY_MODE") or "batch",
+        _persistence.Backend.filesystem(pwcfg.replay_storage),
+        persistence_mode=pwcfg.replay_mode or "batch",
     )
     cfg.auto_persistent_ids = True
     return cfg
+
+
+@dataclass(frozen=True)
+class _ClusterSpec:
+    """The run's worker topology and the cluster's fault-domain settings."""
+
+    threads: int = 1
+    processes: int = 1
+    process_id: int = 0
+    first_port: int = 10000
+    accept_timeout: float | None = None
+    hello_timeout: float | None = None
+    lease_ms: float = 30000.0
+    partial_budget: int = 3
+    respawn: bool = True
 
 
 def _parse_or_none(parse, spec, env: str):
@@ -442,8 +479,7 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict, durabl
     with_http = bool(planes["with_http_server"])
     need_monitor = with_http or level is not MonitoringLevel.NONE
     mon_ctx = (
-        monitor_stats(level, process_id=int(os.environ.get("PATHWAY_PROCESS_ID", "0") or 0),
-                      screen=sys.stderr.isatty())
+        monitor_stats(level, process_id=durable["cluster"].process_id, screen=sys.stderr.isatty())
         if need_monitor
         else contextlib.nullcontext(None)
     )
@@ -460,7 +496,8 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict, durabl
             if profiler is not None:
                 set_current_profiler(profiler)  # the wrap_jit and UDF hooks
             try:
-                with telemetry.span("graph_runner.run", workers=_threads()) as run_span:
+                cl = durable["cluster"]
+                with telemetry.span("graph_runner.run", workers=cl.threads * cl.processes) as run_span:
                     _run_graph(terminate_on_error, monitor.update if monitor is not None else None, profiler,
                                **durable)
             except RecoveryEscalated:
@@ -522,16 +559,19 @@ def _run_observed(terminate_on_error: bool, planes: dict, resolved: dict, durabl
 
 
 def _run_graph(terminate_on_error: bool, monitoring_callback=None, profiler=None, *, persistence_config=None,
-               recovery=None, pipeline_depth: int = 1) -> None:
-    from ..resilience import Recovery, Supervisor
+               recovery=None, pipeline_depth: int = 1, cluster: _ClusterSpec = _ClusterSpec()) -> None:
+    from ..resilience import ClusterRegroup, Recovery, Supervisor
 
     def build_runner(is_restart: bool) -> GraphRunner:
         """A fresh runner, sinks and subscriptions for each attempt: a
         crashed attempt's engine state is not recoverable in place, the
         persistence layer replays into a clean graph instead."""
-        runner = GraphRunner(n_workers=_threads(), pipeline_depth=pipeline_depth)
+        runner = GraphRunner(n_workers=cluster.threads, pipeline_depth=pipeline_depth)
         # sinks read it: fs.write appends instead of truncating on a restart
         runner.recovery_restart = is_restart
+        if cluster.processes > 1 and cluster.process_id > 0:
+            # a worker process: the same graph, no sink callbacks
+            runner.suppress_callbacks = True
         runner.engine.terminate_on_error = terminate_on_error
         for r in runner._replicas:
             r.engine.terminate_on_error = terminate_on_error
@@ -553,29 +593,109 @@ def _run_graph(terminate_on_error: bool, monitoring_callback=None, profiler=None
             )
         return runner
 
+    # the cluster's fault domain: a partial restart replaces only the dead
+    # worker process. The regroup loops run inside one supervisor attempt,
+    # so a partial restart never charges the full-restart budget.
+    children: list = []
+    fence_gens: dict[int, int] = {}
+
+    def respawn_worker(wpid: int, generation: int) -> None:
+        """The same interpreter and argv (every process runs the same
+        program), with the dead worker's slot and the bumped generation in
+        the environment: the generation tells the coordinator the
+        replacement from a zombie."""
+        import subprocess
+
+        env = dict(os.environ)
+        env["PATHWAY_PROCESS_ID"] = str(wpid)
+        env["PATHWAY_CLUSTER_GENERATION"] = str(generation)
+        children.append(subprocess.Popen([sys.executable] + sys.argv, env=env))
+
+    def run_coordinator(runner: GraphRunner) -> None:
+        budget = cluster.partial_budget
+        while True:
+            try:
+                runner.run_coordinator(cluster.processes, cluster.first_port, monitoring_callback=monitoring_callback,
+                                       accept_timeout=cluster.accept_timeout, hello_timeout=cluster.hello_timeout,
+                                       lease_ms=cluster.lease_ms, fence=fence_gens)
+                return
+            except ClusterRegroup as regroup:
+                path = flight_recorder.dump("cluster.partial_restart", regroup)
+                if path:
+                    logger.warning("cluster partial restart (generation %d, dead=%s): flight recorder dump written "
+                                   "to %s", regroup.generation, regroup.dead_pids, path)
+                if budget <= 0:
+                    from ..engine.dataflow import EngineError
+
+                    raise EngineError(
+                        f"cluster partial-restart budget exhausted ({cluster.partial_budget}): {regroup}"
+                    ) from regroup
+                budget -= 1
+                if cluster.respawn:
+                    for wpid in regroup.dead_pids:
+                        fence_gens[wpid] = regroup.generation
+                        respawn_worker(wpid, regroup.generation)
+                # the survivors' volatile state is stale: a fresh runner
+                # re-forms the cluster and persistence rehydrates it from the
+                # barrier
+                runner.release()
+                runner = build_runner(True)
+
+    def run_worker(runner: GraphRunner) -> None:
+        # a survivor regroups once per partial restart of the coordinator
+        # (plus its own lease expiries under a partition); the coordinator
+        # keeps the real budget
+        budget = cluster.partial_budget + 2
+        while True:
+            try:
+                runner.run_worker(cluster.processes, cluster.first_port, cluster.process_id,
+                                  lease_ms=cluster.lease_ms)
+                return
+            except ClusterRegroup:
+                if budget <= 0:
+                    raise
+                budget -= 1
+                runner.release()
+                runner = build_runner(True)
+
     def attempt(is_restart: bool) -> None:
         if is_restart:
             release_crashed_attempt()
         runner = build_runner(is_restart)
         try:
-            runner.run(monitoring_callback=monitoring_callback)
+            if cluster.processes <= 1:
+                runner.run(monitoring_callback=monitoring_callback)
+            elif cluster.process_id == 0:
+                run_coordinator(runner)
+            else:
+                run_worker(runner)
         except BaseException:
             runner.release()
             raise
 
-    rec = Recovery.coerce(recovery)
-    if rec is None:
-        attempt(False)
-        return
-    if persistence_config is None:
-        import warnings
+    try:
+        rec = Recovery.coerce(recovery)
+        if rec is None:
+            attempt(False)
+            return
+        if persistence_config is None:
+            import warnings
 
-        warnings.warn(
-            "pw.run(recovery=...) without persistence_config: restarts re-read every source from scratch and may "
-            "re-deliver output already flushed before the crash; configure persistence for exactly-once resumption",
-            stacklevel=3,
-        )
-    Supervisor(rec).run(attempt)
+            warnings.warn(
+                "pw.run(recovery=...) without persistence_config: restarts re-read every source from scratch and "
+                "may re-deliver output already flushed before the crash; configure persistence for exactly-once "
+                "resumption",
+                stacklevel=3,
+            )
+        Supervisor(rec).run(attempt)
+    finally:
+        # respawned workers saw END and exit on a clean run; after a failure
+        # they must not outlive the coordinator
+        for child in children:
+            try:
+                child.wait(timeout=15.0)
+            except Exception:
+                child.kill()
 
 
 def release_crashed_attempt() -> None:

@@ -55,6 +55,20 @@ _SIGS = {
     "pn_log_next": ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), _u64p, _u64p, ctypes.POINTER(_u8p), _u64p],
                     ctypes.c_int32),
     "pn_log_close_read": ([ctypes.c_void_p], None),
+    "pn_store_new": ([], ctypes.c_void_p),
+    "pn_store_free": ([ctypes.c_void_p], None),
+    "pn_store_len": ([ctypes.c_void_p], ctypes.c_uint64),
+    "pn_store_upsert": ([ctypes.c_void_p, ctypes.c_uint64, _u8p, ctypes.c_uint64], ctypes.c_int32),
+    "pn_store_remove": ([ctypes.c_void_p, ctypes.c_uint64], ctypes.c_int32),
+    "pn_store_get": ([ctypes.c_void_p, ctypes.c_uint64, ctypes.POINTER(_u8p), _u64p], ctypes.c_int32),
+    "pn_store_contains": ([ctypes.c_void_p, ctypes.c_uint64], ctypes.c_int32),
+    "pn_store_clear": ([ctypes.c_void_p], None),
+    "pn_store_scratch": ([ctypes.c_void_p, ctypes.POINTER(_u8p), _u64p], None),
+    "pn_store_iter_new": ([ctypes.c_void_p], ctypes.c_void_p),
+    "pn_store_iter_next": ([ctypes.c_void_p, _u64p, ctypes.POINTER(_u8p), _u64p], ctypes.c_int32),
+    "pn_store_iter_free": ([ctypes.c_void_p], None),
+    "pn_store_snapshot": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint8, ctypes.c_uint64], ctypes.c_int64),
+    "pn_store_load": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint8], ctypes.c_int64),
     "pn_version": ([], ctypes.c_char_p),
 }
 
@@ -231,6 +245,96 @@ class NativeTokenizer:
             self._h, _as_u8p(blob), offsets.ctypes.data_as(_u64p), row_begin, row_end, max_len,
             out_ids.ctypes.data_as(_i32p), out_lens.ctypes.data_as(_i32p),
         )
+
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+_MISSING = object()
+
+
+class NativeStore:
+    """A dict-like ``uint64 -> object`` store on the C++ blob store
+    (``pn_store_*``); values are pickled. It snapshots to a
+    :class:`SnapshotLogWriter` without a Python loop over its rows
+    (``pn_store_snapshot``)."""
+
+    __slots__ = ("_h", "_lib")
+
+    def __init__(self):
+        lib = library()
+        if lib is None:
+            raise RuntimeError("NativeStore: PATHWAY_DISABLE_NATIVE is set")
+        self._lib = lib
+        self._h = lib.pn_store_new()
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pn_store_free(self._h)
+            self._h = None
+
+    def __len__(self) -> int:
+        return self._lib.pn_store_len(self._h)
+
+    def __contains__(self, key: int) -> bool:
+        return bool(self._lib.pn_store_contains(self._h, ctypes.c_uint64(int(key) & _MASK64)))
+
+    def __setitem__(self, key: int, value: Any) -> None:
+        blob = pickle.dumps(value, protocol=pickle.HIGHEST_PROTOCOL)
+        self._lib.pn_store_upsert(self._h, ctypes.c_uint64(int(key) & _MASK64), _as_u8p(blob), len(blob))
+
+    def __getitem__(self, key: int) -> Any:
+        v = self.get(key, _MISSING)
+        if v is _MISSING:
+            raise KeyError(key)
+        return v
+
+    def get(self, key: int, default: Any = None) -> Any:
+        ptr = _u8p()
+        length = ctypes.c_uint64()
+        if not self._lib.pn_store_get(self._h, ctypes.c_uint64(int(key) & _MASK64), ctypes.byref(ptr),
+                                      ctypes.byref(length)):
+            return default
+        return pickle.loads(ctypes.string_at(ptr, length.value))
+
+    def pop(self, key: int, default: Any = None) -> Any:
+        if not self._lib.pn_store_remove(self._h, ctypes.c_uint64(int(key) & _MASK64)):
+            return default
+        ptr = _u8p()
+        length = ctypes.c_uint64()
+        self._lib.pn_store_scratch(self._h, ctypes.byref(ptr), ctypes.byref(length))
+        return pickle.loads(ctypes.string_at(ptr, length.value))
+
+    def clear(self) -> None:
+        self._lib.pn_store_clear(self._h)
+
+    def items(self) -> Iterator[tuple[int, Any]]:
+        it = self._lib.pn_store_iter_new(self._h)
+        try:
+            key = ctypes.c_uint64()
+            ptr = _u8p()
+            length = ctypes.c_uint64()
+            while self._lib.pn_store_iter_next(it, ctypes.byref(key), ctypes.byref(ptr), ctypes.byref(length)):
+                yield key.value, pickle.loads(ctypes.string_at(ptr, length.value))
+        finally:
+            self._lib.pn_store_iter_free(it)
+
+    def keys(self) -> Iterator[int]:
+        for k, _ in self.items():
+            yield k
+
+    def __iter__(self) -> Iterator[int]:
+        return self.keys()
+
+    def snapshot_to(self, log: "SnapshotLogWriter", kind: int, time: int) -> int:
+        """Append every entry to ``log`` as ``(kind, time, key, blob)``
+        records; returns how many."""
+        n = self._lib.pn_store_snapshot(self._h, log._h, kind, ctypes.c_uint64(time))
+        if n < 0:
+            raise OSError("native snapshot write failed")
+        return n
+
+    def load_from(self, log: "SnapshotLogReader", kind: int) -> int:
+        """Load the ``kind`` records of ``log``; returns how many."""
+        return self._lib.pn_store_load(self._h, log._h, kind)
 
 
 class SnapshotLogWriter:

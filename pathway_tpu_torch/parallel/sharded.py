@@ -20,9 +20,17 @@ delivery stays single-streamed and time-ordered. Shards that run device
 work (an embedder UDF, the KNN index) share one card and one model from
 their threads. Persistence (input logs on shard 0's sources, one
 operator snapshot over every shard's state) and the overlapped epoch
-pipeline run here as in the reference's cluster; multi-process clusters
-are ROADMAP item 5. Each epoch records ``epoch.begin`` and
-``epoch.advance`` in the flight recorder, as the reference's cluster does.
+pipeline run here as in the reference's cluster. Each epoch records
+``epoch.begin`` and ``epoch.advance`` in the flight recorder, as the
+reference's cluster does.
+
+A :class:`ShardCluster` owns a contiguous slice of the global shard space:
+all of it in a single-process run, this process's shards in a
+multi-process one (``parallel/multiprocess.py``). Its mailboxes span the
+whole world: mail for a local shard is delivered in-process, mail for a
+remote shard waits for the transport (:meth:`ShardCluster.drain_remote_mail`).
+The hooks at the end of the class are what the multi-process coordinator
+overrides; in-process they do nothing.
 """
 
 from __future__ import annotations
@@ -70,17 +78,27 @@ def recover_sources(persistence, sources, cfg, auto_prefix: str = "auto", delive
 
 
 class ShardCluster:
-    """Owns every shard of a single-process run."""
+    """Owns a contiguous slice of the global shard space: all of it in a
+    single-process run (``base=0``, ``world=n``), or this process's T shards
+    of a P x T world (``base=pid*T``, ``world=P*T``; upstream Pathway's
+    ``CommunicationConfig::Cluster``, config.rs:62-86)."""
 
-    def __init__(self, engines: list[df.EngineGraph]):
+    # the overlapped epoch pipeline runs in-process only: the multi-process
+    # coordinator's epoch frontier is a cluster-wide broadcast
+    pipelined = True
+
+    def __init__(self, engines: list[df.EngineGraph], base: int = 0, world: int | None = None):
         assert len(engines) >= 1
         self.engines = engines
-        self.n = self.world = len(engines)
+        self.n = len(engines)
+        self.base = base
+        self.world = world if world is not None else len(engines)
+        assert self.base + self.n <= self.world
         for i, e in enumerate(engines):
-            e.worker_id = i
+            e.worker_id = base + i
             e.n_workers = self.world
             e.cluster = self
-        # mail[shard] = list of (node_id, port, update)
+        # mail[global shard] = list of (node_id, port, update)
         self._mail: list[list] = [[] for _ in range(self.world)]
         self._mail_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(max_workers=self.n) if self.n > 1 else None
@@ -90,6 +108,9 @@ class ShardCluster:
         self._opsnap_ok = False
         self._opsnap_time = -1
         self._last_opsnap_wall = 0.0
+
+    def _is_local(self, shard: int) -> bool:
+        return self.base <= shard < self.base + self.n
 
     # -- routing (called from Node.emit during topo sweeps) --
 
@@ -119,19 +140,39 @@ class ShardCluster:
         return local
 
     def _deliver_mail(self) -> bool:
-        """Move mailbox contents into the target shards' queues; True if any."""
+        """Move local shards' mailbox contents into their queues; True if
+        any. Boxes of remote shards stay for the transport."""
         boxes = {}
         with self._mail_lock:
-            for shard in range(self.world):
+            for shard in range(self.base, self.base + self.n):
                 if self._mail[shard]:
                     boxes[shard] = self._mail[shard]
                     self._mail[shard] = []
+        return self.post_mail(boxes)
+
+    def drain_remote_mail(self) -> dict[int, list]:
+        """Pop the mail addressed to shards outside this process:
+        ``{global shard: [(node_id, port, update), ...]}``."""
+        out = {}
+        with self._mail_lock:
+            for shard in range(self.world):
+                if not self._is_local(shard) and self._mail[shard]:
+                    out[shard] = self._mail[shard]
+                    self._mail[shard] = []
+        return out
+
+    def post_mail(self, boxes: dict[int, list]) -> bool:
+        """Deliver mail (local or received by the transport) into the local
+        shards' queues; True if any."""
+        delivered = False
         for shard, box in boxes.items():
-            engine = self.engines[shard]
+            assert self._is_local(shard), (shard, self.base, self.n)
+            engine = self.engines[shard - self.base]
             for nid, port, u in box:
                 engine.nodes[nid].queues[port].append(u)
                 engine._dirty.add(nid)
-        return bool(boxes)
+                delivered = True
+        return delivered
 
     # -- epoch machinery --
 
@@ -163,14 +204,52 @@ class ShardCluster:
                         e._dirty.add(nid)
         return changed
 
-    def _sweep(self, time) -> None:
-        """One bulk-synchronous epoch sweep: every dirty shard runs its
-        topological pass (in parallel), mail is exchanged; repeat until
-        all shards are quiescent, then fire the time-end hooks."""
+    def watermark_map(self) -> dict[int, object]:
+        """Per-node maximum watermark over this process's shards (the
+        cross-process frontier exchange)."""
+        out: dict[int, object] = {}
+        for nid in range(len(self.engines[0].nodes)):
+            if not hasattr(self.engines[0].nodes[nid], "watermark"):
+                continue
+            wms = [e.nodes[nid].watermark for e in self.engines if e.nodes[nid].watermark is not None]
+            if wms:
+                out[nid] = max(wms)
+        return out
 
+    def apply_watermarks(self, wm: dict[int, object]) -> bool:
+        """Raise local watermarks to the global maxima, marking the nodes
+        dirty so they release in the same epoch; True when any moved."""
+        changed = False
+        for nid, global_wm in wm.items():
+            for e in self.engines:
+                n = e.nodes[nid]
+                if n.watermark is None or n.watermark < global_wm:
+                    n.watermark = global_wm
+                    e._dirty.add(nid)
+                    changed = True
+        return changed
+
+    def _sweep(self, time) -> None:
+        """One bulk-synchronous epoch sweep (in one process the world is
+        local, so the local fixpoint is the global one), then the time-end
+        hooks and the delivered marker."""
         for e in self.engines:
             if e.profiler is not None:
                 e.profiler.begin_epoch(e.worker_id)
+        self._sweep_local(time)
+        self._time_end_all(time)
+        if self._persistence is not None:
+            # sinks flushed above, offset cursors advance after: a crash in
+            # between must finalize the epoch on recovery
+            self._persistence.mark_delivered(int(time))
+        for e in self.engines:
+            if e.profiler is not None:
+                e.profiler.end_epoch(e.worker_id, e, time)
+
+    def _sweep_local(self, time) -> None:
+        """The local fixpoint: every dirty local shard runs its topological
+        pass (in parallel threads), local mail is exchanged; repeat until
+        this process's shards are quiescent (remote mail may remain)."""
 
         def run_one(e):
             prof = e.profiler
@@ -200,6 +279,8 @@ class ShardCluster:
                     run_one(e)
             self._deliver_mail()
             self._sync_watermarks(mark_dirty=True)
+
+    def _time_end_all(self, time) -> None:
         for e in self.engines:
             prof = e.profiler
             for node in e.nodes:
@@ -211,13 +292,6 @@ class ShardCluster:
                         prof.record_process(e.worker_id, node, t0, prof.now_ns() - t0)
                     else:
                         te(time)
-        if self._persistence is not None:
-            # sinks flushed above, offset cursors advance after: a crash in
-            # between must finalize the epoch on recovery
-            self._persistence.mark_delivered(int(time))
-        for e in self.engines:
-            if e.profiler is not None:
-                e.profiler.end_epoch(e.worker_id, e, time)
 
     # -- persistence: input logs on shard 0's sources, one operator
     #    snapshot over the state of every shard --
@@ -231,6 +305,11 @@ class ShardCluster:
         cfg = primary.persistence_config
         mode = str(getattr(cfg, "persistence_mode", "batch") or "batch").lower()
         if "speedrun" in mode:
+            if not self._speedrun_supported():
+                raise NotImplementedError(
+                    "speedrun replay runs in one process (any PATHWAY_THREADS); a multi-process replay would "
+                    "need every worker's log"
+                )
             # speedrun across all shards: readers never start, the recorded
             # stream replays through the normal epoch loop sharded like a
             # live run, and sinks re-deliver every epoch. The log is
@@ -249,6 +328,10 @@ class ShardCluster:
         p = EnginePersistence(cfg)
         self._persistence = p
         frontier = recover_sources(p, primary.session_sources, cfg, delivered_frontier=p.delivered_frontier())
+        # worker processes may have logged epochs past process 0's own
+        # frontier: snapshot recovery must see the global maximum, or it
+        # rejects the snapshots taken at trailing worker-only epochs
+        frontier = max(frontier, self._remote_replay_frontier())
         for e in self.engines:
             e.replay_frontier = frontier
         all_persistent = all(s.persistent_id is not None for s in primary.session_sources if not s.is_error_log)
@@ -269,8 +352,7 @@ class ShardCluster:
                 t0, blob = rec
                 data = pickle.loads(blob)
                 if data.get("sig") == self._cluster_signature():
-                    for (shard, nid), st in data["states"].items():
-                        self.engines[shard].nodes[nid].restore_state(st)
+                    self._restore_states(data["states"], t0)
                     for s in primary.session_sources:
                         s.replay_batches = [(tt, ups) for tt, ups in s.replay_batches if tt > t0]
                     for st_src in primary.static_sources:
@@ -285,6 +367,10 @@ class ShardCluster:
 
     def _cluster_signature(self):
         return [(shard, n.id, n.snapshot_signature()) for shard, e in enumerate(self.engines) for n in e.nodes]
+
+    def _restore_states(self, states: dict, time: int = -1) -> None:
+        for (shard, nid), st in states.items():
+            self.engines[shard].nodes[nid].restore_state(st)
 
     def _maybe_snapshot_operators(self, t: int) -> None:
         """Interval snapshots (``snapshot_interval_ms``), as the single
@@ -314,13 +400,7 @@ class ShardCluster:
                     states[(shard, n.id)] = st
         blob = df.dumps_host({"sig": self._cluster_signature(), "time": int(t), "states": states})
         self._persistence.save_operator_snapshot(int(t), blob)
-        cfg = self.engines[0].persistence_config
-        if getattr(cfg, "compact_inputs_on_snapshot", False):
-            self._persistence.compact_inputs(
-                [s.persistent_id for s in self.engines[0].session_sources
-                 if s.persistent_id is not None and not s.is_error_log],
-                int(t),
-            )
+        self._compact_inputs(int(t))
         self._last_opsnap_wall = _wall.monotonic()
         if self.world > 1:
             # a multi-worker snapshot is the barrier all shards agree on
@@ -329,12 +409,23 @@ class ShardCluster:
             flight_recorder.record("cluster.barrier", t=int(t), generation=0, world=self.world)
             CLUSTER_METRICS.record_barrier()
 
+    def _compact_inputs(self, t: int) -> None:
+        cfg = self.engines[0].persistence_config
+        if getattr(cfg, "compact_inputs_on_snapshot", False):
+            self._persistence.compact_inputs(
+                [s.persistent_id for s in self.engines[0].session_sources
+                 if s.persistent_id is not None and not s.is_error_log],
+                t,
+            )
+
     # -- the epoch loops --
 
     def _next_epoch(self, last_time: int):
         """Form the next epoch's inputs on shard 0: ``(scripted time or
         None, session batches, last_time)``; None when every source has
-        closed (or a speedrun's recorded stream is exhausted)."""
+        closed (or a speedrun's recorded stream is exhausted). An epoch with
+        no input of this process runs when a worker process holds input of
+        its partitioned sources; otherwise the caller waits."""
         primary = self.engines[0]
         times = [s.next_time() for s in primary.static_sources]
         replay_pending = False
@@ -362,10 +453,15 @@ class ShardCluster:
                     if b:
                         session_batches.append((s, b))
         if scripted_t is None and not session_batches:
-            if self._speedrun or all(s.session.closed for s in primary.session_sources if not s.is_error_log):
+            if self._speedrun:
                 return None
-            return (None, [], last_time)
-        return (scripted_t, session_batches, last_time)
+            if self._remote_input_pending():
+                return (None, [], last_time, True)
+            if all(s.session.closed for s in primary.session_sources if not s.is_error_log) \
+                    and self._remote_sources_closed():
+                return None
+            return (None, [], last_time, False)
+        return (scripted_t, session_batches, last_time, True)
 
     @staticmethod
     def _epoch_time(scripted_t, session_batches, last_time) -> int:
@@ -391,6 +487,14 @@ class ShardCluster:
         for e in self.engines:
             e.current_time = t
             e._frontier_hooks(t)
+        self.set_epoch_frontier(t)
+
+    def _epoch_fields(self, t) -> dict:
+        kw = {"t": int(t), "world": self.world}
+        generation = int(getattr(self, "generation", 0) or 0)
+        if generation:
+            kw["generation"] = generation
+        return kw
 
     def _start(self) -> None:
         primary = self.engines[0]
@@ -405,7 +509,7 @@ class ShardCluster:
         primary = self.engines[0]
         try:
             self._start()
-            if primary.pipeline_depth > 1:
+            if primary.pipeline_depth > 1 and self.pipelined:
                 last_time = self._run_pipelined(monitoring_callback)
             else:
                 last_time = self._run_strict(monitoring_callback)
@@ -423,13 +527,13 @@ class ShardCluster:
             nxt = self._next_epoch(last_time)
             if nxt is None:
                 break
-            scripted_t, session_batches, last_time = nxt
-            if scripted_t is None and not session_batches:
+            scripted_t, session_batches, last_time, ready = nxt
+            if not ready:
                 primary._wake.wait(timeout=0.05)
                 primary._wake.clear()
                 continue
             t = self._epoch_time(scripted_t, session_batches, last_time)
-            _epoch_kw = {"t": int(t), "world": self.world}
+            _epoch_kw = self._epoch_fields(t)
             flight_recorder.record("epoch.begin", batches=len(session_batches), **_epoch_kw)
             self._begin_epoch(t)
             for s in primary.static_sources:
@@ -486,8 +590,8 @@ class ShardCluster:
                     nxt = self._next_epoch(last_time)
                     if nxt is None:
                         break
-                    scripted_t, session_batches, last_time = nxt
-                    if scripted_t is None and not session_batches:
+                    scripted_t, session_batches, last_time, ready = nxt
+                    if not ready:
                         primary._wake.wait(timeout=0.05)
                         primary._wake.clear()
                         continue
@@ -607,9 +711,10 @@ class ShardCluster:
         for e in self.engines:
             e.current_time = last_time + 1
             e._frontier_hooks(df.INF_TIME)
+        self.set_epoch_frontier(df.INF_TIME)
         self._deliver_mail()
         # only run (and fire time_end for) the flush epoch if it has work
-        if any(e._dirty for e in self.engines):
+        if self._flush_needed():
             self._sweep(last_time + 1)
         # trailing error deliveries
         err = []
@@ -627,12 +732,38 @@ class ShardCluster:
         for e in self.engines:
             for node in e.nodes:
                 node.on_end()
+        self._finish_remote()
         if self._persistence is not None:
             self._persistence.close()
         primary.stopped.set()
         if primary._threads_started:
             for t in primary.connector_threads:
                 t.join(timeout=5.0)
+
+    # -- hooks the multi-process coordinator overrides --
+
+    def set_epoch_frontier(self, frontier) -> None:
+        pass
+
+    def _flush_needed(self) -> bool:
+        return any(e._dirty for e in self.engines)
+
+    def _finish_remote(self) -> None:
+        pass
+
+    def _speedrun_supported(self) -> bool:
+        """An in-process cluster replays a recorded stream over any number
+        of shards; worker processes' logs are not visible to process 0."""
+        return True
+
+    def _remote_input_pending(self) -> bool:
+        return False
+
+    def _remote_replay_frontier(self) -> int:
+        return -1
+
+    def _remote_sources_closed(self) -> bool:
+        return True
 
     def stop(self) -> None:
         self._stop = True

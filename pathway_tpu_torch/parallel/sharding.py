@@ -18,6 +18,10 @@ are visible; the CPU only when the caller passes CPU devices
 name one device more than once: that is how the CPU tests stand in for
 the reference's eight virtual devices, and how one card holds several
 shards.
+
+``host_mesh_from_env()`` joins the processes of a ``PATHWAY_PROCESSES``
+cluster into one ``torch.distributed`` process group and returns the
+global mesh (see its docstring).
 """
 
 from __future__ import annotations
@@ -29,9 +33,6 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-# where the multi-process planes not ported yet stand; their entry points
-# raise naming it
-CLUSTER_ITEM = "ROADMAP Queue A item 5 (multi-process clusters)"
 
 
 class DeviceMesh:
@@ -90,9 +91,43 @@ def make_mesh(
     return DeviceMesh([devices[i : i + model_parallel] for i in range(0, n, model_parallel)])
 
 
-def host_mesh_from_env() -> DeviceMesh | None:
-    """Multi-process meshes (``PATHWAY_PROCESSES`` > 1) are not ported;
-    one process returns None, as in the reference."""
-    if int(os.environ.get("PATHWAY_PROCESSES", "1")) <= 1:
+def host_mesh_from_env(device: str | None = None) -> DeviceMesh | None:
+    """Join the processes of a multi-process run into one mesh; None in a
+    single-process run (``PATHWAY_PROCESSES`` unset or 1).
+
+    The environment contract is the reference's (upstream Pathway's
+    config.rs:88-120): ``PATHWAY_PROCESSES`` processes, this one
+    ``PATHWAY_PROCESS_ID``, the rendezvous at ``PATHWAY_COORDINATOR``
+    (``host:port``) or else ``127.0.0.1:PATHWAY_FIRST_PORT``. The process
+    joins the default ``torch.distributed`` process group there (``init_method
+    tcp://...``), with the ``nccl`` backend on the card and ``gloo`` on the
+    CPU (``device="cpu"``; ``None`` is the card when one is visible). NCCL
+    wants a card of its own for each process: processes that share one
+    card form their group on the CPU.
+
+    The returned mesh is the global ``[data, model]`` grid with one data
+    shard per process, in rank order, and ``model`` 1: process ``p``'s shard
+    is the card ``cuda:(p mod cards)`` (on one card, every process shares
+    ``cuda:0``), or the CPU. A ``DeviceMesh`` holds only devices, so each
+    process reaches its own row; the others are its peers in the process
+    group, reached through collectives, not through tensors of its own."""
+    n_proc = int(os.environ.get("PATHWAY_PROCESSES", "1"))
+    if n_proc <= 1:
         return None
-    raise NotImplementedError(f"a mesh over several processes needs {CLUSTER_ITEM}")
+    import torch.distributed as dist
+
+    pid = int(os.environ.get("PATHWAY_PROCESS_ID", "0"))
+    coord = os.environ.get("PATHWAY_COORDINATOR", f"127.0.0.1:{int(os.environ.get('PATHWAY_FIRST_PORT', '10000'))}")
+    on_card = (device is None and torch.cuda.is_available()) or (device is not None and torch.device(device).type == "cuda")
+    if on_card:
+        cards = torch.cuda.device_count()
+        if cards < 1:
+            raise ValueError("a mesh on the card needs a visible CUDA card; pass device='cpu' for the CPU")
+        devices = [torch.device("cuda", p % cards) for p in range(n_proc)]
+        torch.cuda.set_device(devices[pid])
+    else:
+        devices = [torch.device("cpu")] * n_proc
+    if not dist.is_initialized():
+        dist.init_process_group(backend="nccl" if on_card else "gloo", init_method=f"tcp://{coord}",
+                                world_size=n_proc, rank=pid)
+    return DeviceMesh([[d] for d in devices])

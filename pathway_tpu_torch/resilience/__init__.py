@@ -1,8 +1,8 @@
 """Fault-tolerant runtime: crash-recovery supervisor, unified retry
 policy, the shared cluster-health state, and a deterministic
 fault-injection harness (the port's copy of the reference's package;
-the multi-process coordinator that drives the cluster state is ROADMAP
-item 5).
+the multi-process coordinator, ``parallel/multiprocess.py``, drives the
+cluster state).
 
 - :class:`RetryPolicy` — one retry knob for connectors, UDF executors,
   LLM xpacks and ``AsyncTransformer``; seedable jitter, injectable

@@ -23,7 +23,11 @@ whole. Instrumented code calls :func:`inject` at named *sites*:
   lands on the target, ``elastic.cutover`` before the cutover and
   ``elastic.abort`` first in a reshard's rollback (``elastic/controller.py``).
 
-The reference's cluster sites come with ROADMAP Queue A item 5.
+The multi-process cluster (``parallel/multiprocess.py``) adds
+``coordinator.after_sink_flush`` and ``coordinator.after_mark_delivered``
+on process 0, ``worker.after_feed_log``, ``worker.before_advance`` and
+``worker.after_advance`` on the workers, and the ``cluster.send`` channel
+site that every protocol frame passes.
 
 A *chaos plan* (rules loaded from the
 ``PATHWAY_CHAOS`` environment variable, or activated in-process via

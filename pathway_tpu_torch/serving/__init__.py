@@ -17,7 +17,7 @@ from .admission import (
     TokenBucket,
 )
 from .batching import AdaptiveBatcher
-from .deadline import DEADLINE_HEADER, Deadline
+from .deadline import DEADLINE_HEADER, Deadline, bind_deadline, coerce_deadline, current_deadline
 from .metrics import SERVING_METRICS, ServingMetrics
 
 __all__ = [
@@ -36,4 +36,7 @@ __all__ = [
     "TenantRateLimited",
     "Ticket",
     "TokenBucket",
+    "bind_deadline",
+    "coerce_deadline",
+    "current_deadline",
 ]

@@ -34,8 +34,11 @@ door). While an elastic reshard migrates an index (``elastic``), a
 flowing against the old generation with the degraded flag, and a shed
 that still happens (a full queue) carries the migration's remaining-time
 estimate as ``Retry-After`` (the cluster-health plane's ETA source, which
-the elastic plane installs). The shard-health gate (``shard=``) comes with
-ROADMAP Queue A item 5.
+the elastic plane installs). A request pinned to an engine shard
+(``shard=``) whose worker process is down (the cluster fault domain marks
+its shards while a partial restart is in flight) is shed as a typed 503,
+or served degraded by a ``shed="degrade"`` endpoint; tenant quotas are
+checked first, so a tenant at its cap always sees its 429.
 """
 
 from __future__ import annotations
@@ -77,9 +80,6 @@ def _tracing_enabled() -> bool:
 
         _tracing_store = _ts
     return _tracing_store.tracing_enabled()
-
-
-_CLUSTER_ITEM = "ROADMAP Queue A item 5 (multi-process clusters and their shard health)"
 
 
 def tenancy_active() -> bool:
@@ -146,8 +146,9 @@ class DeadlineExceeded(OverloadError):
 
 
 class ShardUnavailable(OverloadError):
-    """The engine shard a query needs is down (raised by the cluster plane,
-    ROADMAP Queue A item 5)."""
+    """The engine shard a query needs is down: its worker process died and
+    a partial restart is in flight. ``Retry-After`` is about the cluster's
+    lease."""
 
     status = 503
     reason = "shard_unavailable"
@@ -284,11 +285,13 @@ class AdmissionController:
     def admit(self, deadline: Deadline | None = None, *, shard: int | None = None,
               tenant: str | None = None) -> Ticket:
         """Admit or shed. Raises :class:`TenantRateLimited` /
-        :class:`RateLimited` / :class:`QueueFull` / :class:`DeadlineExceeded`.
-        ``tenant`` names the requesting tenant; under an active tenancy its
-        quotas (QPS bucket, inflight cap) are enforced before any
-        endpoint-wide gate. ``shard`` pins the request to an engine shard,
-        whose health the cluster plane keeps: it raises."""
+        :class:`RateLimited` / :class:`QueueFull` / :class:`DeadlineExceeded`
+        / :class:`ShardUnavailable`. ``tenant`` names the requesting tenant;
+        under an active tenancy its quotas (QPS bucket, inflight cap) are
+        enforced before any endpoint-wide gate, the shard's health
+        included. ``shard`` pins the request to an engine shard: while the
+        cluster fault domain has it marked down, the request is shed, or
+        under ``shed="degrade"`` admitted as a degraded ticket."""
         cfg = self.config
         t_enter = _time.monotonic()
         if deadline is None:
@@ -309,8 +312,22 @@ class AdmissionController:
         if tenant is not None:
             tenant = str(tenant)
             self._check_tenant(tenant, trace_ctx, trace_extra)
+        shard_degraded = False
         if shard is not None:
-            raise NotImplementedError(f"AdmissionController.admit(shard=...) needs {_CLUSTER_ITEM}")
+            from ..resilience.cluster import CLUSTER_HEALTH
+
+            if CLUSTER_HEALTH.is_down(shard):
+                if cfg.shed == "degrade":
+                    shard_degraded = True
+                else:
+                    self.metrics.record_shed("shard_unavailable")
+                    flight_recorder.record("serving.shed", route=self.route, reason="shard_unavailable",
+                                           shard=int(shard), **trace_extra)
+                    raise self._traced(
+                        ShardUnavailable(f"shard {shard} is down (partial restart in flight)",
+                                         retry_after_s=CLUSTER_HEALTH.retry_after_s()),
+                        trace_ctx,
+                    )
         # elastic migration in flight: degrade, not reject: requests keep
         # flowing against the old generation (the reshard plane drops none)
         # but carry the degraded flag so later stages can cheapen, and a
@@ -359,7 +376,8 @@ class AdmissionController:
                     QueueFull(f"admission queue full ({depth}/{cfg.max_queue})", retry_after_s=retry_after),
                     trace_ctx,
                 )
-            degraded = cfg.shed == "degrade" and (migrating or depth >= cfg.degrade_watermark * cfg.max_queue)
+            degraded = shard_degraded or (
+                cfg.shed == "degrade" and (migrating or depth >= cfg.degrade_watermark * cfg.max_queue))
             seq = next(self._seq)
             self._live.add(seq)
             heapq.heappush(self._heap, (deadline.expires_at, seq))

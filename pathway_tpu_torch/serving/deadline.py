@@ -6,11 +6,14 @@ budget it was created with. It travels with a request from HTTP admission
 through batch dispatch to the response wait, so every layer asks the same
 object how much time is left. Clients set the budget with the
 ``X-Pathway-Deadline-Ms`` header; ``Deadline.none()`` means no budget
-(``remaining()`` is ``inf``).
+(``remaining()`` is ``inf``). A handler binds the request's deadline to
+its context (``bind_deadline``), so callees on the same thread or task
+(retry policies, xpack helpers) read it with ``current_deadline``.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 import time as _time
 
@@ -67,6 +70,33 @@ class Deadline:
     def remaining_ms(self) -> float:
         rem = self.remaining()
         return rem if math.isinf(rem) else rem * 1000.0
+
+
+#: the deadline bound to the current context (``bind_deadline``)
+_CURRENT: contextvars.ContextVar[Deadline | None] = contextvars.ContextVar("pathway_serving_deadline", default=None)
+
+
+def current_deadline() -> Deadline | None:
+    """The deadline bound to the current context, if any."""
+    return _CURRENT.get()
+
+
+class bind_deadline:
+    """``with bind_deadline(d): ...`` scopes a deadline to the current
+    context, so :func:`current_deadline` sees it."""
+
+    def __init__(self, deadline: Deadline | None):
+        self._deadline = deadline
+        self._token = None
+
+    def __enter__(self) -> Deadline | None:
+        self._token = _CURRENT.set(self._deadline)
+        return self._deadline
+
+    def __exit__(self, *exc) -> None:
+        if self._token is not None:
+            _CURRENT.reset(self._token)
+            self._token = None
 
 
 def coerce_deadline(value) -> Deadline | None:

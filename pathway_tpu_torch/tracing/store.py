@@ -14,8 +14,8 @@ one of ``PATHWAY_TRACE_EXEMPLARS`` slots in the current retention
 window — the slowest-N complete traces of each window survive ring
 eviction, so "where did the p99 go" is answerable long after the p50
 traffic that evicted the ring. Worker processes buffer finished spans
-in an outbox for the coordinator (the multi-process cluster comes with
-ROADMAP Queue A item 5); the coordinator's ingest deduplicates by span
+in an outbox that rides the cluster's round replies to the coordinator
+(``parallel/multiprocess.py``); the coordinator's ingest deduplicates by span
 id, so duplicated frames do not double spans.
 
 At the end of a traced run the store is dumped to

@@ -210,8 +210,22 @@ def test_profile_and_doctor_run_the_program(tmp_path):
     assert got[2]["rc"] == 3 and "doctor: program exited with status 3" in got[2]["stderr"]
 
 
-def test_unported_commands_name_their_items():
-    got = _port([["spawn", "--processes", "2", "x.py"], ["spawn-from-env"], ["analyze", "x.py"]])
-    assert all(g["rc"] == 1 for g in got)
-    assert "ROADMAP Queue A item 5" in got[0]["stderr"] and "ROADMAP Queue A item 5" in got[1]["stderr"]
-    assert "ROADMAP Queue A item 10" in got[2]["stderr"]
+def test_unported_commands_name_their_items(tmp_path):
+    """``analyze`` still names the ROADMAP item that brings it. ``spawn
+    --processes 2`` runs the program in two processes of one cluster, and
+    ``spawn-from-env`` without ``PATHWAY_SPAWN_ARGS`` fails as the
+    reference's does."""
+    import socket
+
+    prog, seen = _program(tmp_path)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    got = _port([["analyze", "x.py"], ["spawn-from-env"], ["spawn", "--processes", "2", "--first-port", str(port), prog]],
+                env={"PATHWAY_SPAWN_ARGS": ""})
+    assert got[0]["rc"] == 1 and "ROADMAP Queue A item 10" in got[0]["stderr"]
+    _same(got[1], _ref(["spawn-from-env"], env={"PATHWAY_SPAWN_ARGS": ""}))
+    assert got[1]["rc"] == 2 and "PATHWAY_SPAWN_ARGS is not set" in got[1]["stderr"]
+    assert got[2]["rc"] == 0, got[2]
+    assert sorted(seen.read_text().splitlines()) == ["1,2,0", "1,2,1"]

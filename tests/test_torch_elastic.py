@@ -6,6 +6,10 @@ indexes, writes and removes during a migration, fencing, chaos raises at
 every boundary, the durable reshard intent and SIGKILL recovery in child
 processes, every controller watermark, admission's degrade and
 ``Retry-After``, the ``/metrics`` lines, the flight events and the span.
+Two more hold the plane under a multi-process cluster: a reshard advances
+a registered coordinator's generation by one and a frame of the old
+generation is then fenced (both packages), and a live 2-process run of the
+port reshards mid-stream with no regroup and its twin's answers.
 
 Both packages get the same numpy rows and the same meshes: the
 reference's come from the eight forced host devices ``tests/conftest.py``
@@ -992,3 +996,188 @@ def test_reshard_span_recorded():
         finally:
             store.set_tracing_enabled(prev)
             store.TRACE_STORE.reset()
+
+
+# ---------------------------------------------------------------------------
+# the elastic plane and a multi-process cluster
+
+
+def _cluster_fence_script(P, root, monkeypatch):
+    """Form a 2-process ``CoordinatorCluster`` in this process against a
+    hand-driven worker socket, reshard a registered index, then send one
+    frame stamped with the old generation and one with the new."""
+    import socket
+
+    mp = _mod(P, "parallel.multiprocess")
+    monkeypatch.setenv("PATHWAY_CLUSTER_TOKEN", "elastic-cluster-test")
+    P.el.register_persistence(_mk_persistence(P, root))
+    h = _built_handle(P, n=60, seed=26)
+    engine = _mod(P, "internals.graph_runner").GraphRunner().engine
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    box = {}
+
+    def form():
+        box["cluster"] = mp.CoordinatorCluster([engine], processes=2, first_port=port, accept_timeout=30.0, lease_ms=0)
+
+    former = threading.Thread(target=form)
+    former.start()
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=5.0)
+            break
+        except OSError:
+            assert time.monotonic() < deadline, "the coordinator never listened"
+            time.sleep(0.05)
+    try:
+        mp._send_json(sock, {"op": "hello", "pid": 1, "threads": 1, "sig": mp._graph_sig(engine),
+                             "token": "elastic-cluster-test", "replay_frontier": -1, "gen": 0})
+        welcome = mp._recv_json(sock)
+        former.join(timeout=30)
+        cluster = box["cluster"]
+        gen0 = cluster.generation
+        summary = P.el.reshard(4, chunk_rows=32)
+        gen1 = cluster.generation
+        metrics = P.cluster.CLUSTER_METRICS
+        mp._send(sock, {"op": "reply", "gen": gen0, "seq": 1})  # a frame of the old generation
+        with pytest.raises(P.cluster.WorkerLost, match="stale generation"):
+            cluster._recv_worker(1)
+        fenced = metrics.snapshot()["fenced_writes_total"]
+        mp._send(sock, {"op": "ok", "gen": gen1, "seq": 2})
+        accepted = cluster._recv_worker(1)["op"]
+        cluster._close_conns(None)
+    finally:
+        sock.close()
+        P.cluster.CLUSTER_METRICS.reset()
+    assert h.index.n_shards == 4
+    return [welcome["op"], welcome["gen"], gen0, gen1, summary["generation"], fenced, accepted]
+
+
+def test_reshard_under_a_registered_cluster_advances_its_generation(tmp_path, monkeypatch):
+    """A coordinator registers with the elastic plane at formation; a
+    reshard's cutover advances the live cluster's generation by one, and a
+    frame stamped with the old generation is then fenced (the sender is
+    retired as a zombie) while one of the new generation is accepted, as in
+    the reference."""
+    got = _cluster_fence_script(T, tmp_path / "torch", monkeypatch)
+    assert got == _cluster_fence_script(J, tmp_path / "jax", monkeypatch)
+    assert got == ["welcome", 0, 0, 1, 1, 1, "ok"]
+
+
+CLUSTER_RESHARD_PROGRAM = textwrap.dedent(
+    """
+    import json, os, threading
+    import numpy as np
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel.mesh import set_device_pool
+    from pathway_tpu_torch.resilience.cluster import CLUSTER_METRICS
+
+    PID = int(os.environ.get("PATHWAY_PROCESS_ID", "0"))
+    NPROC = int(os.environ.get("PATHWAY_PROCESSES", "1"))
+    N, PER, RESHARD_AT = 96, 8, int(os.environ["RESHARD_AT"])
+    set_device_pool(["cpu"] * 2)
+    vecs = np.random.default_rng(5).normal(size=(N, 8)).astype(np.float32)
+    h = pw.elastic.register_handle(pw.DeviceKnnIndex(8, reserved_space=128, metric="cos", device="cpu"))
+    cv = threading.Condition()
+    state = {"rows": 0, "pending": [], "gen": []}
+
+    class Docs(pw.io.python.ConnectorSubject):
+        def run(self):
+            for b in range(0, N, PER):
+                for i in range(b, b + PER):
+                    self.next(doc_id=i, v=tuple(float(x) for x in vecs[i]))
+                self.commit()
+                with cv:
+                    while state["rows"] < b + PER and not self._ctx.wait_stopped(0):
+                        cv.wait(0.05)
+
+    class S(pw.Schema):
+        doc_id: int
+        v: tuple
+
+    docs = pw.io.python.read(Docs(), schema=S, autocommit_duration_ms=None)
+    keyed = docs.groupby(pw.this.doc_id).reduce(pw.this.doc_id, v=pw.reducers.any(pw.this.v))
+    embedded = keyed.select(pw.this.doc_id, v=pw.apply(lambda v: tuple(2.0 * x for x in v), pw.this.v))
+
+    def on_row(key, row, time, is_addition):
+        state["pending"].append((row["doc_id"], row["v"]))
+
+    def on_epoch_end(time):
+        batch, state["pending"] = state["pending"], []
+        if batch:
+            h.add_batch_arrays([k for k, _ in batch], np.asarray([v for _, v in batch], np.float32))
+        if 0 < RESHARD_AT <= state["rows"] + len(batch) and not state["gen"]:
+            state["gen"].append(CLUSTER_METRICS.snapshot()["generation"])
+            pw.elastic.reshard(2, chunk_rows=16)
+            state["gen"].append(CLUSTER_METRICS.snapshot()["generation"])
+        with cv:
+            state["rows"] += len(batch)
+            cv.notify_all()
+
+    pw.io.subscribe(embedded, on_row, on_time_end=on_epoch_end)
+    pw.run(monitoring_level="none", persistence_config=pw.persistence.Config.simple_config(
+        pw.persistence.Backend.filesystem(os.environ["STORE"])))
+    if PID == 0:
+        hits = h.search_batch(vecs[:12] * 2.0, 5)
+        snap = CLUSTER_METRICS.snapshot()
+        with open(os.environ["OUT"], "w") as f:
+            json.dump({"hits": [[[int(k), float(s)] for k, s in row] for row in hits], "gen": state["gen"],
+                       "shards": h.index.n_shards, "rows": len(h), "final_gen": snap["generation"],
+                       "fenced": snap["fenced_writes_total"], "partial": snap["partial_restarts_total"]}, f)
+    """
+)
+
+
+def _cluster_reshard_run(tmp_path, tag: str, processes: int, reshard_at: int) -> dict:
+    import socket
+
+    prog = tmp_path / "cluster_reshard.py"
+    prog.write_text(CLUSTER_RESHARD_PROGRAM)
+    for attempt in range(3):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = {k: v for k, v in os.environ.items() if not k.startswith("PATHWAY_")}
+        env.update(PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""), PATHWAY_PROCESSES=str(processes),
+                   PATHWAY_FIRST_PORT=str(port), PATHWAY_CLUSTER_TOKEN="elastic-cluster-test",
+                   PATHWAY_CLUSTER_LEASE_MS="2000", PATHWAY_FLIGHT_RECORDER_DIR=str(tmp_path / "blackbox"),
+                   RESHARD_AT=str(reshard_at), STORE=str(tmp_path / f"store_{tag}"),
+                   OUT=str(tmp_path / f"{tag}.json"))
+        procs = [subprocess.Popen([sys.executable, str(prog)], env={**env, "PATHWAY_PROCESS_ID": str(pid)},
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                 for pid in range(processes)]
+        errs = []
+        try:
+            for p in procs:
+                errs.append(p.communicate(timeout=180)[1])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if all(p.returncode == 0 for p in procs):
+            with open(tmp_path / f"{tag}.json") as f:
+                return json.load(f)
+        if attempt == 2 or "ddress already in use" not in errs[0]:
+            raise AssertionError("\n".join(f"rc={p.returncode}\n{e[-3000:]}" for p, e in zip(procs, errs)))
+    raise AssertionError("unreachable")
+
+
+def test_reshard_inside_a_live_two_process_run(tmp_path):
+    """Process 0 of a live 2-process run reshards its registered index
+    1 -> 2 once half the documents are in (the worker embeds its key
+    shards meanwhile): the cluster's generation goes 0 -> 1 at the cutover,
+    the worker adopts it, so no frame is fenced and no partial restart
+    happens, and the answers equal a single-process twin's that never
+    resharded (keys exact, scores at 1e-5)."""
+    twin = _cluster_reshard_run(tmp_path, "twin", 1, 0)
+    got = _cluster_reshard_run(tmp_path, "cluster", 2, 48)
+    assert got["gen"] == [0, 1] and got["final_gen"] == 1
+    assert (got["fenced"], got["partial"]) == (0, 0)
+    assert (got["shards"], got["rows"]) == (2, 96) and (twin["shards"], twin["rows"]) == (1, 96)
+    assert [[k for k, _ in r] for r in got["hits"]] == [[k for k, _ in r] for r in twin["hits"]]
+    for g, w in zip(got["hits"], twin["hits"]):
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=SCORE_TOL, atol=SCORE_TOL)
+    assert [r[0][0] for r in got["hits"]] == list(range(12))

@@ -266,7 +266,7 @@ def test_embedder_batched_udf_and_dimension(embedders):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(analysis="strict"), dict(cluster_lease_ms=100)],
+    [dict(analysis="strict")],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_run_options_raise(kwargs):
@@ -286,13 +286,16 @@ def test_unported_run_options_raise(kwargs):
      (dict(persistence_config=tpw.persistence.Config.simple_config(tpw.persistence.Backend.mock())), "persistence",
       True), (dict(recovery=True), "recovery", True), (dict(ingest_workers=2), "ingest_workers", 2),
      (dict(pipeline_depth=2), "pipeline_depth", 2), (dict(mesh="auto"), "elastic", (True, None)),
-     (dict(elastic="shards=2,interval=0.01"), "elastic", (False, 2))],
+     (dict(elastic="shards=2,interval=0.01"), "elastic", (False, 2)),
+     (dict(cluster_lease_ms=100, cluster_partial_restarts=1, cluster_accept_timeout=5.0, cluster_hello_timeout=5.0),
+      "cluster_lease_ms", 100.0)],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
 )
 def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
     """The options of the profiler, licensing, the tiered and tenant
     indexes, persistence, the supervisor, the host-ingest stage, the epoch
-    pipeline and the elastic plane run and land in the run context, as the
+    pipeline, the elastic plane and the cluster (in a single-process run
+    they configure nothing else) run and land in the run context, as the
     reference's do: ``mesh="auto"`` installs the mesh of every visible
     device (the device pool stands in for them) and arms the elastic
     plane's watermarks, and ``elastic=`` a controller that reshards a
@@ -358,7 +361,7 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
 
 @pytest.mark.parametrize(
     "var,value",
-    [("PATHWAY_PROCESSES", "2"), ("PATHWAY_ANALYSIS", "strict")],
+    [("PATHWAY_ANALYSIS", "strict")],
 )
 def test_unported_env_options_raise(monkeypatch, var, value):
     monkeypatch.setenv(var, value)

@@ -8,7 +8,10 @@ the xpack's question answerer, or serves a REST endpoint behind the
 serving plane with every observability plane on (``tracing/``,
 ``freshness/``, the chip and HBM ledgers, the watchdog, ``/metrics`` and
 ``/status``), or grows and shrinks live indexes with the elastic plane
-under ``pw.run(mesh="auto", elastic=)``; it never imports ``aiohttp`` or
+under ``pw.run(mesh="auto", elastic=)``, or runs as a 2-process cluster
+through ``spawn --processes 2`` (the coordinator and the worker alike);
+its public names are the reference's but for those whose modules wait in
+a ROADMAP item; it never imports ``aiohttp`` or
 ``requests``, which the card's machine lacks (its webserver is the standard
 library's), and imports no service client (``openai``, ``litellm``,
 ``cohere``, ``transformers``, ``flashrank``) at module load; its entry
@@ -18,6 +21,7 @@ its kernels are built only at first use on a CUDA tensor;
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import subprocess
@@ -627,3 +631,112 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     )
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+_CLUSTER_PROBE = r"""
+import json, os, sys
+before = set(sys.modules)
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.io._connector import input_table_from_reader
+
+class S(pw.Schema):
+    word: str
+
+def reader(ctx):
+    for i in range(40):
+        if i % ctx.n_processes == ctx.process_id:
+            ctx.insert({"word": ["cat", "dog"][i % 2]}, offsets={"pos": i + 1})
+    ctx.commit()
+
+t = input_table_from_reader(S, reader, name="guard_src", parallel_readers=True, persistent_id="g",
+                            supports_offsets=True, autocommit_duration_ms=50)
+c = t.groupby(pw.this.word).reduce(pw.this.word, n=pw.reducers.count())
+pw.io.jsonlines.write(c, os.environ["GUARD_OUT"] + ".out")
+pw.run(monitoring_level="none", cluster_lease_ms=3000, persistence_config=pw.persistence.Config.simple_config(
+    pw.persistence.Backend.filesystem(os.environ["GUARD_OUT"] + ".store")))
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + ("click",))
+with open(os.environ["GUARD_OUT"] + "." + os.environ["PATHWAY_PROCESS_ID"], "w") as f:
+    json.dump({"bad": bad, "cluster": "pathway_tpu_torch.parallel.multiprocess" in sys.modules}, f)
+"""
+
+
+def test_spawned_cluster_processes_import_no_jax_flax_reference_or_click(tmp_path):
+    """``python -m pathway_tpu_torch spawn --processes 2`` runs a persisted,
+    partitioned program as a coordinator and a worker: neither process
+    imports anything of JAX, flax, the reference or ``click``."""
+    import socket
+
+    prog = tmp_path / "guard_cluster.py"
+    prog.write_text(f"FORBIDDEN = {_FORBIDDEN_MODULES!r}\n" + _CLUSTER_PROBE)
+    out = str(tmp_path / "guard")
+    for attempt in range(3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items() if not k.startswith("PATHWAY_")}
+        env.update(GUARD_OUT=out, CUDA_VISIBLE_DEVICES="")
+        r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch", "spawn", "--processes", "2", "--first-port",
+                            str(port), str(prog)], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        if r.returncode == 0 or attempt == 2 or "ddress already in use" not in r.stderr:
+            break
+    assert r.returncode == 0, r.stderr[-3000:]
+    for pid in (0, 1):
+        with open(f"{out}.{pid}") as f:
+            got = json.load(f)
+        assert got == {"bad": [], "cluster": True}, (pid, got)
+
+
+# the reference's public names whose modules wait in a ROADMAP Queue A item
+_WAITING_NAMES = {
+    "ROADMAP Queue A item 7 (the rest of the stdlib)": (
+        "AsyncTransformer", "ClassArg", "LiveTable", "attribute", "demo", "input_attribute", "iterate",
+        "iterate_universe", "load_yaml", "method", "output_attribute", "sql", "temporal", "transformer",
+        "universes", "unpack_col", "utils", "viz", "window",
+    ),
+    "ROADMAP Queue A item 10 (the deep verifier)": ("analysis",),
+}
+
+
+def _kind(obj) -> str:
+    import inspect
+    import types
+
+    if isinstance(obj, types.ModuleType):
+        return "module"
+    if inspect.isclass(obj):
+        return "class"
+    if callable(obj):
+        return "function"
+    return "value"
+
+
+def test_public_names_match_the_reference():
+    """Every name of the reference's ``__all__`` is in the port's, of the
+    same kind (module, class, function or value), but for the names whose
+    modules wait in a ROADMAP item; the ``models`` and ``serving``
+    packages export what the reference's do."""
+    import pathway_tpu as jpw
+    import pathway_tpu.models as jmodels
+    import pathway_tpu.serving as jserving
+    import pathway_tpu_torch as tpw
+    import pathway_tpu_torch.models as tmodels
+    import pathway_tpu_torch.serving as tserving
+
+    waiting = {name for names in _WAITING_NAMES.values() for name in names}
+    assert not waiting & set(tpw.__all__), "a waiting name is exported: take it off the list"
+    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving)):
+        missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__ and n not in waiting)
+        assert not missing, (tmod.__name__, missing)
+        for name in jmod.__all__:
+            if name in waiting:
+                continue
+            assert hasattr(tmod, name), (tmod.__name__, name)
+            assert _kind(getattr(tmod, name)) == _kind(getattr(jmod, name)), (tmod.__name__, name)
+    assert all(hasattr(jpw, n) and not hasattr(tpw, n) for n in waiting)
+    from pathway_tpu_torch.native import NativeStore
+
+    store = NativeStore()
+    store[7] = {"a": 1}
+    assert (len(store), store[7], store.pop(7), len(store)) == (1, {"a": 1}, {"a": 1}, 0)

@@ -276,9 +276,9 @@ def test_resolve_mesh_places_specs_on_cards_or_the_cpu(monkeypatch):
             tmesh.resolve_mesh(4, device="cpu")
     finally:
         tmesh.set_device_pool(prev)
-    monkeypatch.setenv("PATHWAY_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        host_mesh_from_env()
+    # one process has no host mesh (a 2-process group: tests/test_torch_cluster_fault_domain.py)
+    monkeypatch.setenv("PATHWAY_PROCESSES", "1")
+    assert host_mesh_from_env() is None
 
 
 def test_active_mesh_env_is_cached_per_placement(monkeypatch):

@@ -107,14 +107,24 @@ def test_serving_config_validation(sv):
 
 def test_admission_names_the_planes_it_lacks(monkeypatch):
     """A tenant is attributed with or without a tenancy (its quotas apply
-    under one: tests/test_torch_tenancy.py); the shard-health gate still
-    names its plane."""
+    under one: tests/test_torch_tenancy.py); a request pinned to a healthy
+    shard is admitted, and to a shard the cluster marked down is shed as a
+    typed 503 (tests/test_torch_cluster_fault_domain.py holds the gate to
+    the reference)."""
+    from pathway_tpu_torch.resilience.cluster import CLUSTER_HEALTH
+
     ctl, _ = _controller(tsv)
     assert ctl.admit(tsv.Deadline(5000.0), tenant="acme").tenant == "acme"  # attributed, no quota
     monkeypatch.setenv("PATHWAY_TENANCY", "on")
     assert ctl.admit(tsv.Deadline(5000.0), tenant="acme").tenant == "acme"  # a tenancy without quotas
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-        ctl.admit(tsv.Deadline(5000.0), shard=1)
+    assert not ctl.admit(tsv.Deadline(5000.0), shard=1).degraded
+    CLUSTER_HEALTH.mark_down([1], retry_after_s=2.0)
+    try:
+        with pytest.raises(tsv.ShardUnavailable) as exc:
+            ctl.admit(tsv.Deadline(5000.0), shard=1)
+        assert (exc.value.status, exc.value.reason, exc.value.retry_after_s) == (503, "shard_unavailable", 2.0)
+    finally:
+        CLUSTER_HEALTH.mark_all_up()
 
 
 # ---------------------------------------------------------------- batching

@@ -439,7 +439,24 @@ def _qps_script(P):
             snap["noisy"]["shed"], snap["noisy"]["admitted"], snap["quiet"]["admitted"]]
 
 
-def test_tenant_qps_bucket_sheds_typed_429():
+def _frozen_buckets(monkeypatch):
+    """Bind both packages' tenant buckets to a clock that never moves: at
+    1,000 QPS a millisecond between the second and third admits refills a
+    token, and the third admit would pass on a slow host."""
+    import pathway_tpu.serving.admission as j_adm
+    import pathway_tpu_torch.serving.admission as t_adm
+
+    for mod in (j_adm, t_adm):
+        real = mod.TokenBucket
+        frozen = type("FrozenTokenBucket", (real,), {
+            "__init__": lambda self, qps, burst, *, clock=None, _real=real: _real.__init__(
+                self, qps, burst, clock=lambda: 1000.0),
+        })
+        monkeypatch.setattr(mod, "TokenBucket", frozen)
+
+
+def test_tenant_qps_bucket_sheds_typed_429(monkeypatch):
+    _frozen_buckets(monkeypatch)
     got = _qps_script(T)
     assert got == _qps_script(J)
     assert got == [True, 429, "tenant_rate_limited", "noisy", True, {"tenant_rate_limited": 1}, 2, 1]

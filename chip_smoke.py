@@ -13,7 +13,7 @@ at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
 2-shard generation), times the index's tie-ordered top-k beside
-``torch.topk``, then drives fifteen paths, each with the launch counters
+``torch.topk``, then drives sixteen paths, each with the launch counters
 set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -21,6 +21,17 @@ set to 0 just before it and read just after:
   (filled to 1,048,576 rows) -> text queries -> ``search_batch`` /
   ``search_texts_batch`` (single queries take B2's streaming pass, the
   batch of 512 its tensor-core pass; both must launch);
+* ``train_path`` (MiniLM-L6, full width): ``ContrastiveTrainer`` on
+  ``cuda:0``, 128 pairs at S 128 (live lengths 16-128), 3 warm-up steps,
+  20 timed ``step()`` calls, 4 split into forward, backward and AdamW and
+  one profiled;
+  B3 in every layer of both towers (exactly 12 launches a step, nothing
+  else), attention's backward recomputed in plain PyTorch; gated on the
+  loss falling, the first step's gradients against an all-plain trainer's,
+  a dp 1 x tp 2 step on ``[[cuda:0, cuda:0]]`` against the unsharded loss
+  and the B4 and ``encoder_forward`` Functions' gradients; reports step
+  p50 / p99, pairs/s, tokens/s, the backward's share, achieved TFLOP/s
+  against 989 and peak memory;
 * ``rag_path``: ``FusedRagPipeline`` over MiniLM-L6 and a cross_encoder_l6
   reranker: 16 long-tailed epochs of 1,024 chunks through the segment
   packer (kernel B4), 512 single queries, one batch of 512, and
@@ -495,7 +506,7 @@ def phase_kernels(torch) -> list[dict]:
         empty = ~key_mask.any(dim=1)
         if zero_empty and not (got[empty] == 0).all():
             raise AssertionError(f"{name}: a sequence with no live key must give zeros")
-        if not zero_empty:
+        if not zero_empty and empty.any():
             uniform = qkv3[empty][:, :, 2 * d_:].float().mean(dim=1, keepdim=True).expand(-1, s_, -1)
             held(name + " fully masked rows vs mean of V", got[empty], uniform, **BF16_TOL)
         kl = key_mask.sum(dim=1).double()
@@ -521,6 +532,14 @@ def phase_kernels(torch) -> list[dict]:
     kl3[7] = 0
     km3 = torch.arange(128, device=dev)[None, :] < kl3[:, None]
     entries.append(attention_entry("masked_attention[B3]", "pathway_tpu/ops/fused_attention.py:117", qkv3, km3, False))
+    # train_path's shape: TRAIN_PAIRS sequences at S TRAIN_SEQ, live lengths from TRAIN_MIN_LEN
+    g_train = torch.Generator(device=dev).manual_seed(SEED + 17)
+    kl_t = torch.randint(TRAIN_MIN_LEN, TRAIN_SEQ + 1, (TRAIN_PAIRS,), device=dev, generator=g_train)
+    km_t = torch.arange(TRAIN_SEQ, device=dev)[None, :] < kl_t[:, None]
+    qkv_t = torch.randn(TRAIN_PAIRS, TRAIN_SEQ, 3 * d, device=dev, generator=g_train).bfloat16()
+    entries.append(attention_entry("masked_attention[train]", "pathway_tpu/ops/fused_attention.py:117", qkv_t, km_t,
+                                   False))
+    del qkv_t
     # B3 at BERT-base geometry (12 heads of 64), at head dim 128 (8 heads, d 1024) and 256 (4 heads, d 1024),
     # same lengths
     for tag, width, heads in (("hd64", 768, 12), ("hd128", 1024, 8), ("hd256", 1024, 4)):
@@ -1047,6 +1066,208 @@ def phase_main_path(torch) -> dict:
         b3_module_gemm_launches=b3_gemms, max_memory_allocated=peak, launches=launches,
     )
     emit("main_path", **result)
+    return launches
+
+
+TRAIN_PAIRS, TRAIN_SEQ, TRAIN_MIN_LEN = 128, 128, 16  # pairs a step, padded length, shortest live length
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_SPLIT_STEPS = 3, 20, 4  # SPLIT: steps timed part by part
+TRAIN_LR = 2e-5  # the reference trainer's default
+# kernel-forward gradients against the plain trainer's: the two round the
+# bf16 forward at other points (P before normalisation in the kernel, after
+# it in the plain chain), so each gradient tensor is held by direction
+# (cosine 0.9998 and up for every tensor on the CPU at two layers, this batch)
+TRAIN_GRAD_MIN_COS = 0.995
+# the dp 1 x tp 2 step's loss against the unsharded one: the out and mlp_out
+# partial products are rounded to bf16 before their sum
+TRAIN_TP_LOSS_TOL = 2e-3
+# a Function's gradient against autograd through the same plain chain with
+# the same cotangent: the same operations
+TRAIN_FN_TOL = dict(rtol=1.6e-2, atol=1e-2)
+
+
+def _train_batch(torch, rng, cfg, n_pairs: int, seq: int, min_len: int, dev):
+    """Two towers of ``n_pairs`` token rows at padded length ``seq``, live
+    lengths drawn from ``[min_len, seq]``, on ``dev``."""
+    import numpy as np
+
+    out = []
+    for _ in range(2):
+        ids = rng.integers(1000, cfg.vocab_size, (n_pairs, seq)).astype(np.int64)
+        lens = rng.integers(min_len, seq + 1, (n_pairs,))
+        mask = np.arange(seq)[None, :] < lens[:, None]
+        out += [torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)]
+    return tuple(out)
+
+
+def _grad_cosines(torch, got: dict, want: dict) -> dict:
+    cos = {}
+    for name, g in want.items():
+        a, b = got[name].float().flatten(), g.float().flatten()
+        cos[name] = float(torch.nn.functional.cosine_similarity(a, b, dim=0)) if b.abs().max() > 0 else 1.0
+    return cos
+
+
+def phase_train_path(torch, env: dict, n_pairs: int = TRAIN_PAIRS, seq: int = TRAIN_SEQ, warmup: int = TRAIN_WARMUP,
+                     steps: int = TRAIN_STEPS, split_steps: int = TRAIN_SPLIT_STEPS) -> dict:
+    """Contrastive training at MiniLM-L6's full width on one card:
+    ``ContrastiveTrainer`` (``make_mesh(n_devices=1)``: ``cuda:0``) takes
+    ``warmup`` steps, then ``steps`` timed ``step()`` calls,
+    ``split_steps`` steps timed part by part (forward and loss, backward,
+    AdamW) and one step under ``torch.profiler`` (the card's time by
+    operator and its share of a step) on one repeated batch of ``n_pairs``
+    pairs at S ``seq``. Each
+    tower's six layers launch B3 (``masked_attention``) once in the forward;
+    attention's backward recomputes in plain PyTorch, the projections are
+    ``F.linear``.
+
+    Gated on the loss falling, exactly 2 towers x layers B3 launches a
+    counted step and no other kernel, the first step's gradients against an
+    all-plain trainer's (same weights), a dp 1 x tp 2 step on the pooled
+    mesh ``[[cuda:0, cuda:0]]`` (one B3 launch per model shard) against the
+    unsharded loss, and the B4 and ``encoder_forward`` Functions' gradients
+    against autograd through their plain chains. Returns the counted
+    launches."""
+    import numpy as np
+
+    from pathway_tpu_torch.models import ContrastiveTrainer, EncoderConfig, TextEncoder
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops import fused_attention as fa
+    from pathway_tpu_torch.ops import fused_layer as fl
+    from pathway_tpu_torch.parallel.sharding import make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    cfg = EncoderConfig.minilm_l6()
+    rng = np.random.default_rng(SEED + 17)
+    batch = _train_batch(torch, rng, cfg, n_pairs, seq, TRAIN_MIN_LEN, dev)
+    one = make_mesh(n_devices=1) if DEV == "cuda" else make_mesh(devices=["cpu"])
+    trainer = ContrastiveTrainer(cfg, mesh=one, learning_rate=TRAIN_LR, seed=SEED)
+
+    # gate: the first step's gradients, kernel forwards against plain ones
+    plain = ContrastiveTrainer(dataclasses.replace(cfg, attention_impl="plain"), mesh=one, learning_rate=TRAIN_LR,
+                               seed=SEED)
+    loss0, grads = trainer.value_and_grad(*batch)
+    plain_loss0, plain_grads = plain.value_and_grad(*batch)
+    del plain
+    cos = _grad_cosines(torch, grads, plain_grads)
+    worst = min(cos, key=cos.get)
+    if not np.isfinite(loss0) or cos[worst] < TRAIN_GRAD_MIN_COS:
+        raise AssertionError(f"train_path: kernel-forward gradients disagree with the plain trainer's: "
+                             f"{worst} cosine {cos[worst]} (loss {loss0} vs {plain_loss0})")
+    grad_rel = max(float((grads[k].float() - v.float()).abs().max() / v.float().abs().max().clamp_min(1e-30))
+                   for k, v in plain_grads.items())
+    del grads, plain_grads
+
+    # gate: dp 1 x tp 2 on one card, from the same weights
+    pooled = ContrastiveTrainer(cfg, mesh=make_mesh(devices=[dev, dev], model_parallel=2), learning_rate=TRAIN_LR,
+                                seed=SEED)
+    before = _build.LAUNCHES["masked_attention"]
+    tp_loss = pooled.step(*batch)
+    torch.cuda.synchronize()
+    tp_launches = _build.LAUNCHES["masked_attention"] - before
+    del pooled
+    if abs(tp_loss - loss0) > TRAIN_TP_LOSS_TOL or tp_launches != 2 * 2 * cfg.num_layers:
+        raise AssertionError(f"train_path: dp1 x tp2 step loss {tp_loss} vs {loss0} (tolerance {TRAIN_TP_LOSS_TOL}), "
+                             f"{tp_launches} B3 launches (want {4 * cfg.num_layers})")
+
+    losses = [trainer.step(*batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(*batch))  # a float: waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    parts = []
+    for _ in range(split_steps):
+        t0 = time.perf_counter()
+        loss = trainer.loss(*batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.backward(loss)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.apply_gradients()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses.append(float(loss.detach()))
+        parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    # one more step under the profiler: the card's time by operator
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        losses.append(trainer.step(*batch))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_card = torch.autograd.DeviceType.CUDA
+    device_ms = sum(e.self_device_time_total for e in events if e.device_type == on_card) / 1e3
+    ops = sorted((e for e in events if e.device_type != on_card and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    top_ops = {e.key: e.self_device_time_total / 1e3 for e in ops[:8]}
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    counted = steps + split_steps + 1
+    want = {"masked_attention": 2 * cfg.num_layers * counted}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"train_path launched {launches}, want exactly {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < loss0:
+        raise AssertionError(f"train_path: the loss did not fall ({loss0} -> {losses[-1]})")
+
+    # gate: the B4 and encoder_forward Functions against autograd through their plain chains
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    qkv = torch.randn(16, 256, 3 * cfg.hidden_size, device=dev, generator=g).bfloat16()
+    seg = torch.full((16, 256), -1, dtype=torch.int32, device=dev)
+    for r in range(16):
+        cuts = sorted(rng.choice(np.arange(8, 240), 5, replace=False).tolist())
+        for j, (a, b) in enumerate(zip([0] + cuts, cuts + [240])):
+            seg[r, a:b] = r * 8 + j
+    w = torch.randn(16, 256, cfg.hidden_size, device=dev, generator=g) * (seg >= 0)[:, :, None]
+    got = qkv.clone().requires_grad_(True)
+    (fa.attention(got, None, n_heads=cfg.num_heads, segment_ids=seg).float() * w).sum().backward()
+    want_b4 = qkv.clone().requires_grad_(True)
+    (fa.packed_attention_reference(want_b4, seg, cfg.num_heads).float() * w).sum().backward()
+    b4_err = held("segment_attention Function gradient", got.grad, want_b4.grad, **TRAIN_FN_TOL)
+    del qkv, got, want_b4, w
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    sd = {k: v.to(dev).requires_grad_(True) for k, v in init_params(small, SEED).items()}
+    ids, mask = batch[0][:16, :64], batch[1][:16, :64]
+    proj = torch.randn(ids.shape[0], cfg.hidden_size, device=dev, generator=g)  # a cotangent with weight everywhere
+    (fl.encoder_forward(sd, small, ids, mask) * proj).sum().backward()
+    with torch.device("meta"):
+        module = TextEncoder(dataclasses.replace(small, attention_impl="plain"))
+    ref = {k: v.detach().clone().requires_grad_(True) for k, v in sd.items()}
+    (torch.func.functional_call(module, ref, (ids, mask)) * proj).sum().backward()
+    enc_cos = _grad_cosines(torch, {k: v.grad for k, v in sd.items()}, {k: v.grad for k, v in ref.items()})
+    enc_worst = min(enc_cos, key=enc_cos.get)
+    if enc_cos[enc_worst] < TRAIN_GRAD_MIN_COS or any(sd[k].grad.shape != sd[k].shape for k in sd):
+        raise AssertionError(f"train_path: encoder_forward's gradient {enc_worst} cosine {enc_cos[enc_worst]}")
+    del sd, ref, module, trainer
+    torch.cuda.empty_cache()
+
+    p50, p99 = float(np.percentile(step_ms, 50)), float(np.percentile(step_ms, 99))
+    fwd, bwd, upd = (float(np.median([p[i] for p in parts])) for i in range(3))
+    lens = torch.cat([batch[1].sum(dim=1), batch[3].sum(dim=1)]).double()
+    tokens = 2 * n_pairs * seq  # the GEMMs run every padded token
+    attn_pairs = float(seq * lens.sum())  # the kernel's (query, live key) pairs
+    step_flops = 3.0 * fl.encoder_flops(cfg, tokens, attn_pairs)  # forward + backward ~ 3x the forward
+    result = dict(
+        pairs=n_pairs, seq=seq, layers=cfg.num_layers, hidden=cfg.hidden_size, warmup_steps=warmup,
+        timed_steps=steps, split_steps=split_steps, first_loss=loss0, last_loss=losses[-1],
+        losses=losses, step_p50_ms=p50, step_p99_ms=p99, pairs_per_s=n_pairs / (p50 / 1e3),
+        tokens_per_s=tokens / (p50 / 1e3), live_tokens_per_s=float(lens.sum()) / (p50 / 1e3),
+        forward_ms=fwd, backward_ms=bwd, update_ms=upd, backward_share=bwd / (fwd + bwd + upd),
+        profiled_device_ms=device_ms, device_busy_share=device_ms / p50, top_device_ops_ms=top_ops,
+        step_tflops=step_flops / 1e12, achieved_tflops=step_flops / (p50 / 1e3) / 1e12,
+        mfu_vs_989=step_flops / (p50 / 1e3) / PEAK_BF16, max_memory_allocated=peak,
+        grad_min_cos=cos[worst], grad_min_cos_tensor=worst, grad_max_rel_err=grad_rel, plain_first_loss=plain_loss0,
+        tp2_loss=tp_loss, tp2_b3_launches=tp_launches, b4_grad_max_abs_err=b4_err,
+        encoder_forward_grad_min_cos=enc_cos[enc_worst], launches=launches, nvidia_smi=env["nvidia_smi"],
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("train_path", **result)
     return launches
 
 
@@ -5694,6 +5915,7 @@ def main(argv: list[str]) -> int:
         return 0
     phase_tie_helper(torch, torch.Generator(device=DEV).manual_seed(SEED + 4))
     launches = collections.Counter(phase_main_path(torch))
+    launches.update(phase_train_path(torch, env))
     rag_launches, cross = phase_rag_path(torch)
     launches.update(rag_launches)
     launches.update(phase_decode_path(torch, cross))
@@ -5711,7 +5933,7 @@ def main(argv: list[str]) -> int:
     launches.update(elastic_launches)
     entries += elastic_entries
     launches.update(phase_cluster_path(torch))
-    for e in entries:  # launches summed over the fifteen paths' counted runs
+    for e in entries:  # launches summed over the sixteen paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -1,13 +1,15 @@
-"""Encoder models of the port: tokenizer, batching, TextEncoder, SentenceEncoder.
+"""Encoder models of the port: tokenizer, batching, TextEncoder,
+SentenceEncoder and the contrastive trainer.
 
 The same exports as the reference's ``models`` package. Its CLIP encoder
-and contrastive trainer come with ROADMAP Queue A items 9 and 8.
+comes with ROADMAP Queue A item 9.
 """
 
 from .batching import bucket, chunks, pad_token_batch
 from .encoder import CrossEncoderHead, EncoderConfig, TextEncoder, init_params
 from .sentence_encoder import CrossEncoderScorer, SentenceEncoder
 from .tokenizer import WordPieceTokenizer, default_tokenizer
+from .training import ContrastiveTrainer, info_nce_loss
 
 __all__ = [
     "EncoderConfig",
@@ -21,13 +23,13 @@ __all__ = [
     "pad_token_batch",
     "bucket",
     "chunks",
+    "ContrastiveTrainer",
+    "info_nce_loss",
 ]
 
 _WAITING = {
     "CLIPEncoder": "ROADMAP Queue A item 9 (remaining models)",
     "CLIPConfig": "ROADMAP Queue A item 9 (remaining models)",
-    "ContrastiveTrainer": "ROADMAP Queue A item 8 (training)",
-    "info_nce_loss": "ROADMAP Queue A item 8 (training)",
 }
 
 

@@ -20,6 +20,13 @@ from torch import nn
 
 from ..ops.fused_attention import attention
 
+# logical axis names of the parameters (mapped to mesh axes by
+# parallel/sharding.LOGICAL_RULES: embed -> None, heads/mlp -> "model")
+EMBED = "embed"
+HEADS = "heads"
+MLP = "mlp"
+VOCAB = "vocab"
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
@@ -60,12 +67,30 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return nn.functional.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype) -> torch.Tensor:
+def _norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float, dtype) -> torch.Tensor:
     """Statistics in f32, output in ``dtype`` (flax LayerNorm with dtype)."""
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
-    return ((x32 - mu) * torch.rsqrt(var + ln.eps) * ln.weight + ln.bias).to(dtype)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * weight + bias).to(dtype)
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype) -> torch.Tensor:
+    return _norm(x, ln.weight, ln.bias, ln.eps, dtype)
+
+
+def pool(x: torch.Tensor, mask: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """Token states [B, S, d] -> f32 sentence embeddings: the CLS state or
+    the masked mean, L2-normalised when ``cfg.normalize``."""
+    if cfg.pooling == "cls":
+        pooled = x[:, 0]
+    else:  # masked mean pooling (sentence-transformers default)
+        m = mask[:, :, None].to(x.dtype)
+        pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    pooled = pooled.float()
+    if cfg.normalize:
+        pooled = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
+    return pooled
 
 
 class SelfAttention(nn.Module):
@@ -134,27 +159,24 @@ class TextEncoder(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         ids = ids.long()
-        x = self.tok_embed.weight.to(dt)[ids]
-        pos = self.pos_embed.weight.to(dt)
-        x = x + (pos[position_ids.long()] if position_ids is not None else pos[: ids.shape[1]][None])
+        # rows are looked up, then cast (the values of a cast table's rows):
+        # a table's gradient then sums its tokens' rows in the table's f32,
+        # through the embedding backward's segment sums (an index_put
+        # backward serialises the many tokens that share one type id)
+        emb = nn.functional.embedding
+        x = emb(ids, self.tok_embed.weight).to(dt)
+        pos = self.pos_embed.weight
+        x = x + (emb(position_ids.long(), pos) if position_ids is not None else pos[: ids.shape[1]][None]).to(dt)
         if self.type_embed is not None:
             tt = token_type_ids.long() if token_type_ids is not None else torch.zeros_like(ids)
-            x = x + self.type_embed.weight.to(dt)[tt]
+            x = x + emb(tt, self.type_embed.weight).to(dt)
         x = _layer_norm(x, self.ln_embed, dt)
         mask = mask.bool()
         for layer in self.layers:
             x = layer(x, mask, segment_ids)
         if return_tokens or segment_ids is not None:
             return x
-        if cfg.pooling == "cls":
-            pooled = x[:, 0]
-        else:  # masked mean pooling (sentence-transformers default)
-            m = mask[:, :, None].to(x.dtype)
-            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
-        pooled = pooled.float()
-        if cfg.normalize:
-            pooled = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-12)
-        return pooled
+        return pool(x, mask, cfg)
 
     def cast_for_inference(self) -> "TextEncoder":
         """Store the embedding and projection parameters in ``cfg.dtype``
@@ -192,6 +214,29 @@ class CrossEncoderHead(nn.Module):
 
 def _is_layer_norm(name: str) -> bool:
     return name.split(".")[-2].startswith("ln_")
+
+
+# the reference's Dense kernel_axes ([in, out]) read in the port's [out, in]
+# weight layout, and its token embedding's (vocab, embed)
+_LOGICAL_AXES = {
+    "attention.qkv.weight": (HEADS, EMBED),
+    "attention.out.weight": (EMBED, HEADS),
+    "mlp_in.weight": (MLP, EMBED),
+    "mlp_out.weight": (EMBED, MLP),
+    "tok_embed.weight": (VOCAB, EMBED),
+}
+
+
+def param_logical_axes(model: nn.Module, cfg: EncoderConfig) -> dict[str, tuple]:
+    """State-dict name -> logical axes of each dimension (a name or None),
+    the counterpart of the reference's ``nn.get_partition_spec`` tree: the
+    projections' heads / mlp axes and the token embedding's vocab axis; every
+    other parameter (biases, LayerNorm, position and type embeddings, the
+    cross-encoder's classifier) has none, an empty tuple."""
+    return {
+        name: next((axes for key, axes in _LOGICAL_AXES.items() if f".{name}".endswith(f".{key}")), ())
+        for name in model.state_dict()
+    }
 
 
 def init_params(cfg: EncoderConfig, seed: int = 0) -> dict[str, torch.Tensor]:

@@ -171,6 +171,19 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
 
 
+def no_backward(name: str, *operands) -> None:
+    """Raise for a kernel the reference gives no vjp when autograd would
+    need one: grad enabled and an operand that requires it. The kernel's
+    result would come back detached and the gradient stop there unseen."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or torch.inference_mode(), "
+            "or with operands that do not require grad"
+        )
+
+
 def stream_handle(t) -> int:
     """PyTorch's current stream on ``t``'s device, as the integer the C
     entry points take."""

@@ -26,6 +26,18 @@ Both kernels run the same FlashAttention-2 loop (``csrc/flash_tile.cuh``:
 an online softmax in registers, P rounded to bf16 before normalisation),
 templated on head dims 32, 64, 128 and 256; the wrappers zero-pad any
 other head dim up to 256 to the next of these.
+
+Gradients (the reference's ``custom_vjp``s ``_fused_attention`` and
+``_packed_attention``): when grad is enabled and ``qkv`` requires it,
+``masked_attention``, ``segment_attention`` and ``attention`` go through
+an autograd Function whose forward is the call above (the kernel on a
+CUDA tensor) and whose backward recomputes the plain chain,
+:func:`attention_reference` or :func:`packed_attention_reference` (the
+counterparts of ``_xla_reference`` and ``_xla_packed_reference``), and
+returns the gradient of ``qkv`` only. The reference has no backward
+kernel: its backward is XLA, and a chain of PyTorch ops is its
+counterpart. Otherwise the call is the plain forward, and nothing is
+saved.
 """
 
 from __future__ import annotations
@@ -160,13 +172,49 @@ def _launch(source: str, entry: str, qkv, other, n_heads: int, hd: int, hdp: int
     return _unpad_heads(out, n_heads, hd, hdp)
 
 
+def _differentiable(qkv: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and qkv.requires_grad
+
+
+def _qkv_grad(chain, qkv: torch.Tensor, other: torch.Tensor, n_heads: int, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``qkv`` through the plain ``chain``, recomputed."""
+    with torch.enable_grad():
+        t = qkv.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(chain(t, other, n_heads), t, g)
+    return grad
+
+
+class _MaskedAttention(torch.autograd.Function):
+    """``masked_attention`` with the reference's ``_fused_attention`` vjp:
+    the forward as called, the backward through :func:`attention_reference`."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_mask, n_heads: int, zero_empty: bool):
+        ctx.n_heads, ctx.zero_empty = n_heads, zero_empty
+        ctx.save_for_backward(qkv, key_mask)
+        return _masked_attention(qkv, key_mask, n_heads, zero_empty)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, key_mask = ctx.saved_tensors
+        if ctx.zero_empty:  # a sequence with no live key gave 0: no gradient flows from it
+            g = torch.where(key_mask.bool().any(dim=1)[:, None, None], g, 0.0)
+        return _qkv_grad(attention_reference, qkv, key_mask, ctx.n_heads, g), None, None, None
+
+
 def masked_attention(
     qkv: torch.Tensor, key_mask: torch.Tensor, n_heads: int, zero_empty: bool = False
 ) -> torch.Tensor:
     """qkv [B, S, 3D] (q | k | v, heads minor within each), key_mask
     [B, S] bool -> ctx [B, S, D]. CUDA tensors launch the kernel (bf16,
     head dim up to 256, any S) or raise; CPU tensors take
-    :func:`masked_attention_reference`."""
+    :func:`masked_attention_reference`. Differentiable in ``qkv``."""
+    if _differentiable(qkv):
+        return _MaskedAttention.apply(qkv, key_mask, n_heads, zero_empty)
+    return _masked_attention(qkv, key_mask, n_heads, zero_empty)
+
+
+def _masked_attention(qkv, key_mask, n_heads: int, zero_empty: bool) -> torch.Tensor:
     if not qkv.is_cuda:
         return masked_attention_reference(qkv, key_mask, n_heads, zero_empty)
     _, _, _, hd, hdp = masked_attention_operands(qkv, key_mask, n_heads)
@@ -193,10 +241,53 @@ def segment_attention_reference(qkv: torch.Tensor, segment_ids: torch.Tensor, n_
     return torch.where((seg >= 0)[:, :, None], ctx, 0.0).to(dt)
 
 
+def packed_attention_reference(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The plain packed attention chain, the counterpart of the reference's
+    ``_xla_packed_reference`` (its CPU path and backward): scores in the
+    working dtype, keys of other segments at the dtype's minimum, f32
+    softmax, probabilities in the working dtype. Unlike
+    :func:`segment_attention_reference`, -1 rows attend each other."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // n_heads
+    dt = qkv.dtype
+    q, k, v = (_split_heads(t, n_heads) for t in qkv.split(d, dim=-1))
+    scores = (q.float() @ k.float().transpose(-1, -2)).to(dt) / math.sqrt(hd)
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    scores = scores.masked_fill(~same, torch.finfo(dt).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(dt)
+    ctx = (probs.float() @ v.float()).to(dt)
+    return ctx.transpose(1, 2).reshape(b, s, d)
+
+
+class _SegmentAttention(torch.autograd.Function):
+    """``segment_attention`` with the reference's ``_packed_attention`` vjp:
+    the forward as called, the backward through
+    :func:`packed_attention_reference`."""
+
+    @staticmethod
+    def forward(ctx, qkv, segment_ids, n_heads: int):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(qkv, segment_ids)
+        return _segment_attention(qkv, segment_ids, n_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, segment_ids = ctx.saved_tensors
+        return _qkv_grad(packed_attention_reference, qkv, segment_ids, ctx.n_heads, g), None, None
+
+
 def segment_attention(qkv: torch.Tensor, segment_ids: torch.Tensor, n_heads: int) -> torch.Tensor:
     """qkv [B, S, 3D], segment_ids [B, S] int (-1 = padding) -> ctx [B, S, D].
     CUDA tensors launch the kernel (bf16, head dim up to 256, any S) or
-    raise; CPU tensors take :func:`segment_attention_reference`."""
+    raise; CPU tensors take :func:`segment_attention_reference`.
+    Differentiable in ``qkv``."""
+    if _differentiable(qkv):
+        return _SegmentAttention.apply(qkv, segment_ids, n_heads)
+    return _segment_attention(qkv, segment_ids, n_heads)
+
+
+def _segment_attention(qkv, segment_ids, n_heads: int) -> torch.Tensor:
     if not qkv.is_cuda:
         return segment_attention_reference(qkv, segment_ids, n_heads)
     _, _, _, hd, hdp = segment_attention_operands(qkv, segment_ids, n_heads)

@@ -36,7 +36,11 @@ Rounding points follow the TPU kernel: qkv rounded to bf16 after its bias;
 ctx in bf16; ``att`` stays f32 into ``LN1(x + att)``; ``h1`` stays f32 as
 the residual of LN2 and only its bf16 copy feeds ``mlp_in``; the GELU
 output is rounded to bf16 before ``mlp_out``; LayerNorm is
-``mean((x - mu)^2)`` in f32. This is forward only.
+``mean((x - mu)^2)`` in f32. The kernels have no backward (the
+reference gives ``fused_layer_tokens`` none): their wrappers raise when
+grad is enabled and an operand requires it. ``encoder_forward`` is
+differentiable as the reference's is: its backward recomputes through the
+``TextEncoder`` module.
 
 The packed-token layout (``pack_tokens`` / ``block_lens`` /
 ``_pack_rows``) is kept so a layer's inputs can be laid out as the
@@ -183,7 +187,10 @@ def gemm_bias_act_operands(x, w, b) -> tuple[int, int, int]:
 def gemm_bias_act(x, w, b, act: bool = False):
     """x [M, K] bf16, w [N, K] bf16, b [N] f32 -> act(x w^T + b) [M, N]
     bf16. CUDA tensors launch the kernel or raise; CPU tensors take the
-    plain version. K or N not a multiple of 8 runs zero-padded to one."""
+    plain version. K or N not a multiple of 8 runs zero-padded to one. Has
+    no backward: raises RuntimeError when grad is enabled and an operand
+    requires it."""
+    _build.no_backward("gemm_bias_act", x, w, b)
     if not x.is_cuda:
         return gemm_bias_act_reference(x, w, b, act)
     n_true, k_true = w.shape[0], x.shape[-1]
@@ -254,7 +261,8 @@ def gemm_bias_residual_layernorm(x, w, b, residual, gamma, beta, eps: float, *, 
     a multiple of 8 run zero-padded) or raise; CPU tensors take the plain
     version. ``out_f32``: also return the f32 rows (the next residual); at
     a staged width (1024 and up) the kernel stages the rows there either
-    way."""
+    way. Has no backward, as :func:`gemm_bias_act`."""
+    _build.no_backward("gemm_bias_residual_layernorm", x, w, b, residual, gamma, beta)
     if not x.is_cuda:
         return gemm_bias_residual_layernorm_reference(x, w, b, residual, gamma, beta, eps, out_f32=out_f32)
     n_true = w.shape[0]
@@ -396,11 +404,48 @@ def _pad_layer(lp: dict) -> None:
 # ------------------------------------------------------------ the encoder
 
 
+class _EncoderForward(torch.autograd.Function):
+    """``encoder_forward`` with the reference's ``_encoder_forward`` vjp: the
+    forward as called (the whole-layer kernels on a card), the backward
+    recomputed through the ``TextEncoder`` module on the same state-dict
+    tensors, so every gradient has its tensor's shape (never a padded one)."""
+
+    @staticmethod
+    def forward(ctx, cfg, ids, mask, lens, names, *tensors):
+        ctx.cfg, ctx.names = cfg, names
+        ctx.save_for_backward(ids, mask, *tensors)
+        return _encoder_forward(dict(zip(names, tensors)), cfg, ids, mask, lens)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..models.encoder import TextEncoder
+
+        ids, mask, *tensors = ctx.saved_tensors
+        with torch.device("meta"):
+            module = TextEncoder(ctx.cfg)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, ctx.needs_input_grad[5:])]
+            out = torch.func.functional_call(module, dict(zip(ctx.names, leaves)), (ids, mask))
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None,) * 5 + tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
 def encoder_forward(params: dict, cfg, ids, mask, *, lens=None):
     """TextEncoder forward (embeddings -> one whole-layer call per layer ->
     pooling) off a TextEncoder state dict (best from ``prepare_params``).
     ``lens`` [B] (per-row real lengths) skips the mask reduction; ``mask``
-    must be prefix-contiguous either way. Forward only."""
+    must be prefix-contiguous either way. Differentiable: with grad enabled
+    and a state-dict tensor that requires it, the backward recomputes
+    through the ``TextEncoder`` module and returns a gradient for every
+    such tensor, at its shape."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in params.values()):
+        names = tuple(params)
+        return _EncoderForward.apply(cfg, ids, mask, lens, names, *(params[n] for n in names))
+    return _encoder_forward(params, cfg, ids, mask, lens)
+
+
+def _encoder_forward(params: dict, cfg, ids, mask, lens):
     dt = cfg.dtype
     b, s = ids.shape
     emb = lambda key: params[key].to(dt)  # noqa: E731

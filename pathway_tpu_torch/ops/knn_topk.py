@@ -201,7 +201,10 @@ def knn_topk(queries, docs, *, k: int, bias=None, factor: float = 1.0, regime: s
     """queries [Q, D] x docs [N, D] (+ bias [N]) -> (scores [Q, k] f32,
     indices [Q, k] int32). CUDA tensors launch a partial pass chosen by
     :func:`launch_plan` (``regime`` forces one) and the merge pass (f32,
-    k <= 64) or raise; CPU tensors take :func:`knn_topk_reference`."""
+    k <= 64) or raise; CPU tensors take :func:`knn_topk_reference`. Has no
+    backward: raises RuntimeError when grad is enabled and an operand
+    requires it."""
+    _build.no_backward("knn_topk", queries, docs, bias)
     if not queries.is_cuda:
         return knn_topk_reference(queries, docs, k=k, bias=bias, factor=factor)
     if bias is None:
@@ -282,7 +285,9 @@ def knn_topk_sharded(queries, doc_shards, bias_shards, *, k: int, factor: float 
     on the source's stream that the destination's stream waits on). Every
     shard's launches are issued before anything waits; then
     :func:`merge_shard_candidates` folds the block. CPU shards take
-    :func:`knn_topk_sharded_reference`."""
+    :func:`knn_topk_sharded_reference`. Has no backward, as
+    :func:`knn_topk`."""
+    _build.no_backward("knn_topk_sharded", queries, *doc_shards, *bias_shards)
     if not doc_shards or len(doc_shards) != len(bias_shards):
         raise ValueError("knn_topk_sharded takes one bias per doc shard, at least one shard")
     rows = doc_shards[0].shape[0]

@@ -95,7 +95,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lens, *, n_heads: i
     int32 (entries past ``pages_for(lens[b])`` are never read) · ``lens``:
     [B] int32. Returns [B, d] float32. CUDA tensors launch the kernel (f32,
     any head dim) and, past one split, its combine, or raise; CPU
-    tensors take :func:`paged_attention_reference`."""
+    tensors take :func:`paged_attention_reference`. Has no backward:
+    raises RuntimeError when grad is enabled and an operand requires it."""
+    _build.no_backward("paged_decode_attention", q, k_pages, v_pages)
     if not q.is_cuda:
         return paged_attention_reference(q, k_pages, v_pages, page_tables, lens, n_heads=n_heads, scale=scale)
     _build.require(q, dtype=torch.float32, ndim=2, name="q")

@@ -8,9 +8,17 @@ holds the devices, ``mesh.shape`` reads ``{"data": n, "model": m}`` as the
 reference's ``mesh.shape`` does, and shard ``s`` of the data axis lives on
 ``devices[s][0]``. The index and the encoder use the data axis only (the
 reference replicates them over ``model``, which changes no answer); the
-``model`` axis is parsed and kept for training, the only place the
-reference shards over it (ROADMAP Queue A item 8, with ``param_sharding``
-and ``LOGICAL_RULES``).
+contrastive trainer (``models/training.py``) is the one place that shards
+over ``model``, as the reference's does.
+
+Where the reference hands GSPMD a ``NamedSharding``, the port has a
+:class:`Placement`: the mesh and, per dimension, the mesh axis it is split
+over or None. ``LOGICAL_RULES`` (the reference's tuple) maps the encoder's
+logical axes to mesh axes; ``param_sharding`` turns a state dict's logical
+axes (``models/encoder.param_logical_axes``) into placements,
+``data_sharding`` splits a batch over the ``data`` axis, ``replicated``
+places a copy on every device. Nothing moves until a caller splits a
+tensor with :meth:`Placement.split` and puts each piece on its device.
 
 ``make_mesh()`` takes ``cuda:0 .. cuda:n-1`` and raises when fewer cards
 are visible; the CPU only when the caller passes CPU devices
@@ -26,6 +34,7 @@ global mesh (see its docstring).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Sequence
 
@@ -33,6 +42,15 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+# logical axis -> mesh axis (see models/encoder.py param_logical_axes)
+LOGICAL_RULES = (
+    ("embed", None),
+    ("heads", MODEL_AXIS),
+    ("mlp", MODEL_AXIS),
+    ("vocab", None),
+    ("batch", DATA_AXIS),
+)
 
 
 class DeviceMesh:
@@ -89,6 +107,65 @@ def make_mesh(
     if model_parallel < 1 or n % model_parallel:
         raise ValueError(f"model_parallel={model_parallel} does not divide {n} devices")
     return DeviceMesh([devices[i : i + model_parallel] for i in range(0, n, model_parallel)])
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a tensor lives on a mesh: ``spec[i]`` is the mesh axis that
+    dimension ``i`` is split over, or None; an empty spec is a copy on every
+    device. The counterpart of the reference's ``NamedSharding(mesh,
+    PartitionSpec(*spec))``."""
+
+    mesh: DeviceMesh
+    spec: tuple = ()
+
+    def _dim(self) -> int | None:
+        return next((i for i, axis in enumerate(self.spec) if axis is not None), None)
+
+    def split(self, t: torch.Tensor, groups: int = 1) -> list[torch.Tensor]:
+        """``t``'s pieces along its split dimension, one per position on
+        that mesh axis, in mesh order; ``[t]`` when no dimension is split.
+        ``groups``: the dimension is that many equal blocks, each split
+        alike (the fused qkv projection's q | k | v). Raises ValueError
+        when the dimension does not divide."""
+        dim = self._dim()
+        if dim is None:
+            return [t]
+        n, size = self.mesh.shape[self.spec[dim]], t.shape[dim]
+        if size % (groups * n):
+            raise ValueError(
+                f"dimension {dim} of size {size} does not split into {groups} x {n} pieces over {self.spec[dim]!r}"
+            )
+        v = t.unflatten(dim, (groups, n, size // (groups * n)))
+        return [v.select(dim + 1, j).flatten(dim, dim + 1) for j in range(n)]
+
+    def join(self, pieces: Sequence[torch.Tensor], groups: int = 1) -> torch.Tensor:
+        """The tensor :meth:`split` cut into ``pieces`` (all on one device)."""
+        dim = self._dim()
+        if dim is None or len(pieces) == 1:
+            return pieces[0]
+        blocks = [p.unflatten(dim, (groups, p.shape[dim] // groups)) for p in pieces]
+        return torch.stack(blocks, dim=dim + 1).flatten(dim, dim + 2)
+
+
+def param_sharding(mesh: DeviceMesh, logical_axes: dict) -> dict[str, Placement]:
+    """State-dict name -> logical axes (one name or None per dimension, as
+    ``models/encoder.param_logical_axes`` gives them) -> name -> the
+    :class:`Placement` ``LOGICAL_RULES`` maps them to."""
+    rules = dict(LOGICAL_RULES)
+    return {
+        name: Placement(mesh, tuple(rules.get(axis) if axis is not None else None for axis in axes))
+        for name, axes in logical_axes.items()
+    }
+
+
+def data_sharding(mesh: DeviceMesh, ndim: int = 2) -> Placement:
+    """Batch-dim placement for activations and inputs."""
+    return Placement(mesh, (DATA_AXIS,) + (None,) * (ndim - 1))
+
+
+def replicated(mesh: DeviceMesh) -> Placement:
+    return Placement(mesh, ())
 
 
 def host_mesh_from_env(device: str | None = None) -> DeviceMesh | None:

@@ -34,13 +34,45 @@ import pathway_tpu_torch as tpw
 import pathway_tpu_torch.internals.graph_runner as t_gr
 import pathway_tpu_torch.internals.http_monitoring as t_http
 import pathway_tpu_torch.internals.monitoring as t_mon
+from pathway_tpu import tracing as j_tr
+from pathway_tpu.decode.metrics import DECODE_METRICS as J_DECODE
+from pathway_tpu.freshness.plane import FRESHNESS as J_FRESH
+from pathway_tpu.internals.chip_ledger import CHIP_LEDGER as J_CHIP
+from pathway_tpu.internals.ledger import LEDGER as J_LEDGER
+from pathway_tpu.ops.index_metrics import INDEX_METRICS as J_INDEX
+from pathway_tpu.serving import SERVING_METRICS as J_SERVING
+from pathway_tpu.tenancy.metrics import TENANCY_METRICS as J_TENANCY
+from pathway_tpu_torch import tracing as t_tr
+from pathway_tpu_torch.decode.metrics import DECODE_METRICS as T_DECODE
+from pathway_tpu_torch.freshness.plane import FRESHNESS as T_FRESH
 from pathway_tpu_torch.internals import flight_recorder as t_fr
+from pathway_tpu_torch.internals.chip_ledger import CHIP_LEDGER as T_CHIP
+from pathway_tpu_torch.internals.ledger import LEDGER as T_LEDGER
+from pathway_tpu_torch.ops.index_metrics import INDEX_METRICS as T_INDEX
+from pathway_tpu_torch.serving import SERVING_METRICS as T_SERVING
+from pathway_tpu_torch.tenancy.metrics import TENANCY_METRICS as T_TENANCY
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROC_TIMEOUT = 120
 
 J = SimpleNamespace(pw=jpw, gr=j_gr, http=j_http, mon=j_mon)
 T = SimpleNamespace(pw=tpw, gr=t_gr, http=t_http, mon=t_mon)
+
+
+def _reset_planes():
+    """Every process-global registry of both packages whose activity adds
+    series to ``/metrics``: one left active by an earlier file on the same
+    worker (the HBM ledger, the tracing plane's stage histograms) would add
+    its series to one package's scrape only."""
+    for reg in (J_LEDGER, T_LEDGER, J_CHIP, T_CHIP, J_FRESH, T_FRESH, J_SERVING, T_SERVING, J_INDEX, T_INDEX,
+                J_DECODE, T_DECODE, J_TENANCY, T_TENANCY, j_tr.TRACE_STORE, t_tr.TRACE_STORE, j_tr.TRACING_METRICS,
+                t_tr.TRACING_METRICS):
+        reg.reset()
+
+
+@pytest.fixture(autouse=True)
+def _planes_reset_before_each_case():
+    _reset_planes()
 
 
 def _series_lines(body: str) -> list[str]:
@@ -75,7 +107,10 @@ def _shape(body: str) -> list[str]:
     return sorted(ln.rsplit(" ", 1)[0] for ln in _series_lines(body))
 
 
-def test_sharded_metrics_label_every_worker(tmp_path):
+def _sharded_worker_series(tmp_path) -> dict:
+    """Each package's two-worker scrape: every line labelled, the per-worker
+    epoch / rows / restarts series present; -> its ``pathway_(epoch|rows_|
+    worker_)`` series' names and labels by package."""
     got = {}
     for tag, P in (("jax", J), ("torch", T)):
         (tmp_path / tag).mkdir()
@@ -92,7 +127,33 @@ def test_sharded_metrics_label_every_worker(tmp_path):
             assert f'pathway_rows_input_total{{worker="{wid}"}}' in body
             assert f'pathway_worker_restarts_total{{worker="{wid}"}}' in body
         got[tag] = {ln for ln in _shape(body) if re.match(r"pathway_(epoch|rows_|worker_)", ln)}
+    return got
+
+
+def test_sharded_metrics_label_every_worker(tmp_path):
+    got = _sharded_worker_series(tmp_path)
     assert got["torch"] == got["jax"]
+
+
+@pytest.mark.parametrize("leaked", ["jax", "torch"])
+def test_sharded_metrics_after_one_package_left_its_ledger_active(tmp_path, leaked):
+    """An earlier file left one package's HBM ledger active (as
+    ``tests/test_torch_profiler.py``'s encoder case left the port's); the
+    reset each case starts with takes it back, and the scrapes agree."""
+    (J_LEDGER if leaked == "jax" else T_LEDGER).update("weights", "earlier-file", 1 << 20)
+    _reset_planes()
+    got = _sharded_worker_series(tmp_path)
+    assert got["torch"] == got["jax"]
+
+
+def test_sharded_metrics_with_both_hbm_ledgers_active(tmp_path):
+    """With both packages' HBM ledgers active, both scrapes carry each
+    worker's ``pathway_worker_hbm_bytes`` alike."""
+    for ledger in (J_LEDGER, T_LEDGER):
+        ledger.update("weights", "telemetry-test", 1 << 20)
+    got = _sharded_worker_series(tmp_path)
+    assert got["torch"] == got["jax"]
+    assert {f'pathway_worker_hbm_bytes{{worker="{wid}"}}' for wid in (0, 1)} <= got["torch"]
 
 
 @pytest.mark.parametrize("P", [J, T], ids=["jax", "torch"])

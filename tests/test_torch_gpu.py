@@ -778,3 +778,79 @@ def test_rag_server_on_the_card_answers_as_the_library_path(cuda, tmp_path, monk
     assert got[0]["text"] == query
     for h, (_, score) in zip(got, want):
         assert abs(h["dist"] + score) <= 1e-5
+
+
+# ------------------------------------------------------------------ training
+# The autograd Functions of B3, B4 and encoder_forward on the card: the
+# forward is the kernel's (one launch), the backward the plain chain's with
+# the same cotangent, so the gradients equal autograd through that chain
+# within BF16; the trainer at a small width.
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["B3", "B4"])
+def test_attention_functions_on_the_card(cuda, packed):
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops import fused_attention as fa
+
+    g = _gen(91 + packed)
+    b, s, h, d = 32, 128, 12, 384
+    qkv = torch.randn(b, s, 3 * d, device=cuda, generator=g).bfloat16()
+    lens = torch.randint(16, s + 1, (b,), device=cuda, generator=g)
+    mask = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    seg = torch.where(mask, torch.arange(b, device=cuda)[:, None] * 4 + torch.arange(s, device=cuda)[None, :] // 40,
+                      -1).to(torch.int32)
+    w = torch.randn(b, s, d, device=cuda, generator=g) * (seg >= 0)[:, :, None]
+    key = "segment_attention" if packed else "masked_attention"
+    got = qkv.clone().requires_grad_(True)
+    before = _build.LAUNCHES[key]
+    out = fa.attention(got, None if packed else mask, n_heads=h, segment_ids=seg if packed else None)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 1 and out.grad_fn is not None
+    kernel = fa.segment_attention(qkv, seg, h) if packed else fa.masked_attention(qkv, mask, h)
+    assert torch.equal(out.detach(), kernel)
+    (out.float() * w).sum().backward()
+    want = qkv.clone().requires_grad_(True)
+    chain = fa.packed_attention_reference(want, seg, h) if packed else fa.attention_reference(want, mask, h)
+    (chain.float() * w).sum().backward()
+    torch.testing.assert_close(got.grad.float(), want.grad.float(), **BF16)
+
+
+def test_encoder_forward_function_on_the_card(cuda):
+    import dataclasses
+
+    from pathway_tpu_torch.models.encoder import EncoderConfig, TextEncoder, init_params
+    from pathway_tpu_torch.ops import fused_layer as fl
+
+    cfg = EncoderConfig.minilm_l6(num_layers=2)
+    g = _gen(93)
+    sd = {k: v.to(cuda).requires_grad_(True) for k, v in init_params(cfg, 0).items()}
+    ids = torch.randint(1000, cfg.vocab_size, (16, 64), device=cuda, generator=g)
+    mask = torch.arange(64, device=cuda)[None, :] < torch.randint(16, 65, (16, 1), device=cuda, generator=g)
+    proj = torch.randn(16, cfg.hidden_size, device=cuda, generator=g)
+    (fl.encoder_forward(sd, cfg, ids, mask) * proj).sum().backward()
+    with torch.device("meta"):
+        module = TextEncoder(dataclasses.replace(cfg, attention_impl="plain"))
+    ref = {k: v.detach().clone().requires_grad_(True) for k, v in sd.items()}
+    (torch.func.functional_call(module, ref, (ids, mask)) * proj).sum().backward()
+    for k, t in sd.items():
+        assert t.grad.shape == t.shape, k
+        # kernel and plain forwards round bf16 at other points: hold each gradient by direction
+        cos = torch.nn.functional.cosine_similarity(t.grad.flatten(), ref[k].grad.flatten(), dim=0)
+        assert cos > 0.995, (k, float(cos))
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_trainer_steps_on_the_card(cuda, tp):
+    from pathway_tpu_torch.models import ContrastiveTrainer, EncoderConfig
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.parallel.sharding import make_mesh
+
+    cfg = EncoderConfig.minilm_l6(num_layers=2)
+    g = _gen(95)
+    ids = torch.randint(1000, cfg.vocab_size, (16, 32), device=cuda, generator=g)
+    mask = torch.arange(32, device=cuda)[None, :] < torch.randint(8, 33, (16, 1), device=cuda, generator=g)
+    trainer = ContrastiveTrainer(cfg, mesh=make_mesh(devices=[cuda] * tp, model_parallel=tp), learning_rate=1e-4)
+    _build.reset_launches()
+    losses = [trainer.step(ids, mask, ids.roll(1, dims=1), mask) for _ in range(3)]
+    assert losses[-1] < losses[0]
+    assert dict(_build.LAUNCHES) == {"masked_attention": 3 * 2 * cfg.num_layers * tp}

@@ -6,12 +6,34 @@ Tolerances: every value equal."""
 
 from __future__ import annotations
 
+import copy
+
 import pytest
 
 from pathway_tpu.internals import http_monitoring as jhm
+from pathway_tpu.internals.ledger import LEDGER as JLEDGER
 from pathway_tpu.ops import index_metrics as jim
 from pathway_tpu_torch.internals import http_monitoring as thm
+from pathway_tpu_torch.internals.ledger import LEDGER as TLEDGER
 from pathway_tpu_torch.ops import index_metrics as tim
+
+
+# the HBM ledger's state (``internals/ledger.DeviceLedger``)
+_LEDGER_FIELDS = ("_rows", "_high", "_high_total", "_touched")
+
+
+@pytest.fixture(autouse=True)
+def _restore_hbm_ledgers():
+    """Both packages' HBM ledgers as each test found them: a ledger left
+    active by one package alone would add ``pathway_worker_hbm_bytes`` to
+    that package's ``/metrics`` only, in a later file on the same worker."""
+    saved = [(led, {f: copy.deepcopy(getattr(led, f)) for f in _LEDGER_FIELDS}) for led in (JLEDGER, TLEDGER)]
+    yield
+    for led, fields in saved:
+        with led._lock:
+            for f, v in fields.items():
+                setattr(led, f, v)
+
 
 SCRIPTS = {
     "flat": [("update", "knn0", [5, 0, 3, 8], 16), ("search", "knn0", 4), ("search", "knn0", 1),

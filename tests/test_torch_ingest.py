@@ -14,6 +14,7 @@ their results and metrics are equal.
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 import time
@@ -26,12 +27,32 @@ import pathway_tpu as jpw
 import pathway_tpu_torch as tpw
 from pathway_tpu import ingest as jingest
 from pathway_tpu.internals import flight_recorder as jfr
+from pathway_tpu.internals.ledger import LEDGER as JLEDGER
 from pathway_tpu.models.tokenizer import WordPieceTokenizer as JTok
 from pathway_tpu.resilience import chaos as jchaos
 from pathway_tpu_torch import ingest as tingest
 from pathway_tpu_torch.internals import flight_recorder as tfr
+from pathway_tpu_torch.internals.ledger import LEDGER as TLEDGER
 from pathway_tpu_torch.models.tokenizer import WordPieceTokenizer as TTok
 from pathway_tpu_torch.resilience import chaos as tchaos
+
+
+# the HBM ledger's state (``internals/ledger.DeviceLedger``)
+_LEDGER_FIELDS = ("_rows", "_high", "_high_total", "_touched")
+
+
+@pytest.fixture(autouse=True)
+def _restore_hbm_ledgers():
+    """Both packages' HBM ledgers as each test found them: a ledger left
+    active by one package alone would add ``pathway_worker_hbm_bytes`` to
+    that package's ``/metrics`` only, in a later file on the same worker."""
+    saved = [(led, {f: copy.deepcopy(getattr(led, f)) for f in _LEDGER_FIELDS}) for led in (JLEDGER, TLEDGER)]
+    yield
+    for led, fields in saved:
+        with led._lock:
+            for f, v in fields.items():
+                setattr(led, f, v)
+
 
 PKGS = [(jingest, jfr, jchaos), (tingest, tfr, tchaos)]
 WORDS = ["cat", "dog", "bird", "cat", "dog", "cat", "emu", "dog"]

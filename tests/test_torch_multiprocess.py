@@ -21,6 +21,7 @@ again on a new port."""
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import socket
@@ -34,6 +35,25 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROC_TIMEOUT = 120
 SCORE_TOL = 1e-5
+
+# the HBM ledger's state (``internals/ledger.DeviceLedger``)
+_LEDGER_FIELDS = ("_rows", "_high", "_high_total", "_touched")
+
+
+@pytest.fixture(autouse=True)
+def _restore_hbm_ledgers():
+    """Both packages' HBM ledgers as each test found them: a ledger left
+    active by one package alone would add ``pathway_worker_hbm_bytes`` to
+    that package's ``/metrics`` only, in a later file on the same worker."""
+    from pathway_tpu.internals.ledger import LEDGER as JLEDGER
+    from pathway_tpu_torch.internals.ledger import LEDGER as TLEDGER
+
+    saved = [(led, {f: copy.deepcopy(getattr(led, f)) for f in _LEDGER_FIELDS}) for led in (JLEDGER, TLEDGER)]
+    yield
+    for led, fields in saved:
+        with led._lock:
+            for f, v in fields.items():
+                setattr(led, f, v)
 
 
 def _free_port() -> int:

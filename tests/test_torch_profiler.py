@@ -10,6 +10,7 @@ to the reference's formula; times only checked positive (this is a CPU)."""
 
 from __future__ import annotations
 
+import copy
 import json
 
 import numpy as np
@@ -20,8 +21,28 @@ import pathway_tpu.internals.profiler as jprof
 import pathway_tpu_torch as tpw
 import pathway_tpu_torch.internals.profiler as tprof
 from pathway_tpu.internals.graph_runner import GraphRunner as JRunner
+from pathway_tpu.internals.ledger import LEDGER as JLEDGER
 from pathway_tpu_torch.engine import dataflow as tdf
 from pathway_tpu_torch.internals.graph_runner import GraphRunner as TRunner
+from pathway_tpu_torch.internals.ledger import LEDGER as TLEDGER
+
+
+# the HBM ledger's state (``internals/ledger.DeviceLedger``)
+_LEDGER_FIELDS = ("_rows", "_high", "_high_total", "_touched")
+
+
+@pytest.fixture(autouse=True)
+def _restore_hbm_ledgers():
+    """Both packages' HBM ledgers as each test found them: a ledger left
+    active by one package alone would add ``pathway_worker_hbm_bytes`` to
+    that package's ``/metrics`` only, in a later file on the same worker."""
+    saved = [(led, {f: copy.deepcopy(getattr(led, f)) for f in _LEDGER_FIELDS}) for led in (JLEDGER, TLEDGER)]
+    yield
+    for led, fields in saved:
+        with led._lock:
+            for f, v in fields.items():
+                setattr(led, f, v)
+
 
 WORDS = """
   | text

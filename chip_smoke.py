@@ -12,9 +12,10 @@ LayerNorm widths 128 and 312, a GEMM with K 300 and N 900, and whole layers
 at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
-2-shard generation), times the index's tie-ordered top-k beside
-``torch.topk``, then drives sixteen paths, each with the launch counters
-set to 0 just before it and read just after:
+2-shard generation; B2 at d 512, CLIP's width, at 1, 16 and 256 queries;
+attention at S 8192, the ring's one-card shape), times the index's
+tie-ordered top-k beside ``torch.topk``, then drives nineteen paths, each
+with the launch counters set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
   ``SentenceEncoder.encode_device`` -> ``DeviceKnnIndex.add_batch_device``
@@ -32,6 +33,29 @@ set to 0 just before it and read just after:
   and the B4 and ``encoder_forward`` Functions' gradients; reports step
   p50 / p99, pairs/s, tokens/s, the backward's share, achieved TFLOP/s
   against 989 and peak memory;
+* ``clip_path``: ``CLIPEncoder`` at full ViT-B/32 width (bf16, seeded) on
+  ``cuda:0``: 4,096 uint8 224 x 224 images through both wires (rgb,
+  yuv420), through the collaborative ingest stage and through
+  ``encode_image_device`` into a ``DeviceKnnIndex(dim=512)`` filled to
+  2^20 rows; ``encode_text`` queries at 1, 16 and 256, k 16; gated on the
+  yuv420 wire within cosine 0.99 of the rgb one, the stage's output
+  byte-identical to the inline one, ``encode_image_device`` equal to
+  ``encode_image``, every image retrieving its own row first, B2 at d 512
+  against its plain version and B2 launching;
+* ``ring_path``: ``ring_encode`` at MiniLM-L6 width (max_position 8192)
+  over 4 shards pooled on ``cuda:0``, two documents of S 8192 (one
+  ragged), against the same weights' one-card ``TextEncoder`` forward
+  (B3 at S 8192, head dim 32) at cosine 0.999; B3 on that forward's qkv
+  against its plain version; B3 launching;
+* ``http_path``: a local server streams 16,384 documents as
+  newline-delimited JSON over chunked transfer, cut once at half and
+  resumed on the reconnect -> ``pw.io.http.read(stream=True)`` ->
+  ``SentenceTransformerEmbedder`` (B1) -> ``pw.ml.KNNIndex`` (B2) <- 256
+  queries from ``pw.io.python.read`` -> ``pw.io.http.write`` POSTing each
+  answer to a second local endpoint; gated on every document delivered
+  once, every answer POSTed once, hits equal to a ``pw.io.python.read``
+  twin's fed the same epochs (ids exact, scores 1e-5), B1 and B2
+  launching;
 * ``rag_path``: ``FusedRagPipeline`` over MiniLM-L6 and a cross_encoder_l6
   reranker: 16 long-tailed epochs of 1,024 chunks through the segment
   packer (kernel B4), 512 single queries, one batch of 512, and
@@ -565,6 +589,19 @@ def phase_kernels(torch) -> list[dict]:
             raise
         emit("kernel_skipped", name="masked_attention[S1024]", reason="the other tree's kernel does not take it")
     del qkv_s
+    # ring_path's one-card forward: RING_BATCH documents of S 8192 at MiniLM's heads (12 of 32), one ragged
+    qkv_r = torch.randn(RING_BATCH, RING_SEQ, 3 * d, device=dev, generator=g).bfloat16()
+    km_r = torch.ones(RING_BATCH, RING_SEQ, dtype=torch.bool, device=dev)
+    km_r[1, int(RING_SEQ * RING_RAGGED) :] = False
+    try:
+        entries.append(attention_entry(f"masked_attention[S{RING_SEQ}]", "pathway_tpu/ops/fused_attention.py:117",
+                                       qkv_r, km_r, False))
+    except ValueError:
+        if not ALT_TREE:
+            raise
+        emit("kernel_skipped", name=f"masked_attention[S{RING_SEQ}]", reason="the other tree's kernel does not take it")
+    del qkv_r
+    torch.cuda.empty_cache()
     phase_b1_layer(torch, g, "hd64", 768, 12, 3072)
     # public small widths that run zero-padded: bert-tiny (LayerNorm 128 -> 256) and TinyBERT-4L-312
     # (LayerNorm 312 -> 384, 12 heads of 26 -> 32)
@@ -572,6 +609,7 @@ def phase_kernels(torch) -> list[dict]:
     phase_b1_layer(torch, g, "d312", 312, 12, 1200)
 
     entries.extend(knn_entries(torch, g, d))
+    entries.extend(knn_entries(torch, g, CLIP_DIM, cases=tuple((q, "cos", CLIP_K) for q in CLIP_QUERY_SIZES)))
     entries.extend(knn_sharded_entries(torch, g, d))
     entries.append(segment_attention_entry(torch, g))
     entries.append(segment_attention_entry(torch, g, rows=128, d=768, h=12, tag="hd64"))
@@ -588,11 +626,17 @@ def phase_kernels(torch) -> list[dict]:
     return entries
 
 
-def knn_entries(torch, g, d: int, N: int = 1 << 20) -> list[dict]:
+KNN_CASES = ((1, "cos", 16), (1, "cos", 64), (1, "l2", 16), (16, "cos", 16),
+             (256, "cos", 16), (256, "cos", 64), (256, "l2", 16), (256, "l2", 64))  # (queries, metric, k)
+
+
+def knn_entries(torch, g, d: int, N: int = 1 << 20, cases=KNN_CASES) -> list[dict]:
     """B2 against ``N`` (1,048,576) x ``d`` f32 docs with 10 % dead slots, at the
     main path's shapes: one query (the index's single-query search, the
     streaming kernel), 16 (the regime boundary, where the tensor-core kernel
-    is timed beside it) and 256 (batch search, the tensor-core kernel)."""
+    is timed beside it) and 256 (batch search, the tensor-core kernel). A
+    width other than MiniLM's 384 names itself in the rows (``,d=512``:
+    ``clip_path``'s image index)."""
     import inspect
 
     import torch.nn.functional as F
@@ -605,8 +649,8 @@ def knn_entries(torch, g, d: int, N: int = 1 << 20) -> list[dict]:
     valid = torch.rand(N, device=DEV, generator=g) >= 0.1
     queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
     entries = []
-    for Q, metric, k in ((1, "cos", 16), (1, "cos", 64), (1, "l2", 16), (16, "cos", 16),
-                         (256, "cos", 16), (256, "cos", 64), (256, "l2", 16), (256, "l2", 64)):
+    width = "" if d == 384 else f",d={d}"
+    for Q, metric, k in cases:
         q = queries[:Q].contiguous()
         bias = _pallas_bias(metric, docs, valid)
         factor = 2.0 if metric == "l2" else 1.0
@@ -629,7 +673,7 @@ def knn_entries(torch, g, d: int, N: int = 1 << 20) -> list[dict]:
         if not single:  # the tensor cores' bound: bytes, or 3 TF32 products per f32 one at 495 TF/s
             extra["bound_3xtf32_ms"] = max(nbytes / HBM_BYTES, 3 * flops / PEAK_TF32) * 1e3
         entries.append(_entry(
-            f"knn_topk[{metric},k={k}]" if Q == 256 else f"knn_topk[{metric},k={k},q={Q}]",
+            f"knn_topk[{metric},k={k}{width}]" if Q == 256 else f"knn_topk[{metric},k={k},q={Q}{width}]",
             "pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/pallas_knn.py:113",
             "knn_topk_stream" if single else "knn_topk_tc", (vk - vp).abs().max().item(),
             cuda_ms(lambda: knn_topk(q, docs, k=k, bias=bias, factor=factor), reps=reps),
@@ -2919,8 +2963,9 @@ def phase_qa_path(torch, n_files: int = QA_FILES, n_answers: int = QA_ANSWERS,
 # observe_path: the corpus and the files written while serving, the traffic
 # and its clients, the overload burst at an admission queue bounded well
 # below it, the decode burst, and the freshness probe
-# 1,024 files, 256 new and 128 answers until the fifteenth path needed the time (256 answers until the fourteenth)
-OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 512, 128, 64, 64, 8
+# 1,024 files, 256 new and 128 answers until the fifteenth path needed the time (256 answers until the fourteenth);
+# 512 files and 128 new until the nineteenth
+OBS_FILES, OBS_NEW, OBS_ANSWERS, OBS_RETRIEVE, OBS_CLIENTS = 256, 64, 64, 64, 8
 OBS_BURST, OBS_QUEUE, OBS_DECODE, OBS_PROBE, OBS_WINDOW, OBS_WRITE_GROUP = 256, 32, 16, 32, 6, 8
 # the questions and retrievals read the corpus only: the files written while
 # they are asked cannot change their answers, so the twin's must be equal
@@ -2943,7 +2988,7 @@ OBS_METRICS = {
     "decode": ("pathway_decode_tokens_total", "pathway_decode_steps_total", "pathway_decode_spec_acceptance_rate"),
     "freshness": ("pathway_freshness_visibility_lag_seconds_bucket", "pathway_freshness_staleness_seconds"),
 }
-LEDGER_DEVICE_SHARE = 0.9  # an account's booked seconds against its kernels' device time
+LEDGER_DEVICE_SHARE = 0.9  # an account's booked seconds against the profiler's device span of its blocks, and its kernels' time
 
 
 def _obs_write(folder: str, name: str, text: str) -> float:
@@ -3268,11 +3313,19 @@ def _obs_serve(torch, parts: dict, *, on: bool, questions, retrievals, new_texts
             svc2.stop()
             svc3.stop()
             booked = {a: r["seconds"] for a, r in CHIP_LEDGER.snapshot(wall_s=wall)["accounts"].items()}
-            device = collections.Counter()
+            # each block appears twice under its name: as the host range, whose
+            # device time is the sum of the kernels the profiler links to it
+            # (through the PyTorch operators inside it: not the kernels launched
+            # through ctypes), and as the profiler's device-side annotation,
+            # whose time is the span from its first kernel's start to its last
+            # kernel's end, the figure the ledger's events measure; the two are
+            # read apart, never summed
+            device, kernels = collections.Counter(), collections.Counter()
             for e in prof.events():
                 if e.name.startswith("chip_ledger::"):
-                    device[e.name.split("::", 1)[1]] += getattr(e, "device_time_total", 0.0) / 1e6
-            out["window"] = dict(wall_s=wall, booked_s=booked, device_s=dict(device),
+                    into = device if e.device_type == DeviceType.CUDA else kernels
+                    into[e.name.split("::", 1)[1]] += getattr(e, "device_time_total", 0.0) / 1e6
+            out["window"] = dict(wall_s=wall, booked_s=booked, device_s=dict(device), kernel_s=dict(kernels),
                                  device_events=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
         out["launches"] = dict(_build.LAUNCHES)
     finally:
@@ -3333,8 +3386,9 @@ def phase_observe_path(torch, env: dict, n_files: int = OBS_FILES, n_new: int = 
     Gates: every answer and hit, and every decode stream, equal the twin's;
     the ledger books a positive figure under each of ``OBS_ACCOUNTS``; over
     the profiled window each account's booked seconds are at least
-    ``LEDGER_DEVICE_SHARE`` of its kernels' device time and all of them
-    together do not exceed the wall; every answer carries an
+    ``LEDGER_DEVICE_SHARE`` of the profiler's device-side span of its blocks
+    and of its kernels' summed time, and all of them together do not exceed
+    the wall; every answer carries an
     ``X-Pathway-Trace`` id whose trace holds ``OBS_STAGES`` and no span
     belongs to two requests; the burst sheds with a typed 503 and every
     admitted request is answered; the scrape holds ``OBS_METRICS`` and
@@ -3455,11 +3509,12 @@ def phase_observe_path(torch, env: dict, n_files: int = OBS_FILES, n_new: int = 
                   if win["device_s"].get(a, 0.0) > 0.0]
     if len(attributed) < 6:
         raise AssertionError(f"the profiler attributed device time to {attributed} only: {win}")
-    short = {a: (win["booked_s"].get(a, 0.0), s) for a, s in win["device_s"].items()
+    short = {a: (win["booked_s"].get(a, 0.0), s) for part in ("device_s", "kernel_s") for a, s in win[part].items()
              if win["booked_s"].get(a, 0.0) < LEDGER_DEVICE_SHARE * s}
     if short or sum(win["booked_s"].values()) > win["wall_s"]:
-        raise AssertionError(f"the ledger against the card: booked below {LEDGER_DEVICE_SHARE} of the device time "
-                             f"{short}, or {sum(win['booked_s'].values())} s booked over a {win['wall_s']} s wall")
+        raise AssertionError(f"the ledger against the card: booked below {LEDGER_DEVICE_SHARE} of the device span "
+                             f"or of the kernels' time {short}, or {sum(win['booked_s'].values())} s booked over a "
+                             f"{win['wall_s']} s wall")
     span_ids: collections.Counter = collections.Counter()
     for r in (on1, on2):
         for j, (body, tid) in r["answers"].items():
@@ -5884,6 +5939,514 @@ def phase_cluster_path(torch, n_docs: int = CLUSTER_DOCS, per_epoch: int = CLUST
     return dict(launches)
 
 
+# ------------------------------------------------------------------ clip_path
+
+CLIP_IMAGES = 4096  # uint8 224 x 224 images from a numpy seed
+CLIP_ROWS = 1 << 20  # the image index's rows: the 4,096 images and seeded filler (d 512, 2 GiB f32)
+CLIP_QUERY_SIZES = (1, 16, 256)  # encode_text queries a search (B2's streaming pass, its boundary, its tensor cores)
+CLIP_K = 16
+CLIP_DIM = 512  # CLIPConfig().embed_dim, the image index's width
+CLIP_WIRE_MIN_COS = 0.99  # yuv420 against rgb: the reference's own bar (tests/test_fused_layer.py)
+CLIP_STAGE_WORKERS = 6  # ingest-stage workers: most of an 8-core host
+
+
+def phase_clip_path(torch, env: dict, n_images: int = CLIP_IMAGES, rows: int = CLIP_ROWS, config=None) -> dict:
+    """CLIP ViT-B/32 (full width, bf16, seeded) into a 512-d device index.
+    ``n_images`` uint8 images go through ``encode_image`` on both wires (rgb,
+    yuv420) and, on the collaborative ingest stage, through ``encode_image``
+    and ``encode_image_device`` into a ``DeviceKnnIndex(dim=512)`` filled to
+    ``rows`` rows the way ``main_path`` fills its index; ``encode_text``
+    queries search it at ``CLIP_QUERY_SIZES`` queries, k 16. Gates: the
+    yuv420 wire within ``CLIP_WIRE_MIN_COS`` of the rgb one, the
+    collaborative output byte-identical to the inline one,
+    ``encode_image_device`` equal to ``encode_image``, every image's own row
+    first among its neighbours, B2 at d 512 against its plain version
+    (``topk_agreement`` 1e-5) at each query count, and B2's partial passes
+    launching. Reports images/s per wire end to end and on pre-staged rows
+    (the device alone), texts/s and peak memory."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch import DeviceKnnIndex
+    from pathway_tpu_torch.ingest import stage as ingest_stage
+    from pathway_tpu_torch.models import CLIPConfig, CLIPEncoder
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import knn_topk_reference, topk_agreement
+
+    now = time.perf_counter
+    t_phase = now()
+    dev = torch.device(DEV)
+    cfg = config or CLIPConfig()
+    H = cfg.image_size
+    rng = np.random.default_rng(SEED + 61)
+    images = rng.integers(0, 256, (n_images, H, H, 3), dtype=np.uint8)
+    words = [f"w{i}" for i in range(2000)]
+    texts = [" ".join(rng.choice(words, int(rng.integers(3, 20)))) for _ in range(max(CLIP_QUERY_SIZES))]
+    enc = CLIPEncoder(cfg, seed=SEED, max_batch=256, device=DEV)
+    for wire in ("rgb", "yuv420"):  # warm-up: first launches, the library's handles
+        enc.transport = wire
+        enc.encode_image(images[:8])
+    enc.encode_text(texts[:8])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    wires, per_s = {}, {}
+    for wire in ("rgb", "yuv420"):
+        enc.transport = wire
+        t0 = now()
+        wires[wire] = enc.encode_image(images)
+        per_s[wire] = n_images / (now() - t0)
+    cos = (wires["rgb"] * wires["yuv420"]).sum(axis=1)
+    st = ingest_stage.configure_stage(CLIP_STAGE_WORKERS)
+    try:
+        t0 = now()
+        staged = enc.encode_image(images)
+        per_s["yuv420_stage"] = n_images / (now() - t0)
+        t0 = now()
+        embs = enc.encode_image_device(images)
+        torch.cuda.synchronize()
+        per_s["yuv420_stage_device"] = n_images / (now() - t0)
+        # the device alone: wire rows already on the card, one tower call a batch of 256
+        spans = range(0, n_images, 256)
+        flat = torch.from_numpy(np.concatenate(list(st.map_ordered(
+            lambda lo: enc._pack_image_batch(images[lo : lo + 256])[1], spans)))).to(dev)
+    finally:
+        ingest_stage.shutdown_stage()
+    t0 = now()
+    for lo in range(0, flat.shape[0], 256):
+        enc._vfwd_yuv420(flat[lo : lo + 256])
+    torch.cuda.synchronize()
+    per_s["yuv420_prestaged"] = n_images / (now() - t0)
+    del flat
+
+    index = DeviceKnnIndex(dim=cfg.embed_dim, metric="cos", reserved_space=rows, device=DEV)
+    t0 = now()
+    index.add_batch_device(list(range(n_images)), embs)
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    step = 1 << 14
+    for start in range(n_images, rows, step):
+        stop = min(rows, start + step)
+        index.add_batch_device(list(range(start, stop)),
+                               F.normalize(torch.randn(stop - start, cfg.embed_dim, device=dev, generator=g), dim=1))
+    torch.cuda.synchronize()
+    fill_s = now() - t0
+    if len(index) != rows:
+        raise AssertionError(f"the image index holds {len(index)} rows of {rows}")
+    t0 = now()
+    self_hits = index.search_batch(embs, 1)
+    self_s = now() - t0
+    t0 = now()
+    q_emb = enc.encode_text(texts)
+    text_s = now() - t0
+    search_ms = {}
+    for q in CLIP_QUERY_SIZES:
+        t0 = now()
+        res = index.search_batch(q_emb[:q], CLIP_K)
+        search_ms[q] = (now() - t0) * 1e3
+        if len(res) != q or any(len(r) != CLIP_K for r in res):
+            raise AssertionError(f"a text query at q {q} returned fewer than {CLIP_K} neighbours")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- gates, outside the counted run
+    if cos.min() < CLIP_WIRE_MIN_COS:
+        raise AssertionError(f"yuv420 against rgb: min cosine {cos.min()} below {CLIP_WIRE_MIN_COS}")
+    if staged.tobytes() != wires["yuv420"].tobytes():
+        raise AssertionError("the collaborative ingest stage's CLIP embeddings differ from the inline ones")
+    if not np.array_equal(embs.cpu().numpy(), wires["yuv420"]):
+        raise AssertionError("encode_image_device differs from encode_image")
+    if embs.shape != (n_images, cfg.embed_dim) or not torch.isfinite(embs).all():
+        raise AssertionError(f"bad image embeddings {tuple(embs.shape)}")
+    missed = [i for i, r in enumerate(self_hits) if not r or r[0][0] != i]
+    if missed:
+        raise AssertionError(f"{len(missed)} images do not retrieve their own row first (e.g. {missed[:5]})")
+    shares = {}
+    qn = F.normalize(torch.from_numpy(q_emb).to(dev), dim=1)
+    for q in CLIP_QUERY_SIZES:
+        vk, ik = index.search_dispatch(qn[:q], CLIP_K)
+        vp, ip = knn_topk_reference(qn[:q], index._dev_matrix, k=vk.shape[1], bias=index._dev_bias)
+        shares[q], ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
+        if not ok:
+            raise AssertionError(f"B2 at d {cfg.embed_dim}, q {q} disagrees with its plain version ({shares[q]})")
+    missing = [k for k in ("knn_topk_stream", "knn_topk_tc", "knn_topk_merge") if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"clip_path never launched {missing}")
+    result = dict(
+        card=env["nvidia_smi"], images=n_images, image_size=H, index_rows=len(index), dim=cfg.embed_dim,
+        images_per_s=per_s, yuv420_vs_rgb_min_cos=float(cos.min()), yuv420_vs_rgb_mean_cos=float(cos.mean()),
+        texts=len(texts), texts_per_s=len(texts) / text_s, fill_seconds=fill_s,
+        self_search_seconds=self_s, search_ms={str(q): v for q, v in search_ms.items()},
+        b2_index_agreement={str(q): v for q, v in shares.items()}, max_memory_allocated=peak,
+        phase_seconds=now() - t_phase, launches=launches,
+    )
+    emit("clip_path", **result)
+    del index, embs
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------ ring_path
+
+RING_SEQ, RING_SHARDS, RING_BATCH = 8192, 4, 2  # 2,048 tokens a shard
+RING_RAGGED = 0.65  # the second document's live share: its last shard holds no live token
+RING_MIN_COS = 0.999  # pooled embeddings of the ring against the one-card forward, bf16 both
+
+
+def phase_ring_path(torch, env: dict, seq: int = RING_SEQ, shards: int = RING_SHARDS, config=None) -> dict:
+    """``ring_encode`` at MiniLM-L6 width (max_position ``seq``, seeded) over
+    a pooled mesh of ``shards`` shards on one card (the device pool of
+    ``parallel/mesh.py``; every shard's thread launches on ``cuda:0``), for
+    ``RING_BATCH`` documents of ``seq`` tokens, one of them ragged. Gates:
+    the pooled embeddings against the same weights' one-card
+    ``TextEncoder`` forward (B3 at S ``seq``, head dim 32) at cosine
+    ``RING_MIN_COS``; B3 on that forward's first-layer qkv against its
+    plain version (bf16 tolerances); B3 launching. Reports the ring's ms
+    against the one-card forward's."""
+    import numpy as np
+
+    from pathway_tpu_torch.models.encoder import EncoderConfig, TextEncoder, _layer_norm, _linear, init_params
+    from pathway_tpu_torch.models.long_context import ring_encode
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_attention import masked_attention, masked_attention_reference
+    from pathway_tpu_torch.parallel.mesh import resolve_mesh, set_device_pool
+
+    now = time.perf_counter
+    t_phase = now()
+    dev = torch.device(DEV)
+    cfg = config or EncoderConfig.minilm_l6(max_position=seq)
+    sd = {k: v.to(dev) for k, v in init_params(cfg, seed=SEED).items()}
+    one = TextEncoder(cfg).to(dev).eval().requires_grad_(False)
+    one.load_state_dict(sd)
+    rng = np.random.default_rng(SEED + 71)
+    ids = torch.from_numpy(rng.integers(1000, cfg.vocab_size, (RING_BATCH, seq))).to(dev)
+    mask = torch.ones(RING_BATCH, seq, dtype=torch.bool, device=dev)
+    mask[1, int(seq * RING_RAGGED) :] = False
+    prev = set_device_pool([dev] * shards)
+    try:
+        mesh = resolve_mesh(shards)
+        ring_encode(sd, cfg, ids[:, :seq], mask, mesh)  # warm-up: the shards' threads, the library's handles
+        with torch.no_grad():
+            one(ids, mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = now()
+        ringed = ring_encode(sd, cfg, ids, mask, mesh)
+        torch.cuda.synchronize()
+        ring_ms = (now() - t0) * 1e3
+        t0 = now()
+        with torch.no_grad():
+            direct = one(ids, mask)
+        torch.cuda.synchronize()
+        one_ms = (now() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        set_device_pool(prev)
+
+    # ---- gates, outside the counted run
+    cos = torch.nn.functional.cosine_similarity(ringed.float(), direct.float(), dim=1)
+    if ringed.shape != (RING_BATCH, cfg.hidden_size) or not torch.isfinite(ringed).all() or cos.min() < RING_MIN_COS:
+        raise AssertionError(f"ring_encode against the one-card forward: shape {tuple(ringed.shape)}, cosines "
+                             f"{cos.tolist()} (bar {RING_MIN_COS})")
+    if launches.get("masked_attention", 0) == 0:
+        raise AssertionError(f"ring_path's one-card forward never launched B3: {launches}")
+    with torch.no_grad():  # B3 on the forward's own first-layer qkv, held against its plain version
+        layer = one.layers[0]
+        x = one.tok_embed.weight[ids.long()].to(cfg.dtype) + one.pos_embed.weight[:seq][None].to(cfg.dtype)
+        x = x + one.type_embed.weight[0].to(cfg.dtype)
+        qkv = _linear(_layer_norm(x, one.ln_embed, cfg.dtype), layer.attention.qkv, cfg.dtype).contiguous()
+        err = held(f"masked_attention[S{seq}] on ring_path's qkv", masked_attention(qkv, mask, cfg.num_heads),
+                   masked_attention_reference(qkv, mask, cfg.num_heads), **BF16_TOL)
+    result = dict(
+        card=env["nvidia_smi"], documents=RING_BATCH, seq=seq, shards=shards, live_tokens=mask.sum(dim=1).tolist(),
+        ring_ms=ring_ms, one_card_ms=one_ms, ring_over_one_card=ring_ms / one_ms, min_cos=float(cos.min()),
+        b3_max_abs_err=err, max_memory_allocated=peak, phase_seconds=now() - t_phase, launches=launches,
+    )
+    emit("ring_path", **result)
+    del one, sd
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------ http_path
+
+HTTP_DOCS, HTTP_QUERIES, HTTP_K = 16_384, 256, 10
+HTTP_RETRY = dict(first_delay_ms=100, backoff_factor=2.0, jitter_ms=0)  # the reader's reconnect backoff
+
+
+class _HttpFeed:
+    """Two local endpoints on one ``ThreadingHTTPServer``: ``GET /stream``
+    answers newline-delimited JSON documents over chunked transfer, the
+    first connection cut without its last chunk after half of them, the
+    next one serving the rest; a later connection is held open, idle, until
+    :meth:`release` (the reader of a run in streaming mode reconnects when a
+    body ends). ``POST /sink`` records each JSON body."""
+
+    def __init__(self, docs: list):
+        import http.server
+        import threading
+
+        feed = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, format, *args):  # noqa: A002 - no access log on the script's output
+                pass
+
+            def do_GET(self):
+                with feed.lock:
+                    feed.connections.append(time.perf_counter())
+                    n_conn = len(feed.connections)
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                if n_conn <= 2:
+                    lo, hi = (0, len(docs) // 2) if n_conn == 1 else (feed.sent, len(docs))
+                    for start in range(lo, hi, 64):
+                        part = b"".join(docs[start : min(hi, start + 64)])
+                        self.wfile.write(b"%x\r\n%s\r\n" % (len(part), part))
+                        feed.sent = min(hi, start + 64)
+                    if n_conn == 1:  # cut: the connection closes without the terminating chunk
+                        self.wfile.flush()
+                        feed.dropped_at = time.perf_counter()
+                        self.close_connection = True
+                        return
+                else:
+                    feed.released.wait(timeout=600)
+                self.wfile.write(b"0\r\n\r\n")
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                with feed.lock:
+                    feed.posted.append(json.loads(body))
+                    if len(feed.posted) >= feed.want:
+                        feed.done.set()
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.lock = threading.Lock()
+        self.connections: list = []
+        self.posted: list = []
+        self.sent = 0
+        self.dropped_at = None
+        self.want = 1 << 62
+        self.done, self.released = threading.Event(), threading.Event()
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever, name="http_path-feed", daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def release(self) -> None:
+        self.released.set()
+
+    def close(self) -> None:
+        self.released.set()
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def _http_pipeline(pw, docs_table, queries, embedder, k: int):
+    """Documents -> their embeddings (B1) -> ``pw.ml.KNNIndex`` (B2, on the
+    card) <- embedded queries, answered as of now -> (qid, ids, dists)."""
+    d_emb = docs_table.select(doc_id=pw.this.doc_id, emb=embedder(pw.this.text))
+    q_emb = queries.select(qid=pw.this.qid, emb=embedder(pw.this.text))
+    index = pw.ml.KNNIndex(d_emb.emb, d_emb, n_dimensions=embedder.get_embedding_dimension(),
+                           reserved_space=HTTP_DOCS, distance_type="cosine", device=DEV)
+    return index.get_nearest_items_asof_now(q_emb.emb, k=k, with_distances=True).select(
+        qid=q_emb.qid, ids=pw.this.doc_id, dists=pw.this.dist)
+
+
+def phase_http_path(torch, env: dict, n_docs: int = HTTP_DOCS, n_queries: int = HTTP_QUERIES) -> dict:
+    """The HTTP client connectors as a user wires them: a local server
+    streams ``n_docs`` documents as newline-delimited JSON over chunked
+    transfer, drops the connection once at half and serves the rest on the
+    reconnect -> ``pw.io.http.read(stream=True)`` -> ``SentenceTransformerEmbedder``
+    (MiniLM-L6, B1) -> ``pw.ml.KNNIndex`` (B2) <- ``n_queries`` text queries
+    from ``pw.io.python.read`` once every document is in, answered as of
+    now -> ``pw.io.http.write`` POSTing each answer to a second local
+    endpoint. Gates: every document delivered once, every answer POSTed
+    once, the hits equal those of a twin run fed the same documents through
+    ``pw.io.python.read`` in the same epochs (ids exact, scores 1e-5 by
+    ``topk_agreement``), B1 and B2 launching. Reports docs/s and the
+    reconnect's gap."""
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.io.http import RetryPolicy
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    now = time.perf_counter
+    t_phase = now()
+    rng = np.random.default_rng(SEED + 81)
+    texts = _synthetic_texts_bulk(rng, n_docs, 20, 220)
+    own = rng.choice(n_docs, n_queries // 2, replace=False)
+    queries = [" ".join(texts[i].split()[:24]) for i in own] + _synthetic_texts(rng, n_queries - len(own), 5, 40)
+    lines = [json.dumps({"doc_id": i, "text": t}).encode() + b"\n" for i, t in enumerate(texts)]
+    embedder = SentenceTransformerEmbedder(device=DEV)
+    embedder._encoder.encode_device(texts[:256], pad_to=256)  # warm-up: first launches, handles
+
+    class DocSchema(pw.Schema):  # keyed by id: an epoch's rows reach the embedder in one order in both runs
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+
+    def run(docs_table):
+        """The pipeline over ``docs_table`` -> (answers table, the subscriptions' state, their condition)."""
+        cv = threading.Condition()
+        state = {"doc_ids": [], "doc_time": {}, "answers": {}}
+
+        class Queries(pw.io.python.ConnectorSubject):
+            def run(self):
+                with cv:
+                    if not cv.wait_for(lambda: len(state["doc_ids"]) >= n_docs, timeout=600):
+                        raise TimeoutError(f"only {len(state['doc_ids'])} of {n_docs} documents arrived")
+                for i, text in enumerate(queries):
+                    self.next(qid=i, text=text)
+                self.commit()
+
+        def on_doc(key, row, time, is_addition):  # noqa: F811 - pw.io.subscribe passes ``time=``
+            with cv:
+                state["doc_ids"].append(row["doc_id"])
+                state["doc_time"][row["doc_id"]] = time
+                cv.notify_all()
+
+        def on_answer(key, row, time, is_addition):  # noqa: F811
+            with cv:
+                state["answers"][row["qid"]] = list(zip(row["ids"], (-float(d) for d in row["dists"])))
+                cv.notify_all()
+
+        qs = pw.io.python.read(Queries(), schema=QuerySchema, autocommit_duration_ms=None)
+        answers = _http_pipeline(pw, docs_table, qs, embedder, HTTP_K)
+        pw.io.subscribe(docs_table, on_doc)
+        pw.io.subscribe(answers, on_answer)
+        return answers, state, cv
+
+    # ---- the HTTP run
+    feed = _HttpFeed(lines)
+    feed.want = n_queries
+    runners = []
+    real_init = GraphRunner.__init__
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        runners.append(self)
+
+    pw.clear_graph()
+    docs = pw.io.http.read(f"{feed.url}/stream", schema=DocSchema, stream=True, mode="streaming",
+                           retry_policy=RetryPolicy(**HTTP_RETRY), autocommit_duration_ms=None)
+    answers, state, cv = run(docs)
+    pw.io.http.write(answers, f"{feed.url}/sink")
+    errors: list = []
+
+    def serve():
+        try:
+            pw.run()
+        except BaseException as exc:  # noqa: BLE001 - reported by the gate below
+            errors.append(exc)
+            feed.done.set()
+            with cv:
+                cv.notify_all()
+
+    GraphRunner.__init__ = recording_init
+    try:
+        _build.reset_launches()
+        t0 = now()
+        th = threading.Thread(target=serve, name="http_path-run", daemon=True)
+        th.start()
+        with cv:
+            if not cv.wait_for(lambda: len(state["doc_ids"]) >= n_docs or errors, timeout=600) or errors:
+                raise AssertionError(f"http_path: {len(state['doc_ids'])} of {n_docs} documents delivered; "
+                                     f"the run raised {errors}")
+        docs_s = time.perf_counter() - t0
+        if not feed.done.wait(timeout=600) or errors:
+            raise AssertionError(f"http_path: {len(feed.posted)} of {n_queries} answers POSTed; the run raised {errors}")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        run_s = now() - t0
+        runners[-1].engine.stop()
+        feed.release()  # the idle third connection ends; the stopped reader does not reconnect
+        th.join(timeout=120)
+    finally:
+        GraphRunner.__init__ = real_init
+        feed.close()
+        pw.clear_graph()
+    if th.is_alive() or errors:
+        raise AssertionError(f"the HTTP run did not end cleanly: alive={th.is_alive()}, errors={errors}")
+    time.sleep(0.5)  # a late POST would land here
+    epochs: dict = collections.defaultdict(list)
+    for doc_id, t in state["doc_time"].items():
+        epochs[t].append(doc_id)
+    doc_epochs = [sorted(epochs[t]) for t in sorted(epochs)]
+
+    # ---- the twin: the same documents through pw.io.python.read, in the same epochs
+    twin_state = {}
+
+    class Documents(pw.io.python.ConnectorSubject):
+        def run(self):
+            sent = 0
+            for group in doc_epochs:
+                for i in group:
+                    self.next(doc_id=i, text=texts[i])
+                self.commit()
+                sent += len(group)
+                with twin_state["cv"]:
+                    if not twin_state["cv"].wait_for(lambda: len(twin_state["s"]["doc_ids"]) >= sent, timeout=300):
+                        raise TimeoutError("a twin epoch was not delivered")
+
+    pw.clear_graph()
+    twin_docs = pw.io.python.read(Documents(), schema=DocSchema, autocommit_duration_ms=None)
+    _answers, twin_state["s"], twin_state["cv"] = run(twin_docs)
+    try:
+        pw.run()
+    finally:
+        pw.clear_graph()
+    twin = twin_state["s"]
+
+    # ---- gates
+    delivered = collections.Counter(state["doc_ids"])
+    if sorted(delivered) != list(range(n_docs)) or max(delivered.values()) != 1:
+        raise AssertionError(f"http_path: documents delivered {len(state['doc_ids'])} times over {len(delivered)} ids")
+    posted = collections.Counter(b["qid"] for b in feed.posted)
+    if sorted(posted) != list(range(n_queries)) or max(posted.values()) != 1 or any(b["diff"] != 1 for b in feed.posted):
+        raise AssertionError(f"http_path: {len(feed.posted)} POSTs over {len(posted)} answers")
+    by_post = {b["qid"]: list(zip(b["ids"], (-float(d) for d in b["dists"]))) for b in feed.posted}
+    for name, got in (("subscribed", state["answers"]), ("POSTed", by_post)):
+        share, ok = _hits_agree([got[i] for i in range(n_queries)], [twin["answers"][i] for i in range(n_queries)],
+                                HTTP_K)
+        if not ok:
+            raise AssertionError(f"http_path: the {name} hits differ from the pw.io.python.read twin's ({share})")
+    missing = [k for k in ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention", "knn_topk_merge")
+               if launches.get(k, 0) == 0]
+    if missing or launches.get("knn_topk_stream", 0) + launches.get("knn_topk_tc", 0) == 0:
+        raise AssertionError(f"http_path never launched {missing or 'a partial pass of B2'}")
+    if len(feed.connections) < 2 or feed.dropped_at is None:
+        raise AssertionError(f"http_path: the stream was not cut and resumed ({len(feed.connections)} connections)")
+    result = dict(
+        card=env["nvidia_smi"], docs=n_docs, queries=n_queries, k=HTTP_K, docs_per_s=n_docs / docs_s,
+        docs_seconds=docs_s, run_seconds=run_s, epochs=len(doc_epochs), connections=len(feed.connections),
+        reconnect_gap_ms=(feed.connections[1] - feed.dropped_at) * 1e3, reconnect_backoff_ms=HTTP_RETRY["first_delay_ms"],
+        posted=len(feed.posted), phase_seconds=now() - t_phase, launches=launches,
+    )
+    emit("http_path", **result)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -5916,6 +6479,9 @@ def main(argv: list[str]) -> int:
     phase_tie_helper(torch, torch.Generator(device=DEV).manual_seed(SEED + 4))
     launches = collections.Counter(phase_main_path(torch))
     launches.update(phase_train_path(torch, env))
+    launches.update(phase_clip_path(torch, env))
+    launches.update(phase_ring_path(torch, env))
+    launches.update(phase_http_path(torch, env))
     rag_launches, cross = phase_rag_path(torch)
     launches.update(rag_launches)
     launches.update(phase_decode_path(torch, cross))
@@ -5933,7 +6499,7 @@ def main(argv: list[str]) -> int:
     launches.update(elastic_launches)
     entries += elastic_entries
     launches.update(phase_cluster_path(torch))
-    for e in entries:  # launches summed over the sixteen paths' counted runs
+    for e in entries:  # launches summed over the nineteen paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

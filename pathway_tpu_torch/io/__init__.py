@@ -1,10 +1,10 @@
 """pw.io: connectors.
 
 The port holds the file connectors (``fs``, ``csv``, ``jsonlines``,
-``plaintext``, ``null``), the REST server connector (``http``), the
-Python connector (``pw.io.python``), subscriptions (``pw.io.subscribe``)
-and ``add_output_sink``, the sink hook the other connectors build on.
-The HTTP client connectors and the service-backed connectors of the
+``plaintext``, ``null``), the REST server connector and the HTTP client
+connectors (``http``), the Python connector (``pw.io.python``),
+subscriptions (``pw.io.subscribe``) and ``add_output_sink``, the sink hook
+the other connectors build on. The service-backed connectors of the
 reference come with ROADMAP Queue A item 1.
 """
 

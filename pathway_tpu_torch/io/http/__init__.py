@@ -1,31 +1,23 @@
-"""pw.io.http: the REST server connector.
+"""pw.io.http: the REST server connector and the HTTP client connectors.
 
 The port's copy of the reference's ``io/http`` (upstream Pathway's
-python/pathway/io/http/_server.py: PathwayWebserver :329,
-rest_connector :624), served by the standard library. The HTTP client
-connectors (``read``, ``write``) and their retrying request runner
-come with ROADMAP Queue A item 1 and raise until then."""
+python/pathway/io/http/_server.py: PathwayWebserver :329, rest_connector
+:624; __init__.py: read :100, write :158), served and fetched by the
+standard library: ``read`` and ``write`` go through ``urllib.request``
+where the reference goes through ``requests``."""
 
+from ._client import read, write
 from ._docs import EndpointDocumentation, EndpointExamples
+from ._retry import DEFAULT_RETRY_CODES, RequestRunner, RetryPolicy
 from ._server import PathwayWebserver, bound_serving_ports, rest_connector
 
-_CLIENT = "ROADMAP Queue A item 1 (the HTTP client connectors and their retry runner on urllib)"
-
-
-def read(*args, **kwargs):
-    """The reference's HTTP client reader; not ported yet."""
-    raise NotImplementedError(f"pw.io.http.read needs {_CLIENT}")
-
-
-def write(*args, **kwargs):
-    """The reference's HTTP client writer; not ported yet."""
-    raise NotImplementedError(f"pw.io.http.write needs {_CLIENT}")
-
-
 __all__ = [
+    "DEFAULT_RETRY_CODES",
     "EndpointDocumentation",
     "EndpointExamples",
     "PathwayWebserver",
+    "RequestRunner",
+    "RetryPolicy",
     "bound_serving_ports",
     "read",
     "rest_connector",

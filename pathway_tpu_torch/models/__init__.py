@@ -1,8 +1,8 @@
 """Encoder models of the port: tokenizer, batching, TextEncoder,
-SentenceEncoder and the contrastive trainer.
+SentenceEncoder, the contrastive trainer and CLIP.
 
-The same exports as the reference's ``models`` package. Its CLIP encoder
-comes with ROADMAP Queue A item 9.
+The same exports as the reference's ``models`` package; ``CLIPEncoder``
+and ``CLIPConfig`` resolve lazily, as the reference's do.
 """
 
 from .batching import bucket, chunks, pad_token_batch
@@ -25,15 +25,14 @@ __all__ = [
     "chunks",
     "ContrastiveTrainer",
     "info_nce_loss",
+    "CLIPEncoder",
+    "CLIPConfig",
 ]
 
-_WAITING = {
-    "CLIPEncoder": "ROADMAP Queue A item 9 (remaining models)",
-    "CLIPConfig": "ROADMAP Queue A item 9 (remaining models)",
-}
 
+def __getattr__(name):  # lazy, as the reference's
+    if name in ("CLIPEncoder", "CLIPConfig"):
+        from . import clip
 
-def __getattr__(name):
-    if name in _WAITING:
-        raise AttributeError(f"pathway_tpu_torch.models.{name} comes with {_WAITING[name]}")
+        return getattr(clip, name)
     raise AttributeError(name)

@@ -27,6 +27,12 @@ name one device more than once: that is how the CPU tests stand in for
 the reference's eight virtual devices, and how one card holds several
 shards.
 
+``shard_map(f, mesh=, in_specs=, out_specs=)`` is the counterpart of
+``jax.shard_map`` over one mesh axis: eager PyTorch has no SPMD program,
+so the body runs once per shard, each on a thread of its own, in lockstep
+at its collectives (``ShardAxis.psum`` / ``ppermute`` / ``axis_index``).
+``models/long_context.py``'s ring attention is written against it.
+
 ``host_mesh_from_env()`` joins the processes of a ``PATHWAY_PROCESSES``
 cluster into one ``torch.distributed`` process group and returns the
 global mesh (see its docstring).
@@ -34,8 +40,10 @@ global mesh (see its docstring).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 from typing import Sequence
 
 import torch
@@ -166,6 +174,148 @@ def data_sharding(mesh: DeviceMesh, ndim: int = 2) -> Placement:
 
 def replicated(mesh: DeviceMesh) -> Placement:
     return Placement(mesh, ())
+
+
+def axis_devices(mesh: DeviceMesh, axis: str) -> list[torch.device]:
+    """The devices along ``axis`` of ``mesh``, in mesh order: the data
+    shards' first devices, or the model positions of the first data row."""
+    if axis == DATA_AXIS:
+        return mesh.data_devices()
+    if axis == MODEL_AXIS:
+        return list(mesh.devices[0])
+    raise ValueError(f"unknown mesh axis {axis!r} (expected {DATA_AXIS!r} or {MODEL_AXIS!r})")
+
+
+class _Lockstep:
+    """The rendezvous of one ``shard_map`` call: every shard hands in its
+    value and all of them read every shard's."""
+
+    def __init__(self, n: int):
+        self.slots: list = [None] * n
+        self.barrier = threading.Barrier(n)
+
+    def exchange(self, index: int, value) -> list:
+        self.slots[index] = value
+        self.barrier.wait()
+        values = list(self.slots)
+        # nobody writes the next round's slot before everyone has read this one
+        self.barrier.wait()
+        return values
+
+
+def _on(value, device: torch.device):
+    """``value`` (a tensor, or a tuple or list of them) on ``device``."""
+    if isinstance(value, (tuple, list)):
+        return type(value)(_on(v, device) for v in value)
+    return value.to(device)
+
+
+class ShardAxis:
+    """One shard's view of the mapped mesh axis inside a :func:`shard_map`
+    body: the counterparts of ``jax.lax.axis_index``, ``psum`` and
+    ``ppermute``. A collective returns once every shard has reached it."""
+
+    def __init__(self, index: int, devices: Sequence[torch.device], group: _Lockstep | None):
+        self.index = index
+        self.size = len(devices)
+        self.device = devices[index]
+        self._group = group
+
+    def axis_index(self) -> int:
+        return self.index
+
+    def _exchange(self, value) -> list:
+        return [value] if self._group is None else self._group.exchange(self.index, value)
+
+    def psum(self, value):
+        """The sum over the shards of ``value`` (a tensor, or a tuple or list
+        of them), on this shard's device. Every shard adds in shard order, so
+        all of them hold the same numbers."""
+        values = [_on(v, self.device) for v in self._exchange(value)]
+        if isinstance(value, (tuple, list)):
+            return type(value)(sum(parts[1:], parts[0]) for parts in zip(*values))
+        return sum(values[1:], values[0])
+
+    def ppermute(self, value, shift: int = 1):
+        """Rotate ``value`` (a tensor, or a tuple or list of them) ``shift``
+        places along the axis: shard ``j``'s value arrives at shard ``(j +
+        shift) mod n``. A copy between cards, a no-op on a pooled mesh whose
+        shards share one device."""
+        values = self._exchange(value)
+        return _on(values[(self.index - shift) % self.size], self.device)
+
+
+def shard_map(f, *, mesh: DeviceMesh, in_specs, out_specs, axis: str = DATA_AXIS):
+    """The counterpart of ``jax.shard_map`` over one axis of ``mesh``.
+
+    ``f(ax, *pieces)`` runs once per position of ``axis``, each on its own
+    thread and under its own device, in lockstep: its :class:`ShardAxis`
+    ``ax`` gives the position and the collectives, which return once every
+    shard has reached them. ``in_specs`` holds one entry per argument: a
+    spec tuple as :class:`Placement` takes it (the argument is a tensor,
+    split along the dimension that names ``axis``, or copied whole for
+    ``()``, each piece put on its shard's device), or None (the argument is
+    passed to every shard as it is). ``out_specs`` holds one spec per
+    output (a single spec when ``f`` returns one tensor): ``()`` takes the
+    first shard's output (the body makes it equal on every shard, as
+    ``psum`` does), a split spec joins the shards' outputs onto the first
+    shard's device. Grad mode is the caller's on every shard. A shard that
+    raises stops the others at their next collective, and the call raises
+    its error."""
+    devices = axis_devices(mesh, axis)
+    n = len(devices)
+    single_out = not isinstance(out_specs, list) and (not out_specs or not isinstance(out_specs[0], tuple))
+    for spec in [*in_specs, *([out_specs] if single_out else out_specs)]:
+        if spec is not None and any(isinstance(a, str) and a != axis for a in spec):
+            raise ValueError(f"shard_map over {axis!r}: the spec {spec!r} names another mesh axis")
+
+    def place(arg, spec, s: int):
+        if spec is None:
+            return arg
+        pieces = Placement(mesh, tuple(spec)).split(arg)
+        return pieces[s if len(pieces) > 1 else 0].to(devices[s])
+
+    def gather(outs: list, spec):
+        if not any(a == axis for a in spec):
+            return outs[0]
+        return Placement(mesh, tuple(spec)).join([o.to(devices[0]) for o in outs])
+
+    def run(*args):
+        if len(args) != len(in_specs):
+            raise ValueError(f"shard_map: {len(args)} arguments for {len(in_specs)} in_specs")
+        group = _Lockstep(n) if n > 1 else None
+        grad = torch.is_grad_enabled()
+        results: list = [None] * n
+        errors: list = [None] * n
+
+        def body(s: int) -> None:
+            try:
+                ctx = torch.cuda.device(devices[s]) if devices[s].type == "cuda" else contextlib.nullcontext()
+                with ctx, torch.set_grad_enabled(grad):
+                    pieces = [place(a, spec, s) for a, spec in zip(args, in_specs)]
+                    results[s] = f(ShardAxis(s, devices, group), *pieces)
+            except BaseException as exc:  # noqa: BLE001 - handed to the caller below
+                errors[s] = exc
+                if group is not None:
+                    group.barrier.abort()
+
+        if n == 1:
+            body(0)
+        else:
+            threads = [threading.Thread(target=body, args=(s,), name=f"shard_map-{axis}-{s}") for s in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        first = next((e for e in errors if e is not None and not isinstance(e, threading.BrokenBarrierError)), None)
+        first = first or next((e for e in errors if e is not None), None)
+        if first is not None:
+            raise first
+        if single_out:
+            return gather(results, tuple(out_specs))
+        return tuple(gather([r[i] for r in results], tuple(spec)) for i, spec in enumerate(out_specs))
+
+    return run
 
 
 def host_mesh_from_env(device: str | None = None) -> DeviceMesh | None:

@@ -3,7 +3,8 @@ the flax ``TextEncoder`` tree and the port's TextEncoder state dict, the
 flax ``CrossEncoderHead`` tree (``encoder/...`` + ``classifier``) and the
 port's ``CrossEncoderHead`` state dict, and the decoder's weight dict
 (``decode/engine.py::init_decoder_params``), which both packages keep in
-one layout (``x @ w``).
+one layout (``x @ w``), and the flax CLIP towers (``vision`` / ``text``)
+and the port's ``CLIPEncoder`` state dict (``from_jax_clip_params``).
 
 The mapping is the one ``pathway_tpu/models/encoder.py::load_hf_weights``
 encodes, read in the other direction:
@@ -133,6 +134,99 @@ def to_jax_decoder_params(params: dict) -> dict:
     out = {k: _a(v) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: _a(v) for k, v in lp.items()} for lp in params["layers"]]
     return out
+
+
+# ------------------------------------------------------ CLIP
+
+_CLIP_BLOCK_DENSE = ("qkv", "attn_out", "mlp_in", "mlp_out")
+_CLIP_BLOCK_NORMS = ("ln_1", "ln_2")
+# per tower: its LayerNorms, its bias-free projections, its raw tables
+_CLIP_TOWERS = {
+    "vision": (("ln_pre", "ln_post"), ("patch_proj", "proj"), ("cls", "pos")),
+    "text": (("ln_final",), ("proj",), ("pos",)),
+}
+
+
+def _t_any(a) -> torch.Tensor:
+    """A numpy array (bfloat16 ones too, bit for bit) -> a CPU tensor."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _a_any(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a numpy array; a bfloat16 one as ``ml_dtypes.bfloat16``,
+    the array type flax's bfloat16 parameters have."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def from_jax_clip_params(vparams: dict, tparams: dict) -> dict[str, torch.Tensor]:
+    """The reference's CLIP ``vision`` and ``text`` trees (numpy) -> the
+    port's ``CLIPEncoder`` state dict (``vision.`` / ``text.`` prefixes, CPU).
+
+    Dense kernels ``[in, out]`` become ``Linear.weight [out, in]``; the
+    patch projection keeps the reference's ``(p, p, 3)`` flatten order,
+    which the port's vision tower also uses; ``cls`` and ``pos`` (kept by
+    flax in the model's dtype) and the token table are copied as they are;
+    flax ``block_{i}`` is ``blocks.{i}``."""
+    sd: dict[str, torch.Tensor] = {}
+    for tower, tree in (("vision", vparams), ("text", tparams)):
+        p = tree["params"] if "params" in tree else tree
+        norms, projections, tables = _CLIP_TOWERS[tower]
+        for name in tables:
+            sd[f"{tower}.{name}"] = _t_any(p[name])
+        if tower == "text":
+            sd["text.tok.weight"] = _t_any(p["tok"]["embedding"])
+        for name in norms:
+            sd[f"{tower}.{name}.weight"] = _t_any(p[name]["scale"])
+            sd[f"{tower}.{name}.bias"] = _t_any(p[name]["bias"])
+        for name in projections:
+            sd[f"{tower}.{name}.weight"] = _t_any(np.asarray(p[name]["kernel"]).T)
+        i = 0
+        while f"block_{i}" in p:
+            blk, pre = p[f"block_{i}"], f"{tower}.blocks.{i}."
+            for name in _CLIP_BLOCK_DENSE:
+                sd[pre + name + ".weight"] = _t_any(np.asarray(blk[name]["kernel"]).T)
+                sd[pre + name + ".bias"] = _t_any(blk[name]["bias"])
+            for name in _CLIP_BLOCK_NORMS:
+                sd[pre + name + ".weight"] = _t_any(blk[name]["scale"])
+                sd[pre + name + ".bias"] = _t_any(blk[name]["bias"])
+            i += 1
+    return sd
+
+
+def to_jax_clip_params(state_dict: dict) -> tuple[dict, dict]:
+    """The port's ``CLIPEncoder`` state dict -> the reference's
+    ``(vparams, tparams)`` trees of numpy arrays, the inverse of
+    :func:`from_jax_clip_params`."""
+    out = []
+    for tower in ("vision", "text"):
+        a = lambda key: _a_any(state_dict[f"{tower}.{key}"])  # noqa: E731
+        norms, projections, tables = _CLIP_TOWERS[tower]
+        p: dict = {name: a(name) for name in tables}
+        if tower == "text":
+            p["tok"] = {"embedding": a("tok.weight")}
+        for name in norms:
+            p[name] = {"scale": a(f"{name}.weight"), "bias": a(f"{name}.bias")}
+        for name in projections:
+            p[name] = {"kernel": np.ascontiguousarray(a(f"{name}.weight").T)}
+        i = 0
+        while f"{tower}.blocks.{i}.qkv.weight" in state_dict:
+            pre, blk = f"blocks.{i}.", {}
+            for name in _CLIP_BLOCK_DENSE:
+                blk[name] = {"kernel": np.ascontiguousarray(a(pre + name + ".weight").T), "bias": a(pre + name + ".bias")}
+            for name in _CLIP_BLOCK_NORMS:
+                blk[name] = {"scale": a(pre + name + ".weight"), "bias": a(pre + name + ".bias")}
+            p[f"block_{i}"] = blk
+            i += 1
+        out.append({"params": p})
+    return out[0], out[1]
 
 
 # ------------------------------------------------------ HF checkpoints

@@ -4,9 +4,10 @@ heads of 32, FFN 1536; the decoder: d 256, 4 heads of 64) and at the other
 head dims (64, 128, 256, and others zero-padded to the next of these),
 LayerNorm widths (256 to 768, multiples of 512 from 1024 up staged, any
 other width zero-padded to the next of these), attention at S past 512,
-paged decode attention at head dims past 256 (column tiles) and
+paged decode attention at head dims past 256 (column tiles),
 GEMM K and N that are not multiples of 8 (zero-padded to 8) the kernels
-take. Every test here needs a CUDA device and skips
+take, B2 at CLIP's d 512 and attention at the ring's S 8192; and CLIP and
+``ring_encode`` on the card against their CPU and one-card twins. Every test here needs a CUDA device and skips
 inside its fixture when there is none; run them on the card with
 ``pytest -m gpu tests/test_torch_*.py``.
 
@@ -854,3 +855,88 @@ def test_trainer_steps_on_the_card(cuda, tp):
     losses = [trainer.step(ids, mask, ids.roll(1, dims=1), mask) for _ in range(3)]
     assert losses[-1] < losses[0]
     assert dict(_build.LAUNCHES) == {"masked_attention": 3 * 2 * cfg.num_layers * tp}
+
+
+@pytest.mark.parametrize("nq,regime", [(1, "stream"), (16, "stream"), (16, "tc"), (256, "tc")])
+def test_knn_topk_at_clip_width_matches_plain(cuda, nq, regime):
+    """B2 at d 512 (the CLIP image index): 2^20 docs, 10 % dead, k 16, both
+    partial passes against the plain version."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn_topk import knn_topk, knn_topk_reference, topk_agreement
+
+    g = _gen(512 + nq)
+    n, d = 1 << 20, 512
+    docs = torch.nn.functional.normalize(torch.randn(n, d, device=cuda, generator=g), dim=1)
+    valid = torch.rand(n, device=cuda, generator=g) >= 0.1
+    bias = torch.where(valid, 0.0, -1e30).float()
+    q = torch.nn.functional.normalize(torch.randn(nq, d, device=cuda, generator=g), dim=1)
+    before = _build.LAUNCHES[f"knn_topk_{regime}"]
+    vals, idx = knn_topk(q, docs, k=16, bias=bias, regime=regime)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"knn_topk_{regime}"] == before + 1
+    rv, ri = knn_topk_reference(q, docs, k=16, bias=bias)
+    share, ok = topk_agreement(vals, idx, rv, ri, atol=1e-5, rtol=1e-5)
+    assert ok, share
+    assert not set(idx.flatten().tolist()) & set((~valid).nonzero().flatten().tolist())
+
+
+def test_masked_attention_at_s8192_matches_plain(cuda):
+    """B3 at the ring's one-card shape: two documents of S 8192 at MiniLM's
+    heads (12 of 32), the second ragged, every query row held."""
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.fused_attention import masked_attention, masked_attention_reference
+
+    g = _gen(8192)
+    qkv = torch.randn(2, 8192, 3 * 384, device=cuda, generator=g).bfloat16()
+    mask = torch.ones(2, 8192, dtype=torch.bool, device=cuda)
+    mask[1, 5324:] = False
+    before = _build.LAUNCHES["masked_attention"]
+    got = masked_attention(qkv, mask, 12)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["masked_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), masked_attention_reference(qkv, mask, 12).float(), **BF16)
+
+
+def test_ring_encode_on_a_pooled_card_matches_one_card(cuda):
+    """ring_encode over 4 shards of one card against the one-card
+    TextEncoder forward (B3) at S 2048, bf16."""
+    from pathway_tpu_torch.models.encoder import EncoderConfig, TextEncoder, init_params
+    from pathway_tpu_torch.models.long_context import ring_encode
+    from pathway_tpu_torch.parallel.sharding import make_mesh
+
+    cfg = EncoderConfig.minilm_l6(num_layers=2, max_position=2048)
+    sd = {k: v.to(cuda) for k, v in init_params(cfg, seed=0).items()}
+    g = _gen(2048)
+    ids = torch.randint(1000, cfg.vocab_size, (2, 2048), device=cuda, generator=g)
+    mask = torch.ones(2, 2048, dtype=torch.bool, device=cuda)
+    mask[1, 1300:] = False
+    ringed = ring_encode(sd, cfg, ids, mask, make_mesh(devices=[cuda] * 4, model_parallel=1))
+    one = TextEncoder(cfg).to(cuda).eval()
+    one.load_state_dict(sd)
+    with torch.no_grad():
+        direct = one(ids, mask)
+    assert torch.nn.functional.cosine_similarity(ringed, direct.float(), dim=1).min() > 0.999
+
+
+def test_clip_encoder_on_the_card(cuda):
+    """CLIP at a small geometry on the card against the same weights on the
+    CPU (both bf16, each row's cosine at least 0.999) on both wires and the
+    text tower; encode_image_device equal to encode_image."""
+    import numpy as np
+
+    from pathway_tpu_torch.models import CLIPConfig, CLIPEncoder
+
+    cfg = CLIPConfig(image_size=64, patch_size=16, vision_layers=2, vision_width=128, vision_heads=4, text_layers=2,
+                     text_width=128, text_heads=4, embed_dim=64)
+    enc = CLIPEncoder(cfg, max_batch=8, device=cuda)
+    host = CLIPEncoder(cfg, max_batch=8, device="cpu")
+    imgs = np.random.default_rng(0).integers(0, 256, (20, 64, 64, 3), dtype=np.uint8)
+    texts = ["a photo of a cat", "", "dogs in the snow " * 9]
+    for wire in ("rgb", "yuv420"):
+        enc.transport = host.transport = wire
+        got, want = enc.encode_image(imgs), host.encode_image(imgs)
+        assert np.isfinite(got).all() and (got * want).sum(axis=1).min() > 0.999, wire
+    dev = enc.encode_image_device(imgs)
+    assert dev.is_cuda and np.array_equal(dev.cpu().numpy(), enc.encode_image(imgs))
+    assert (enc.encode_text(texts) * host.encode_text(texts)).sum(axis=1).min() > 0.999

@@ -713,20 +713,22 @@ def _kind(obj) -> str:
 
 
 # the reference's ``models`` names it exports lazily, beside its ``__all__``
-_LAZY_MODEL_NAMES = ("ContrastiveTrainer", "info_nce_loss")
+_LAZY_MODEL_NAMES = ("ContrastiveTrainer", "info_nce_loss", "CLIPEncoder", "CLIPConfig")
 
 
 def _check_public_names():
     import pathway_tpu as jpw
+    import pathway_tpu.io.http as jhttp
     import pathway_tpu.models as jmodels
     import pathway_tpu.serving as jserving
     import pathway_tpu_torch as tpw
+    import pathway_tpu_torch.io.http as thttp
     import pathway_tpu_torch.models as tmodels
     import pathway_tpu_torch.serving as tserving
 
     waiting = {name for names in _WAITING_NAMES.values() for name in names}
     assert not waiting & set(tpw.__all__), "a waiting name is exported: take it off the list"
-    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving)):
+    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving), (jhttp, thttp)):
         missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__ and n not in waiting)
         assert not missing, (tmod.__name__, missing)
         for name in jmod.__all__:
@@ -749,7 +751,8 @@ def test_public_names_match_the_reference():
     """Every name of the reference's ``__all__`` is in the port's, of the
     same kind (module, class, function or value), but for the names whose
     modules wait in a ROADMAP item, which the port does not bind; the
-    ``models`` and ``serving`` packages export what the reference's do."""
+    ``models``, ``serving`` and ``io.http`` packages export what the
+    reference's do."""
     _check_public_names()
     from pathway_tpu_torch.native import NativeStore
 

@@ -209,7 +209,8 @@ def test_taken_port_falls_back_to_an_ephemeral_one():
 
 def test_unported_http_options_raise():
     """``serving=`` runs now (the REST reader's admission and batching);
-    the HTTP client connectors still raise, naming ROADMAP item 1."""
+    the HTTP client connectors are the ported ones (held against the
+    reference in ``test_torch_http_client.py``); an unknown format raises."""
     cfg = tpw.serving.ServingConfig(max_queue=8, batch_window_ms=1.0, default_deadline_ms=20_000.0)
     web, runner, run = _start({}, dict(serving=cfg))
     try:
@@ -220,9 +221,9 @@ def test_unported_http_options_raise():
         runner.engine.stop()
         run.join(timeout=30)
     assert not run.is_alive()
-    for fn in (tpw.io.http.read, tpw.io.http.write):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-            fn("http://localhost:1/")
+    from pathway_tpu_torch.io.http import _client
+
+    assert (tpw.io.http.read, tpw.io.http.write) == (_client.read, _client.write)
     with pytest.raises(ValueError, match="format"):
         tpw.io.http.rest_connector(host="127.0.0.1", port=_free_port(), format="xml")
 

@@ -1,12 +1,11 @@
 """The port's host-ingest stage, held against the JAX package's.
 
-The cases of ``tests/test_ingest.py`` (but CLIP's, whose model is ROADMAP
-item 9): the stage's ordered single committer, its chaos site
-``ingest.worker`` (slow and dying workers, their tasks re-run inline), the
-autoscaler, ``route_by_length``, the flight events, the
-``PATHWAY_INGEST_WORKERS`` / ``pw.run(ingest_workers=)`` wiring, the
-tokenizer's shard calls and the encoder on the stage (byte for byte the
-inline output), the engine's stager resolving on the stage with and
+The cases of ``tests/test_ingest.py``: the stage's ordered single
+committer, its chaos site ``ingest.worker`` (slow and dying workers, their
+tasks re-run inline), the autoscaler, ``route_by_length``, the flight
+events, the ``PATHWAY_INGEST_WORKERS`` / ``pw.run(ingest_workers=)``
+wiring, the tokenizer's shard calls, the encoder and CLIP's image packing
+on the stage (byte for byte the inline output), the engine's stager resolving on the stage with and
 without persistence, and the ``pathway_ingest_*`` family on ``/metrics``
 and the dashboard's column. The stage-core cases run on both packages, and
 their results and metrics are equal.
@@ -279,6 +278,37 @@ def test_encoder_stage_byte_identical_any_worker_count_and_records_routing(tiny_
         assert out.tobytes() == ref.tobytes(), f"{workers}-worker output diverged"
     snap = tingest.INGEST_METRICS.snapshot()
     assert snap["routed_short"] >= 1 and snap["routed_short"] + snap["routed_long"] == 2 * len(texts)
+
+
+def test_clip_stage_byte_identical_to_inline_and_to_the_reference():
+    """The reference's CLIP stage case: the collaborative pack of 48 images
+    in spans of 16 on three workers gives the inline output byte for byte,
+    one commit a span, in both packages; the two packages agree on the
+    embeddings (f32 towers, the reference's weights carried over)."""
+    import jax
+
+    from pathway_tpu.models.clip import CLIPConfig as JCLIPConfig
+    from pathway_tpu.models.clip import CLIPEncoder as JCLIPEncoder
+    from pathway_tpu_torch.models.clip import CLIPConfig, CLIPEncoder
+    from pathway_tpu_torch.weights import from_jax_clip_params
+
+    geometry = dict(image_size=64, patch_size=32, vision_width=64, vision_layers=1, vision_heads=2, text_width=32,
+                    text_layers=1, text_heads=2, context_length=16, embed_dim=32)
+    jenc = JCLIPEncoder(JCLIPConfig(**geometry, dtype=np.float32), max_batch=16)
+    tenc = CLIPEncoder(CLIPConfig(**geometry, dtype=torch.float32), max_batch=16, device="cpu")
+    tenc.load_state_dict(from_jax_clip_params(jax.tree_util.tree_map(np.asarray, jenc.vparams),
+                                              jax.tree_util.tree_map(np.asarray, jenc.tparams)))
+    images = (np.random.default_rng(7).random((48, 64, 64, 3)) * 255).astype(np.uint8)
+    outs = []
+    for ing, enc in ((jingest, jenc), (tingest, tenc)):
+        ref = np.asarray(enc.encode_image(images))
+        ing.configure_stage(3)
+        out = np.asarray(enc.encode_image(images))
+        ing.shutdown_stage()
+        assert out.tobytes() == ref.tobytes(), f"collaborative CLIP pack diverged ({ing.__name__})"
+        assert ing.INGEST_METRICS.snapshot()["committed"] >= 3  # one pack per span
+        outs.append(out)
+    np.testing.assert_allclose(outs[1], outs[0], rtol=0, atol=1e-4)
 
 
 def _build_wordcount(pw, out: str, store: str | None = None):

@@ -14,7 +14,7 @@ at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
 2-shard generation; B2 at d 512, CLIP's width, at 1, 16 and 256 queries;
 attention at S 8192, the ring's one-card shape), times the index's
-tie-ordered top-k beside ``torch.topk``, then drives nineteen paths, each
+tie-ordered top-k beside ``torch.topk``, then drives twenty paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -56,6 +56,21 @@ with the launch counters set to 0 just before it and read just after:
   once, every answer POSTed once, hits equal to a ``pw.io.python.read``
   twin's fed the same epochs (ids exact, scores 1e-5), B1 and B2
   launching;
+* ``kafka_path``: a Debezium change stream into a live index. A
+  ``confluent_kafka`` stand-in (an in-process broker in this script, put in
+  ``sys.modules``) carries topic ``pg.public.docs`` (4 partitions, keyed by
+  document id): 32,768 ``op: r`` snapshot rows, 8,192 ``op: u`` updates,
+  4,096 ``op: d`` deletes -> ``pw.io.debezium.read`` (the connector's own
+  confluent branch) -> ``SentenceTransformerEmbedder`` (MiniLM-L6, B1;
+  ``http_path``'s) -> ``pw.ml.KNNIndex`` (B2, freed slots taken again) <-
+  queries from topic ``queries`` through ``pw.io.kafka.read`` (16 single
+  queries after each phase, then 256 in one epoch) -> ``pw.io.kafka.write``
+  to topic ``answers``; gated on both readers subscribing and polling,
+  exactly the 28,672 live keys in the index, no answer naming a key
+  deleted in an earlier epoch, every updated row first for its new text,
+  the burst equal to a ``DeviceKnnIndex`` built directly from the final
+  rows (ids exact, scores 1e-5), every query answered once on ``answers``,
+  B1 and both B2 passes launching;
 * ``rag_path``: ``FusedRagPipeline`` over MiniLM-L6 and a cross_encoder_l6
   reranker: 16 long-tailed epochs of 1,024 chunks through the segment
   packer (kernel B4), 512 single queries, one batch of 512, and
@@ -415,6 +430,7 @@ def phase_kernels(torch) -> list[dict]:
     emit(
         "b1_layer", shape=[M, d], seq=S, live_sequences=n_live, max_abs_err=layer_err,
         ms=cuda_ms(layer_k), plain_ms=cuda_ms(layer_p, reps=3), bound_ms=lb_ms, bound_by=lb_by,
+        library_ms=encoder_layer_library_ms(torch, 1, d, h, ffn, eps, tokens, lens, S),
     )
 
     # the layer's own intermediates feed each kernel at its main-path shape
@@ -782,6 +798,30 @@ def sharded_entries(torch, doc_shards, bias_shards, queries, where: str, suffix:
     return entries
 
 
+def encoder_layer_library_ms(torch, n_layers: int, d: int, h: int, ffn: int, eps: float, tokens, lens, seq: int) -> float:
+    """The PyTorch yardstick of B1's whole layer, timed only: per layer one
+    ``torch.nn.TransformerEncoderLayer`` call (post-LN, tanh-GELU through
+    ``nn.GELU(approximate="tanh")``, ``batch_first``, a key-padding mask,
+    eval mode under ``inference_mode``: the conditions of its native fast
+    path) over the same padded rows, bf16, its own random weights."""
+    import torch.nn as nn
+
+    mods = [nn.TransformerEncoderLayer(d, h, ffn, dropout=0.0, activation=nn.GELU(approximate="tanh"),
+                                       layer_norm_eps=eps, batch_first=True, norm_first=False, device=DEV,
+                                       dtype=torch.bfloat16).eval() for _ in range(n_layers)]
+    pad = torch.arange(seq, device=DEV)[None, :] >= lens[:, None]
+    rows = tokens.view(-1, seq, d)
+
+    def run():
+        with torch.inference_mode():
+            y = rows
+            for m in mods:
+                y = m(y, src_key_padding_mask=pad)
+        return y
+
+    return cuda_ms(run)
+
+
 def phase_b1_layer(torch, g, tag: str, hidden: int, heads: int, ffn: int) -> None:
     """B1 at another width (hd64: BERT-base, d 768, 12 heads of 64, FFN
     3072): two layers of random weights over 256 sequences at S = 128,
@@ -824,6 +864,7 @@ def phase_b1_layer(torch, g, tag: str, hidden: int, heads: int, ffn: int) -> Non
         f"b1_layer[{tag}]", shape=[B * S, d], seq=S, heads=h, layers=cfg.num_layers, live_sequences=n_live,
         max_abs_err=err, ms=cuda_ms(lambda: run(fl.fused_layer_tokens)),
         plain_ms=cuda_ms(lambda: run(fl.fused_layer_tokens_reference), reps=3), bound_ms=b_ms, bound_by=b_by,
+        library_ms=encoder_layer_library_ms(torch, cfg.num_layers, d, h, ffn, eps, tokens, lens, S),
     )
 
 
@@ -6444,6 +6485,537 @@ def phase_http_path(torch, env: dict, n_docs: int = HTTP_DOCS, n_queries: int = 
         posted=len(feed.posted), phase_seconds=now() - t_phase, launches=launches,
     )
     emit("http_path", **result)
+    return launches, embedder
+
+
+# ----------------------------------------------------------------- kafka_path
+
+class KafkaStandIn:
+    """An in-process Kafka broker behind a ``confluent_kafka`` stand-in
+    module (:attr:`module`, put in ``sys.modules`` around a run, so the
+    connectors' own confluent branch runs). Topics hold partitions, each an
+    append-only list of (key, value, timestamp ms) records; a keyed record
+    goes to ``crc32(key) % partitions``, an unkeyed one round-robin.
+    ``Consumer`` subscribes with ``on_assign`` (called at the first ``poll``,
+    which assigns every partition of the topics when the callback does not),
+    starts each partition where its offset or ``auto.offset.reset`` says,
+    polls the partitions in turn, waits for a record up to the poll's
+    timeout (librdkafka's semantics: an idle poll returns ``None`` only when
+    the timeout has passed), resolves ``offsets_for_times`` and closes;
+    ``Producer`` produces, polls and flushes. :attr:`calls` counts the
+    client calls by name, :attr:`consumers` holds every consumer (each
+    with ``delivered_at``, the clock at its last record, and ``idle_at``,
+    at its first ``None`` after it); after :meth:`shutdown` every ``poll``
+    raises, which ends a reader that polls for ever."""
+
+    OFFSET_BEGINNING, OFFSET_END, OFFSET_INVALID = -2, -1, -1001  # confluent_kafka's values
+
+    def __init__(self):
+        import threading
+
+        self.cond = threading.Condition()
+        self.topics: dict = {}
+        self.calls = collections.Counter()
+        self.subscriptions: list = []
+        self.consumers: list = []
+        self.down = False
+        self._turn = collections.Counter()
+        self.module = self._client_module()
+
+    def create_topic(self, name: str, partitions: int) -> None:
+        with self.cond:
+            self.topics.setdefault(name, [[] for _ in range(partitions)])
+
+    def _append(self, topic: str, key, value, partition=None, ts_ms=None) -> None:
+        import zlib
+
+        parts = self.topics.setdefault(topic, [[]])
+        if partition is None or partition < 0:
+            if key is not None:
+                partition = zlib.crc32(key if isinstance(key, bytes) else str(key).encode()) % len(parts)
+            else:
+                partition = self._turn[topic] % len(parts)
+                self._turn[topic] += 1
+        parts[partition].append((key, value, ts_ms if ts_ms else int(time.time() * 1000)))
+
+    def produce_many(self, topic: str, records) -> None:
+        """Append ``(key, value)`` records at once: a consumer sees all or none."""
+        with self.cond:
+            for key, value in records:
+                self._append(topic, key, value)
+            self.cond.notify_all()
+
+    def records(self, topic: str) -> list:
+        with self.cond:
+            return [r for part in self.topics.get(topic, []) for r in part]
+
+    def shutdown(self) -> None:
+        with self.cond:
+            self.down = True
+            self.cond.notify_all()
+
+    def _client_module(self):
+        import types
+
+        broker = self
+        mod = types.ModuleType("confluent_kafka")
+        mod.OFFSET_BEGINNING, mod.OFFSET_END, mod.OFFSET_INVALID = (
+            self.OFFSET_BEGINNING, self.OFFSET_END, self.OFFSET_INVALID)
+        mod.TIMESTAMP_CREATE_TIME = 1
+
+        class KafkaException(Exception):
+            pass
+
+        class TopicPartition:
+            def __init__(self, topic, partition=-1, offset=broker.OFFSET_INVALID):
+                self.topic, self.partition, self.offset = topic, partition, offset
+
+            def __repr__(self):
+                return f"TopicPartition({self.topic!r}, {self.partition}, {self.offset})"
+
+        class Message:
+            __slots__ = ("_topic", "_partition", "_offset", "_key", "_value", "_ts")
+
+            def __init__(self, topic, partition, offset, key, value, ts):
+                self._topic, self._partition, self._offset = topic, partition, offset
+                self._key, self._value, self._ts = key, value, ts
+
+            def key(self):
+                return self._key
+
+            def value(self):
+                return self._value
+
+            def topic(self):
+                return self._topic
+
+            def partition(self):
+                return self._partition
+
+            def offset(self):
+                return self._offset
+
+            def timestamp(self):
+                return (mod.TIMESTAMP_CREATE_TIME, self._ts)
+
+            def error(self):
+                return None
+
+        class Consumer:
+            def __init__(self, conf):
+                broker.calls["Consumer"] += 1
+                self.conf = dict(conf)
+                self.topics, self.on_assign, self.positions = [], None, None
+                self.closed, self._next = False, 0
+                self.delivered_at = self.idle_at = None
+                broker.consumers.append(self)
+
+            def subscribe(self, topics, on_assign=None):
+                broker.calls["subscribe"] += 1
+                broker.subscriptions.append(list(topics))
+                self.topics, self.on_assign = list(topics), on_assign
+
+            def assign(self, partitions):
+                broker.calls["assign"] += 1
+                earliest = self.conf.get("auto.offset.reset", "latest") in ("earliest", "smallest", "beginning")
+                positions = {}
+                with broker.cond:
+                    for tp in partitions:
+                        end = len(broker.topics[tp.topic][tp.partition])
+                        if tp.offset >= 0:
+                            start = min(tp.offset, end)
+                        elif tp.offset == broker.OFFSET_END:
+                            start = end
+                        elif tp.offset == broker.OFFSET_BEGINNING:
+                            start = 0
+                        else:
+                            start = 0 if earliest else end
+                        positions[(tp.topic, tp.partition)] = start
+                self.positions = positions
+
+            def _rebalance(self):
+                with broker.cond:
+                    parts = [TopicPartition(t, p) for t in self.topics
+                             for p in range(len(broker.topics.setdefault(t, [[]])))]
+                if self.on_assign is not None:
+                    self.on_assign(self, parts)
+                if self.positions is None:  # the callback kept the group's assignment
+                    self.assign(parts)
+
+            def offsets_for_times(self, partitions, timeout=None):
+                broker.calls["offsets_for_times"] += 1
+                out = []
+                with broker.cond:
+                    for tp in partitions:
+                        recs = broker.topics[tp.topic][tp.partition]
+                        out.append(TopicPartition(tp.topic, tp.partition,
+                                                  next((i for i, r in enumerate(recs) if r[2] >= tp.offset), -1)))
+                return out
+
+            def poll(self, timeout=None):
+                broker.calls["poll"] += 1
+                if self.closed:
+                    raise KafkaException("the consumer is closed")
+                if self.positions is None:
+                    self._rebalance()
+                deadline = time.monotonic() + (1e9 if timeout is None or timeout < 0 else timeout)
+                owned = list(self.positions)
+                with broker.cond:
+                    while True:
+                        if broker.down:
+                            raise KafkaException("the broker shut down")
+                        for j in range(len(owned)):
+                            tp = owned[(self._next + j) % len(owned)]
+                            recs, at = broker.topics[tp[0]][tp[1]], self.positions[tp]
+                            if at < len(recs):
+                                self.positions[tp] = at + 1
+                                self._next = (self._next + j + 1) % len(owned)
+                                key, value, ts = recs[at]
+                                self.delivered_at, self.idle_at = time.perf_counter(), None
+                                return Message(tp[0], tp[1], at, key, value, ts)
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            if self.idle_at is None:
+                                self.idle_at = time.perf_counter()
+                            return None
+                        broker.cond.wait(left)
+
+            def close(self):
+                broker.calls["close"] += 1
+                self.closed = True
+
+        class Producer:
+            def __init__(self, conf):
+                broker.calls["Producer"] += 1
+
+            def produce(self, topic, value=None, key=None, partition=-1, timestamp=0):
+                broker.calls["produce"] += 1
+                with broker.cond:
+                    broker._append(topic, key, value, partition, timestamp)
+                    broker.cond.notify_all()
+
+            def poll(self, timeout=None):
+                broker.calls["producer_poll"] += 1
+                return 0
+
+            def flush(self, timeout=None):
+                broker.calls["flush"] += 1
+                return 0
+
+        mod.KafkaException, mod.TopicPartition, mod.Message = KafkaException, TopicPartition, Message
+        mod.Consumer, mod.Producer = Consumer, Producer
+        return mod
+
+
+def debezium_envelope(op: str, doc_id: int, before, after, lsn: int) -> tuple[bytes, bytes]:
+    """A Debezium postgres change event for ``public.docs`` keyed by
+    ``doc_id``: (key JSON, value JSON), as the connector writes them with
+    its JSON converter's ``schemas.enable=false``."""
+    key = json.dumps({"payload": {"doc_id": doc_id}}).encode()
+    value = {"payload": {
+        "op": op, "before": before, "after": after, "ts_ms": 1_700_000_000_000 + lsn,
+        "source": {"connector": "postgresql", "db": "pg", "schema": "public", "table": "docs", "lsn": lsn},
+    }}
+    return key, json.dumps(value).encode()
+
+
+KAFKA_SNAPSHOT, KAFKA_UPDATES, KAFKA_DELETES = 32_768, 8_192, 4_096
+KAFKA_PARTITIONS = 4
+KAFKA_SINGLES = 2  # single queries after each of the three phases (B2's streaming pass), an epoch each
+KAFKA_BURST = 256  # queries of the last epoch (B2's tensor-core pass)
+KAFKA_K = 10
+KAFKA_SETTINGS = {"bootstrap.servers": "localhost:9092", "group.id": "pathway-kafka-path",
+                  "auto.offset.reset": "earliest"}
+
+
+def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHOT, n_updates: int = KAFKA_UPDATES,
+                     n_deletes: int = KAFKA_DELETES, n_singles: int = KAFKA_SINGLES, n_burst: int = KAFKA_BURST,
+                     k: int = KAFKA_K) -> dict:
+    """Postgres -> Debezium -> Kafka -> a live index, as a user wires it: a
+    ``confluent_kafka`` stand-in (:class:`KafkaStandIn`) carries topic
+    ``pg.public.docs`` (``KAFKA_PARTITIONS`` partitions, keyed by document
+    id) with a snapshot of ``n_snapshot`` ``op: r`` rows, then ``n_updates``
+    ``op: u`` rows with new text, then ``n_deletes`` ``op: d`` rows ->
+    ``pw.io.debezium.read`` -> ``SentenceTransformerEmbedder`` (MiniLM-L6,
+    B1; ``embedder``, http_path's, warmed up) -> ``pw.ml.KNNIndex`` (B2) <-
+    text queries from topic ``queries`` through ``pw.io.kafka.read`` (single
+    queries after each phase, then a burst of ``n_burst`` in one epoch),
+    answered as of now -> ``pw.io.kafka.write`` to topic ``answers``. Gates:
+    both readers ran the confluent branch (subscribe, poll); the index ends
+    with exactly the live keys; no answer names a key whose delete was
+    committed in an earlier epoch; every updated row still live comes
+    first for its new text; the burst's hits equal those of a
+    ``DeviceKnnIndex`` built directly from the final rows (their embeddings
+    recomputed by the same embedder in the run's batches; ids exact, scores
+    1e-5 by ``topk_agreement``); every query answered once on ``answers``;
+    B1 and both B2 passes and the merge launch. Reports the phases' rates,
+    the slots that deletes freed and later rows took, and peak memory."""
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    now = time.perf_counter
+    t_phase = now()
+    rng = np.random.default_rng(SEED + 91)
+    texts = _synthetic_texts_bulk(rng, n_snapshot, 20, 220)
+    updated = rng.choice(n_snapshot, n_updates, replace=False).tolist()
+    new_texts = dict(zip(updated, _synthetic_texts_bulk(rng, n_updates, 20, 220)))
+    deleted = rng.choice(n_snapshot, n_deletes, replace=False).tolist()
+    final = {i: new_texts.get(i, t) for i, t in enumerate(texts)}
+    for i in deleted:
+        del final[i]
+    live_updated = [i for i in updated if i in final]
+    probes = rng.choice(sorted(final), n_burst - n_burst // 2, replace=False).tolist()
+    burst = [final[i] for i in live_updated[: n_burst // 2]] + [" ".join(final[i].split()[:24]) for i in probes]
+    singles = {
+        "snapshot": [" ".join(texts[i].split()[:24]) for i in rng.choice(n_snapshot, n_singles, replace=False)],
+        "updates": [new_texts[i] for i in updated[:n_singles]],
+        "deletes": [texts[i] for i in deleted[:n_singles]],  # a deleted row's text: its key must not come back
+    }
+
+    broker = KafkaStandIn()
+    broker.create_topic("pg.public.docs", KAFKA_PARTITIONS)
+    for name in ("queries", "answers"):
+        broker.create_topic(name, 1)
+    lsn = iter(range(1 << 40))
+    snapshot = [debezium_envelope("r", i, None, {"doc_id": i, "text": t}, next(lsn)) for i, t in enumerate(texts)]
+    changes = [debezium_envelope("u", i, {"doc_id": i, "text": texts[i]}, {"doc_id": i, "text": new_texts[i]},
+                                 next(lsn)) for i in updated]
+    removals = [debezium_envelope("d", i, {"doc_id": i, "text": new_texts.get(i, texts[i])}, None, next(lsn))
+                for i in deleted]
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+    # ---- instruments: the pipeline's index, the slots it frees and takes again, the embedder's batches
+    made, freed, reused, batches = [], collections.defaultdict(set), [0], []
+    phase = ["setup"]
+    real_init, real_remove, real_alloc = DeviceKnnIndex.__init__, DeviceKnnIndex.remove, DeviceKnnIndex._alloc_slots
+    real_runner_init, real_encode = GraphRunner.__init__, embedder._encoder.encode
+    runners = []
+
+    def index_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        made.append(self)
+
+    def index_remove(self, key):
+        slot = self._slot_of.get(key)
+        real_remove(self, key)
+        if slot is not None:
+            freed[id(self)].add(slot)
+
+    def index_alloc(self, keys):
+        slots = real_alloc(self, keys)
+        mine = freed[id(self)]
+        reused[0] += sum(s in mine for s in slots)
+        mine.difference_update(slots)
+        return slots
+
+    def runner_init(self, *a, **kw):
+        real_runner_init(self, *a, **kw)
+        runners.append(self)
+
+    def encode(texts_):
+        batches.append((phase[0], list(texts_)))
+        return real_encode(texts_)
+
+    cv = threading.Condition()
+    state = {"live": {}, "texts": {}, "removed_at": {}, "answers": {}}
+
+    def on_doc(key, row, time, is_addition):  # noqa: F811 - pw.io.subscribe passes ``time=``
+        with cv:
+            if is_addition:
+                state["live"][key] = row["doc_id"]
+                state["texts"][row["doc_id"]] = row["text"]
+            else:
+                state["live"].pop(key, None)
+                state["removed_at"][row["doc_id"]] = time
+            cv.notify_all()
+
+    def on_answer(key, row, time, is_addition):  # noqa: F811
+        with cv:
+            state["answers"][row["qid"]] = (time, list(row["ids"]), [float(d) for d in row["dists"]])
+            cv.notify_all()
+
+    pw.clear_graph()
+    docs = pw.io.debezium.read(KAFKA_SETTINGS, "pg.public.docs", schema=DocSchema, db_type="postgres",
+                               persistent_id="pg-public-docs", autocommit_duration_ms=None)
+    queries = pw.io.kafka.read(KAFKA_SETTINGS, "queries", schema=QuerySchema, format="json",
+                               autocommit_duration_ms=None)
+    d_emb = docs.select(doc_id=pw.this.doc_id, text=pw.this.text, emb=embedder(pw.this.text))
+    q_emb = queries.select(qid=pw.this.qid, emb=embedder(pw.this.text))
+    index = pw.ml.KNNIndex(d_emb.emb, d_emb, n_dimensions=embedder.get_embedding_dimension(),
+                           reserved_space=n_snapshot, distance_type="cosine", device=DEV)
+    answers = index.get_nearest_items_asof_now(q_emb.emb, k=k, with_distances=True).select(
+        qid=q_emb.qid, ids=pw.this.doc_id, dists=pw.this.dist)
+    pw.io.kafka.write(answers, KAFKA_SETTINGS, "answers", format="json")
+    pw.io.subscribe(d_emb, on_doc)
+    pw.io.subscribe(answers, on_answer)
+    errors: list = []
+    qid = iter(range(1 << 30))
+    times: dict = {}
+
+    def serve():
+        try:
+            pw.run()
+        except BaseException as exc:  # noqa: BLE001 - reported by the gates below
+            errors.append(exc)
+            with cv:
+                cv.notify_all()
+
+    def wait(what: str, cond) -> None:
+        with cv:
+            if not cv.wait_for(lambda: cond() or errors, timeout=600) or errors:
+                raise AssertionError(f"kafka_path: {what} did not arrive; the run raised {errors}")
+
+    def ask(texts_: list) -> None:
+        ids = [next(qid) for _ in texts_]
+        broker.produce_many("queries", [(None, json.dumps({"qid": i, "text": t}).encode())
+                                        for i, t in zip(ids, texts_)])
+        wait(f"answers to queries {ids[0]}..{ids[-1]}", lambda: all(i in state["answers"] for i in ids))
+
+    def new_seen() -> int:
+        return sum(state["texts"].get(i) == new_texts[i] for i in updated)
+
+    def timed(name: str, topic: str, produce, arrived) -> None:
+        """One phase: its records at once, then the wait for what the run
+        made of them -> its seconds, split at the reader's last record and
+        at its first idle poll after it (the poll's timeout, after which
+        the reader commits the epoch)."""
+        phase[0] = name
+        t = now()
+        produce()
+        wait(name, arrived)
+        done = now()
+        c = next(c for c in broker.consumers if c.topics == [topic])
+        times[name] = dict(total_s=done - t, reader_s=c.delivered_at - t, idle_wait_s=c.idle_at - c.delivered_at,
+                           epoch_s=done - c.idle_at)
+        phase[0] = "singles"
+
+    saved_module = sys.modules.get("confluent_kafka")
+    sys.modules["confluent_kafka"] = broker.module
+    DeviceKnnIndex.__init__, DeviceKnnIndex.remove, DeviceKnnIndex._alloc_slots = index_init, index_remove, index_alloc
+    GraphRunner.__init__, embedder._encoder.encode = runner_init, encode
+    th = threading.Thread(target=serve, name="kafka_path-run", daemon=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = now()
+        th.start()
+        timed("snapshot", "pg.public.docs", lambda: broker.produce_many("pg.public.docs", snapshot),
+              lambda: len(state["live"]) >= n_snapshot)
+        for text in singles["snapshot"]:
+            ask([text])
+        timed("updates", "pg.public.docs", lambda: broker.produce_many("pg.public.docs", changes),
+              lambda: new_seen() >= n_updates)
+        for text in singles["updates"]:
+            ask([text])
+        timed("deletes", "pg.public.docs", lambda: broker.produce_many("pg.public.docs", removals),
+              lambda: len(state["live"]) <= len(final))
+        for text in singles["deletes"]:
+            ask([text])
+        burst_first = len(state["answers"])
+        timed("burst", "queries", lambda: ask(burst), lambda: True)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        run_s = now() - t0
+        peak = torch.cuda.max_memory_allocated()
+        runners[-1].engine.stop()
+        broker.shutdown()  # the readers' polls raise, so they end at once
+        th.join(timeout=120)
+    finally:
+        DeviceKnnIndex.__init__, DeviceKnnIndex.remove, DeviceKnnIndex._alloc_slots = real_init, real_remove, real_alloc
+        GraphRunner.__init__ = real_runner_init
+        del embedder._encoder.encode
+        if saved_module is None:
+            sys.modules.pop("confluent_kafka", None)
+        else:
+            sys.modules["confluent_kafka"] = saved_module
+        broker.shutdown()
+        pw.clear_graph()
+    if th.is_alive() or errors:
+        raise AssertionError(f"the Kafka run did not end cleanly: alive={th.is_alive()}, errors={errors}")
+
+    # ---- gates
+    subscribed = sorted(tuple(s) for s in broker.subscriptions)
+    if subscribed != [("pg.public.docs",), ("queries",)] or broker.calls["poll"] == 0:
+        raise AssertionError(f"kafka_path: the confluent branch did not run: {subscribed}, {dict(broker.calls)}")
+    pipeline = [ix for ix in made if len(ix._slot_of)]
+    if len(pipeline) != 1:
+        raise AssertionError(f"kafka_path: {len(pipeline)} indexes hold rows, one expected")
+    index_ = pipeline[0]
+    doc_of = {int(key): doc_id for key, doc_id in state["live"].items()}
+    if sorted(doc_of.values()) != sorted(final) or {int(key) for key in index_._slot_of} != set(doc_of) \
+            or len(index_._slot_of) != len(final):
+        raise AssertionError(f"kafka_path: the index holds {len(index_._slot_of)} keys, {len(final)} live rows")
+    removed_at = {i: state["removed_at"][i] for i in deleted}
+    answered = state["answers"]
+    stale = [(q, i) for q, (t, ids, _d) in answered.items() for i in ids if i in removed_at and removed_at[i] < t]
+    if stale:
+        raise AssertionError(f"kafka_path: {len(stale)} answers name a deleted key, first {stale[:4]}")
+    # each updated row still live comes first for its new text, in the index the run built
+    by_text = {}
+    for ph, batch in batches:
+        if ph == "updates":
+            by_text.update(zip(batch, real_encode(batch)))
+    vecs = np.stack([by_text[new_texts[i]] for i in live_updated])
+    firsts = []
+    for lo in range(0, len(vecs), 256):
+        hits = DeviceKnnIndex.search_batch(index_, vecs[lo : lo + 256], 1)
+        firsts += [doc_of[int(h[0][0])] for h in hits]
+    missed = [i for i, f in zip(live_updated, firsts) if f != i]
+    if missed:
+        raise AssertionError(f"kafka_path: {len(missed)} updated rows do not come first for their new text")
+    # the burst against an index built directly from the final rows, with the run's batches re-encoded
+    final_vec, q_of = {}, {}
+    for ph, batch in batches:
+        if ph in ("snapshot", "updates"):
+            final_vec.update(zip(batch, real_encode(batch)))
+        elif ph == "burst":
+            q_of.update(zip(batch, real_encode(batch)))
+    direct = DeviceKnnIndex(index_.dim, metric="cos", reserved_space=len(final), device=DEV)
+    ids = sorted(final)
+    direct.add_batch_arrays(ids, np.stack([final_vec[final[i]] for i in ids]))
+    want = direct.search_batch(np.stack([q_of[t] for t in burst]), k)
+    burst_ids = range(burst_first, burst_first + len(burst))
+    got = [list(zip(answered[q][1], (1.0 - d for d in answered[q][2]))) for q in sorted(answered)[burst_first:]]
+    share, ok = _hits_agree(got, [[(int(i), float(s)) for i, s in row] for row in want], k)
+    if not ok or sorted(answered)[burst_first:] != list(burst_ids):
+        raise AssertionError(f"kafka_path: the burst's hits differ from a directly built index's ({share})")
+    written = collections.Counter()
+    for _key, value, _ts in broker.records("answers"):
+        rec = json.loads(value)
+        written[(rec["qid"], rec["diff"])] += 1
+    if sorted(written) != [(q, 1) for q in sorted(answered)] or max(written.values()) != 1:
+        raise AssertionError(f"kafka_path: {sum(written.values())} records on 'answers' for {len(answered)} queries")
+    missing = [name for name in ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention",
+                                 "knn_topk_stream", "knn_topk_tc", "knn_topk_merge") if launches.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kafka_path never launched {missing}")
+    busy = lambda name: times[name]["reader_s"] + times[name]["epoch_s"]  # noqa: E731
+    result = dict(
+        card=env["nvidia_smi"], snapshot=n_snapshot, updates=n_updates, deletes=n_deletes, live=len(final),
+        partitions=KAFKA_PARTITIONS, queries=len(answered), burst=len(burst), k=k,
+        # rates over the reader's and the run's seconds: without the idle poll's timeout before each commit
+        snapshot_docs_per_s=n_snapshot / busy("snapshot"),
+        changes_per_s=(n_updates + n_deletes) / (busy("updates") + busy("deletes")),
+        updates_per_s=n_updates / busy("updates"), deletes_per_s=n_deletes / busy("deletes"),
+        burst_answers_per_s=len(burst) / busy("burst"), phase_times=times, slots_reused=reused[0],
+        polls=broker.calls["poll"], max_memory_allocated=peak, run_seconds=run_s,
+        phase_seconds=now() - t_phase, launches=launches,
+    )
+    emit("kafka_path", **result)
     return launches
 
 
@@ -6481,7 +7053,9 @@ def main(argv: list[str]) -> int:
     launches.update(phase_train_path(torch, env))
     launches.update(phase_clip_path(torch, env))
     launches.update(phase_ring_path(torch, env))
-    launches.update(phase_http_path(torch, env))
+    http_launches, embedder = phase_http_path(torch, env)
+    launches.update(http_launches)
+    launches.update(phase_kafka_path(torch, env, embedder))
     rag_launches, cross = phase_rag_path(torch)
     launches.update(rag_launches)
     launches.update(phase_decode_path(torch, cross))
@@ -6499,7 +7073,7 @@ def main(argv: list[str]) -> int:
     launches.update(elastic_launches)
     entries += elastic_entries
     launches.update(phase_cluster_path(torch))
-    for e in entries:  # launches summed over the nineteen paths' counted runs
+    for e in entries:  # launches summed over the twenty paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

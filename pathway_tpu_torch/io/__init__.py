@@ -1,11 +1,13 @@
 """pw.io: connectors.
 
-The port holds the file connectors (``fs``, ``csv``, ``jsonlines``,
-``plaintext``, ``null``), the REST server connector and the HTTP client
-connectors (``http``), the Python connector (``pw.io.python``),
-subscriptions (``pw.io.subscribe``) and ``add_output_sink``, the sink hook
-the other connectors build on. The service-backed connectors of the
-reference come with ROADMAP Queue A item 1.
+The port's copy of the reference's ``io`` package. Local connectors (fs,
+csv, jsonlines, plaintext, python, http, sqlite, null, subscribe) run
+standalone; the service-backed connectors (kafka, redpanda, debezium,
+postgres, mongodb, elasticsearch, nats, bigquery, pubsub, logstash, slack)
+run their full read / parse / commit or format / write loop over an
+injectable client, and import their client libraries only when a run
+needs a real one. ``add_output_sink`` is the sink hook the connectors
+build on.
 """
 
 from __future__ import annotations
@@ -15,17 +17,32 @@ from ._connector import add_output_sink
 from ._formats import CsvParserSettings
 from ._subscribe import OnChangeCallback, OnFinishCallback, subscribe
 
+# service-backed connectors (client libraries needed only at run time)
+from . import bigquery, debezium, elasticsearch, kafka, logstash, mongodb, nats, postgres, pubsub, redpanda, slack, sqlite
+
 __all__ = [
     "CsvParserSettings",
     "OnChangeCallback",
     "OnFinishCallback",
     "add_output_sink",
+    "bigquery",
     "csv",
+    "debezium",
+    "elasticsearch",
     "fs",
     "http",
     "jsonlines",
+    "kafka",
+    "logstash",
+    "mongodb",
+    "nats",
     "null",
     "plaintext",
+    "postgres",
+    "pubsub",
     "python",
+    "redpanda",
+    "slack",
+    "sqlite",
     "subscribe",
 ]

@@ -4,7 +4,7 @@ Embedders (``SentenceTransformerEmbedder`` on the port's encoder), chat
 models, rerankers (``CrossEncoderReranker`` on the port's cross-encoder),
 parsers, splitters, prompt templates, ``VectorStoreServer`` /
 ``DocumentStore``, the RAG question-answering apps, the evaluation harness
-and the REST servers. The HTTP embedders come with ROADMAP Queue A item 1.
+and the REST servers, with the HTTP embedders (OpenAI, LiteLLM, Gemini).
 """
 
 from . import embedders, llms, parsers, prompts, question_answering, rag_evals, rerankers, servers, splitters

@@ -7,11 +7,14 @@ is a *batched* UDF over the port's ``SentenceEncoder``: rows are
 gathered into dynamic batches and run as bf16 forwards whose layers are
 the hand-written kernels (B1, B4 for long-tailed batches) on the card.
 ``encode_device`` keeps the embeddings on the card for the device KNN
-index. The HTTP embedders (OpenAI, LiteLLM, Gemini) come with the vector
-store, ROADMAP Queue A item 1.
+index. The HTTP embedders (``OpenAIEmbedder`` :85, ``LiteLLMEmbedder``
+:180, ``GeminiEmbedder`` :330) import their client packages when called,
+as in the reference.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ...internals import udfs
 from ...internals.expression import ColumnExpression
@@ -82,3 +85,114 @@ class SentenceTransformerEmbedder(BaseEmbedder):
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return self._encoder.dim
+
+
+class OpenAIEmbedder(BaseEmbedder):
+    """OpenAI `embeddings.create` wrapper (reference embedders.py:85).
+    Network calls require the `openai` package and an API key.
+
+    Args:
+        capacity: max concurrent in-flight requests; None = unbounded.
+            Rows queue in the async executor beyond this.
+        retry_strategy: a ``udfs.AsyncRetryStrategy`` applied per request
+            (e.g. ``udfs.ExponentialBackoffRetryStrategy``) or a shared
+            ``pathway_tpu_torch.resilience.RetryPolicy`` (coerced; attempts
+            surface on ``/metrics``); None = fail on first error,
+            routing the row to the error log.
+        cache_strategy: a ``udfs.CacheStrategy`` memoizing responses by
+            input text — on a restart, previously embedded documents are
+            served from the cache instead of re-billed.
+        model: embedding model id; forwarded with every request.
+        **openai_kwargs: forwarded verbatim to ``embeddings.create``
+            (plus ``api_key``/``base_url``, which configure the shared
+            client).
+    """
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "text-embedding-3-small",
+        **openai_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.model = model
+        self.kwargs = dict(openai_kwargs)
+        if model is not None:
+            self.kwargs["model"] = model
+
+    async def __wrapped__(self, input, **kwargs) -> np.ndarray:
+        try:
+            import openai
+        except ImportError as e:  # pragma: no cover
+            raise ImportError("OpenAIEmbedder requires the openai package") from e
+        kwargs = {**self.kwargs, **kwargs}
+        api_kwargs = {k: v for k, v in kwargs.items() if k not in ("api_key", "base_url")}
+        from ._utils import shared_openai_client
+
+        client = shared_openai_client(kwargs.get("api_key"), kwargs.get("base_url"))
+        ret = await client.embeddings.create(input=[input or "."], **api_kwargs)
+        return np.array(ret.data[0].embedding)
+
+
+class LiteLLMEmbedder(BaseEmbedder):
+    """litellm.aembedding wrapper (reference embedders.py:180): one class
+    fronting every provider litellm routes to (``model`` picks the
+    provider, e.g. ``"ollama/llama2"``). Same ``capacity`` /
+    ``retry_strategy`` / ``cache_strategy`` semantics as
+    :class:`OpenAIEmbedder`; extra kwargs go to ``litellm.aembedding``
+    verbatim (``api_base``, ``api_version``, ...)."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = None,
+        **llmlite_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(llmlite_kwargs)
+        if model is not None:
+            self.kwargs["model"] = model
+
+    async def __wrapped__(self, input, **kwargs) -> np.ndarray:
+        try:
+            import litellm
+        except ImportError as e:  # pragma: no cover
+            raise ImportError("LiteLLMEmbedder requires the litellm package") from e
+        ret = await litellm.aembedding(input=[input or "."], **{**self.kwargs, **kwargs})
+        return np.array(ret.data[0]["embedding"])
+
+
+class GeminiEmbedder(BaseEmbedder):
+    """google.generativeai ``embed_content`` wrapper (reference
+    embedders.py:330). Same ``capacity`` / ``retry_strategy`` /
+    ``cache_strategy`` semantics as :class:`OpenAIEmbedder`; extra
+    kwargs (``task_type``, ``output_dimensionality``, ...) forward to
+    ``embed_content`` verbatim."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "models/embedding-001",
+        **gemini_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(gemini_kwargs)
+        if model is not None:
+            self.kwargs["model"] = model
+
+    def __wrapped__(self, input, **kwargs) -> np.ndarray:
+        try:
+            import google.generativeai as genai
+        except ImportError as e:  # pragma: no cover
+            raise ImportError("GeminiEmbedder requires google-generativeai") from e
+        response = genai.embed_content(content=[input or "."], **{**self.kwargs, **kwargs})
+        return np.array(response["embedding"][0])

@@ -696,7 +696,12 @@ _WAITING_NAMES = {
         "universes", "unpack_col", "utils", "viz", "window",
     ),
     "ROADMAP Queue A item 10 (the deep verifier)": ("analysis",),
+    "ROADMAP Queue A item 1 (the object stores)": (
+        "s3", "s3_csv", "minio", "deltalake", "gdrive", "pyfilesystem", "airbyte",
+    ),
 }
+# the waiting names that live in ``pw.io`` rather than at the package's top
+_WAITING_IO = "ROADMAP Queue A item 1 (the object stores)"
 
 
 def _kind(obj) -> str:
@@ -716,23 +721,43 @@ def _kind(obj) -> str:
 _LAZY_MODEL_NAMES = ("ContrastiveTrainer", "info_nce_loss", "CLIPEncoder", "CLIPConfig")
 
 
+def _public_classes(mod) -> set:
+    """The classes a module without ``__all__`` defines (not those it imports)."""
+    import inspect
+
+    return {n for n, v in vars(mod).items() if not n.startswith("_") and inspect.isclass(v)
+            and v.__module__ == mod.__name__}
+
+
 def _check_public_names():
     import pathway_tpu as jpw
+    import pathway_tpu.io as jio
     import pathway_tpu.io.http as jhttp
     import pathway_tpu.models as jmodels
     import pathway_tpu.serving as jserving
+    import pathway_tpu.xpacks.llm.embedders as jembedders
     import pathway_tpu_torch as tpw
+    import pathway_tpu_torch.io as tio
     import pathway_tpu_torch.io.http as thttp
     import pathway_tpu_torch.models as tmodels
     import pathway_tpu_torch.serving as tserving
+    import pathway_tpu_torch.xpacks.llm.embedders as tembedders
 
-    waiting = {name for names in _WAITING_NAMES.values() for name in names}
+    waiting_io = set(_WAITING_NAMES[_WAITING_IO])
+    waiting = {name for label, names in _WAITING_NAMES.items() if label != _WAITING_IO for name in names}
     assert not waiting & set(tpw.__all__), "a waiting name is exported: take it off the list"
-    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving), (jhttp, thttp)):
-        missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__ and n not in waiting)
+    assert not waiting_io & set(tio.__all__), "a waiting connector is exported: take it off the list"
+    assert waiting_io <= set(jio.__all__) and not any(hasattr(tio, n) for n in waiting_io)
+    assert _public_classes(tembedders) == _public_classes(jembedders)
+    for name in _public_classes(jembedders):
+        assert issubclass(getattr(tembedders, name), tembedders.BaseEmbedder) == issubclass(
+            getattr(jembedders, name), jembedders.BaseEmbedder), name
+    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving), (jhttp, thttp), (jio, tio)):
+        skip = waiting_io if jmod is jio else waiting
+        missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__ and n not in skip)
         assert not missing, (tmod.__name__, missing)
         for name in jmod.__all__:
-            if name in waiting:
+            if name in skip:
                 continue
             assert hasattr(tmod, name), (tmod.__name__, name)
             assert _kind(getattr(tmod, name)) == _kind(getattr(jmod, name)), (tmod.__name__, name)
@@ -751,8 +776,9 @@ def test_public_names_match_the_reference():
     """Every name of the reference's ``__all__`` is in the port's, of the
     same kind (module, class, function or value), but for the names whose
     modules wait in a ROADMAP item, which the port does not bind; the
-    ``models``, ``serving`` and ``io.http`` packages export what the
-    reference's do."""
+    ``models``, ``serving``, ``io`` and ``io.http`` packages export what the
+    reference's do (``io`` but for the object stores that wait in item 1),
+    and ``xpacks.llm.embedders`` defines the reference's embedder classes."""
     _check_public_names()
     from pathway_tpu_torch.native import NativeStore
 

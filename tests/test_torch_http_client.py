@@ -415,12 +415,16 @@ class _Feed(http.server.BaseHTTPRequestHandler):
 
 @pytest.fixture
 def feed():
+    # the port's parse graph is process-global: a sink left in it would post
+    # to this server after it closed, from the next run in this process
+    tpw.clear_graph()
     srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _Feed)
     srv.daemon_threads = True
     srv.lock, srv.connections, srv.sent, srv.n, srv.posted = threading.Lock(), 0, 0, 64, []
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     yield srv
+    tpw.clear_graph()
     srv.shutdown()
     srv.server_close()
     th.join(timeout=10)

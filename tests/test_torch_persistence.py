@@ -38,6 +38,10 @@ PKGS = {
 @pytest.fixture(autouse=True)
 def _oneshot_fs(monkeypatch):
     monkeypatch.setenv("PATHWAY_TPU_FS_ONESHOT", "1")
+    # start from empty graphs: pw.run runs every sink an earlier test file in
+    # this process left in a package's global graph
+    jpw.clear_graph()
+    tpw.clear_graph()
     yield
     jpw.clear_graph()
     tpw.clear_graph()

@@ -14,7 +14,7 @@ at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
 2-shard generation; B2 at d 512, CLIP's width, at 1, 16 and 256 queries;
 attention at S 8192, the ring's one-card shape), times the index's
-tie-ordered top-k beside ``torch.topk``, then drives twenty paths, each
+tie-ordered top-k beside ``torch.topk``, then drives twenty-one paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -63,7 +63,7 @@ with the launch counters set to 0 just before it and read just after:
   4,096 ``op: d`` deletes -> ``pw.io.debezium.read`` (the connector's own
   confluent branch) -> ``SentenceTransformerEmbedder`` (MiniLM-L6, B1;
   ``http_path``'s) -> ``pw.ml.KNNIndex`` (B2, freed slots taken again) <-
-  queries from topic ``queries`` through ``pw.io.kafka.read`` (16 single
+  queries from topic ``queries`` through ``pw.io.kafka.read`` (2 single
   queries after each phase, then 256 in one epoch) -> ``pw.io.kafka.write``
   to topic ``answers``; gated on both readers subscribing and polling,
   exactly the 28,672 live keys in the index, no answer naming a key
@@ -71,6 +71,25 @@ with the launch counters set to 0 just before it and read just after:
   the burst equal to a ``DeviceKnnIndex`` built directly from the final
   rows (ids exact, scores 1e-5), every query answered once on ``answers``,
   B1 and both B2 passes launching;
+* ``s3_path``: an S3 prefix kept live in the index across a restart. A
+  ``boto3`` stand-in (an in-process bucket in this script, put in
+  ``sys.modules``; pages of 1,000 keys, ETags the MD5 of each body) holds
+  16,384 objects of 20-220 words under ``s3://docs/corpus/`` ->
+  ``pw.io.s3.read(format="plaintext_by_file", with_metadata=True,
+  mode="streaming", persistent_id=, object_cache=)`` (the connector's own
+  ``AwsS3Settings.create_client()`` branch) under a filesystem persistence
+  backend -> ``SentenceTransformerEmbedder`` (MiniLM-L6, B1;
+  ``http_path``'s) -> ``pw.ml.KNNIndex`` (B2) <- queries from
+  ``pw.io.python.read`` (16 single queries after each phase, then 256 in
+  one epoch); (a) the snapshot scan, (b) 2,048 objects rewritten, 1,024
+  deleted and 1,024 added between two scans, (c) the run stopped, 512 added
+  and 512 rewritten while it is down, and restarted on the same
+  persistence and object cache; gated on exactly the live keys in the index
+  after each phase, no answer naming an object deleted before its query,
+  every rewritten object first for its new text, each phase's GETs exactly
+  the objects it changed (1,024 on the restart), the burst equal to a
+  ``DeviceKnnIndex`` built directly from the final objects (ids exact,
+  scores 1e-5), B1 and both B2 passes launching;
 * ``rag_path``: ``FusedRagPipeline`` over MiniLM-L6 and a cross_encoder_l6
   reranker: 16 long-tailed epochs of 1,024 chunks through the segment
   packer (kernel B4), 512 single queries, one batch of 512, and
@@ -79,8 +98,8 @@ with the launch counters set to 0 just before it and read just after:
   kernels must both launch) serving 64 prompts with continuous batching,
   each arrival preceded by a ``DeviceReranker.order``;
 * ``engine_path``: the dataflow engine as a user drives it, ``import
-  pathway_tpu_torch as pw``: 131,072 documents streamed through
-  ``pw.io.python.read`` (128 epochs of 1,024) -> ``DataIndex(BruteForceKnn(
+  pathway_tpu_torch as pw``: 65,536 documents streamed through
+  ``pw.io.python.read`` (64 epochs of 1,024) -> ``DataIndex(BruteForceKnn(
   embedder=SentenceTransformerEmbedder()))`` -> 512 single text queries
   and one epoch of 512 through ``query_as_of_now`` -> ``pw.io.subscribe`` ->
   ``pw.run``; gated on the kernels' launches, ``add_batch_device`` carrying
@@ -180,7 +199,7 @@ with the launch counters set to 0 just before it and read just after:
   rows SIGKILLed at ``elastic.migrate_chunk`` and completed on restart by
   ``recover_pending_reshard`` (answers equal to an unkilled twin's).
 * ``cluster_path``: the multi-process cluster. One user program spawned
-  through ``python -m pathway_tpu_torch spawn --processes P``: 32,768
+  through ``python -m pathway_tpu_torch spawn --processes P``: 16,384
   documents through ``pw.io.python.read`` on process 0 (persisted, a commit
   of 1,024), keyed by id through a groupby that exchanges them by key
   shard, embedded by ``SentenceTransformerEmbedder`` (MiniLM-L6, B1) in
@@ -1497,8 +1516,9 @@ def _first_split(torch, params, cfg, prompt, got, want):
 
 
 # engine_path: documents streamed through the dataflow engine, epochs of them,
-# and the documents of the 1- vs 4-worker KNNIndex comparison
-ENGINE_DOCS, ENGINE_EPOCH, ENGINE_QUERIES, ENGINE_WORKER_DOCS = 131_072, 1024, 512, 2_048  # 4,096 until the fourteenth path needed the time
+# and the documents of the 1- vs 4-worker KNNIndex comparison (131,072 documents until the twenty-first path needed
+# the time; 4,096 worker documents until the fourteenth)
+ENGINE_DOCS, ENGINE_EPOCH, ENGINE_QUERIES, ENGINE_WORKER_DOCS = 65_536, 1024, 512, 2_048
 HIT_TOL = 1e-5  # topk_agreement tolerance of the engine's hits against the library path's
 
 
@@ -3916,7 +3936,7 @@ TIER_HOT = 1 << 17
 TIER_CLUSTERS = 256
 TIER_PROBE = 16
 TIER_GROUP = 10  # documents of one near-duplicate group (chunks of one source)
-TIER_SINGLES = 128  # 1,024 until the thirteenth path, 512 until the fourteenth, 256 until the fifteenth needed the time
+TIER_SINGLES = 64  # 1,024 until the thirteenth path, 512 until the fourteenth, 256 until the fifteenth, 128 until the twenty-first needed the time
 TIER_BATCHES = 8
 TIER_BATCH = 256
 TIER_SELF = 4096
@@ -5652,9 +5672,9 @@ def phase_elastic_path(torch, n_rows: int = ELASTIC_ROWS, chunk: int = ELASTIC_C
     return dict(launches), entries
 
 
-# cluster_path: the documents (65,536 halved for the script's time), a
-# commit's documents, the single queries and their k, the lease
-CLUSTER_DOCS, CLUSTER_EPOCH, CLUSTER_QUERIES, CLUSTER_K = 32_768, 1024, 512, 10
+# cluster_path: the documents (65,536 halved for the script's time, 32,768 halved again for the twenty-first
+# path), a commit's documents, the single queries and their k, the lease
+CLUSTER_DOCS, CLUSTER_EPOCH, CLUSTER_QUERIES, CLUSTER_K = 16_384, 1024, 512, 10
 CLUSTER_LEASE_MS = 2000
 CLUSTER_CHILD_TIMEOUT = 300.0
 
@@ -7019,6 +7039,517 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     return launches
 
 
+# -------------------------------------------------------------------- s3_path
+
+class S3StandIn:
+    """An in-process S3 endpoint behind ``boto3`` and ``botocore.config``
+    stand-in modules (:meth:`modules`, put in ``sys.modules`` around a run,
+    so a connector's own ``AwsS3Settings.create_client()`` branch runs).
+    A bucket maps keys to bodies; an object's ETag is the quoted MD5 of its
+    body. ``list_objects_v2`` pages ``page_size`` keys at a time with
+    ``IsTruncated`` and ``NextContinuationToken``, every page of a listing
+    served from the bucket as it stood at the listing's first page (a change
+    lands between two listings, never inside one); ``get_object``,
+    ``put_object`` and ``delete_object`` act on one key, a missing one
+    raising ``NoSuchKey``. :attr:`calls` counts the client calls by name,
+    :attr:`gets` each key's ``get_object`` calls, :attr:`timeline` holds
+    (call, start, end) of every listing page (``list0`` for a first page)
+    and every ``get_object``, :attr:`clients` each ``boto3.client`` call's
+    arguments. After :meth:`shutdown` every listing raises, which ends a
+    reader that scans for ever; :meth:`resume` serves again."""
+
+    def __init__(self, page_size: int = 1000):
+        import threading
+
+        self.lock = threading.Lock()
+        self.page_size = page_size
+        self.buckets: dict = {}
+        self.calls = collections.Counter()
+        self.gets = collections.Counter()
+        self.timeline: list = []
+        self.clients: list = []
+        self.down = False
+        self._listings: dict = {}
+        self._next_listing = 0
+        self.boto3, self.botocore, self.botocore_config = self._client_modules()
+
+    def modules(self) -> dict:
+        return {"boto3": self.boto3, "botocore": self.botocore, "botocore.config": self.botocore_config}
+
+    def apply(self, bucket: str, puts: dict | None = None, deletes=()) -> None:
+        """Write ``puts`` ({key: bytes}) and delete ``deletes`` at once."""
+        import hashlib
+
+        with self.lock:
+            objects = self.buckets.setdefault(bucket, {})
+            for key, body in (puts or {}).items():
+                body = bytes(body)
+                objects[key] = (body, '"%s"' % hashlib.md5(body).hexdigest(), time.time())
+            for key in deletes:
+                objects.pop(key, None)
+
+    def keys(self, bucket: str) -> list:
+        with self.lock:
+            return sorted(self.buckets.get(bucket, {}))
+
+    def shutdown(self) -> None:
+        self.down = True
+
+    def resume(self) -> None:
+        self.down = False
+
+    def _client_modules(self):
+        import datetime
+        import io
+        import types
+
+        stand_in = self
+
+        class NoSuchKey(Exception):
+            def __init__(self, key):
+                super().__init__(f"NoSuchKey: {key}")
+                self.response = {"Error": {"Code": "NoSuchKey", "Key": key}}
+
+        class Client:
+            exceptions = types.SimpleNamespace(NoSuchKey=NoSuchKey)
+
+            def __init__(self, kwargs):
+                self.kwargs = kwargs
+
+            def list_objects_v2(self, Bucket, Prefix="", ContinuationToken=None, MaxKeys=None, **_):  # noqa: N803
+                t0 = time.perf_counter()
+                if stand_in.down:
+                    raise ConnectionError("the S3 endpoint shut down")
+                with stand_in.lock:
+                    stand_in.calls["list_objects_v2"] += 1
+                    if ContinuationToken is None:
+                        objects = stand_in.buckets.get(Bucket, {})
+                        listing = [(k, *objects[k]) for k in sorted(objects) if k.startswith(Prefix)]
+                        lid, at = stand_in._next_listing, 0
+                        stand_in._next_listing += 1
+                    else:
+                        lid, at = map(int, ContinuationToken.split(":"))
+                        listing = stand_in._listings.pop(lid)
+                    n = min(MaxKeys or stand_in.page_size, stand_in.page_size)
+                    page, truncated = listing[at : at + n], at + n < len(listing)
+                    if truncated:
+                        stand_in._listings[lid] = listing
+                resp = {"Name": Bucket, "Prefix": Prefix, "KeyCount": len(page), "IsTruncated": truncated}
+                if page:
+                    resp["Contents"] = [
+                        {"Key": k, "ETag": etag, "Size": len(body),
+                         "LastModified": datetime.datetime.fromtimestamp(mtime, datetime.timezone.utc)}
+                        for k, body, etag, mtime in page
+                    ]
+                if truncated:
+                    resp["NextContinuationToken"] = f"{lid}:{at + n}"
+                stand_in.timeline.append(("list" if ContinuationToken else "list0", t0, time.perf_counter()))
+                return resp
+
+            def get_object(self, Bucket, Key, **_):  # noqa: N803
+                t0 = time.perf_counter()
+                with stand_in.lock:
+                    stand_in.calls["get_object"] += 1
+                    stand_in.gets[Key] += 1
+                    obj = stand_in.buckets.get(Bucket, {}).get(Key)
+                if obj is None:
+                    raise NoSuchKey(Key)
+                resp = {"Body": io.BytesIO(obj[0]), "ETag": obj[1], "ContentLength": len(obj[0])}
+                stand_in.timeline.append(("get", t0, time.perf_counter()))
+                return resp
+
+            def put_object(self, Bucket, Key, Body, **_):  # noqa: N803
+                stand_in.calls["put_object"] += 1
+                stand_in.apply(Bucket, {Key: Body.read() if hasattr(Body, "read") else Body})
+                return {}
+
+            def delete_object(self, Bucket, Key, **_):  # noqa: N803
+                stand_in.calls["delete_object"] += 1
+                stand_in.apply(Bucket, deletes=[Key])
+                return {}
+
+        boto3 = types.ModuleType("boto3")
+
+        def client(service_name, **kwargs):
+            if service_name != "s3":
+                raise ValueError(f"the stand-in serves s3 only, not {service_name!r}")
+            stand_in.clients.append(dict(kwargs))
+            return Client(kwargs)
+
+        boto3.client = client
+        botocore = types.ModuleType("botocore")
+        botocore.__path__ = []
+        config = types.ModuleType("botocore.config")
+
+        class Config:
+            def __init__(self, **kwargs):
+                self.kwargs = kwargs
+                self.__dict__.update(kwargs)
+
+        config.Config = Config
+        botocore.config = config
+        return boto3, botocore, config
+
+
+S3_BUCKET, S3_PREFIX = "docs", "corpus/"
+S3_OBJECTS = 16_384
+S3_REWRITES, S3_DELETES, S3_ADDS = 2_048, 1_024, 1_024  # phase (b), between two scans
+S3_DOWN_ADDS, S3_DOWN_REWRITES = 512, 512  # phase (c), while the run is down
+S3_SINGLES = 16  # single queries after each phase (B2's streaming pass), an epoch each
+S3_BURST = 256  # queries of the last epoch (B2's tensor-core pass)
+S3_K = 10
+S3_POLL_S = 0.25  # the reader's listing interval
+S3_ENDPOINT = "http://127.0.0.1:9000"  # a MinIO-style endpoint; the stand-in answers in process
+
+
+def _scan_split(timeline: list, t_change: float, done: float) -> dict:
+    """The seconds of one phase from the stand-in's timeline (entries after
+    ``t_change``): the wait for the scan that carried the change, its
+    listing, the fetches (with the reader's work between them), and the
+    epoch (from the last fetch to the last row at the subscription)."""
+    calls = [e for e in timeline if e[1] >= t_change]
+    gets = [e for e in calls if e[0] == "get"]
+    first_get = min((e[1] for e in gets), default=done)
+    scan_start = max(e[1] for e in calls if e[0] == "list0" and e[1] <= first_get)
+    list_end = max(e[2] for e in calls if e[0] in ("list0", "list") and scan_start <= e[1] <= first_get)
+    last_get = max((e[2] for e in gets), default=list_end)
+    return dict(wait_s=scan_start - t_change, listing_s=list_end - scan_start, fetching_s=last_get - list_end,
+                epoch_s=done - last_get, busy_s=done - scan_start, total_s=done - t_change)
+
+
+def phase_s3_path(torch, env: dict, embedder, n_objects: int = S3_OBJECTS, n_rewrites: int = S3_REWRITES,
+                  n_deletes: int = S3_DELETES, n_adds: int = S3_ADDS, n_down_adds: int = S3_DOWN_ADDS,
+                  n_down_rewrites: int = S3_DOWN_REWRITES, n_singles: int = S3_SINGLES, n_burst: int = S3_BURST,
+                  k: int = S3_K, page_size: int = 1000) -> dict:
+    """A live index over an S3 prefix, the upstream project's document-store
+    deployment with its documents in a bucket that an ingest job rewrites:
+    a ``boto3`` stand-in (:class:`S3StandIn`) in ``sys.modules`` holds
+    ``n_objects`` plain-text objects under ``s3://docs/corpus/`` ->
+    ``pw.io.s3.read(format="plaintext_by_file", with_metadata=True,
+    mode="streaming", persistent_id=, object_cache=)`` through the
+    connector's own ``AwsS3Settings.create_client()`` branch, under a
+    filesystem persistence backend -> ``SentenceTransformerEmbedder``
+    (MiniLM-L6, B1; ``embedder``, http_path's, warmed up) ->
+    ``pw.ml.KNNIndex`` (B2) <- text queries from ``pw.io.python.read``
+    (``n_singles`` single queries after each phase, then a burst of
+    ``n_burst`` in one epoch). Phases: (a) the snapshot scan; (b) between
+    two scans ``n_rewrites`` objects rewritten, ``n_deletes`` deleted and
+    ``n_adds`` added; (c) the run stopped, ``n_down_adds`` objects added and
+    ``n_down_rewrites`` rewritten while it is down, and the run restarted on
+    the same persistence directory and object cache. Gates: each phase
+    leaves exactly the bucket's live keys in the index; no answer names an
+    object deleted before its query was asked; every rewritten object still
+    live comes first for its new text; each phase fetches exactly the
+    objects it changed (the restart ``n_down_adds + n_down_rewrites``:
+    ``get_object`` counted by the stand-in); the burst's hits equal those of
+    a ``DeviceKnnIndex`` built directly from the final objects (their
+    embeddings recomputed by the same embedder in the run's batches; ids
+    exact, scores 1e-5 by ``topk_agreement``); B1, both B2 passes and the
+    merge launch. Reports the snapshot's objects/s, phase (b)'s changes/s,
+    the restart's seconds to its first answer, each phase split into its
+    wait, listing, fetching and epoch seconds, GETs a phase and peak
+    memory."""
+    import queue
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    now = time.perf_counter
+    t_phase = now()
+    rng = np.random.default_rng(SEED + 101)
+    texts = _synthetic_texts_bulk(rng, n_objects + n_rewrites + n_adds + n_down_adds + n_down_rewrites, 20, 220)
+    fresh = iter(texts[n_objects:])
+    name = lambda i: f"{S3_PREFIX}doc-{i:06d}.txt"  # noqa: E731
+    start = {name(i): texts[i] for i in range(n_objects)}
+    order = rng.permutation(n_objects)
+    rewritten_b = [name(i) for i in order[:n_rewrites]]
+    deleted_b = [name(i) for i in order[n_rewrites : n_rewrites + n_deletes]]
+    change_b = {key: next(fresh) for key in rewritten_b + [name(n_objects + j) for j in range(n_adds)]}
+    after_b = {**start, **change_b}
+    for key in deleted_b:
+        del after_b[key]
+    live_b = sorted(after_b)
+    rewritten_c = [live_b[i] for i in rng.choice(len(live_b), n_down_rewrites, replace=False)]
+    added_c = [name(n_objects + n_adds + j) for j in range(n_down_adds)]
+    change_c = {key: next(fresh) for key in rewritten_c + added_c}
+    final = {**after_b, **change_c}
+    rewritten = sorted(set(rewritten_b) | set(rewritten_c))
+    prefix = lambda text: " ".join(text.split()[: min(24, len(text.split()) - 1)])  # noqa: E731 - never a whole object
+    pick = lambda keys, n: [keys[i] for i in rng.choice(len(keys), n, replace=False)]  # noqa: E731
+    half = n_singles // 2
+    singles = {
+        "snapshot": [prefix(start[key]) for key in pick(sorted(start), n_singles)],
+        # a rewritten object's new text, and a deleted object's text: its key must not come back
+        "changes": [change_b[key] for key in rewritten_b[:half]] + [start[key] for key in deleted_b[: n_singles - half]],
+        "restart": [change_c[key] for key in rewritten_c[:half]] + [change_c[key] for key in added_c[: n_singles - half]],
+    }
+    burst = [final[key] for key in pick(rewritten, n_burst // 2)] + \
+        [prefix(final[key]) for key in pick(sorted(final), n_burst - n_burst // 2)]
+    first_query = prefix(final[pick(live_b, 1)[0]])
+
+    stand_in = S3StandIn(page_size=page_size)
+    stand_in.apply(S3_BUCKET, {key: text.encode() for key, text in start.items()})
+    folder = tempfile.mkdtemp(prefix="s3_path-")  # the persistence root and the object cache
+    persistence = pw.persistence.Config.simple_config(
+        pw.persistence.Backend.filesystem(os.path.join(folder, "persistence")))
+    settings = pw.io.s3.AwsS3Settings(bucket_name=S3_BUCKET, endpoint=S3_ENDPOINT, with_path_style=True,
+                                      region="us-east-1", access_key="stand-in", secret_access_key="stand-in")
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+    # ---- instruments: the pipelines' indexes, the runners, the embedder's batches (a query batch holds only
+    # texts of queries in flight; the others are objects')
+    made, runners, batches, asking = [], [], [], collections.Counter()
+    real_init, real_runner_init, real_encode = DeviceKnnIndex.__init__, GraphRunner.__init__, embedder._encoder.encode
+
+    def index_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        made.append(self)
+
+    def runner_init(self, *a, **kw):
+        real_runner_init(self, *a, **kw)
+        runners.append(self)
+
+    def encode(texts_):
+        with cv:
+            batches.append(("query" if all(asking[t] for t in texts_) else "object", list(texts_)))
+        return real_encode(texts_)
+
+    cv = threading.Condition()
+    state = {"count": collections.Counter(), "path_of": {}, "texts": {}, "n_live": 0, "pending": {},
+             "answers": {}, "answered_at": {}, "asked": {}}
+
+    def on_doc(key, row, time, is_addition):  # noqa: F811 - pw.io.subscribe passes ``time=``
+        with cv:
+            before = state["count"][key] > 0
+            state["count"][key] += 1 if is_addition else -1
+            state["n_live"] += (state["count"][key] > 0) - before
+            if is_addition:
+                state["path_of"][key] = row["path"]
+                state["texts"][row["path"]] = row["data"]
+                if state["pending"].get(row["path"]) == row["data"]:
+                    del state["pending"][row["path"]]
+            cv.notify_all()
+
+    def on_answer(key, row, time, is_addition):  # noqa: F811
+        with cv:
+            if row["qid"] not in state["answers"]:
+                asking[state["asked"][row["qid"]]] -= 1
+            state["answers"][row["qid"]] = (list(row["ids"]), [float(d) for d in row["dists"]])
+            state["answered_at"][row["qid"]] = now()
+            cv.notify_all()
+
+    def build(asks: "queue.Queue") -> None:
+        class Queries(pw.io.python.ConnectorSubject):
+            def run(self):
+                while (batch := asks.get()) is not None:
+                    for qid, text in batch:
+                        self.next(qid=qid, text=text)
+                    self.commit()
+
+        pw.clear_graph()
+        docs = pw.io.s3.read(f"s3://{S3_BUCKET}/{S3_PREFIX}", aws_s3_settings=settings, format="plaintext_by_file",
+                             with_metadata=True, mode="streaming", persistent_id="s3-docs-corpus",
+                             object_cache=os.path.join(folder, "object-cache"), poll_interval_s=S3_POLL_S,
+                             autocommit_duration_ms=None)
+        queries = pw.io.python.read(Queries(), schema=QuerySchema, autocommit_duration_ms=None)
+        d_emb = docs.select(path=pw.this._metadata["path"].as_str(), data=pw.this.data, emb=embedder(pw.this.data))
+        q_emb = queries.select(qid=pw.this.qid, emb=embedder(pw.this.text))
+        index = pw.ml.KNNIndex(d_emb.emb, d_emb, n_dimensions=embedder.get_embedding_dimension(),
+                               reserved_space=n_objects + n_adds + n_down_adds, distance_type="cosine", device=DEV)
+        answers = index.get_nearest_items_asof_now(q_emb.emb, k=k, with_distances=True).select(
+            qid=q_emb.qid, ids=pw.this.path, dists=pw.this.dist)
+        pw.io.subscribe(d_emb, on_doc)
+        pw.io.subscribe(answers, on_answer)
+
+    errors: list = []
+    qid = iter(range(1 << 30))
+    asked_after: dict = {}  # qid -> the keys deleted before it was asked
+    deleted_so_far: set = set()
+    times, gets, indexes, run_from = {}, {}, {}, [0]  # run_from: where the current run's indexes start in ``made``
+
+    def serve():
+        try:
+            pw.run(persistence_config=persistence)
+        except BaseException as exc:  # noqa: BLE001 - reported by the gates below
+            errors.append(exc)
+            with cv:
+                cv.notify_all()
+
+    def wait(what: str, cond) -> None:
+        with cv:
+            if not cv.wait_for(lambda: cond() or errors, timeout=600) or errors:
+                raise AssertionError(f"s3_path: {what} did not arrive; the run raised {errors}")
+
+    def ask(asks, texts_: list) -> list:
+        ids = [next(qid) for _ in texts_]
+        with cv:
+            for i, text in zip(ids, texts_):
+                asked_after[i] = frozenset(deleted_so_far)
+                state["asked"][i] = text
+                asking[text] += 1
+        asks.put(list(zip(ids, texts_)))
+        wait(f"answers to queries {ids[0]}..{ids[-1]}", lambda: all(i in state["answers"] for i in ids))
+        return ids
+
+    def expect(name_: str, t_change: float, live: dict, changed: dict) -> None:
+        """Wait until the subscription holds exactly ``live`` -> the phase's
+        split, its GETs and the index's keys against the live rows."""
+        with cv:
+            state["pending"] = {key: text for key, text in changed.items() if state["texts"].get(key) != text}
+        wait(name_, lambda: not state["pending"] and state["n_live"] == len(live))
+        times[name_] = _scan_split(stand_in.timeline, t_change, now())
+        with cv:
+            by_key = {key: state["path_of"][key] for key, c in state["count"].items() if c > 0}
+        if sorted(by_key.values()) != sorted(live) or any(state["texts"][p] != t for p, t in live.items()):
+            raise AssertionError(f"s3_path: after {name_} the run holds {len(by_key)} objects, the bucket {len(live)}")
+        pipeline = [ix for ix in made[run_from[0]:] if len(ix._slot_of)]
+        if len(pipeline) != 1 or {int(key) for key in pipeline[0]._slot_of} != {int(key) for key in by_key}:
+            raise AssertionError(f"s3_path: after {name_} the index does not hold exactly the live keys")
+        indexes[name_] = (pipeline[0], {int(key): path for key, path in by_key.items()})
+
+    def stop(asks, th) -> None:
+        asks.put(None)
+        runners[-1].engine.stop()
+        th.join(timeout=120)
+        if th.is_alive() or errors:
+            raise AssertionError(f"the S3 run did not end cleanly: alive={th.is_alive()}, errors={errors}")
+
+    saved = {m: sys.modules.get(m) for m in stand_in.modules()}
+    sys.modules.update(stand_in.modules())
+    DeviceKnnIndex.__init__, GraphRunner.__init__, embedder._encoder.encode = index_init, runner_init, encode
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        # ---- run 1: (a) the snapshot scan, (b) changes between two scans
+        asks = queue.Queue()
+        build(asks)
+        t0 = now()
+        th = threading.Thread(target=serve, name="s3_path-run", daemon=True)
+        th.start()
+        expect("snapshot", t0, start, start)
+        gets["snapshot"] = stand_in.calls["get_object"]
+        for text in singles["snapshot"]:
+            ask(asks, [text])
+        t_b, got_before = now(), stand_in.calls["get_object"]
+        stand_in.apply(S3_BUCKET, {key: change_b[key].encode() for key in change_b}, deleted_b)
+        deleted_so_far.update(deleted_b)
+        expect("changes", t_b, after_b, change_b)
+        gets["changes"] = stand_in.calls["get_object"] - got_before
+        for text in singles["changes"]:
+            ask(asks, [text])
+        stop(asks, th)
+        run1_s = now() - t0
+        # ---- (c) changes while the run is down, then the restart on the same persistence and object cache
+        stand_in.apply(S3_BUCKET, {key: change_c[key].encode() for key in change_c})
+        got_before, gets_by_key = stand_in.calls["get_object"], collections.Counter(stand_in.gets)
+        run_from[0] = len(made)
+        asks = queue.Queue()
+        build(asks)
+        t_c = now()
+        th = threading.Thread(target=serve, name="s3_path-restart", daemon=True)
+        th.start()
+        first_ids = ask(asks, [first_query])
+        first_answer_s = state["answered_at"][first_ids[0]] - t_c
+        expect("restart", t_c, final, change_c)
+        gets["restart"] = stand_in.calls["get_object"] - got_before
+        restart_keys = collections.Counter(stand_in.gets) - gets_by_key
+        for text in singles["restart"]:
+            ask(asks, [text])
+        t_burst = now()
+        burst_ids = ask(asks, burst)
+        burst_s = now() - t_burst
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        stop(asks, th)
+        run2_s = now() - t_c
+    finally:
+        DeviceKnnIndex.__init__, GraphRunner.__init__ = real_init, real_runner_init
+        del embedder._encoder.encode
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+        stand_in.shutdown()
+        pw.clear_graph()
+        shutil.rmtree(folder, ignore_errors=True)
+
+    # ---- gates
+    client = stand_in.clients[0] if stand_in.clients else {}
+    if len(stand_in.clients) != 2 or client.get("endpoint_url") != S3_ENDPOINT or \
+            client["config"].kwargs != {"s3": {"addressing_style": "path"}}:
+        raise AssertionError(f"s3_path: the AwsS3Settings branch did not run as configured: {stand_in.clients}")
+    want_gets = {"snapshot": n_objects, "changes": n_rewrites + n_adds, "restart": n_down_adds + n_down_rewrites}
+    if gets != want_gets or set(restart_keys) != set(change_c) or max(restart_keys.values()) != 1:
+        raise AssertionError(f"s3_path: GETs {gets} (restart over {len(restart_keys)} keys), expected {want_gets}")
+    answered = state["answers"]
+    stale = [(q, p) for q, (ids, _d) in answered.items() for p in ids if p in asked_after[q]]
+    if stale:
+        raise AssertionError(f"s3_path: {len(stale)} answers name a deleted object, first {stale[:4]}")
+    # the latest encode of each object's text (as the run's index holds it) and of the burst's, re-encoded in
+    # the run's own batches
+    vec_of, q_vec = {}, {}
+    needed = {"object": set(final.values()) | {after_b[key] for key in rewritten_b}, "query": set(burst)}
+    for kind, batch in reversed(batches):
+        into = vec_of if kind == "object" else q_vec
+        if any(t in needed[kind] and t not in into for t in batch):
+            for t, v in zip(batch, real_encode(batch)):
+                into.setdefault(t, v)
+    # each rewritten object comes first for its new text, after (b) in run 1's index and at the end in run 2's
+    for name_, keys in (("changes", rewritten_b), ("restart", rewritten)):
+        index_, path_of = indexes[name_]
+        row = {path: key for key, path in path_of.items()}
+        text_of = after_b if name_ == "changes" else final
+        vecs = np.stack([vec_of[text_of[key]] for key in keys])
+        firsts = []
+        for lo in range(0, len(vecs), 256):
+            firsts += [int(h[0][0]) for h in DeviceKnnIndex.search_batch(index_, vecs[lo : lo + 256], 1)]
+        missed = [key for key, f in zip(keys, firsts) if f != row[key]]
+        if missed:
+            raise AssertionError(f"s3_path: after {name_}, {len(missed)} rewritten objects do not come first "
+                                 f"for their new text, first {missed[:4]}")
+    # the burst against an index built directly from the final objects
+    paths = sorted(final)
+    direct = DeviceKnnIndex(embedder.get_embedding_dimension(), metric="cos", reserved_space=len(paths), device=DEV)
+    direct.add_batch_arrays(list(range(len(paths))), np.stack([vec_of[final[p]] for p in paths]))
+    want = direct.search_batch(np.stack([q_vec[t] for t in burst]), k)
+    at = {p: i for i, p in enumerate(paths)}
+    got = [[(at[p], 1.0 - d) for p, d in zip(*answered[q])] for q in burst_ids]
+    share, ok = _hits_agree(got, [[(int(i), float(s)) for i, s in row] for row in want], k)
+    if not ok:
+        raise AssertionError(f"s3_path: the burst's hits differ from a directly built index's ({share})")
+    missing = [name_ for name_ in ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention",
+                                   "knn_topk_stream", "knn_topk_tc", "knn_topk_merge") if launches.get(name_, 0) == 0]
+    if missing:
+        raise AssertionError(f"s3_path never launched {missing}")
+    result = dict(
+        card=env["nvidia_smi"], objects=n_objects, rewrites=n_rewrites, deletes=n_deletes, adds=n_adds,
+        down_adds=n_down_adds, down_rewrites=n_down_rewrites, live=len(final), page_size=page_size,
+        poll_interval_s=S3_POLL_S, queries=len(answered), burst=len(burst), k=k,
+        # rates over the scan and the run's seconds: without the wait for the next listing
+        snapshot_objects_per_s=n_objects / times["snapshot"]["busy_s"],
+        changes_per_s=(n_rewrites + n_deletes + n_adds) / times["changes"]["busy_s"],
+        restart_first_answer_s=first_answer_s, restart_changes_per_s=len(change_c) / times["restart"]["busy_s"],
+        burst_answers_per_s=len(burst) / burst_s, phase_times=times, gets=gets,
+        listings=stand_in.calls["list_objects_v2"], max_memory_allocated=peak, run_seconds=run1_s + run2_s,
+        phase_seconds=now() - t_phase, launches=launches,
+    )
+    emit("s3_path", **result)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     global ALT_TREE
     try:
@@ -7056,6 +7587,7 @@ def main(argv: list[str]) -> int:
     http_launches, embedder = phase_http_path(torch, env)
     launches.update(http_launches)
     launches.update(phase_kafka_path(torch, env, embedder))
+    launches.update(phase_s3_path(torch, env, embedder))
     rag_launches, cross = phase_rag_path(torch)
     launches.update(rag_launches)
     launches.update(phase_decode_path(torch, cross))
@@ -7073,7 +7605,7 @@ def main(argv: list[str]) -> int:
     launches.update(elastic_launches)
     entries += elastic_entries
     launches.update(phase_cluster_path(torch))
-    for e in entries:  # launches summed over the twenty paths' counted runs
+    for e in entries:  # launches summed over the twenty-one paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

@@ -1,5 +1,5 @@
-"""Extension packs: ``llm``."""
+"""Extension packs: ``connectors`` and ``llm``."""
 
-from . import llm
+from . import connectors, llm
 
-__all__ = ["llm"]
+__all__ = ["connectors", "llm"]

@@ -53,6 +53,20 @@ def _coerce_sync(fn: Callable) -> Callable:
     return fn
 
 
+def _run_async(coro):
+    """Run a coroutine to completion from sync code, safely even when a
+    loop is already running in this thread (reference _utils._run_async):
+    nested-loop cases hop to a throwaway thread."""
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return asyncio.run(coro)
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        return pool.submit(asyncio.run, coro).result()
+
+
 def combine_metadata_filters(queries) -> Any:
     """Fold metadata_filter + filepath_globpattern columns into one
     JMESPath expression column (reference vector_store.py:359)."""

@@ -4,10 +4,10 @@ The port's copy of the reference's ``xpacks/llm/parsers.py`` (upstream
 Pathway's python/pathway/xpacks/llm/parsers.py: ParseUtf8 :53,
 ParseUnstructured :79, OpenParse :235, ImageParser :396, SlideParser :569,
 PypdfParser :746, parse_images :835). Parsers requiring optional packages
-(unstructured, pypdf, PIL, pdf2image) import lazily and raise the
-reference's ImportError when absent; the vision-model plumbing runs
+(unstructured, openparse, pypdf, PIL, pdf2image) import lazily and raise
+the reference's ImportError when absent; the vision-model plumbing runs
 against any chat UDF (see _parser_utils) so every parser unit-tests with
-fakes. ``OpenParse`` comes with ROADMAP Queue A item 1 and raises.
+fakes.
 """
 
 from __future__ import annotations
@@ -433,11 +433,91 @@ class SlideParser(ImageParser):
 
 
 class OpenParse(udfs.UDF):
-    """openparse-based PDF chunking (the reference's parsers.py:235-394,
-    with ``openparse_utils.py``); not ported yet."""
+    """openparse-based PDF chunking (reference :235-394): pymupdf text
+    ingestion + table extraction (llm / pymupdf / unitable /
+    table-transformers algorithms) + optional vision-LLM image parsing,
+    post-processed by an ingestion pipeline.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("OpenParse needs ROADMAP Queue A item 1 (OpenParse and openparse_utils)")
+    ``processing_pipeline``: ``"pathway_pdf_default"``
+    (SimpleIngestionPipeline), ``"merge_same_page"``
+    (SamePageIngestionPipeline), or any openparse IngestionPipeline."""
+
+    def __init__(
+        self,
+        table_args: dict | None = None,
+        image_args: dict | None = None,
+        parse_images: bool = False,
+        processing_pipeline=None,
+        llm=None,
+        cache_strategy=None,
+    ):
+        try:
+            import openparse  # noqa: F401
+        except ImportError as e:  # pragma: no cover
+            raise ImportError("OpenParse requires the openparse package") from e
+        from .openparse_utils import (
+            PyMuDocumentParser,
+            SamePageIngestionPipeline,
+            SimpleIngestionPipeline,
+        )
+
+        super().__init__(cache_strategy=cache_strategy)
+        if table_args is None:
+            table_args = {
+                "parsing_algorithm": "llm",
+                "llm": llm,
+                "prompt": prompts.DEFAULT_MD_TABLE_PARSE_PROMPT,
+            }
+        if parse_images:
+            if image_args is None:
+                image_args = {
+                    "parsing_algorithm": "llm",
+                    "llm": llm,
+                    "prompt": prompts.DEFAULT_IMAGE_PARSE_PROMPT,
+                }
+            elif image_args.get("parsing_algorithm") != "llm":
+                raise ValueError(
+                    "Image parsing is only supported with LLMs. Either change "
+                    "the `parsing_algorithm` to `llm` or set `parse_images` to "
+                    f"`False`. Given args: {image_args}"
+                )
+        else:
+            if image_args:
+                logger.warning(
+                    "`parse_images` is False but `image_args` is set; skipping "
+                    "image parsing."
+                )
+            image_args = None
+        if processing_pipeline is None or processing_pipeline == "pathway_pdf_default":
+            processing_pipeline = SimpleIngestionPipeline()
+        elif processing_pipeline == "merge_same_page":
+            processing_pipeline = SamePageIngestionPipeline()
+        elif isinstance(processing_pipeline, str):
+            raise ValueError(
+                "Invalid `processing_pipeline` set. It must be either one of "
+                "`'pathway_pdf_default'` or `'merge_same_page'`."
+            )
+        self.doc_parser = PyMuDocumentParser(
+            table_args=table_args,
+            image_args=image_args,
+            processing_pipeline=processing_pipeline,
+        )
+
+    async def __wrapped__(self, contents: bytes, **kwargs) -> list[tuple[str, dict]]:
+        import openparse
+
+        try:
+            from pypdf import PdfReader
+
+            doc = openparse.Pdf(file=PdfReader(stream=BytesIO(contents)))
+        except ImportError:
+            doc = openparse.Pdf(file=BytesIO(contents))
+        parsed = self.doc_parser.parse(doc)
+        nodes = list(parsed.nodes)
+        logger.info(
+            "OpenParse completed parsing, total number of nodes: %d", len(nodes)
+        )
+        return [(node.model_dump()["text"], {}) for node in nodes]
 
 
 __all__ = [

@@ -10,12 +10,15 @@ serving plane with every observability plane on (``tracing/``,
 ``/status``), or grows and shrinks live indexes with the elastic plane
 under ``pw.run(mesh="auto", elastic=)``, or runs as a 2-process cluster
 through ``spawn --processes 2`` (the coordinator and the worker alike);
-its public names are the reference's but for those whose modules wait in
-a ROADMAP item; it never imports ``aiohttp`` or
-``requests``, which the card's machine lacks (its webserver is the standard
-library's), and imports no service client (``openai``, ``litellm``,
-``cohere``, ``transformers``, ``flashrank``) at module load; its entry
-points never fall back to the CPU;
+or reads object stores, Delta Lake, Airbyte and SharePoint through injected
+clients; its public names are the reference's but for those whose modules
+wait in a ROADMAP item; it never imports ``aiohttp`` or ``requests``, which
+the card's machine lacks (its webserver is the standard library's), nor
+``pydantic`` or ``yaml``, which that machine lacks too, and imports no
+service client (``openai``, ``litellm``, ``cohere``, ``transformers``,
+``flashrank``, ``boto3``, ``deltalake``, the Drive, ``fs``, ``office365``
+and ``openparse`` clients) at module load; its entry points never fall back
+to the CPU;
 its kernels are built only at first use on a CUDA tensor;
 ``chip_smoke.py`` refuses to run without a card."""
 
@@ -34,9 +37,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pathway_tpu_torch")
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|pathway_tpu|aiohttp|requests|click)(?:\.|\s|$)", re.M)
-_FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "pathway_tpu", "aiohttp", "requests")
+# ``pydantic`` and ``yaml`` are not on the card's machine: the port imports
+# them only where a call needs them (``openparse_utils.LLMArgs``, an Airbyte
+# config file)
+_FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "pathway_tpu", "aiohttp", "requests", "pydantic", "yaml")
 # service clients: imported only inside the function that calls them
-_CLIENTS = ("openai", "litellm", "cohere", "transformers", "flashrank")
+_CLIENTS = ("openai", "litellm", "cohere", "transformers", "flashrank", "boto3", "botocore", "deltalake",
+            "googleapiclient", "fs", "office365", "openparse", "pydantic", "yaml")
 _CLIENT_AT_LOAD = re.compile(r"^(?:import|from)\s+(?:" + "|".join(_CLIENTS) + r")(?:\.|\s|$)", re.M)
 
 _PROBE = r"""
@@ -447,6 +454,56 @@ def test_port_elastic_plane_imports_no_jax_flax_reference_or_click():
     _run_probe(_ELASTIC_PROBE)
 
 
+_OBJECT_STORE_PROBE = r"""
+import sys
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+import pathway_tpu_torch.xpacks.llm
+from pathway_tpu_torch.io import _object_store, airbyte, deltalake, gdrive, minio, pyfilesystem, s3, s3_csv
+from pathway_tpu_torch.xpacks.connectors import sharepoint
+from pathway_tpu_torch.xpacks.llm import openparse_utils, parsers
+assert "LLMArgs" in dir(openparse_utils) and parsers.OpenParse
+class Drive:
+    sizes = {"big": 10}
+    def list_objects(self):
+        return [("a", "v1"), ("big", "v1")]
+    def get_object(self, key):
+        return b"alpha\n" if key == "a" else b"x" * 10
+rows = pw.debug.table_to_dicts(pw.io.gdrive.read("f", mode="static", format="binary", object_size_limit=8,
+                                                 _client=Drive()))[1]["data"]
+assert sorted(rows.values()) == [b"", b"alpha\n"], rows
+pw.clear_graph()
+class File:
+    path, size, created_at, modified_at = "/s/a.txt", 3, 1, 2
+    def read(self):
+        return b"one"
+pw.set_license_key("enterprise-probe")
+t = pw.xpacks.connectors.sharepoint.read("https://x.sharepoint.com/sites/S", root_path="D", mode="static",
+                                         _context_factory=lambda: type("Ctx", (), {"list_files": lambda s, r, rec: [File()]})())
+assert list(pw.debug.table_to_dicts(t)[1]["data"].values()) == [b"one"]
+pw.clear_graph()
+class Delta:
+    def version(self):
+        return 1
+    def to_pylist(self):
+        return [{"k": "x"}]
+t = pw.io.deltalake.read("/lake", schema=pw.schema_from_types(k=str), mode="static", _table=Delta())
+assert list(pw.debug.table_to_dicts(t)[1]["k"].values()) == ["x"]
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN + CLIENTS)
+print("BAD", bad)
+"""
+
+
+def test_port_object_stores_import_no_jax_flax_reference_pydantic_or_clients():
+    """``io/_object_store.py``, the object stores, Delta Lake, Airbyte,
+    ``xpacks.connectors.sharepoint`` and ``xpacks.llm.openparse_utils``
+    imported, then a Drive read with a size limit, a SharePoint read and a
+    Delta Lake read on injected clients: nothing of JAX, the reference,
+    ``pydantic`` or ``yaml``, and no client package, is imported."""
+    _run_probe(_OBJECT_STORE_PROBE)
+
+
 def test_elastic_reshard_on_the_card_never_lands_on_the_cpu(monkeypatch):
     """A reshard of an index on the card resolves its target on the cards
     (or the device pool) and raises, before touching anything, when fewer
@@ -696,12 +753,7 @@ _WAITING_NAMES = {
         "universes", "unpack_col", "utils", "viz", "window",
     ),
     "ROADMAP Queue A item 10 (the deep verifier)": ("analysis",),
-    "ROADMAP Queue A item 1 (the object stores)": (
-        "s3", "s3_csv", "minio", "deltalake", "gdrive", "pyfilesystem", "airbyte",
-    ),
 }
-# the waiting names that live in ``pw.io`` rather than at the package's top
-_WAITING_IO = "ROADMAP Queue A item 1 (the object stores)"
 
 
 def _kind(obj) -> str:
@@ -735,25 +787,37 @@ def _check_public_names():
     import pathway_tpu.io.http as jhttp
     import pathway_tpu.models as jmodels
     import pathway_tpu.serving as jserving
+    import pathway_tpu.xpacks as jxpacks
+    import pathway_tpu.xpacks.connectors as jconnectors
+    import pathway_tpu.xpacks.connectors.sharepoint as jsharepoint
     import pathway_tpu.xpacks.llm.embedders as jembedders
+    import pathway_tpu.xpacks.llm.openparse_utils as jopenparse
+    import pathway_tpu.xpacks.llm.parsers as jparsers
     import pathway_tpu_torch as tpw
     import pathway_tpu_torch.io as tio
     import pathway_tpu_torch.io.http as thttp
     import pathway_tpu_torch.models as tmodels
     import pathway_tpu_torch.serving as tserving
+    import pathway_tpu_torch.xpacks as txpacks
+    import pathway_tpu_torch.xpacks.connectors as tconnectors
+    import pathway_tpu_torch.xpacks.connectors.sharepoint as tsharepoint
     import pathway_tpu_torch.xpacks.llm.embedders as tembedders
+    import pathway_tpu_torch.xpacks.llm.openparse_utils as topenparse
+    import pathway_tpu_torch.xpacks.llm.parsers as tparsers
 
-    waiting_io = set(_WAITING_NAMES[_WAITING_IO])
-    waiting = {name for label, names in _WAITING_NAMES.items() if label != _WAITING_IO for name in names}
+    waiting = {name for names in _WAITING_NAMES.values() for name in names}
     assert not waiting & set(tpw.__all__), "a waiting name is exported: take it off the list"
-    assert not waiting_io & set(tio.__all__), "a waiting connector is exported: take it off the list"
-    assert waiting_io <= set(jio.__all__) and not any(hasattr(tio, n) for n in waiting_io)
+    assert tio.__all__ == jio.__all__
     assert _public_classes(tembedders) == _public_classes(jembedders)
     for name in _public_classes(jembedders):
         assert issubclass(getattr(tembedders, name), tembedders.BaseEmbedder) == issubclass(
             getattr(jembedders, name), jembedders.BaseEmbedder), name
-    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving), (jhttp, thttp), (jio, tio)):
-        skip = waiting_io if jmod is jio else waiting
+    assert set(topenparse.__all__) == set(jopenparse.__all__) and set(dir(topenparse)) >= set(jopenparse.__all__)
+    assert tparsers.__all__ == jparsers.__all__ and _public_classes(tsharepoint) == _public_classes(jsharepoint)
+    for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving), (jhttp, thttp), (jio, tio),
+                       (jxpacks, txpacks), (jconnectors, tconnectors), (jsharepoint, tsharepoint),
+                       (jparsers, tparsers)):
+        skip = waiting if jmod is jpw else ()
         missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__ and n not in skip)
         assert not missing, (tmod.__name__, missing)
         for name in jmod.__all__:
@@ -776,9 +840,12 @@ def test_public_names_match_the_reference():
     """Every name of the reference's ``__all__`` is in the port's, of the
     same kind (module, class, function or value), but for the names whose
     modules wait in a ROADMAP item, which the port does not bind; the
-    ``models``, ``serving``, ``io`` and ``io.http`` packages export what the
-    reference's do (``io`` but for the object stores that wait in item 1),
-    and ``xpacks.llm.embedders`` defines the reference's embedder classes."""
+    ``models``, ``serving``, ``io``, ``io.http``, ``xpacks``,
+    ``xpacks.connectors`` (``sharepoint.read``) and ``xpacks.llm.parsers``
+    packages export what the reference's do (``io`` exactly, the object
+    stores included), ``xpacks.llm.openparse_utils`` names the reference's
+    lazy names, and ``xpacks.llm.embedders`` defines the reference's
+    embedder classes."""
     _check_public_names()
     from pathway_tpu_torch.native import NativeStore
 

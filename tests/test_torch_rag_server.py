@@ -311,10 +311,12 @@ def test_splitter_and_parser_chunks_equal_reference():
 
 
 def test_unported_xpack_options_raise():
-    """``BaseRestServer(serving=)`` serves now; ``OpenParse`` still raises,
-    naming ROADMAP item 1."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-        tpw.xpacks.llm.parsers.OpenParse()
+    """``BaseRestServer(serving=)`` serves now; ``OpenParse`` is ported and,
+    as the reference's, raises the reference's ``ImportError`` when the
+    ``openparse`` package is absent."""
+    for parsers in (tpw.xpacks.llm.parsers, jpw.xpacks.llm.parsers):
+        with pytest.raises(ImportError, match="OpenParse requires the openparse package"):
+            parsers.OpenParse()
     cfg = tpw.serving.ServingConfig(max_queue=8, default_deadline_ms=20_000.0)
     server = tpw.xpacks.llm.servers.BaseRestServer("127.0.0.1", _free_port(), serving=cfg)
     server.serve("/x", tpw.schema_from_types(a=int), lambda q: q.select(result=tpw.this.a * 2))

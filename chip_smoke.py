@@ -70,7 +70,13 @@ with the launch counters set to 0 just before it and read just after:
   deleted in an earlier epoch, every updated row first for its new text,
   the burst equal to a ``DeviceKnnIndex`` built directly from the final
   rows (ids exact, scores 1e-5), every query answered once on ``answers``,
-  B1 and both B2 passes launching;
+  B1 and both B2 passes launching. The rows carry a ``category`` (16
+  labels) and an ``updated_at`` (seconds of the envelope's ``ts_ms``: the
+  snapshot over 64 one-minute windows, the updates in later ones); two more
+  outputs on the same table, each subscribed: a one-minute tumbling
+  ``windowby`` counting rows per window and ``pw.sql("SELECT category,
+  COUNT(*) AS n FROM docs GROUP BY category")``, each gated on its final
+  state equal, exactly, to a plain count of the live rows;
 * ``s3_path``: an S3 prefix kept live in the index across a restart. A
   ``boto3`` stand-in (an in-process bucket in this script, put in
   ``sys.modules``; pages of 1,000 keys, ETags the MD5 of each body) holds
@@ -6727,13 +6733,14 @@ class KafkaStandIn:
         return mod
 
 
-def debezium_envelope(op: str, doc_id: int, before, after, lsn: int) -> tuple[bytes, bytes]:
+def debezium_envelope(op: str, doc_id: int, before, after, lsn: int, ts_ms: int | None = None) -> tuple[bytes, bytes]:
     """A Debezium postgres change event for ``public.docs`` keyed by
     ``doc_id``: (key JSON, value JSON), as the connector writes them with
-    its JSON converter's ``schemas.enable=false``."""
+    its JSON converter's ``schemas.enable=false``. ``ts_ms`` defaults to one
+    millisecond a log position."""
     key = json.dumps({"payload": {"doc_id": doc_id}}).encode()
     value = {"payload": {
-        "op": op, "before": before, "after": after, "ts_ms": 1_700_000_000_000 + lsn,
+        "op": op, "before": before, "after": after, "ts_ms": 1_700_000_000_000 + lsn if ts_ms is None else ts_ms,
         "source": {"connector": "postgresql", "db": "pg", "schema": "public", "table": "docs", "lsn": lsn},
     }}
     return key, json.dumps(value).encode()
@@ -6746,6 +6753,44 @@ KAFKA_BURST = 256  # queries of the last epoch (B2's tensor-core pass)
 KAFKA_K = 10
 KAFKA_SETTINGS = {"bootstrap.servers": "localhost:9092", "group.id": "pathway-kafka-path",
                   "auto.offset.reset": "earliest"}
+KAFKA_CATEGORIES = 16  # labels of the rows' ``category``, drawn from the path's seed
+KAFKA_WINDOW_S = 60  # the tumbling window over ``updated_at``
+KAFKA_SNAPSHOT_WINDOWS = 64  # the snapshot's commit times span this many windows
+KAFKA_T0_MS = 1_699_999_980_000  # the first commit time, on a minute
+
+
+def _view_nodes(runner, source, out) -> set:
+    """The engine nodes of ``runner`` that carry ``source``'s rows into
+    ``out``: downstream of ``source``'s node and upstream of ``out``'s."""
+    start, end = runner.lowered[source._id].node, runner.lowered[out._id].node
+    reaches: dict = {}
+
+    def reaches_end(node) -> bool:
+        if node.id not in reaches:
+            reaches[node.id] = node is end or any(reaches_end(c) for c, _port in node.consumers)
+        return reaches[node.id]
+
+    found, todo = set(), [c for c, _port in start.consumers]
+    while todo:
+        node = todo.pop()
+        if node not in found and reaches_end(node):
+            found.add(node)
+            todo.extend(c for c, _port in node.consumers)
+    return found
+
+
+def _time_process(node, acc: list) -> None:
+    """Add the seconds of each of ``node``'s ``process`` calls to ``acc[0]``."""
+    real = node.process
+
+    def process(time_):
+        t = time.perf_counter()
+        try:
+            return real(time_)
+        finally:
+            acc[0] += time.perf_counter() - t
+
+    node.process = process
 
 
 def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHOT, n_updates: int = KAFKA_UPDATES,
@@ -6760,7 +6805,14 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     B1; ``embedder``, http_path's, warmed up) -> ``pw.ml.KNNIndex`` (B2) <-
     text queries from topic ``queries`` through ``pw.io.kafka.read`` (single
     queries after each phase, then a burst of ``n_burst`` in one epoch),
-    answered as of now -> ``pw.io.kafka.write`` to topic ``answers``. Gates:
+    answered as of now -> ``pw.io.kafka.write`` to topic ``answers``. A row
+    holds ``doc_id``, ``text``, ``category`` (``KAFKA_CATEGORIES`` labels)
+    and ``updated_at`` (the seconds of its event's commit time: the snapshot
+    spread over ``KAFKA_SNAPSHOT_WINDOWS`` windows, each later event after
+    it); the same table feeds a tumbling ``windowby`` over ``updated_at``
+    (rows per window) and ``pw.sql`` (rows per category), both subscribed,
+    their final states gated equal to a plain count of the live rows that
+    the path's own subscription holds. Gates:
     both readers ran the confluent branch (subscribe, poll); the index ends
     with exactly the live keys; no answer names a key whose delete was
     committed in an earlier epoch; every updated row still live comes
@@ -6789,6 +6841,9 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     final = {i: new_texts.get(i, t) for i, t in enumerate(texts)}
     for i in deleted:
         del final[i]
+    labels = [f"category-{j:02d}" for j in range(KAFKA_CATEGORIES)]
+    category = [labels[j] for j in np.random.default_rng(SEED + 92).integers(0, KAFKA_CATEGORIES, n_snapshot)]
+    step_ms = KAFKA_SNAPSHOT_WINDOWS * KAFKA_WINDOW_S * 1000 // n_snapshot  # a commit every step_ms
     live_updated = [i for i in updated if i in final]
     probes = rng.choice(sorted(final), n_burst - n_burst // 2, replace=False).tolist()
     burst = [final[i] for i in live_updated[: n_burst // 2]] + [" ".join(final[i].split()[:24]) for i in probes]
@@ -6803,15 +6858,27 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     for name in ("queries", "answers"):
         broker.create_topic(name, 1)
     lsn = iter(range(1 << 40))
-    snapshot = [debezium_envelope("r", i, None, {"doc_id": i, "text": t}, next(lsn)) for i, t in enumerate(texts)]
-    changes = [debezium_envelope("u", i, {"doc_id": i, "text": texts[i]}, {"doc_id": i, "text": new_texts[i]},
-                                 next(lsn)) for i in updated]
-    removals = [debezium_envelope("d", i, {"doc_id": i, "text": new_texts.get(i, texts[i])}, None, next(lsn))
-                for i in deleted]
+    version = {}  # doc_id -> its row as last written
+
+    def event(op: str, i: int, text: str | None) -> tuple[bytes, bytes]:
+        at = next(lsn)
+        ts_ms = KAFKA_T0_MS + at * step_ms
+        before = version.get(i)
+        after = None if text is None else {"doc_id": i, "text": text, "category": category[i],
+                                           "updated_at": ts_ms // 1000}
+        version[i] = after
+        return debezium_envelope(op, i, before, after, at, ts_ms=ts_ms)
+
+    snapshot = [event("r", i, t) for i, t in enumerate(texts)]
+    changes = [event("u", i, new_texts[i]) for i in updated]
+    removals = [event("d", i, None) for i in deleted]
+    final_rows = {i: (row["category"], row["updated_at"]) for i, row in version.items() if row is not None}
 
     class DocSchema(pw.Schema):
         doc_id: int = pw.column_definition(primary_key=True)
         text: str
+        category: str
+        updated_at: int
 
     class QuerySchema(pw.Schema):
         qid: int = pw.column_definition(primary_key=True)
@@ -6822,6 +6889,7 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     phase = ["setup"]
     real_init, real_remove, real_alloc = DeviceKnnIndex.__init__, DeviceKnnIndex.remove, DeviceKnnIndex._alloc_slots
     real_runner_init, real_encode = GraphRunner.__init__, embedder._encoder.encode
+    real_runner_run = GraphRunner.run
     runners = []
 
     def index_init(self, *a, **kw):
@@ -6845,22 +6913,41 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         real_runner_init(self, *a, **kw)
         runners.append(self)
 
+    views_s = {"window": [0.0], "sql": [0.0]}  # seconds in the operators of each view, on every worker
+
+    def runner_run(self, *a, **kw):
+        for r in [self] + self._replicas:
+            for view, out in (("window", per_window), ("sql", per_category)):
+                for node in _view_nodes(r, docs, out):
+                    _time_process(node, views_s[view])
+        return real_runner_run(self, *a, **kw)
+
     def encode(texts_):
         batches.append((phase[0], list(texts_)))
         return real_encode(texts_)
 
     cv = threading.Condition()
-    state = {"live": {}, "texts": {}, "removed_at": {}, "answers": {}}
+    state = {"live": {}, "texts": {}, "rows": {}, "removed_at": {}, "answers": {},
+             "windows": collections.Counter(), "categories": collections.Counter()}
 
     def on_doc(key, row, time, is_addition):  # noqa: F811 - pw.io.subscribe passes ``time=``
         with cv:
             if is_addition:
                 state["live"][key] = row["doc_id"]
                 state["texts"][row["doc_id"]] = row["text"]
+                state["rows"][key] = (row["category"], row["updated_at"])
             else:
                 state["live"].pop(key, None)
+                state["rows"].pop(key, None)
                 state["removed_at"][row["doc_id"]] = time
             cv.notify_all()
+
+    def counter_of(name: str, label: str):
+        def on_change(key, row, time, is_addition):  # noqa: F811
+            with cv:  # a multiset of (key, label, n): an update's -1 and +1 may come in either order
+                state[name][(key, row[label], row["n"])] += 1 if is_addition else -1
+
+        return on_change
 
     def on_answer(key, row, time, is_addition):  # noqa: F811
         with cv:
@@ -6872,8 +6959,12 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
                                persistent_id="pg-public-docs", autocommit_duration_ms=None)
     queries = pw.io.kafka.read(KAFKA_SETTINGS, "queries", schema=QuerySchema, format="json",
                                autocommit_duration_ms=None)
-    d_emb = docs.select(doc_id=pw.this.doc_id, text=pw.this.text, emb=embedder(pw.this.text))
+    d_emb = docs.select(doc_id=pw.this.doc_id, text=pw.this.text, category=pw.this.category,
+                        updated_at=pw.this.updated_at, emb=embedder(pw.this.text))
     q_emb = queries.select(qid=pw.this.qid, emb=embedder(pw.this.text))
+    windows = docs.windowby(pw.this.updated_at, window=pw.temporal.tumbling(duration=KAFKA_WINDOW_S))
+    per_window = windows.reduce(start=pw.this._pw_window_start, n=pw.reducers.count())
+    per_category = pw.sql("SELECT category, COUNT(*) AS n FROM docs GROUP BY category", docs=docs)
     index = pw.ml.KNNIndex(d_emb.emb, d_emb, n_dimensions=embedder.get_embedding_dimension(),
                            reserved_space=n_snapshot, distance_type="cosine", device=DEV)
     answers = index.get_nearest_items_asof_now(q_emb.emb, k=k, with_distances=True).select(
@@ -6881,6 +6972,8 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     pw.io.kafka.write(answers, KAFKA_SETTINGS, "answers", format="json")
     pw.io.subscribe(d_emb, on_doc)
     pw.io.subscribe(answers, on_answer)
+    pw.io.subscribe(per_window, counter_of("windows", "start"))
+    pw.io.subscribe(per_category, counter_of("categories", "category"))
     errors: list = []
     qid = iter(range(1 << 30))
     times: dict = {}
@@ -6925,7 +7018,7 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     saved_module = sys.modules.get("confluent_kafka")
     sys.modules["confluent_kafka"] = broker.module
     DeviceKnnIndex.__init__, DeviceKnnIndex.remove, DeviceKnnIndex._alloc_slots = index_init, index_remove, index_alloc
-    GraphRunner.__init__, embedder._encoder.encode = runner_init, encode
+    GraphRunner.__init__, GraphRunner.run, embedder._encoder.encode = runner_init, runner_run, encode
     th = threading.Thread(target=serve, name="kafka_path-run", daemon=True)
     try:
         torch.cuda.synchronize()
@@ -6951,12 +7044,14 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         launches = dict(_build.LAUNCHES)
         run_s = now() - t0
         peak = torch.cuda.max_memory_allocated()
-        runners[-1].engine.stop()
+        run = runners[-1]
+        window_rows = sum(r.lowered[windows._flat._id].node.stats.rows_out for r in [run] + run._replicas)
+        run.engine.stop()
         broker.shutdown()  # the readers' polls raise, so they end at once
         th.join(timeout=120)
     finally:
         DeviceKnnIndex.__init__, DeviceKnnIndex.remove, DeviceKnnIndex._alloc_slots = real_init, real_remove, real_alloc
-        GraphRunner.__init__ = real_runner_init
+        GraphRunner.__init__, GraphRunner.run = real_runner_init, real_runner_run
         del embedder._encoder.encode
         if saved_module is None:
             sys.modules.pop("confluent_kafka", None)
@@ -7019,6 +7114,20 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         written[(rec["qid"], rec["diff"])] += 1
     if sorted(written) != [(q, 1) for q in sorted(answered)] or max(written.values()) != 1:
         raise AssertionError(f"kafka_path: {sum(written.values())} records on 'answers' for {len(answered)} queries")
+    # the window and the SQL view against a plain count of the live rows the subscription holds
+    rows = list(state["rows"].values())
+    if sorted(rows) != sorted(final_rows.values()):
+        raise AssertionError(f"kafka_path: the subscription holds {len(rows)} rows, the stream leaves "
+                             f"{len(final_rows)}")
+    views = {}
+    for name, want in (("windows", collections.Counter(at // KAFKA_WINDOW_S * KAFKA_WINDOW_S for _c, at in rows)),
+                       ("categories", collections.Counter(c for c, _at in rows))):
+        held = {(key, label, n) for (key, label, n), c in state[name].items() if c}
+        got = {label: n for _key, label, n in held}
+        if any(c not in (0, 1) for c in state[name].values()) or len(got) != len(held) or got != dict(want):
+            raise AssertionError(f"kafka_path: the {name} held {sorted(got.items())[:4]}..., a plain count of the "
+                                 f"live rows gives {sorted(want.items())[:4]}...")
+        views[name] = got
     missing = [name for name in ("gemm_bias_act", "gemm_bias_residual_layernorm", "masked_attention",
                                  "knn_topk_stream", "knn_topk_tc", "knn_topk_merge") if launches.get(name, 0) == 0]
     if missing:
@@ -7032,6 +7141,9 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         changes_per_s=(n_updates + n_deletes) / (busy("updates") + busy("deletes")),
         updates_per_s=n_updates / busy("updates"), deletes_per_s=n_deletes / busy("deletes"),
         burst_answers_per_s=len(burst) / busy("burst"), phase_times=times, slots_reused=reused[0],
+        windows=len(views["windows"]), window_span=[min(views["windows"]), max(views["windows"])],
+        categories=len(views["categories"]), window_rows=window_rows, window_seconds=views_s["window"][0],
+        window_rows_per_s=window_rows / views_s["window"][0], sql_seconds=views_s["sql"][0],
         polls=broker.calls["poll"], max_memory_allocated=peak, run_seconds=run_s,
         phase_seconds=now() - t_phase, launches=launches,
     )

@@ -44,7 +44,9 @@ exporter with ``profile=``, ``PATHWAY_JOURNAL_DIR`` and
 (``tenancy``, ``pw.run(tenancy=)``), a tiered index keeps a corpus
 larger than the card (``pw.run(index_tiers=)``), and the elastic plane
 grows and shrinks a live index's mesh under traffic (``pw.elastic``,
-``pw.run(elastic=, mesh="auto")``). ``python -m
+``pw.run(elastic=, mesh="auto")``). Event-time windows and temporal joins
+(``pw.temporal``), ``pw.sql``, ``pw.iterate`` and row transformers run on
+the engine as the reference's do. ``python -m
 pathway_tpu_torch`` is the command line. Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``. The package imports torch and
 numpy only.
@@ -61,9 +63,11 @@ from .engine.value import Json, Pointer, PyObjectWrapper, ref_scalar, unsafe_mak
 from .internals import dtype as dt
 from .internals import udfs
 from .internals import udfs as asynchronous
+from .internals import universes
 from .internals.config import pathway_config, set_license_key, set_monitoring_config
 from .internals.custom_reducers import BaseCustomAccumulator
 from .internals.dtype import ANY, BOOL, BYTES, DATE_TIME_NAIVE, DATE_TIME_UTC, DURATION, FLOAT, INT, STR
+from .internals.export_import import ExportedTable, export_table, import_table
 from .internals.expression import (
     ColumnExpression,
     ColumnReference,
@@ -80,10 +84,13 @@ from .internals.expression import (
     require,
     unwrap,
 )
+from .internals.interactive import LiveTable
+from .internals.iterate import iterate, iterate_universe
 from .internals.licensing import License, LicenseError
 from .internals.monitoring import MonitoringLevel
 from .internals.parse_graph import G as parse_graph
 from .internals.parse_graph import clear_graph
+from .internals.row_transformer import ClassArg, attribute, input_attribute, method, output_attribute, transformer
 from .internals.run import RunResult, run, run_all
 from .internals.schema import (
     ColumnDefinition,
@@ -96,11 +103,13 @@ from .internals.schema import (
     schema_from_pandas,
     schema_from_types,
 )
+from .internals.sql import sql
 from .internals.table import GroupedTable, JoinMode, JoinResult, Table
 from .internals.table_slice import TableSlice
 from .internals.telemetry import Telemetry
 from .internals.thisclass import left, right, this
 from .internals.udfs import UDF, UDFAsync, UDFSync, udf, udf_async
+from .internals.yaml_loader import load_yaml
 from .models.encoder import EncoderConfig
 from .models.reranker import DeviceReranker, as_reranker
 from .models.sentence_encoder import CrossEncoderScorer, SentenceEncoder
@@ -108,7 +117,8 @@ from .ops.fused_rag import FusedRagPipeline
 from .ops.knn import DeviceKnnIndex
 from .resilience import Recovery, RecoveryEscalated, RetryPolicy
 from .serving import ServingConfig
-from .stdlib import indexing, ml
+from .stdlib import indexing, ml, ordered, statistical, temporal
+from .stdlib import temporal as window
 from .tenancy import TenancyConfig, TenantQuotas
 
 DateTimeNaive = _datetime.datetime
@@ -187,6 +197,20 @@ def groupby(table, *args, **kw):
 
 __all__ = [
     "ANY",
+    "ClassArg",
+    "LiveTable",
+    "attribute",
+    "input_attribute",
+    "iterate",
+    "iterate_universe",
+    "load_yaml",
+    "method",
+    "output_attribute",
+    "sql",
+    "temporal",
+    "transformer",
+    "universes",
+    "window",
     "AsofJoinResult",
     "BaseCustomAccumulator",
     "GroupedJoinResult",

@@ -155,6 +155,39 @@ def shard_of_value(value, n: int) -> int:
     return shard_of(int(ref_scalar(value)), n)
 
 
+def apply_keyed(store: dict, pending: dict, pkey, key: int, row: tuple, diff: int) -> None:
+    """Apply one update to ``store`` (key -> its one current row). In a run
+    of several workers a row's new version and the retraction of its old
+    one may come from different shards, so the insertion can arrive
+    first: such a key keeps the multiset of its versions in
+    ``pending[pkey]`` until it consolidates to one row (or none) again,
+    and ``store`` meanwhile holds a version of positive count."""
+    if pkey not in pending:
+        old = store.get(key)
+        if diff > 0 and old is None:
+            store[key] = row
+            return
+        if diff < 0 and old is not None and rows_equal(old, row):
+            del store[key]
+            return
+        pending[pkey] = [] if old is None else [[old, 1]]
+    bag = pending[pkey]
+    for entry in bag:
+        if rows_equal(entry[0], row):
+            entry[1] += diff
+            break
+    else:
+        bag.append([row, diff])
+    bag[:] = [e for e in bag if e[1]]
+    live = [e[0] for e in bag if e[1] > 0]
+    if live:
+        store[key] = live[-1]
+    else:
+        store.pop(key, None)
+    if not bag or (len(bag) == 1 and bag[0][1] == 1):
+        del pending[pkey]
+
+
 BROADCAST = -1
 
 
@@ -801,8 +834,9 @@ class _KeyedStateNode(Node):
         self.n_inputs = n_inputs
         super().__init__(graph, name)
         self.state: list[dict[int, tuple]] = [dict() for _ in range(n_inputs)]
+        self.pending: dict[tuple, list] = {}  # out-of-order versions per (port, key): apply_keyed
         self.emitted: dict[int, tuple] = {}
-        self._snap_attrs = ("state", "emitted")
+        self._snap_attrs = ("state", "pending", "emitted")
 
     def route_owner(self, key, row, port, n_shards):
         return shard_of(key, n_shards)
@@ -812,10 +846,7 @@ class _KeyedStateNode(Node):
         for port in range(self.n_inputs):
             for key, row, diff in self.take(port):
                 affected.add(key)
-                if diff > 0:
-                    self.state[port][key] = row
-                else:
-                    self.state[port].pop(key, None)
+                apply_keyed(self.state[port], self.pending, (port, key), key, row, diff)
         out = []
         for key in affected:
             new_row = self.compute_key(key)
@@ -1163,7 +1194,9 @@ class JoinNode(Node):
         self.exact_match = exact_match
         self.left: dict[Any, dict[int, tuple]] = {}
         self.right: dict[Any, dict[int, tuple]] = {}
-        self._snap_attrs = ("left", "right")
+        # out-of-order versions per (side, join key, row key): apply_keyed
+        self.pending: dict[tuple, list] = {}
+        self._snap_attrs = ("left", "right", "pending")
 
     def snapshot_signature(self):
         return (super().snapshot_signature(), self.how, self.lw, self.rw)
@@ -1211,12 +1244,9 @@ class JoinNode(Node):
         for side, jk, key, row, diff in staged:
             idx = self.left if side == 0 else self.right
             bucket = idx.setdefault(jk, {})
-            if diff > 0:
-                bucket[key] = row
-            else:
-                bucket.pop(key, None)
-                if not bucket:
-                    idx.pop(jk, None)
+            apply_keyed(bucket, self.pending, (side, jk, key), key, row, diff)
+            if not bucket:
+                idx.pop(jk, None)
         out: list[Update] = []
         for jk in affected:
             old = old_out[jk]
@@ -1257,7 +1287,7 @@ class AsofNowJoinNode(JoinNode):
         # left key -> (input_row, [(out_key, out_row)]): the input row
         # disambiguates which version a late retraction refers to
         self.frozen: dict[int, tuple] = {}
-        self._snap_attrs = ("right", "frozen")  # left side is never stored
+        self._snap_attrs = ("right", "pending", "frozen")  # left side is never stored
 
     def process(self, time):
         out: list[Update] = []
@@ -1267,12 +1297,9 @@ class AsofNowJoinNode(JoinNode):
             if jk is None:
                 continue
             bucket = self.right.setdefault(jk, {})
-            if diff > 0:
-                bucket[key] = row
-            else:
-                bucket.pop(key, None)
-                if not bucket:
-                    self.right.pop(jk, None)
+            apply_keyed(bucket, self.pending, (1, jk, key), key, row, diff)
+            if not bucket:
+                self.right.pop(jk, None)
         for key, row, diff in self.take(0):
             cur = self.frozen.get(key)
             if diff < 0:

@@ -189,6 +189,7 @@ class GraphRunner:
             else []
         )
         self._cluster = None
+        self._iterate_hubs: dict[int, Any] = {}
 
     # ---------- public API ----------
 
@@ -313,6 +314,18 @@ class GraphRunner:
             low.node.user_frame = getattr(op, "trace", None)
         self.lowered[table._id] = low
         return low
+
+    def _lower_row_transformer(self, table: Table, op: LogicalOp) -> Lowered:
+        from .row_transformer import _RowTransformerNode
+
+        spec = op.params["spec"]
+        which = op.params["which"]
+        arg_order = op.params["arg_order"]
+        node = _RowTransformerNode(self.engine, spec, which, arg_order)
+        for port, src in enumerate(op.inputs):
+            low = self.lower(src)
+            node.connect(low.node, port)
+        return Lowered(node, list(table._columns.keys()))
 
     # -- sources --
 
@@ -1201,6 +1214,30 @@ class GraphRunner:
         )
         proj.connect(node)
         return Lowered(proj, base_names)
+
+    def _lower_iterate_output(self, table: Table, op: LogicalOp) -> Lowered:
+        """One returned table of a pw.iterate: the (shared) hub holds
+        every input table's state and runs the fixpoint; a selector
+        untags this output's diffs."""
+        from .iterate import _IterateHubNode, _IterateSelectNode
+
+        parent = op.params["parent"]
+        hub = self._iterate_hubs.get(id(parent))
+        if hub is None:
+            lows = [self.lower(t) for t in parent.inputs]
+            hub = _IterateHubNode(
+                self.engine,
+                parent.params["body"],
+                parent.params["in_names"],
+                parent.params["out_names"],
+                parent.params["limit"],
+            )
+            for i, low in enumerate(lows):
+                hub.connect(low.node, i)
+            self._iterate_hubs[id(parent)] = hub
+        sel = _IterateSelectNode(self.engine, op.params["index"])
+        sel.connect(hub)
+        return Lowered(sel, list(table._columns.keys()))
 
     # ---------- expression compiler ----------
 

@@ -496,8 +496,11 @@ class Table:
         )
 
     def live(self):
-        """An interactively updating view (reference ``Table.live``): not ported."""
-        raise NotImplementedError("Table.live needs ROADMAP Queue A item 7 (the rest of the stdlib)")
+        """An interactively updating view of this table (reference
+        table.py:2565; experimental there too)."""
+        from .interactive import LiveTable
+
+        return LiveTable.from_table(self)
 
     # ---- re-keying ----
 
@@ -569,7 +572,9 @@ class Table:
         return Table(cols, self._universe, op, name=f"{self._name}.sort")
 
     def diff(self, timestamp: ColumnExpression, *values: ColumnReference, instance=None) -> "Table":
-        raise NotImplementedError("Table.diff (stdlib.ordered) needs ROADMAP Queue A item 7 (the rest of the stdlib)")
+        from ..stdlib.ordered import diff as _diff
+
+        return _diff(self, timestamp, *values, instance=instance)
 
     def ix(self, expression: ColumnExpression, *, optional: bool = False, context=None) -> "IxAppliedTable":
         return IxAppliedTable(self, expression, optional)
@@ -582,14 +587,37 @@ class Table:
         return self.copy()
 
     def interpolate(self, timestamp, *values, mode=None):
-        raise NotImplementedError("Table.interpolate (stdlib.statistical) needs ROADMAP Queue A item 7 (the rest of the stdlib)")
+        from ..stdlib.statistical import interpolate as _interp
 
-    # ---- temporal sugar (stdlib.temporal): not ported ----
+        return _interp(self, timestamp, *values, mode=mode)
 
-    def windowby(self, *args, **kwargs):
-        raise NotImplementedError("Table.windowby (stdlib.temporal) needs ROADMAP Queue A item 7 (the rest of the stdlib)")
+    # ---- temporal sugar (stdlib.temporal) ----
 
-    asof_join = asof_now_join = interval_join = window_join = windowby
+    @trace_user_frame
+    def windowby(self, time_expr, *, window, behavior=None, instance=None, **kwargs):
+        from ..stdlib.temporal import windowby as _windowby
+
+        return _windowby(self, time_expr, window=window, behavior=behavior, instance=instance, **kwargs)
+
+    def asof_join(self, other, self_time, other_time, *on, **kw):
+        from ..stdlib.temporal import asof_join as _asof
+
+        return _asof(self, other, self_time, other_time, *on, **kw)
+
+    def asof_now_join(self, other, *on, **kw):
+        from ..stdlib.temporal import asof_now_join as _asof_now
+
+        return _asof_now(self, other, *on, **kw)
+
+    def interval_join(self, other, self_time, other_time, interval, *on, **kw):
+        from ..stdlib.temporal import interval_join as _ij
+
+        return _ij(self, other, self_time, other_time, interval, *on, **kw)
+
+    def window_join(self, other, self_time, other_time, window, *on, **kw):
+        from ..stdlib.temporal import window_join as _wj
+
+        return _wj(self, other, self_time, other_time, window, *on, **kw)
 
     # ---- static constructors ----
 

@@ -11,7 +11,8 @@ serving plane with every observability plane on (``tracing/``,
 under ``pw.run(mesh="auto", elastic=)``, or runs as a 2-process cluster
 through ``spawn --processes 2`` (the coordinator and the worker alike);
 or reads object stores, Delta Lake, Airbyte and SharePoint through injected
-clients; its public names are the reference's but for those whose modules
+clients, or runs windows, temporal joins, SQL, iterate fixpoints, row
+transformers and live tables (and imports, with ``yaml`` hidden); its public names are the reference's but for those whose modules
 wait in a ROADMAP item; it never imports ``aiohttp`` or ``requests``, which
 the card's machine lacks (its webserver is the standard library's), nor
 ``pydantic`` or ``yaml``, which that machine lacks too, and imports no
@@ -504,6 +505,99 @@ def test_port_object_stores_import_no_jax_flax_reference_pydantic_or_clients():
     _run_probe(_OBJECT_STORE_PROBE)
 
 
+_STDLIB_PROBE = r"""
+import sys
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.stdlib.temporal import _joins, _window, temporal_behavior, time_utils
+from pathway_tpu_torch.stdlib import ordered, statistical, temporal
+from pathway_tpu_torch.internals import (export_import, interactive, iterate, row_transformer, sql, universes,
+                                         yaml_loader)
+DOCS = '''
+  | t  | c | v
+1 | 1  | a | 1.0
+2 | 70 | b |
+3 | 75 | a | 3.0
+'''
+def docs():
+    pw.clear_graph()
+    return pw.debug.table_from_markdown(DOCS)
+t = docs()
+w = t.windowby(pw.this.t, window=pw.temporal.tumbling(duration=60)).reduce(start=pw.this._pw_window_start,
+                                                                        n=pw.reducers.count())
+assert sorted(pw.debug.table_to_dicts(w)[1]["n"].values()) == [1, 2]
+t = docs()
+s = pw.sql("SELECT c, COUNT(*) AS n FROM docs GROUP BY c", docs=t)
+assert sorted(pw.debug.table_to_dicts(s)[1]["n"].values()) == [1, 2]
+t = docs()
+a = t.filter(pw.this.c == "a")
+j = t.asof_join(a, t.t, a.t).select(v=t.v)
+assert len(pw.debug.table_to_dicts(j)[0]) == 3
+t = docs()
+assert len(pw.debug.table_to_dicts(t.diff(pw.this.t, pw.this.t))[0]) == 3
+t = docs()
+assert sorted(pw.debug.table_to_dicts(t.interpolate(pw.this.t, pw.this.v))[1]["v"].values()) == [1.0, 1 + 2 * 69 / 74,
+                                                                                               3.0]
+t = docs()
+it = pw.iterate(lambda x: x.select(v=pw.if_else(pw.this.v < 9, pw.this.v + 1, pw.this.v)), x=t.select(v=pw.this.t))
+assert sorted(pw.debug.table_to_dicts(it)[1]["v"].values()) == [9, 70, 75]
+t = docs()
+@pw.transformer
+class doubled:
+    class rows(pw.ClassArg):
+        t = pw.input_attribute()
+        @pw.output_attribute
+        def twice(self):
+            return self.t * 2
+assert sorted(pw.debug.table_to_dicts(doubled(rows=t).rows)[1]["twice"].values()) == [2, 140, 150]
+t = docs()
+live = t.live()
+pw.run()
+assert len(live) == 3
+t = docs()
+exported = pw.export_table(t)
+pw.clear_graph()
+assert len(pw.debug.table_to_dicts(pw.import_table(exported))[0]) == 3
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN)
+print("BAD", bad)
+"""
+
+
+def test_port_temporal_stdlib_and_internals_extras_import_no_jax_flax_reference_or_yaml():
+    """The temporal, ordered and statistical stdlib and the ``internals``
+    extras (iterate, row transformers, SQL, export / import, the YAML
+    loader, live tables, universes) imported, then a window, a SQL view,
+    an asof join, ``diff``, ``interpolate``, an iterate fixpoint, a
+    transformer, a live table and an export / import run: nothing of JAX,
+    the reference or ``yaml`` is imported."""
+    _run_probe(_STDLIB_PROBE)
+
+
+_YAML_HIDDEN_PROBE = r"""
+import sys
+sys.modules["yaml"] = None  # an import of yaml now raises ImportError
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals import yaml_loader
+assert pw.load_yaml is yaml_loader.load_yaml
+try:
+    pw.load_yaml("a: 1")
+except ImportError as e:
+    assert "PyYAML" in str(e), e
+    print("RAISED")
+"""
+
+
+def test_port_imports_without_yaml_and_load_yaml_raises_only_when_called():
+    """With ``yaml`` hidden, ``import pathway_tpu_torch`` and the module of
+    ``pw.load_yaml`` load; a call of ``pw.load_yaml`` raises an
+    ``ImportError`` that names PyYAML."""
+    out = subprocess.run([sys.executable, "-c", _YAML_HIDDEN_PROBE], cwd=REPO, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "RAISED" in out.stdout, out.stdout
+
+
 def test_elastic_reshard_on_the_card_never_lands_on_the_cpu(monkeypatch):
     """A reshard of an index on the card resolves its target on the cards
     (or the device pool) and raises, before touching anything, when fewer
@@ -747,10 +841,8 @@ def test_spawned_cluster_processes_import_no_jax_flax_reference_or_click(tmp_pat
 
 # the reference's public names whose modules wait in a ROADMAP Queue A item
 _WAITING_NAMES = {
-    "ROADMAP Queue A item 7 (the rest of the stdlib)": (
-        "AsyncTransformer", "ClassArg", "LiveTable", "attribute", "demo", "input_attribute", "iterate",
-        "iterate_universe", "load_yaml", "method", "output_attribute", "sql", "temporal", "transformer",
-        "universes", "unpack_col", "utils", "viz", "window",
+    "ROADMAP Queue A item 7c (the rest of the stdlib, and the demos)": (
+        "AsyncTransformer", "demo", "unpack_col", "utils", "viz",
     ),
     "ROADMAP Queue A item 10 (the deep verifier)": ("analysis",),
 }

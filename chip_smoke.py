@@ -13,7 +13,10 @@ at the widths of bert-tiny and TinyBERT-312; the staged LayerNorm width
 1536; ``knn_topk_sharded`` at 1, 16 and 256 queries over 4 shards of 2^20
 rows on the mesh below, and at 1, 16 and 256 queries over ``elastic_path``'s
 2-shard generation; B2 at d 512, CLIP's width, at 1, 16 and 256 queries;
-attention at S 8192, the ring's one-card shape), times the index's
+B2 at d 784, the KNN classifier's MNIST width, l2 k 3 over the 63,000-row
+train split of ``load_mnist_sample(70000, synthetic=True)`` at 1, 16 and
+256 of its test images, each row naming the partial pass ``launch_plan``
+chose; attention at S 8192, the ring's one-card shape), times the index's
 tie-ordered top-k beside ``torch.topk``, then drives twenty-one paths, each
 with the launch counters set to 0 just before it and read just after:
 
@@ -76,7 +79,14 @@ with the launch counters set to 0 just before it and read just after:
   outputs on the same table, each subscribed: a one-minute tumbling
   ``windowby`` counting rows per window and ``pw.sql("SELECT category,
   COUNT(*) AS n FROM docs GROUP BY category")``, each gated on its final
-  state equal, exactly, to a plain count of the live rows;
+  state equal, exactly, to a plain count of the live rows; and the KNN
+  classifier: ``pw.ml.classifiers.knn_lsh_classifier_train`` over the
+  embedded rows (``label`` their category; its defaults, so an l2 index of
+  its own, B2) and ``knn_lsh_classify(k=3)`` of every query, live through
+  the three phases, gated on the classifier's index ending with exactly
+  the live keys and every final label equal to a plain majority vote over
+  the top 3 of an l2 ``DeviceKnnIndex`` built directly from the final rows
+  (f32 near-ties counted, not gated), its seconds and B2 launches reported;
 * ``s3_path``: an S3 prefix kept live in the index across a restart. A
   ``boto3`` stand-in (an in-process bucket in this script, put in
   ``sys.modules``; pages of 1,000 keys, ETags the MD5 of each body) holds
@@ -651,6 +661,7 @@ def phase_kernels(torch) -> list[dict]:
 
     entries.extend(knn_entries(torch, g, d))
     entries.extend(knn_entries(torch, g, CLIP_DIM, cases=tuple((q, "cos", CLIP_K) for q in CLIP_QUERY_SIZES)))
+    entries.extend(mnist_entries(torch, g))
     entries.extend(knn_sharded_entries(torch, g, d))
     entries.append(segment_attention_entry(torch, g))
     entries.append(segment_attention_entry(torch, g, rows=128, d=768, h=12, tag="hd64"))
@@ -667,28 +678,40 @@ def phase_kernels(torch) -> list[dict]:
     return entries
 
 
+MNIST_SAMPLE = 70_000  # load_mnist_sample's default sample: a 63,000-row train split, 7,000 test images
+MNIST_DIM = 784  # the classifier's documented workload, 28 x 28 pixels
+MNIST_K = 3  # knn_lsh_classify's default k
+MNIST_QUERY_SIZES = (1, 16, 256)  # B2's streaming pass (2 ring stages at this width), then its tensor cores
 KNN_CASES = ((1, "cos", 16), (1, "cos", 64), (1, "l2", 16), (16, "cos", 16),
              (256, "cos", 16), (256, "cos", 64), (256, "l2", 16), (256, "l2", 64))  # (queries, metric, k)
 
 
-def knn_entries(torch, g, d: int, N: int = 1 << 20, cases=KNN_CASES) -> list[dict]:
+def knn_entries(torch, g, d: int, N: int = 1 << 20, cases=KNN_CASES, data=None) -> list[dict]:
     """B2 against ``N`` (1,048,576) x ``d`` f32 docs with 10 % dead slots, at the
     main path's shapes: one query (the index's single-query search, the
-    streaming kernel), 16 (the regime boundary, where the tensor-core kernel
-    is timed beside it) and 256 (batch search, the tensor-core kernel). A
-    width other than MiniLM's 384 names itself in the rows (``,d=512``:
-    ``clip_path``'s image index)."""
+    streaming kernel), 16 (the regime boundary, where the other partial pass
+    is timed beside it when it can hold the width) and 256 (batch search,
+    the tensor-core kernel). A width other than MiniLM's 384 names itself in
+    the rows (``,d=512``: ``clip_path``'s image index). ``data`` = (docs,
+    queries) on the card replaces the seeded unit vectors, every doc live
+    (the MNIST rows). Each row names the partial pass ``launch_plan`` chose."""
     import inspect
 
     import torch.nn.functional as F
 
     from pathway_tpu_torch.ops.knn import _pallas_bias
-    from pathway_tpu_torch.ops.knn_topk import knn_topk, knn_topk_reference, topk_agreement
+    from pathway_tpu_torch.ops.knn_topk import knn_topk, knn_topk_reference, launch_plan, topk_agreement
 
     forced = "regime" in inspect.signature(knn_topk).parameters  # an older tree has one regime
-    docs = F.normalize(torch.randn(N, d, device=DEV, generator=g), dim=1)
-    valid = torch.rand(N, device=DEV, generator=g) >= 0.1
-    queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
+    if data is None:
+        docs = F.normalize(torch.randn(N, d, device=DEV, generator=g), dim=1)
+        valid = torch.rand(N, device=DEV, generator=g) >= 0.1
+        queries = F.normalize(torch.randn(256, d, device=DEV, generator=g), dim=1)
+    else:
+        docs, queries = data
+        N = docs.shape[0]
+        valid = torch.ones(N, dtype=torch.bool, device=DEV)
+    sms = torch.cuda.get_device_properties(docs.device).multi_processor_count
     entries = []
     width = "" if d == 384 else f",d={d}"
     for Q, metric, k in cases:
@@ -699,24 +722,31 @@ def knn_entries(torch, g, d: int, N: int = 1 << 20, cases=KNN_CASES) -> list[dic
         vp, ip = knn_topk_reference(q, docs, k=k, bias=bias, factor=factor)
         share, ok = topk_agreement(vk, ik, vp, ip, atol=1e-5, rtol=1e-5)
         if not ok:
-            raise AssertionError(f"knn_topk {metric} k={k} q={Q} disagrees with its plain version ({share})")
+            raise AssertionError(f"knn_topk {metric} k={k} q={Q}{width} disagrees with its plain version ({share})")
+        plan = launch_plan(Q, N, sms, dim=d)
         single = Q <= 16
         reps = 20 if single else 5
         lib = lambda: torch.topk(torch.addmm(bias, q, docs.T, alpha=factor), k, dim=1)  # noqa: E731
         flops, nbytes = 2.0 * Q * N * d, 4 * N * d + 4 * N + 4 * Q * d + 8 * Q * k
-        extra = {}
-        if Q == 16 and forced:  # the other partial pass at the boundary
-            other = lambda: knn_topk(q, docs, k=k, bias=bias, factor=factor, regime="tc")  # noqa: E731
-            vo, io = other()
-            if not topk_agreement(vo, io, vp, ip, atol=1e-5, rtol=1e-5)[1]:
-                raise AssertionError("knn_topk's tensor-core pass at q 16 disagrees with the plain version")
-            extra["tc_regime_ms"] = cuda_ms(other, reps=reps)
-        if not single:  # the tensor cores' bound: bytes, or 3 TF32 products per f32 one at 495 TF/s
+        extra = {"regime": plan.regime, "splits": plan.splits, "stages": plan.stages}
+        if Q == 16 and forced:  # the other partial pass at the boundary, where it holds this width
+            alt = "tc" if plan.regime == "stream" else "stream"
+            try:
+                launch_plan(Q, N, sms, dim=d, regime=alt)
+            except ValueError as exc:
+                extra[f"{alt}_regime"] = str(exc)
+            else:
+                other = lambda: knn_topk(q, docs, k=k, bias=bias, factor=factor, regime=alt)  # noqa: E731
+                vo, io = other()
+                if not topk_agreement(vo, io, vp, ip, atol=1e-5, rtol=1e-5)[1]:
+                    raise AssertionError(f"knn_topk's {alt} pass at q 16{width} disagrees with the plain version")
+                extra[f"{alt}_regime_ms"] = cuda_ms(other, reps=reps)
+        if plan.regime == "tc":  # the tensor cores' bound: bytes, or 3 TF32 products per f32 one at 495 TF/s
             extra["bound_3xtf32_ms"] = max(nbytes / HBM_BYTES, 3 * flops / PEAK_TF32) * 1e3
         entries.append(_entry(
             f"knn_topk[{metric},k={k}{width}]" if Q == 256 else f"knn_topk[{metric},k={k},q={Q}{width}]",
             "pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/pallas_knn.py:113",
-            "knn_topk_stream" if single else "knn_topk_tc", (vk - vp).abs().max().item(),
+            f"knn_topk_{plan.regime}", (vk - vp).abs().max().item(),
             cuda_ms(lambda: knn_topk(q, docs, k=k, bias=bias, factor=factor), reps=reps),
             cuda_ms(lambda: knn_topk_reference(q, docs, k=k, bias=bias, factor=factor), reps=2, warmup=1),
             flops, nbytes, PEAK_F32, cuda_ms(lib, reps=reps), index_agreement=share, shape=[Q, N, d], **extra,
@@ -724,6 +754,23 @@ def knn_entries(torch, g, d: int, N: int = 1 << 20, cases=KNN_CASES) -> list[dic
     del docs, valid, queries
     torch.cuda.empty_cache()
     return entries
+
+
+def mnist_entries(torch, g) -> list[dict]:
+    """B2 at the KNN classifier's width: the 63,000 x 784 train split of
+    ``load_mnist_sample(70000, synthetic=True)`` as docs (l2, k 3, every
+    row live), its first test images as 1, 16 and 256 queries. The rows
+    are the loader's own generator's, made here as one array (the loader
+    builds a table of them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)  # ``load_mnist_sample``'s synthetic stand-in
+    images = rng.integers(0, 255, (MNIST_SAMPLE, MNIST_DIM)).astype(np.float32)
+    split = MNIST_SAMPLE - MNIST_SAMPLE // 10
+    docs = torch.from_numpy(images[:split]).to(DEV)
+    queries = torch.from_numpy(images[split : split + 256]).to(DEV)
+    return knn_entries(torch, g, MNIST_DIM, cases=tuple((q, "l2", MNIST_K) for q in MNIST_QUERY_SIZES),
+                       data=(docs, queries))
 
 
 def mesh_devices(torch) -> tuple[object, str]:
@@ -6757,6 +6804,8 @@ KAFKA_CATEGORIES = 16  # labels of the rows' ``category``, drawn from the path's
 KAFKA_WINDOW_S = 60  # the tumbling window over ``updated_at``
 KAFKA_SNAPSHOT_WINDOWS = 64  # the snapshot's commit times span this many windows
 KAFKA_T0_MS = 1_699_999_980_000  # the first commit time, on a minute
+KAFKA_CLASSIFY_K = 3  # knn_lsh_classify's neighbours: a majority vote of the categories of three live rows
+KAFKA_TIE = 1e-5  # f32 scores this close may rank either way (ROADMAP Queue C): such a query is reported, not gated
 
 
 def _view_nodes(runner, source, out) -> set:
@@ -6779,16 +6828,25 @@ def _view_nodes(runner, source, out) -> set:
     return found
 
 
-def _time_process(node, acc: list) -> None:
-    """Add the seconds of each of ``node``'s ``process`` calls to ``acc[0]``."""
+def _time_process(node, acc: list, launches: collections.Counter | None = None) -> None:
+    """Add the seconds of each of ``node``'s ``process`` calls to ``acc[0]``
+    and, with ``launches``, the B2 launches made inside them (one engine
+    worker runs one node at a time)."""
+    from pathway_tpu_torch.ops import _build
+
     real = node.process
 
     def process(time_):
         t = time.perf_counter()
+        before = {n: c for n, c in _build.LAUNCHES.items() if n.startswith("knn_topk")} if launches is not None else {}
         try:
             return real(time_)
         finally:
             acc[0] += time.perf_counter() - t
+            if launches is not None:
+                for n, c in _build.LAUNCHES.items():
+                    if n.startswith("knn_topk") and c != before.get(n, 0):
+                        launches[n] += c - before.get(n, 0)
 
     node.process = process
 
@@ -6812,7 +6870,11 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     it); the same table feeds a tumbling ``windowby`` over ``updated_at``
     (rows per window) and ``pw.sql`` (rows per category), both subscribed,
     their final states gated equal to a plain count of the live rows that
-    the path's own subscription holds. Gates:
+    the path's own subscription holds; and ``pw.ml.classifiers``'
+    ``knn_lsh_classifier_train`` (its defaults: euclidean, so an l2 index
+    of its own) over the embedded rows, ``label`` their ``category``, with
+    ``knn_lsh_classify(k=KAFKA_CLASSIFY_K)`` of every query, live as the
+    rows change, subscribed. Gates:
     both readers ran the confluent branch (subscribe, poll); the index ends
     with exactly the live keys; no answer names a key whose delete was
     committed in an earlier epoch; every updated row still live comes
@@ -6820,8 +6882,16 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     ``DeviceKnnIndex`` built directly from the final rows (their embeddings
     recomputed by the same embedder in the run's batches; ids exact, scores
     1e-5 by ``topk_agreement``); every query answered once on ``answers``;
-    B1 and both B2 passes and the merge launch. Reports the phases' rates,
-    the slots that deletes freed and later rows took, and peak memory."""
+    the classifier's index ends with exactly the live keys too, and every
+    query's final label is the plain majority vote
+    (``collections.Counter(...).most_common(1)`` in rank order) over the
+    categories of the top 3 of an l2 ``DeviceKnnIndex`` built directly from
+    the final rows, but where f32 may rank either way: the 3rd and 4th
+    scores within ``KAFKA_TIE``, or three labels apart and the 1st and 2nd
+    within it (counted and reported); B1 and both B2 passes and the merge
+    launch. Reports the phases' rates, the slots that deletes freed and
+    later rows took, the classifier's seconds and B2 launches, and peak
+    memory."""
     import threading
 
     import numpy as np
@@ -6913,13 +6983,16 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         real_runner_init(self, *a, **kw)
         runners.append(self)
 
-    views_s = {"window": [0.0], "sql": [0.0]}  # seconds in the operators of each view, on every worker
+    views_s = {"window": [0.0], "sql": [0.0], "classify": [0.0]}  # seconds in each view's operators, every worker
+    classify_launches = collections.Counter()  # B2 launches in the classifier's operators
 
     def runner_run(self, *a, **kw):
         for r in [self] + self._replicas:
             for view, out in (("window", per_window), ("sql", per_category)):
                 for node in _view_nodes(r, docs, out):
                     _time_process(node, views_s[view])
+            for node in _view_nodes(r, d_emb, predicted) | _view_nodes(r, q_emb, predicted):
+                _time_process(node, views_s["classify"], classify_launches)
         return real_runner_run(self, *a, **kw)
 
     def encode(texts_):
@@ -6928,7 +7001,8 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
 
     cv = threading.Condition()
     state = {"live": {}, "texts": {}, "rows": {}, "removed_at": {}, "answers": {},
-             "windows": collections.Counter(), "categories": collections.Counter()}
+             "windows": collections.Counter(), "categories": collections.Counter(),
+             "predicted": collections.Counter(), "labelled": set()}
 
     def on_doc(key, row, time, is_addition):  # noqa: F811 - pw.io.subscribe passes ``time=``
         with cv:
@@ -6954,26 +7028,36 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
             state["answers"][row["qid"]] = (time, list(row["ids"]), [float(d) for d in row["dists"]])
             cv.notify_all()
 
+    def on_predicted(key, row, time, is_addition):  # noqa: F811
+        with cv:  # a live label: an update's -1 and +1 may come in either order
+            state["predicted"][(row["qid"], row["label"])] += 1 if is_addition else -1
+            state["labelled"].add(row["qid"])
+            cv.notify_all()
+
     pw.clear_graph()
     docs = pw.io.debezium.read(KAFKA_SETTINGS, "pg.public.docs", schema=DocSchema, db_type="postgres",
                                persistent_id="pg-public-docs", autocommit_duration_ms=None)
     queries = pw.io.kafka.read(KAFKA_SETTINGS, "queries", schema=QuerySchema, format="json",
                                autocommit_duration_ms=None)
     d_emb = docs.select(doc_id=pw.this.doc_id, text=pw.this.text, category=pw.this.category,
-                        updated_at=pw.this.updated_at, emb=embedder(pw.this.text))
-    q_emb = queries.select(qid=pw.this.qid, emb=embedder(pw.this.text))
+                        label=pw.this.category, updated_at=pw.this.updated_at, data=embedder(pw.this.text))
+    q_emb = queries.select(qid=pw.this.qid, data=embedder(pw.this.text))
     windows = docs.windowby(pw.this.updated_at, window=pw.temporal.tumbling(duration=KAFKA_WINDOW_S))
     per_window = windows.reduce(start=pw.this._pw_window_start, n=pw.reducers.count())
     per_category = pw.sql("SELECT category, COUNT(*) AS n FROM docs GROUP BY category", docs=docs)
-    index = pw.ml.KNNIndex(d_emb.emb, d_emb, n_dimensions=embedder.get_embedding_dimension(),
+    index = pw.ml.KNNIndex(d_emb.data, d_emb, n_dimensions=embedder.get_embedding_dimension(),
                            reserved_space=n_snapshot, distance_type="cosine", device=DEV)
-    answers = index.get_nearest_items_asof_now(q_emb.emb, k=k, with_distances=True).select(
+    answers = index.get_nearest_items_asof_now(q_emb.data, k=k, with_distances=True).select(
         qid=q_emb.qid, ids=pw.this.doc_id, dists=pw.this.dist)
+    model = pw.ml.classifiers.knn_lsh_classifier_train(d_emb, d=embedder.get_embedding_dimension(), device=DEV)
+    predicted = pw.ml.classifiers.knn_lsh_classify(model, d_emb, q_emb, k=KAFKA_CLASSIFY_K).select(
+        qid=q_emb.qid, label=pw.this.predicted_label)
     pw.io.kafka.write(answers, KAFKA_SETTINGS, "answers", format="json")
     pw.io.subscribe(d_emb, on_doc)
     pw.io.subscribe(answers, on_answer)
     pw.io.subscribe(per_window, counter_of("windows", "start"))
     pw.io.subscribe(per_category, counter_of("categories", "category"))
+    pw.io.subscribe(predicted, on_predicted)
     errors: list = []
     qid = iter(range(1 << 30))
     times: dict = {}
@@ -6995,7 +7079,8 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         ids = [next(qid) for _ in texts_]
         broker.produce_many("queries", [(None, json.dumps({"qid": i, "text": t}).encode())
                                         for i, t in zip(ids, texts_)])
-        wait(f"answers to queries {ids[0]}..{ids[-1]}", lambda: all(i in state["answers"] for i in ids))
+        wait(f"answers to queries {ids[0]}..{ids[-1]}",
+             lambda: all(i in state["answers"] and i in state["labelled"] for i in ids))
 
     def new_seen() -> int:
         return sum(state["texts"].get(i) == new_texts[i] for i in updated)
@@ -7066,14 +7151,18 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     subscribed = sorted(tuple(s) for s in broker.subscriptions)
     if subscribed != [("pg.public.docs",), ("queries",)] or broker.calls["poll"] == 0:
         raise AssertionError(f"kafka_path: the confluent branch did not run: {subscribed}, {dict(broker.calls)}")
-    pipeline = [ix for ix in made if len(ix._slot_of)]
-    if len(pipeline) != 1:
-        raise AssertionError(f"kafka_path: {len(pipeline)} indexes hold rows, one expected")
-    index_ = pipeline[0]
+    pipeline = {ix.metric: ix for ix in made if len(ix._slot_of)}
+    if sorted(pipeline) != ["cos", "l2"] or sum(len(ix._slot_of) > 0 for ix in made) != 2:
+        raise AssertionError(f"kafka_path: indexes of metrics {sorted(pipeline)} hold rows; the answers' (cos) and "
+                             f"the classifier's (l2) expected")
+    index_ = pipeline["cos"]
     doc_of = {int(key): doc_id for key, doc_id in state["live"].items()}
-    if sorted(doc_of.values()) != sorted(final) or {int(key) for key in index_._slot_of} != set(doc_of) \
-            or len(index_._slot_of) != len(final):
-        raise AssertionError(f"kafka_path: the index holds {len(index_._slot_of)} keys, {len(final)} live rows")
+    if sorted(doc_of.values()) != sorted(final):
+        raise AssertionError(f"kafka_path: the subscription holds {len(doc_of)} rows, {len(final)} live")
+    for metric, ix in pipeline.items():
+        if {int(key) for key in ix._slot_of} != set(doc_of) or len(ix._slot_of) != len(final):
+            raise AssertionError(f"kafka_path: the {metric} index holds {len(ix._slot_of)} keys, "
+                                 f"{len(final)} live rows")
     removed_at = {i: state["removed_at"][i] for i in deleted}
     answered = state["answers"]
     stale = [(q, i) for q, (t, ids, _d) in answered.items() for i in ids if i in removed_at and removed_at[i] < t]
@@ -7097,7 +7186,7 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     for ph, batch in batches:
         if ph in ("snapshot", "updates"):
             final_vec.update(zip(batch, real_encode(batch)))
-        elif ph == "burst":
+        else:  # the single queries and the burst
             q_of.update(zip(batch, real_encode(batch)))
     direct = DeviceKnnIndex(index_.dim, metric="cos", reserved_space=len(final), device=DEV)
     ids = sorted(final)
@@ -7108,6 +7197,28 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
     share, ok = _hits_agree(got, [[(int(i), float(s)) for i, s in row] for row in want], k)
     if not ok or sorted(answered)[burst_first:] != list(burst_ids):
         raise AssertionError(f"kafka_path: the burst's hits differ from a directly built index's ({share})")
+    # every query's final label against a plain majority vote over an l2 index built directly from the final rows
+    asked = singles["snapshot"] + singles["updates"] + singles["deletes"] + burst
+    labels = {(q, label) for (q, label), c in state["predicted"].items() if c}
+    if any(c not in (0, 1) for c in state["predicted"].values()) \
+            or sorted(q for q, _ in labels) != list(range(len(asked))):
+        raise AssertionError(f"kafka_path: the classifier holds {len(labels)} labels for {len(asked)} queries")
+    predicted_of = dict(labels)
+    direct_l2 = DeviceKnnIndex(index_.dim, metric="l2", reserved_space=len(final), device=DEV)
+    direct_l2.add_batch_arrays(ids, np.stack([final_vec[final[i]] for i in ids]))
+    near = {"rank_3_4": 0, "rank_1_2": 0}
+    wrong = []
+    for q, row in enumerate(direct_l2.search_batch(np.stack([q_of[t] for t in asked]), KAFKA_CLASSIFY_K + 1)):
+        scores = [float(sc) for _i, sc in row]
+        cats = [final_rows[int(i)][0] for i, _sc in row[:KAFKA_CLASSIFY_K]]
+        if abs(scores[KAFKA_CLASSIFY_K - 1] - scores[KAFKA_CLASSIFY_K]) <= KAFKA_TIE:
+            near["rank_3_4"] += 1
+        elif len(set(cats)) == len(cats) and abs(scores[0] - scores[1]) <= KAFKA_TIE:
+            near["rank_1_2"] += 1
+        elif predicted_of[q] != collections.Counter(cats).most_common(1)[0][0]:
+            wrong.append((q, predicted_of[q], cats))
+    if wrong:
+        raise AssertionError(f"kafka_path: {len(wrong)} labels differ from a plain vote, first {wrong[:4]}")
     written = collections.Counter()
     for _key, value, _ts in broker.records("answers"):
         rec = json.loads(value)
@@ -7144,6 +7255,8 @@ def phase_kafka_path(torch, env: dict, embedder, n_snapshot: int = KAFKA_SNAPSHO
         windows=len(views["windows"]), window_span=[min(views["windows"]), max(views["windows"])],
         categories=len(views["categories"]), window_rows=window_rows, window_seconds=views_s["window"][0],
         window_rows_per_s=window_rows / views_s["window"][0], sql_seconds=views_s["sql"][0],
+        classified=len(asked), classify_k=KAFKA_CLASSIFY_K, classify_near_ties=near,
+        classify_seconds=views_s["classify"][0], classify_launches=dict(classify_launches),
         polls=broker.calls["poll"], max_memory_allocated=peak, run_seconds=run_s,
         phase_seconds=now() - t_phase, launches=launches,
     )

@@ -46,7 +46,10 @@ larger than the card (``pw.run(index_tiers=)``), and the elastic plane
 grows and shrinks a live index's mesh under traffic (``pw.elastic``,
 ``pw.run(elastic=, mesh="auto")``). Event-time windows and temporal joins
 (``pw.temporal``), ``pw.sql``, ``pw.iterate`` and row transformers run on
-the engine as the reference's do. ``python -m
+the engine as the reference's do, and so does the rest of the stdlib:
+graphs, sorted indexes, ``pw.utils`` (``AsyncTransformer``, ``unpack_col``),
+the ``pw.ml`` classifiers (on the device index), fuzzy joins and HMMs,
+``pw.viz`` (``Table.show`` / ``Table.plot``) and ``pw.demo``'s streams. ``python -m
 pathway_tpu_torch`` is the command line. Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``. The package imports torch and
 numpy only.
@@ -54,8 +57,8 @@ numpy only.
 
 import datetime as _datetime
 
-from . import (debug, decode, elastic, engine, freshness, io, persistence, reducers, resilience, serving, stdlib, tenancy,
-               tracing, xpacks)
+from . import (debug, decode, demo, elastic, engine, freshness, io, persistence, reducers, resilience, serving, stdlib,
+               tenancy, tracing, xpacks)
 from .decode import DecodeConfig, DecodeEngine, DecoderConfig
 from .device import resolve_device
 from .elastic import ElasticConfig
@@ -117,8 +120,15 @@ from .ops.fused_rag import FusedRagPipeline
 from .ops.knn import DeviceKnnIndex
 from .resilience import Recovery, RecoveryEscalated, RetryPolicy
 from .serving import ServingConfig
-from .stdlib import indexing, ml, ordered, statistical, temporal
+# ``pw.utils`` is the stdlib package, as in the reference's ``__all__``; the
+# engine's host helpers (``pathway_tpu_torch/utils/``) load before it, so a
+# later import of them does not rebind the name
+from . import utils as _host_helpers  # noqa: F401
+from .stdlib import graphs, indexing, ml, ordered, statistical, stateful, temporal, utils, viz
 from .stdlib import temporal as window
+from .stdlib.utils.async_transformer import AsyncTransformer
+from .stdlib.utils.col import unpack_col
+from .stdlib.utils.pandas_transformer import pandas_transformer
 from .tenancy import TenancyConfig, TenantQuotas
 
 DateTimeNaive = _datetime.datetime
@@ -211,6 +221,11 @@ __all__ = [
     "transformer",
     "universes",
     "window",
+    "AsyncTransformer",
+    "demo",
+    "unpack_col",
+    "utils",
+    "viz",
     "AsofJoinResult",
     "BaseCustomAccumulator",
     "GroupedJoinResult",

@@ -545,7 +545,9 @@ def rest_connector(
             if f is not None:
                 _resolve(f, value=row.get("result") if isinstance(row, dict) else row[result_idx])
 
-        G.add_subscription({"table": result_table, "on_change": on_change, "on_time_end": None, "on_end": None})
+        from ..._graph_hooks import subscribe_raw
+
+        subscribe_raw(result_table, on_change)
 
     return table, response_writer
 

@@ -1,6 +1,15 @@
-"""pw.stdlib: the parts the port holds so far (``indexing``, ``ml``,
-``ordered``, ``statistical``, ``temporal``)."""
+"""Standard library (reference python/pathway/stdlib/)."""
 
-from . import indexing, ml, ordered, statistical, temporal
+from . import graphs, indexing, ml, ordered, statistical, stateful, temporal, utils, viz
 
-__all__ = ["indexing", "ml", "ordered", "statistical", "temporal"]
+__all__ = [
+    "graphs",
+    "indexing",
+    "ml",
+    "ordered",
+    "statistical",
+    "stateful",
+    "temporal",
+    "utils",
+    "viz",
+]

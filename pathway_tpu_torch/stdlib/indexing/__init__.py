@@ -1,6 +1,4 @@
-"""pw.indexing — the retriever API (the reference's stdlib/indexing/):
-``DataIndex`` over KNN, BM25 and hybrid inner indexes, and the default
-document indexes. The sorted index comes with ROADMAP Queue A item 7."""
+"""pw.indexing — unified retriever API (reference stdlib/indexing/)."""
 
 from .bm25 import TantivyBM25, TantivyBM25Factory
 from .colnames import _INDEX_REPLY, _SCORE
@@ -18,7 +16,16 @@ from .nearest_neighbors import (
     UsearchKnn,
     UsearchKnnFactory,
 )
+
+# reference capitalization alias (stdlib/indexing/nearest_neighbors.py:65)
+USearchKnn = UsearchKnn
 from .retrievers import AbstractRetrieverFactory, InnerIndexFactory
+from .sorting import (
+    SortedIndex,
+    build_sorted_index,
+    retrieve_prev_next_values,
+    sort_from_index,
+)
 from .vector_document_index import (
     VectorDocumentIndex,
     default_brute_force_knn_document_index,
@@ -28,35 +35,36 @@ from .vector_document_index import (
     default_vector_document_index,
 )
 
-# reference capitalization alias
-USearchKnn = UsearchKnn
-
 __all__ = [
-    "AbstractKnn",
+    "DataIndex",
+    "InnerIndex",
     "AbstractRetrieverFactory",
+    "InnerIndexFactory",
+    "AbstractKnn",
     "BruteForceKnn",
     "BruteForceKnnFactory",
     "BruteForceKnnMetricKind",
-    "DataIndex",
-    "HybridIndex",
-    "HybridIndexFactory",
-    "InnerIndex",
-    "InnerIndexFactory",
     "KnnIndexFactory",
     "LshKnn",
     "LshKnnFactory",
-    "TantivyBM25",
-    "TantivyBM25Factory",
     "USearchKnn",
-    "USearchMetricKind",
     "UsearchKnn",
     "UsearchKnnFactory",
+    "USearchMetricKind",
+    "TantivyBM25",
+    "TantivyBM25Factory",
+    "HybridIndex",
+    "HybridIndexFactory",
     "VectorDocumentIndex",
-    "default_brute_force_knn_document_index",
-    "default_full_text_document_index",
-    "default_lsh_knn_document_index",
-    "default_usearch_knn_document_index",
     "default_vector_document_index",
+    "default_brute_force_knn_document_index",
+    "default_usearch_knn_document_index",
+    "default_lsh_knn_document_index",
+    "default_full_text_document_index",
+    "SortedIndex",
+    "build_sorted_index",
+    "sort_from_index",
+    "retrieve_prev_next_values",
     "_INDEX_REPLY",
     "_SCORE",
 ]

@@ -12,10 +12,14 @@ under ``pw.run(mesh="auto", elastic=)``, or runs as a 2-process cluster
 through ``spawn --processes 2`` (the coordinator and the worker alike);
 or reads object stores, Delta Lake, Airbyte and SharePoint through injected
 clients, or runs windows, temporal joins, SQL, iterate fixpoints, row
-transformers and live tables (and imports, with ``yaml`` hidden); its public names are the reference's but for those whose modules
-wait in a ROADMAP item; it never imports ``aiohttp`` or ``requests``, which
-the card's machine lacks (its webserver is the standard library's), nor
-``pydantic`` or ``yaml``, which that machine lacks too, and imports no
+transformers and live tables (and imports, with ``yaml`` hidden), or runs
+the rest of the stdlib (graphs, sorting, the KNN classifier, async
+transformers, ``viz``) and the demos; its public names are the reference's
+but for those whose modules wait in a ROADMAP item; it never imports
+``aiohttp`` or ``requests``, which the card's machine lacks (its webserver
+is the standard library's), nor ``pydantic`` or ``yaml``, which that
+machine lacks too, nor, with ``chip_smoke.py``'s import chain, ``pandas``
+or ``bokeh``, which it lacks as well, and imports no
 service client (``openai``, ``litellm``, ``cohere``, ``transformers``,
 ``flashrank``, ``boto3``, ``deltalake``, the Drive, ``fs``, ``office365``
 and ``openparse`` clients) at module load; its entry points never fall back
@@ -588,6 +592,106 @@ except ImportError as e:
 """
 
 
+_STDLIB_REST_PROBE = r"""
+import sys
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import _graph_hooks, demo
+from pathway_tpu_torch.debug.demos import demo_programs, rag_chunks, windowed_stats, word_counts
+from pathway_tpu_torch.stdlib import graphs, stateful, utils, viz
+from pathway_tpu_torch.stdlib.graphs import louvain_communities
+from pathway_tpu_torch.stdlib.indexing import sorting
+from pathway_tpu_torch.stdlib.ml import classifiers, datasets, hmm, smart_table_ops, utils as ml_utils
+from pathway_tpu_torch.stdlib.ml.datasets import classification
+from pathway_tpu_torch.stdlib.utils import async_transformer, bucketing, col, filtering, pandas_transformer
+from pathway_tpu_torch.stdlib.viz import plotting, table_viz
+assert len(demo_programs()) == 3
+pw.clear_graph()
+train, test = classification.load_mnist_sample(200, synthetic=True)
+model = classifiers.knn_lsh_classifier_train(train, d=784, device="cpu")
+acc = ml_utils.classifier_accuracy(classifiers.knn_lsh_classify(model, train, test, k=3), test)
+assert sum(pw.debug.table_to_dicts(acc)[1]["cnt"].values()) == 20
+KV = '''
+  | k | v
+1 | a | 3
+2 | a | 9
+3 | b | 4
+'''
+pw.clear_graph()
+t = pw.debug.table_from_markdown(KV)
+best = filtering.argmax_rows(t, t.k, what=t.v)
+srt = sorting.sort_from_index(sorting.build_sorted_index(t.select(key=pw.this.v))["index"])
+assert sorted(pw.debug.table_to_dicts(best)[1]["v"].values()) == [4, 9]
+assert len(pw.debug.table_to_dicts(srt)[0]) == 3
+pw.clear_graph()
+class Out(pw.Schema):
+    w: int
+class Twice(pw.AsyncTransformer, output_schema=Out):
+    async def invoke(self, k, v):
+        return {"w": 2 * v}
+t = pw.debug.table_from_markdown(KV)
+assert sorted(pw.debug.table_to_dicts(Twice(input_table=t).successful)[1]["w"].values()) == [6, 8, 18]
+pw.clear_graph()
+assert "<table" in pw.debug.table_from_markdown(KV).show()._repr_html_()
+pw.clear_graph()
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN)
+print("BAD", bad)
+"""
+
+
+def test_port_stdlib_rest_and_demos_import_no_jax_flax_or_reference():
+    """The rest of the stdlib (graphs, stateful, sorting, ``utils``, ``viz``,
+    the ``ml`` classifiers, datasets, HMM, fuzzy joins and utils),
+    ``pw.demo``, the demo programs and ``_graph_hooks`` imported, then a
+    classifier over the synthetic MNIST sample, ``argmax_rows``, a sorted
+    index, an ``AsyncTransformer`` and ``Table.show`` run: nothing of JAX or
+    the reference is imported."""
+    _run_probe(_STDLIB_REST_PROBE)
+
+
+_NO_PANDAS_PROBE = r"""
+import importlib, re, sys
+import numpy as np
+sys.path.insert(0, ".")
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+at_import = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in ("pandas", "bokeh"))
+import chip_smoke
+src = open("chip_smoke.py", encoding="utf-8").read()
+for mod, names in re.findall(r"from (pathway_tpu_torch[\w.]*) import \(?([\w, ]+)", src):
+    m = importlib.import_module(mod)
+    for name in (n.split(" as ")[0].strip() for n in names.split(",")):
+        if name and not hasattr(m, name):
+            importlib.import_module(f"{mod}.{name}")
+for mod in re.findall(r"^\s*import (pathway_tpu_torch[\w.]*)", src, re.M):
+    importlib.import_module(mod)
+pw.clear_graph()
+class S(pw.Schema):
+    data: np.ndarray
+    label: str
+docs = pw.debug.table_from_rows(S, list(zip(np.eye(4), "abab")))
+model = pw.ml.classifiers.knn_lsh_classifier_train(docs, d=4, device="cpu")
+got = pw.debug.table_to_dicts(pw.ml.classifiers.knn_lsh_classify(model, docs, docs, k=1))[1]["predicted_label"]
+assert sorted(got.values()) == ["a", "a", "b", "b"]
+chain = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in ("pandas", "bokeh"))
+print("AT_IMPORT", at_import)
+print("CHAIN", chain)
+"""
+
+
+def test_port_and_chip_smoke_import_chain_load_no_pandas_or_bokeh():
+    """The card's machine has neither ``pandas`` nor ``bokeh``: ``import
+    pathway_tpu_torch``, ``chip_smoke.py`` with every port module it
+    imports, and ``kafka_path``'s classifier (``pw.ml.classifiers`` over a
+    ``KNNIndex``) load neither; ``pw.viz`` and ``debug.table_to_pandas``
+    import ``pandas`` only when called."""
+    out = subprocess.run([sys.executable, "-c", _NO_PANDAS_PROBE], cwd=REPO, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "AT_IMPORT []" in out.stdout and "CHAIN []" in out.stdout, out.stdout
+
+
 def test_port_imports_without_yaml_and_load_yaml_raises_only_when_called():
     """With ``yaml`` hidden, ``import pathway_tpu_torch`` and the module of
     ``pw.load_yaml`` load; a call of ``pw.load_yaml`` raises an
@@ -841,9 +945,6 @@ def test_spawned_cluster_processes_import_no_jax_flax_reference_or_click(tmp_pat
 
 # the reference's public names whose modules wait in a ROADMAP Queue A item
 _WAITING_NAMES = {
-    "ROADMAP Queue A item 7c (the rest of the stdlib, and the demos)": (
-        "AsyncTransformer", "demo", "unpack_col", "utils", "viz",
-    ),
     "ROADMAP Queue A item 10 (the deep verifier)": ("analysis",),
 }
 
@@ -900,6 +1001,8 @@ def _check_public_names():
     waiting = {name for names in _WAITING_NAMES.values() for name in names}
     assert not waiting & set(tpw.__all__), "a waiting name is exported: take it off the list"
     assert tio.__all__ == jio.__all__
+    for sub in ("stdlib", "ml", "indexing"):
+        assert getattr(tpw, sub).__all__ == getattr(jpw, sub).__all__, sub
     assert _public_classes(tembedders) == _public_classes(jembedders)
     for name in _public_classes(jembedders):
         assert issubclass(getattr(tembedders, name), tembedders.BaseEmbedder) == issubclass(
@@ -920,12 +1023,11 @@ def _check_public_names():
     for name in _LAZY_MODEL_NAMES:
         assert name in tmodels.__all__ and _kind(getattr(tmodels, name)) == _kind(getattr(jmodels, name)), name
     assert all(hasattr(jpw, n) for n in waiting)
-    # Python binds an imported subpackage on its parent: ``utils`` may name the
-    # port's own host helpers (``pathway_tpu_torch/utils/``), never the stdlib
-    # ``utils`` that waits in item 7
-    for n in waiting:
-        bound = getattr(tpw, n, None)
-        assert bound is None or (n == "utils" and bound is sys.modules.get("pathway_tpu_torch.utils")), n
+    assert not any(hasattr(tpw, n) for n in waiting)
+    # Python binds an imported subpackage on its parent; the port's host
+    # helpers (``pathway_tpu_torch/utils/``) load before the stdlib ``utils``
+    # that the name exports, so importing them later does not rebind it
+    assert tpw.utils is sys.modules["pathway_tpu_torch.stdlib.utils"]
 
 
 def test_public_names_match_the_reference():
@@ -947,13 +1049,14 @@ def test_public_names_match_the_reference():
 
 
 def test_public_names_hold_after_the_host_helpers_are_imported():
-    """The same check once ``pathway_tpu_torch.utils`` is imported (the
-    engine's persistence and the graph runner import it lazily, so an
-    earlier test file on the same worker may have): the subpackage is then
-    bound as ``pathway_tpu_torch.utils``, which is not the waiting stdlib
-    ``utils``."""
+    """The same check once ``pathway_tpu_torch.utils.uri`` is imported (the
+    engine's persistence and the graph runner import the host helpers
+    lazily, so an earlier test file on the same worker may have): ``pw.utils``
+    is still the stdlib ``utils`` that ``__all__`` exports, not the host
+    helpers' subpackage."""
     import pathway_tpu_torch as tpw
     import pathway_tpu_torch.utils.uri  # noqa: F401
 
-    assert tpw.utils is sys.modules["pathway_tpu_torch.utils"] and "utils" not in tpw.__all__
+    assert tpw.utils is sys.modules["pathway_tpu_torch.stdlib.utils"] and "utils" in tpw.__all__
+    assert sys.modules["pathway_tpu_torch.utils"] is not tpw.utils
     _check_public_names()

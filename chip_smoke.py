@@ -17,7 +17,7 @@ B2 at d 784, the KNN classifier's MNIST width, l2 k 3 over the 63,000-row
 train split of ``load_mnist_sample(70000, synthetic=True)`` at 1, 16 and
 256 of its test images, each row naming the partial pass ``launch_plan``
 chose; attention at S 8192, the ring's one-card shape), times the index's
-tie-ordered top-k beside ``torch.topk``, then drives twenty-one paths, each
+tie-ordered top-k beside ``torch.topk``, then drives twenty-two paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * ``main_path`` (MiniLM-L6): 16,384 synthetic documents ->
@@ -25,6 +25,23 @@ with the launch counters set to 0 just before it and read just after:
   (filled to 1,048,576 rows) -> text queries -> ``search_batch`` /
   ``search_texts_batch`` (single queries take B2's streaming pass, the
   batch of 512 its tensor-core pass; both must launch);
+* ``analysis_path``: the pre-run verifier on the card. 4,096 documents
+  through ``pw.io.python.read`` -> ``SentenceTransformerEmbedder``
+  (MiniLM-L6, B1) -> ``pw.ml.KNNIndex`` (cos, 2^20 reserved rows, B2) <- 16
+  queries, run under ``pw.run(analysis="deep")`` and again with
+  ``analysis="off"``, gated on equal hits (ids exact away from near-ties,
+  scores 1e-5); every deep target of that graph (B2 at 2^20 x 384, q 16)
+  and a decode target at ``decode_path``'s pool (B5: 8 lanes, 512 pages x
+  16, head dim 64) run once under ``torch.cuda.set_sync_debug_mode("error")``,
+  gated on the verifier's PWL017 verdict (its op trace on ``meta``) equal
+  to the card's, each kernel launching and agreeing with its plain version
+  (``topk_agreement`` 1e-5, f32 1e-4); the torch host-sync fixture's
+  staging UDF raising there and drawing PWL017; the MiniLM-L6
+  ``SentenceEncoder`` dispatching exactly ``predict_compile_keys``' (rows,
+  seq) geometries over the CPU tests' length sweep; PWL010 firing at the
+  card's memory, not at 16 GiB; ``python -m pathway_tpu_torch analyze``
+  over the demos (exit 0) and a positive fixture (exit 1 under
+  ``--fail-on=warn``);
 * ``train_path`` (MiniLM-L6, full width): ``ContrastiveTrainer`` on
   ``cuda:0``, 128 pairs at S 128 (live lengths 16-128), 3 warm-up steps,
   20 timed ``step()`` calls, 4 split into forward, backward and AdamW and
@@ -1223,6 +1240,378 @@ def phase_main_path(torch) -> dict:
         b3_module_gemm_launches=b3_gemms, max_memory_allocated=peak, launches=launches,
     )
     emit("main_path", **result)
+    return launches
+
+
+ANALYSIS_DOCS = 4096  # documents of the gated pipeline (an epoch of 1,024 each)
+ANALYSIS_QUERIES = 16
+ANALYSIS_ROWS = 1 << 20  # the pipeline index's reserved rows, and B2's deep-target slab
+ANALYSIS_DECODE = {"pages": 512, "page_size": 16, "lanes": 8, "max_seq": 160}  # decode_path's pool
+ANALYSIS_DECODE_HIDDEN = 256  # DecoderConfig(): 4 heads of 64
+ANALYSIS_SWEEP = [3, 5, 9, 17, 20, 31, 12, 7, 28, 2, 16, 33, 4, 4, 8, 19, 25, 30]  # the CPU bucket-sweep's lengths
+ANALYSIS_HOST_SYNC = '''import torch
+
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.stdlib.ml.index import KNNIndex
+
+DEVICE = "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def embed_on_device(x, y):
+    vec = torch.stack([torch.full((), x, device=DEVICE), torch.full((), y, device=DEVICE)])
+    host = (vec / (torch.linalg.norm(vec) + 1e-6)).cpu()
+    return (float(host[0]), float(host[1]))
+
+
+docs = pw.debug.table_from_rows(pw.schema_from_types(x=float, y=float), [(1.0, 0.0), (0.0, 1.0)])
+docs = docs.select(emb=pw.apply_with_type(embed_on_device, pw.ANY, docs.x, docs.y))
+index = KNNIndex(docs.emb, docs, n_dimensions=2, reserved_space=100, distance_type="cosine")
+pw.io.null.write(index.get_nearest_items(docs.emb, k=2))
+pw.run()
+'''  # the CPU tests' torch host-sync fixture: its staging UDF fills a card tensor and reads it back with .cpu()
+# its clean twin: the same UDF keeps the value on the card (no .cpu(), no float() of a card tensor)
+ANALYSIS_HOST_SYNC_CLEAN = ANALYSIS_HOST_SYNC.replace(
+    '''    host = (vec / (torch.linalg.norm(vec) + 1e-6)).cpu()
+    return (float(host[0]), float(host[1]))
+''', '''    return vec / (torch.linalg.norm(vec) + 1e-6)
+''')
+assert ANALYSIS_HOST_SYNC_CLEAN != ANALYSIS_HOST_SYNC
+_ANALYZE_RUNNER = r"""
+import contextlib, io, json, runpy, sys
+out = []
+for argv in json.loads(sys.argv[1]):  # each as ``python -m pathway_tpu_torch *argv``, one interpreter for all
+    o = io.StringIO()
+    sys.argv = ["pathway_tpu_torch", *argv]
+    with contextlib.redirect_stdout(o):
+        try:
+            runpy.run_module("pathway_tpu_torch", run_name="__main__", alter_sys=True)
+            rc = 0
+        except SystemExit as exc:
+            rc = exc.code
+    out.append({"rc": rc, "stdout": o.getvalue()})
+print(json.dumps(out))
+"""
+
+
+def _card_sync_verdict(torch, fn, *args) -> tuple[bool, str, object]:
+    """Run ``fn(*args)`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    (whether the card's own detector raised, its message, the result)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    except RuntimeError as exc:
+        if "synchroniz" not in str(exc):
+            raise
+        return True, str(exc).splitlines()[0][:160], None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return False, "", out
+
+
+def phase_analysis_path(torch, env: dict, n_docs: int = ANALYSIS_DOCS, n_queries: int = ANALYSIS_QUERIES,
+                        rows: int = ANALYSIS_ROWS) -> dict:
+    """The pre-run verifier (``analysis/``) on the card. (1) The main path's
+    pipeline at MiniLM-L6 width (``pw.io.python.read`` of ``n_docs``
+    documents -> ``SentenceTransformerEmbedder`` -> a ``KNNIndex`` of
+    ``rows`` reserved rows <- ``n_queries`` queries) run under
+    ``pw.run(analysis="deep")`` and again with ``analysis="off"``: hits
+    equal, no ``AnalysisError``; the rule ids its graph draws and the
+    gate's seconds. (2) Every deep target ``build_targets`` makes of that
+    graph, and a decode target at ``decode_path``'s pool, run once on the
+    card at its real geometry under ``set_sync_debug_mode("error")``: the
+    verifier's PWL017 verdict (its op trace on ``meta``) equals the card's,
+    B2 and B5 launch and agree with their plain versions; the torch
+    host-sync fixture's staging UDF raises there and the verifier flags it,
+    and its clean twin runs clean there and the verifier is silent.
+    (3) PWL018: the MiniLM-L6 ``SentenceEncoder`` through the CPU tests'
+    length sweep dispatches exactly ``predict_compile_keys``' geometries,
+    and a second pass none. (4) The HBM rules read the card's budget.
+    (5) ``python -m pathway_tpu_torch analyze`` over the demos and a
+    positive fixture (one process runs each command as ``-m`` would).
+    Returns the phase's launch counts, its timing loops' left out."""
+    import tempfile
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.analysis import analyze
+    from pathway_tpu_torch.analysis.deep import build_targets
+    from pathway_tpu_torch.analysis.deep.targets import OpTrace
+    from pathway_tpu_torch.analysis.graph_view import GraphView
+    from pathway_tpu_torch.internals.ledger import default_hbm_bytes, index_hbm_bytes
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops import knn as ops_knn
+    from pathway_tpu_torch.ops import paged_attention as ops_pa
+    from pathway_tpu_torch.ops.knn_topk import topk_agreement
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    t_phase = time.perf_counter()
+    k = 10
+    rng = np.random.default_rng(SEED + 23)
+    texts = _synthetic_texts_bulk(rng, n_docs, 20, 220)
+    queries = [texts[i] for i in rng.choice(n_docs, n_queries // 2, replace=False)]
+    queries += _synthetic_texts(rng, n_queries - len(queries), 5, 40)
+    embedder = SentenceTransformerEmbedder(device=DEV)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    # ---- (1) the pre-run gate on the live pipeline, deep and off
+    def pipeline(analysis: str):
+        import threading
+
+        pw.clear_graph()
+        cv, seen, answers = threading.Condition(), [0], {}
+
+        class Documents(pw.io.python.ConnectorSubject):
+            def run(self):
+                for lo in range(0, n_docs, 1024):
+                    for i in range(lo, min(n_docs, lo + 1024)):
+                        self.next(doc_id=i, text=texts[i])
+                    self.commit()
+                    with cv:  # one commit, one epoch: the same UDF batches in every run
+                        if not cv.wait_for(lambda: seen[0] >= min(n_docs, lo + 1024), timeout=300):
+                            raise TimeoutError("analysis_path: an ingest epoch was not delivered")
+
+        def on_doc(key, row, time, is_addition):
+            with cv:
+                seen[0] += 1
+                cv.notify_all()
+
+        schema = pw.schema_from_types(doc_id=int, text=str)
+        docs = pw.io.python.read(Documents(), schema=schema, autocommit_duration_ms=None)
+        docs = docs.select(pw.this.doc_id, emb=embedder(pw.this.text))
+        pw.io.subscribe(docs, on_doc)
+        qt = pw.debug.table_from_rows(schema=schema, rows=[(100_000 + i, q) for i, q in enumerate(queries)])
+        qt = qt.select(pw.this.doc_id, emb=embedder(pw.this.text))
+        index = pw.ml.KNNIndex(docs.emb, docs, n_dimensions=embedder.get_embedding_dimension(), reserved_space=rows,
+                               distance_type="cosine", device=DEV)
+        hits = index.get_nearest_items(qt.emb, k=k, with_distances=True).select(
+            qid=qt.doc_id, nearest=pw.this.doc_id, dist=pw.this.dist)
+
+        def on_hit(key, row, time, is_addition):
+            if is_addition:
+                answers[row["qid"]] = list(zip(row["nearest"], (-d for d in row["dist"])))
+
+        pw.io.subscribe(hits, on_hit)
+        gate: dict = {"seconds": 0.0, "diags": []}
+
+        def timed_gate(mode):  # the run's own gate, timed, its findings kept
+            t0 = time.perf_counter()
+            try:
+                return real_gate(mode)
+            finally:
+                gate["seconds"] += time.perf_counter() - t0
+
+        def kept(*a, **kw):
+            diags = real_analyze(*a, **kw)
+            gate["diags"] += diags
+            return diags
+
+        run_mod._run_analysis, analysis_mod.analyze = timed_gate, kept
+        t0 = time.perf_counter()
+        try:
+            pw.run(analysis=analysis)
+        finally:
+            run_mod._run_analysis, analysis_mod.analyze = real_gate, real_analyze
+        torch.cuda.synchronize()
+        gate["run_seconds"] = time.perf_counter() - t0
+        gate["targets"] = build_targets(GraphView(G))  # the run's context is recorded on the graph
+        pw.clear_graph()
+        return [answers[100_000 + i] for i in range(n_queries)], gate
+
+    import pathway_tpu_torch.analysis as analysis_mod
+    from pathway_tpu_torch.internals import run as run_mod
+
+    real_gate, real_analyze = run_mod._run_analysis, analysis_mod.analyze
+    deep_hits, gate = pipeline("deep")
+    off_hits, off = pipeline("off")
+    if not gate["diags"] or off["diags"]:
+        raise AssertionError("analysis_path: the deep run did not go through the gate, or the off run did")
+    gate["rules"] = sorted({d.rule for d in gate["diags"]})
+    gate["findings"] = [f"{d.rule} {d.severity.value}: {d.message[:120]}" for d in gate.pop("diags")]
+    share, ok = _hits_agree(deep_hits, off_hits, k)
+    if not ok:
+        raise AssertionError(f"analysis_path: the deep-gated run's hits differ from the ungated run's ({share})")
+    pipeline_launches = dict(_build.LAUNCHES)
+
+    # ---- (2) the deep targets on the card, against its own sync detector
+    targets = [t for t in gate.pop("targets") if t.trace is not None]
+    decode_spec = ops_pa.deep_trace_spec(ANALYSIS_DECODE)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    verdicts = []
+    timing = collections.Counter()  # the timing loops' launches: not the path's
+
+    def timed_ms(fn) -> float:
+        before = collections.Counter(_build.LAUNCHES)
+        ms = cuda_ms(fn)
+        timing.update(collections.Counter(_build.LAUNCHES) - before)
+        return ms
+
+    runs = [(t.kind, t.name, t.trace, t.spec.get("metric", "cos")) for t in targets]
+    for kind, name, trace, metric in runs + [("decode", decode_spec["name"], decode_spec, None)]:
+        ops = OpTrace(trace["fn"], trace["args"]).syncs
+        if kind == "knn":
+            dim = trace["args"][0].shape[1]
+            matrix = torch.nn.functional.normalize(torch.randn(rows, dim, device=DEV, generator=g), dim=1)
+            valid = torch.ones(rows, dtype=torch.bool, device=DEV)
+            q = torch.nn.functional.normalize(torch.randn(n_queries, dim, device=DEV, generator=g), dim=1)
+            args = (matrix, valid, q)
+            keys = ("knn_topk_stream", "knn_topk_merge")
+        else:
+            lanes, pages, page = ANALYSIS_DECODE["lanes"], ANALYSIS_DECODE["pages"], ANALYSIS_DECODE["page_size"]
+            pps = ops_pa.pages_for(ANALYSIS_DECODE["max_seq"], page)
+            d = ANALYSIS_DECODE_HIDDEN
+            pool = lambda: torch.randn(pages, page, d, device=DEV, generator=g)  # noqa: E731
+            args = (torch.randn(lanes, d, device=DEV, generator=g), pool(), pool(),
+                    torch.randperm(pages, device=DEV, generator=g)[: lanes * pps].reshape(lanes, pps).int(),
+                    torch.randint(1, ANALYSIS_DECODE["max_seq"] + 1, (lanes,), device=DEV, generator=g).int())
+            keys = ("paged_decode_attention", "paged_decode_combine")
+        before = collections.Counter(_build.LAUNCHES)
+        synced, message, out = _card_sync_verdict(torch, trace["fn"], *args)
+        launched = {key: _build.LAUNCHES[key] - before[key] for key in keys}
+        if bool(ops) != synced:
+            raise AssertionError(f"analysis_path: the verifier's PWL017 verdict on {name} ({ops}) is not the card's "
+                                 f"({message or 'no sync'})")
+        if synced or not all(launched.values()):
+            raise AssertionError(f"analysis_path: {name} synced on the card ({message}) or did not launch {launched}")
+        if kind == "knn":
+            want = ops_knn._topk_fn(metric)(*args, out[0].shape[1])
+            agree, agreed = topk_agreement(out[0], out[1], want[0], want[1], atol=1e-5, rtol=1e-5)
+            err = float((out[0] - want[0]).abs().max())
+            if not agreed:
+                raise AssertionError(f"analysis_path: {name} disagrees with the plain top-k ({agree})")
+        else:
+            want = ops_pa.paged_attention_reference(*args, n_heads=4)
+            err = held(name, out, want, rtol=1e-4, atol=1e-4)
+        verdicts.append(dict(target=name, kind=kind, trace_syncs=ops, card_synced=synced, launches=launched,
+                             max_abs_err=err, ms=timed_ms(lambda: trace["fn"](*args))))
+        del args, out, want
+    # the torch host-sync fixture and its clean twin: each staging UDF fills
+    # its vector on the card, so its .cpu() readback is the one sync the
+    # detector can meet; the positive syncs on the card and the verifier
+    # flags it, the twin runs clean and the verifier is silent
+    def fixture_verdicts(source: str, path: str) -> tuple[list, bool, str, object]:
+        with open(path, "w") as f:
+            f.write(source)
+        scope: dict = {}
+        saved = os.environ.get("PATHWAY_ANALYZE_ONLY")
+        os.environ["PATHWAY_ANALYZE_ONLY"] = "1"
+        try:
+            pw.clear_graph()
+            exec(compile(source, path, "exec"), scope)
+            flagged_ = [d for d in analyze(G, deep=True) if d.rule == "PWL017"]
+        finally:
+            pw.clear_graph()
+            if saved is None:
+                os.environ.pop("PATHWAY_ANALYZE_ONLY")
+            else:
+                os.environ["PATHWAY_ANALYZE_ONLY"] = saved
+        return (flagged_, *_card_sync_verdict(torch, scope["embed_on_device"], 1.0, 0.0))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = os.path.join(tmp, "deep_host_sync.py")
+        flagged, udf_synced, udf_message, _ = fixture_verdicts(ANALYSIS_HOST_SYNC, fixture)
+        if not udf_synced or [d.detail.get("markers") for d in flagged] != [["cpu"]]:
+            raise AssertionError(f"analysis_path: the host-sync fixture: card synced {udf_synced}, verifier "
+                                 f"{[d.render() for d in flagged]}")
+        clean_flagged, clean_synced, clean_message, clean_out = fixture_verdicts(
+            ANALYSIS_HOST_SYNC_CLEAN, os.path.join(tmp, "deep_host_sync_clean.py"))
+        if clean_synced or clean_flagged or not (clean_out.device.type == torch.device(DEV).type
+                                                  and bool(torch.isfinite(clean_out).all())):
+            raise AssertionError(f"analysis_path: the clean twin: card synced {clean_synced} ({clean_message}), "
+                                 f"verifier {[d.render() for d in clean_flagged]}")
+
+        # ---- (3) PWL018: dispatched geometries against the prediction, at MiniLM-L6 width
+        enc = SentenceEncoder(max_seq_len=32, max_batch=16, seed=SEED, device=DEV)
+        toks = [[(i * 7 + j) % 29000 + 1 for j in range(n)] for i, n in enumerate(ANALYSIS_SWEEP)]
+        predicted = enc.predict_compile_keys(ANALYSIS_SWEEP)
+        libs_before = len(_build._LIBS)
+        before = collections.Counter(_build.LAUNCHES)
+        out = enc.encode_tokens(toks)
+        first = set(enc._geometries)
+        enc.encode_tokens(toks)
+        torch.cuda.synchronize()
+        sweep_launches = dict(collections.Counter(_build.LAUNCHES) - before)
+        if first != predicted or enc._geometries != predicted or not np.isfinite(out).all():
+            raise AssertionError(f"analysis_path: the encoder dispatched {sorted(enc._geometries)}, predicted "
+                                 f"{sorted(predicted)}")
+        sources = sorted(n for n in os.listdir(_build.CSRC) if n.endswith(".cu"))
+        if len(_build._LIBS) != libs_before or sorted(_build._LIBS) != sources:
+            raise AssertionError(f"analysis_path: built {sorted(_build._LIBS)} for the sources {sources}")
+
+        # ---- (4) the HBM rules read the card's budget (analyze-only: nothing is allocated)
+        def pwl010(rows_: int, budget: str | None) -> bool:
+            saved_env = {v: os.environ.get(v) for v in ("PATHWAY_ANALYZE_ONLY", "PATHWAY_HBM_BYTES")}
+            os.environ["PATHWAY_ANALYZE_ONLY"] = "1"
+            os.environ.pop("PATHWAY_HBM_BYTES", None)
+            if budget is not None:
+                os.environ["PATHWAY_HBM_BYTES"] = budget
+            try:
+                pw.clear_graph()
+                vecs = pw.debug.table_from_rows(pw.schema_from_types(v=float), [(1.0,)])
+                vecs = vecs.select(emb=pw.apply_with_type(lambda v: (v,) * 384, pw.ANY, pw.this.v))
+                index_ = pw.ml.KNNIndex(vecs.emb, vecs, n_dimensions=384, reserved_space=rows_, device=DEV)
+                pw.io.null.write(index_.get_nearest_items(vecs.emb, k=3))
+                assert pw.run() is None
+                return any(d.rule == "PWL010" for d in analyze(G))
+            finally:
+                pw.clear_graph()
+                for v, val in saved_env.items():
+                    if val is None:
+                        os.environ.pop(v, None)
+                    else:
+                        os.environ[v] = val
+
+        card_budget, card_bytes = default_hbm_bytes(), torch.cuda.get_device_properties(0).total_memory
+        hbm = {"default_hbm_bytes": card_budget, "total_memory": card_bytes,
+               "index_2p24_bytes": index_hbm_bytes(1 << 24, 384), "index_2p26_bytes": index_hbm_bytes(1 << 26, 384),
+               "pwl010_2p24_at_16GiB": pwl010(1 << 24, "16G"), "pwl010_2p24_at_card": pwl010(1 << 24, None),
+               "pwl010_2p26_at_card": pwl010(1 << 26, None)}
+        if card_budget != card_bytes or not hbm["pwl010_2p24_at_16GiB"] or hbm["pwl010_2p24_at_card"] or \
+                not hbm["pwl010_2p26_at_card"]:
+            raise AssertionError(f"analysis_path: the HBM rules did not read the card's budget: {hbm}")
+
+        # ---- (5) the command line, in one process
+        root = os.path.dirname(os.path.abspath(__file__))
+        child_env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        from pathway_tpu_torch.debug.demos import demo_programs
+
+        cmds = [["analyze", "--deep", "--json", demo] for demo in demo_programs()]
+        cmds.append(["analyze", "--deep", "--fail-on=warn", fixture])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _ANALYZE_RUNNER, json.dumps(cmds)], cwd=root, env=child_env,
+                              capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+    *demos, fatal = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else [{}]
+    if len(demos) != len(cmds) - 1 or any(d["rc"] != 0 for d in demos) or fatal.get("rc") != 1 or \
+            "PWL017" not in fatal.get("stdout", ""):
+        raise AssertionError(f"analysis_path: analyze over the demos gave {[d['rc'] for d in demos]}, the fixture "
+                             f"{fatal.get('rc')} ({proc.stderr[-800:]})")
+    torch.cuda.synchronize()
+    launches = {key: n - timing[key] for key, n in _build.LAUNCHES.items() if n - timing[key]}
+    missing = [key for key in ("gemm_bias_act", "gemm_bias_residual_layernorm", "knn_topk_stream", "knn_topk_merge",
+                               "paged_decode_attention", "paged_decode_combine") if launches.get(key, 0) == 0]
+    if missing:
+        raise AssertionError(f"analysis_path never launched {missing}")
+    result = dict(
+        card=env["nvidia_smi"], docs=n_docs, queries=n_queries, index_rows=rows, gate_seconds=gate["seconds"],
+        rule_ids=gate["rules"], findings=gate["findings"], deep_run_seconds=gate["run_seconds"],
+        off_run_seconds=off["run_seconds"], hits_agreement=share, pipeline_launches=pipeline_launches,
+        targets=verdicts, host_sync_fixture={"card_synced": udf_synced, "card_message": udf_message,
+                                             "flagged": [d.detail for d in flagged]},
+        host_sync_clean_twin={"card_synced": clean_synced, "flagged": len(clean_flagged)},
+        timing_launches=dict(timing),
+        sweep_keys=sorted(predicted), sweep_launches=sweep_launches, built_libraries=len(_build._LIBS),
+        cu_sources=len(sources), hbm=hbm, demos_rc=[d["rc"] for d in demos],
+        demo_rules=[sorted({x["rule"] for x in json.loads(d["stdout"])["diagnostics"]}) for d in demos],
+        fixture_rc=fatal["rc"], cli_seconds=cli_s, phase_seconds=time.perf_counter() - t_phase,
+        launches=launches,
+    )
+    emit("analysis_path", **result)
     return launches
 
 
@@ -7806,6 +8195,7 @@ def main(argv: list[str]) -> int:
         return 0
     phase_tie_helper(torch, torch.Generator(device=DEV).manual_seed(SEED + 4))
     launches = collections.Counter(phase_main_path(torch))
+    launches.update(phase_analysis_path(torch, env))
     launches.update(phase_train_path(torch, env))
     launches.update(phase_clip_path(torch, env))
     launches.update(phase_ring_path(torch, env))
@@ -7830,7 +8220,7 @@ def main(argv: list[str]) -> int:
     launches.update(elastic_launches)
     entries += elastic_entries
     launches.update(phase_cluster_path(torch))
-    for e in entries:  # launches summed over the twenty-one paths' counted runs
+    for e in entries:  # launches summed over the twenty-two paths' counted runs
         e["launches"] = launches.get(e.pop("kernel_key"), 0)
     emit("done", seconds=time.perf_counter() - t_start)
     print(env["nvidia_smi"])

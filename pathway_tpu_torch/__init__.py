@@ -49,7 +49,9 @@ grows and shrinks a live index's mesh under traffic (``pw.elastic``,
 the engine as the reference's do, and so does the rest of the stdlib:
 graphs, sorted indexes, ``pw.utils`` (``AsyncTransformer``, ``unpack_col``),
 the ``pw.ml`` classifiers (on the device index), fuzzy joins and HMMs,
-``pw.viz`` (``Table.show`` / ``Table.plot``) and ``pw.demo``'s streams. ``python -m
+``pw.viz`` (``Table.show`` / ``Table.plot``) and ``pw.demo``'s streams.
+``pw.analysis`` verifies a graph before it runs (``pw.run(analysis=)``,
+``python -m pathway_tpu_torch analyze [--deep]``). ``python -m
 pathway_tpu_torch`` is the command line. Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``. The package imports torch and
 numpy only.
@@ -126,6 +128,7 @@ from .serving import ServingConfig
 from . import utils as _host_helpers  # noqa: F401
 from .stdlib import graphs, indexing, ml, ordered, statistical, stateful, temporal, utils, viz
 from .stdlib import temporal as window
+from . import analysis  # pw.analysis.analyze / suppress (the pre-run verifier)
 from .stdlib.utils.async_transformer import AsyncTransformer
 from .stdlib.utils.col import unpack_col
 from .stdlib.utils.pandas_transformer import pandas_transformer
@@ -207,6 +210,7 @@ def groupby(table, *args, **kw):
 
 __all__ = [
     "ANY",
+    "analysis",
     "ClassArg",
     "LiveTable",
     "attribute",

@@ -8,8 +8,11 @@ The port's copy of the reference's ``cli.py``, written on ``argparse`` (no
   ``PATHWAY_PROCESS_ID``, ``PATHWAY_FIRST_PORT``) and a random per-cluster
   ``PATHWAY_CLUSTER_TOKEN``; process 0 coordinates the multi-process
   cluster (``parallel/multiprocess.py``). ``spawn-from-env`` re-runs it
-  with the arguments in ``PATHWAY_SPAWN_ARGS``. ``analyze`` needs the
-  verifier (ROADMAP Queue A item 10): it raises.
+  with the arguments in ``PATHWAY_SPAWN_ARGS``.
+- ``analyze`` runs a program in analyze-only mode and verifies the graph
+  it describes (``analysis/``; ``--deep`` adds PWL017–PWL020): exit 0
+  clean, 1 on findings at or above ``--fail-on``, 3 when the program fails
+  to build its graph.
 - ``profile`` runs a program with the per-operator profiler on and writes
   its Chrome trace; ``doctor`` runs it with the health watchdog on and
   renders the verdict (exit 0 green, 1 yellow, 2 red, 3 no verdict).
@@ -27,9 +30,6 @@ import os
 import shlex
 import subprocess
 import sys
-
-_VERIFIER_ITEM = "ROADMAP Queue A item 10 (the deep verifier)"
-
 
 class CommandError(Exception):
     """A command failed: ``Error: <message>`` on stderr, exit 1."""
@@ -117,7 +117,14 @@ def _spawn_from_env(args) -> int:
 
 
 def _analyze(args) -> int:
-    raise NotImplementedError(f"analyze needs {_VERIFIER_ITEM}")
+    """Statically verify PROGRAM's dataflow graph without running it: the
+    program executes with PATHWAY_ANALYZE_ONLY=1, so pw.run() returns
+    before building sinks or starting connectors, and the verifier walks
+    the graph it described."""
+    from .analysis.program import analyze_program
+
+    return analyze_program(args.program, list(args.arguments), as_json=args.as_json,
+                           strict_warnings=args.strict_warnings, fail_on=args.fail_on, deep=args.deep)
 
 
 # --------------------------------------------------------- profile, doctor
@@ -449,8 +456,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("spawn-from-env", help="re-run spawn with arguments from PATHWAY_SPAWN_ARGS")
     p.set_defaults(func=_spawn_from_env)
 
-    p = sub.add_parser("analyze", help="statically verify PROGRAM's dataflow graph")
-    p.add_argument("program", nargs=argparse.REMAINDER)
+    p = sub.add_parser("analyze", help="statically verify PROGRAM's dataflow graph without running it")
+    p.add_argument("--json", dest="as_json", action="store_true", help="emit diagnostics as JSON")
+    p.add_argument("--strict-warnings", action="store_true", help="deprecated alias for --fail-on=warn")
+    p.add_argument("--fail-on", choices=["warn", "error"], default="error",
+                   help="lowest severity that makes the exit code nonzero (default: error)")
+    p.add_argument("--deep", action="store_true", help="also run the op-level deep pass (rules PWL017..PWL020)")
+    p.add_argument("program")
+    p.add_argument("arguments", nargs=argparse.REMAINDER)
     p.set_defaults(func=_analyze)
 
     p = sub.add_parser("profile", help="run PROGRAM with the per-operator profiler; write a Chrome trace")

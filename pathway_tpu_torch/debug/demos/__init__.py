@@ -1,9 +1,9 @@
 """Self-contained demo pipelines, one per file.
 
 Each module is a runnable program (``python -m
-pathway_tpu_torch.debug.demos.word_counts``). The reference's static
-verifier lints the same programs (``cli analyze``); the port's comes with
-ROADMAP Queue A item 10, and its ``analyze`` raises until then.
+pathway_tpu_torch.debug.demos.word_counts``). The verifier lints them
+(``python -m pathway_tpu_torch analyze``), as the reference's lints its
+own.
 """
 
 from __future__ import annotations

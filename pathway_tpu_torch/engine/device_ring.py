@@ -36,7 +36,22 @@ import weakref
 import numpy as np
 import torch
 
-__all__ = ["DeviceRing", "quiesce_all", "active_rings"]
+__all__ = ["DeviceRing", "quiesce_all", "active_rings", "staging_placement"]
+
+
+def staging_placement(mesh_axes: dict | None) -> dict:
+    """Declarative placement intent of staged payloads for the deep
+    verifier (analysis.deep, PWL019), resolved without constructing a ring
+    or touching a device, as the reference's: with a run mesh the engine
+    stages each epoch's rows onto the mesh's data devices (the index routes
+    them to their shards); without one they land on the default device,
+    and a mesh-sharded consumer takes them through the host."""
+    axes = dict(mesh_axes) if mesh_axes else None
+    return {
+        "kind": "device_ring",
+        "mesh_axes": axes,
+        "sharded": bool(axes and int(axes.get("data", 1)) > 1),
+    }
 
 _ring_seq = itertools.count()
 

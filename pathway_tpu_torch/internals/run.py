@@ -20,10 +20,16 @@ worker is respawned, up to ``cluster_partial_restarts=`` times (default
 3). Each keyword has its ``PATHWAY_CLUSTER_*`` variable. Respawned workers
 are reaped when the run ends.
 
-The run options of planes this package does not hold yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them, whether
-they come as keywords or as ``PATHWAY_*`` environment variables; none is
-silently ignored.
+``analysis=`` (or ``PATHWAY_ANALYSIS``): the pre-run verifier gate
+(``analysis/``), run over the parse graph after ``G.run_context`` is
+recorded and before any sink or reader exists: ``"strict"`` raises
+``AnalysisError`` on error-severity findings, ``"warn"`` prints the
+findings and runs, ``"deep"`` is ``"strict"`` with the op-level deep pass
+(PWL017–PWL020), ``"off"`` (the default) skips it. With
+``PATHWAY_ANALYZE_ONLY`` set (``python -m pathway_tpu_torch analyze``)
+``pw.run`` records the run context and returns None there: the graph is
+described, and no data flows. An unknown keyword raises ``TypeError``;
+none is silently ignored.
 
 The observability planes run with the reference's precedence (an explicit
 keyword wins over its ``PATHWAY_*`` variable; ``False`` turns an
@@ -132,20 +138,6 @@ from .parse_graph import G
 
 logger = logging.getLogger(__name__)
 
-# the ROADMAP Queue A item of the plane a run option belongs to
-_VERIFIER = "ROADMAP Queue A item 10 (the deep verifier)"
-
-# keyword -> (value that leaves the plane off, ROADMAP item)
-_UNPORTED_KWARGS = {
-    "analysis": (None, _VERIFIER),
-}
-
-# environment variable -> (values that leave the plane off, ROADMAP item)
-_UNPORTED_ENV = {
-    "PATHWAY_ANALYSIS": (("off",), _VERIFIER),
-}
-
-
 @dataclass
 class RunResult:
     """What ``pw.run`` hands back after the graph completes.
@@ -165,21 +157,29 @@ class RunResult:
     health: dict | None = None
 
 
-def unported_options(kwargs: dict[str, Any], environ=None) -> list[str]:
-    """Messages for every run option in ``kwargs`` or ``environ`` whose
-    plane is not ported (an option at its "off" value passes)."""
-    environ = os.environ if environ is None else environ
-    out = []
-    for name, value in kwargs.items():
-        if name in _UNPORTED_KWARGS:
-            off, item = _UNPORTED_KWARGS[name]
-            if value is not off and value != off:
-                out.append(f"pw.run({name}=...) needs {item}")
-    for name, (off, item) in _UNPORTED_ENV.items():
-        value = environ.get(name)
-        if value and value.strip().lower() not in off:
-            out.append(f"{name}={value} needs {item}")
-    return out
+def _run_analysis(mode: str | None) -> None:
+    """The opt-in pre-run verifier gate, as the reference's: "strict"
+    raises AnalysisError on error-severity findings before any sink is
+    built or connector started; "warn" prints them to stderr and
+    continues; "deep" is "strict" with the op-level pass (PWL017–PWL020);
+    "off" (the default) skips. PATHWAY_ANALYSIS supplies the mode when
+    the argument is None."""
+    if mode is None:
+        mode = os.environ.get("PATHWAY_ANALYSIS", "off")
+    if mode in ("off", None):
+        return
+    if mode not in ("strict", "warn", "deep"):
+        raise ValueError(
+            f"analysis={mode!r}: expected 'strict', 'warn', 'deep', or 'off'"
+        )
+    from ..analysis import AnalysisError, analyze, has_errors, render_human
+
+    diags = analyze(G, deep=(mode == "deep"))
+    if not diags:
+        return
+    if mode in ("strict", "deep") and has_errors(diags):
+        raise AnalysisError(diags)
+    print(render_human(diags), file=sys.stderr)
 
 
 def run(
@@ -205,12 +205,13 @@ def run(
     tenancy: Any = None,
     profile: Any = None,
     license_key: str | None = None,
+    analysis: str | None = None,
     cluster_accept_timeout: float | None = None,
     cluster_hello_timeout: float | None = None,
     cluster_lease_ms: float | None = None,
     cluster_partial_restarts: int | None = None,
     **kwargs: Any,
-) -> RunResult:
+) -> RunResult | None:
     """Execute all registered outputs/subscriptions to completion (static
     sources) or until all streaming connectors close, on
     ``PATHWAY_THREADS`` engine workers (threads) in each of
@@ -219,9 +220,9 @@ def run(
     ``terminate_on_error``: True aborts the run at the first failing
     row; False gives failing rows the ERROR value and an entry in the
     error log. ``debug`` and ``runtime_typechecking`` are accepted as
-    the reference accepts them. Every other keyword of the reference's
-    ``pw.run`` belongs to a plane not yet ported and raises
-    ``NotImplementedError`` unless it is at its "off" value.
+    the reference accepts them. ``analysis``: the pre-run verifier gate
+    (module docstring); the run returns None without running under
+    ``PATHWAY_ANALYZE_ONLY``.
 
     ``persistence_config``, ``recovery``, ``pipeline_depth`` (1: the strict
     loop) and ``ingest_workers`` (0: no stage): persistence, the supervisor,
@@ -257,15 +258,11 @@ def run(
     multi-process cluster's formation limits, lease and partial-restart
     budget (module docstring); None reads the ``PATHWAY_CLUSTER_*``
     variable."""
-    unknown = sorted(set(kwargs) - set(_UNPORTED_KWARGS))
-    if unknown:
-        raise TypeError(f"pw.run() got unexpected keyword arguments {unknown}")
+    if kwargs:
+        raise TypeError(f"pw.run() got unexpected keyword arguments {sorted(kwargs)}")
     planes = dict(with_http_server=with_http_server, monitoring_http_port=monitoring_http_port,
                   monitoring_level=monitoring_level, tracing=tracing, watchdog=watchdog, chip_ledger=chip_ledger,
                   freshness=freshness)
-    missing = unported_options(kwargs)
-    if missing:
-        raise NotImplementedError("; ".join(missing))
     try:
         mesh_axes = parse_mesh_spec(mesh if mesh is not None else (os.environ.get("PATHWAY_MESH") or None))
     except ValueError:
@@ -277,6 +274,9 @@ def run(
         except ValueError:
             decode_cfg = None  # active_decode() treats it as off too
     elastic_cfg = _parse_or_none(parse_elastic_spec, elastic, "PATHWAY_ELASTIC")
+    # the run context records the elastic= / PATHWAY_ELASTIC spec alone, as
+    # the reference's does (the verifier reads it; mesh="auto" is its own key)
+    elastic_ctx = elastic_cfg.as_dict() if elastic_cfg is not None else None
     run_elastic = elastic_cfg if elastic is not None else None
     if run_elastic is None and elastic_cfg is None and (mesh_axes or {}).get("auto"):
         # mesh="auto" with no elastic= arms the default watermark envelope
@@ -302,9 +302,14 @@ def run(
         "index_tiers": tier_cfg.as_dict() if tier_cfg is not None else None,
         "decode": decode_cfg.as_dict() if decode_cfg is not None else None,
         "tenancy": tenancy_cfg.as_dict() if tenancy_cfg is not None else None,
-        "elastic": elastic_cfg.as_dict() if elastic_cfg is not None else None,
+        "elastic": elastic_ctx,
         **resolved["context"],
     }
+    if os.environ.get("PATHWAY_ANALYZE_ONLY"):
+        # `analyze <program>`: the graph is fully described at this point —
+        # return before sinks are built or readers started
+        return None
+    _run_analysis(analysis)
     # an explicit key, then pw.set_license_key, then PATHWAY_LICENSE_KEY
     lic = License.new(license_key or pathway_config.license_key or pwcfg.license_key)
     check_worker_count(lic, pwcfg.n_workers)  # the free tier's worker cap
@@ -715,5 +720,5 @@ def release_crashed_attempt() -> None:
         torch.cuda.empty_cache()
 
 
-def run_all(**kwargs: Any) -> RunResult:
+def run_all(**kwargs: Any) -> RunResult | None:
     return run(**kwargs)

@@ -121,13 +121,13 @@ def predict_compile_keys(
     batch_buckets=DEFAULT_BATCH_BUCKETS,
     mesh_ndata: int = 1,
 ) -> set[tuple[int, int]]:
-    """Exact set of (B, S) jit compile keys the bucketed encode path
-    produces for a workload of token ``lengths`` — the model the deep
-    verifier's recompilation predictor (PWL018) is validated against:
-    this must mirror ``SentenceEncoder.encode_tokens`` (sort by length,
-    chunk by the mesh-rounded max batch, pad each chunk to its bucket)
-    exactly, and the bucket-sweep test asserts it matches the live jit
-    cache entry count."""
+    """Exact set of (B, S) geometries the bucketed encode path dispatches
+    for a workload of token ``lengths`` (the reference's jit compile keys)
+    — the model the deep verifier's predictor (PWL018) is validated
+    against: this must mirror ``SentenceEncoder.encode_tokens`` (sort by
+    length, chunk by the mesh-rounded max batch, pad each chunk to its
+    bucket) exactly, and the bucket-sweep test asserts it matches
+    ``SentenceEncoder.dispatch_geometry_count``."""
     if not lengths:
         return set()
     order = sorted(int(l) for l in lengths)
@@ -150,9 +150,9 @@ def compile_bucket_space(
     batch_buckets=DEFAULT_BATCH_BUCKETS,
     mesh_ndata: int = 1,
 ) -> int:
-    """Upper bound of distinct (B, S) compile keys any workload can
-    drive through the bucketed encode path at this geometry — the
-    symbolic enumeration PWL018 sums against the compile budget."""
+    """Upper bound of distinct (B, S) geometries any workload can drive
+    through the bucketed encode path at this geometry — the symbolic
+    enumeration PWL018 sums against its budget."""
     batch = effective_max_batch(max_batch, mesh_ndata)
     bb = _capped_batch_buckets(batch, batch_buckets)
     scap = bucket(max(1, int(max_seq_len)), seq_buckets)

@@ -173,10 +173,26 @@ class SentenceEncoder:
         self._run_group = wrap_jit("sentence_encoder.fwd_group", self._run_group)
         self._run_packed = wrap_jit("sentence_encoder.fwd_packed", self._run_packed)
         self._run_padded = wrap_jit("sentence_encoder.fwd", self._run_padded)
+        self._geometries: set[tuple[int, int]] = set()  # (rows, seq) of every _run_padded dispatch
 
     @property
     def dim(self) -> int:
         return self.cfg.hidden_size
+
+    def dispatch_geometry_count(self) -> int:
+        """Distinct (rows, seq) geometries ``_run_padded`` has dispatched —
+        the port's counterpart of the reference's ``jit_cache_size`` (the
+        forward jit's cache entries): the ground truth the deep verifier's
+        predictor (``models.batching.predict_compile_keys`` / PWL018) is
+        held to in the bucket-sweep test."""
+        return len(self._geometries)
+
+    def predict_compile_keys(self, lengths) -> set[tuple[int, int]]:
+        """The (rows, seq) geometries ``encode_tokens`` would dispatch for a
+        workload of token ``lengths`` at this encoder's geometry."""
+        from .batching import predict_compile_keys
+
+        return predict_compile_keys(lengths, max_batch=self.max_batch, mesh_ndata=len(self._data_devices))
 
     def _wire(self, arr: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
         """Host array -> device tensor; on CUDA through a pinned buffer
@@ -192,6 +208,7 @@ class SentenceEncoder:
         pad to a multiple of the data axis and split contiguously over the
         data devices; every device's forward is issued before any is read,
         and the embeddings gather on the first data device."""
+        self._geometries.add(tuple(ids.shape))
         if self.mesh is None:
             with torch.no_grad(), CHIP_LEDGER.timed("encode", device=self.device):
                 return self.module(self._wire(ids), self._wire(mask))

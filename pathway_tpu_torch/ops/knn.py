@@ -187,11 +187,93 @@ def _pallas_topk(metric: str, matrix, valid, queries, k: int, bias=None):
     return _l2_shift(metric, vals, queries), idx
 
 
+def _dispatch_topk(metric: str, matrix, valid, queries, k: int, bias=None):
+    """One device's top-k as the index dispatches it: the fused kernel (B2)
+    on a CUDA slab at fetch <= 64, else the plain score matrix + top-k."""
+    if _pallas_eligible(metric, k, matrix.device):
+        return _pallas_topk(metric, matrix, valid, queries, k, bias=bias)
+    return _topk_fn(metric)(matrix, valid, queries, k)
+
+
 def _k_bucket(k: int) -> int:
     b = 8
     while b < k:
         b *= 2
     return b
+
+
+def k_bucket_ladder(k_max: int) -> tuple[int, ...]:
+    """Every fetch width the pow2 k-bucketing can produce up to
+    ``k_max`` — the dispatch-geometry ladder of the top-k search. A
+    dynamic per-row ``number_of_matches`` walks this ladder instead of
+    dispatching per distinct k; the deep verifier (PWL018) counts it."""
+    out = []
+    b = 8
+    while b < max(8, int(k_max)):
+        out.append(b)
+        b *= 2
+    out.append(b)
+    return tuple(out)
+
+
+def deep_trace_spec(spec: dict) -> dict:
+    """The search callable a device-backed index spec's node dispatches,
+    for the deep verifier's op trace (analysis.deep, PWL017), with tiny
+    arguments on the ``meta`` device: the traced ops do not depend on the
+    capacity, and nothing is computed or allocated. On ``meta`` (or CPU)
+    tensors the callable takes the plain top-k; on CUDA tensors at fetch
+    <= 64 it launches B2."""
+    dim = max(1, int(spec.get("dimensions") or 1))
+    metric = spec.get("metric", "cos")
+    if metric not in ("cos", "ip", "l2"):
+        metric = "cos"
+    cap, nq, k = 64, 8, 8
+    args = (
+        torch.empty((cap, dim), dtype=torch.float32, device="meta"),
+        torch.empty((cap,), dtype=torch.bool, device="meta"),
+        torch.empty((nq, dim), dtype=torch.float32, device="meta"),
+    )
+    return {
+        "name": f"knn.search[{metric},d={dim}]",
+        "fn": lambda matrix, valid, queries: _dispatch_topk(metric, matrix, valid, queries, k),
+        "args": args,
+    }
+
+
+def deep_compile_profile(spec: dict, mesh_axes: dict | None = None) -> dict:
+    """Predicted distinct dispatch geometries of one device-backed index
+    (analysis.deep, PWL018), with the reference's arithmetic: scatter,
+    grow and empty-slab once per capacity, the top-k search once per
+    (capacity, fetch bucket). A literal ``query_k`` pins one fetch bucket;
+    a dynamic (per-row) k walks the pow2 ladder up to capacity. Sharding
+    divides the per-shard capacity but does not multiply geometries (every
+    shard runs the same one). The kernels themselves are built once, by
+    ``ops/_build.py``, whatever the geometry."""
+    cap = max(1, int(spec.get("reserved_space") or 1))
+    ndata = int((mesh_axes or {}).get("data", 1) or 1)
+    per_shard = max(1, -(-cap // ndata))
+    if spec.get("query_k_dynamic"):
+        k_ladder = k_bucket_ladder(per_shard)
+    else:
+        k_ladder = (_k_bucket(int(spec.get("query_k") or 3)),)
+    # scatter + grow + empty-slab families once each per capacity; the
+    # search family once per fetch bucket
+    base = 3
+    compiles = base + len(k_ladder)
+    if spec.get("tiers"):
+        # hot + cold tier each own a search family (cold adds the
+        # cluster-probe gather); scatter stays on the hot tier
+        compiles += 1 + len(k_ladder)
+    return {
+        "compiles": compiles,
+        "detail": {
+            "per_shard_capacity": per_shard,
+            "k_buckets": list(k_ladder),
+            "kernel_families": base,
+            "tiered": bool(spec.get("tiers")),
+        },
+        "unbucketed": [],
+    }
 
 
 def _take(t: torch.Tensor, sel) -> torch.Tensor:
@@ -699,9 +781,7 @@ class DeviceKnnIndex:
             if mask is not None:
                 valid, bias = mask
             with CHIP_LEDGER.timed("index.search", device=self.device):
-                if _pallas_eligible(self.metric, fetch, self.device):
-                    return _pallas_topk(self.metric, matrix, valid, q, fetch, bias=bias)
-                return _topk_fn(self.metric)(matrix, valid, q, fetch)
+                return _dispatch_topk(self.metric, matrix, valid, q, fetch, bias=bias)
         return self._sharded_topk(q, fetch, mask)
 
     # the run profiler's build / execute split of each top-k dispatch (wrapped

@@ -43,6 +43,65 @@ def pages_for(length: int, page_size: int) -> int:
     return max(0, (int(length) + page_size - 1) // page_size)
 
 
+def deep_trace_spec(decode_cfg: dict) -> dict:
+    """The decode step's attention callable for the deep verifier's op
+    trace (analysis.deep, PWL017): :func:`paged_decode_attention`, what the
+    decode engine dispatches, over the configured pool geometry at a tiny
+    hidden dim, with arguments on the ``meta`` device (nothing is computed
+    or allocated). On ``meta`` tensors it takes its plain version; on CUDA
+    tensors it launches B5."""
+    lanes = max(1, int(decode_cfg.get("lanes") or 1))
+    page_size = max(1, int(decode_cfg.get("page_size") or 16))
+    max_seq = max(page_size, int(decode_cfg.get("max_seq") or 512))
+    pps = pages_for(max_seq, page_size)
+    n_pages = max(int(decode_cfg.get("pages") or 0), pps, 1)
+    d, n_heads = 64, 4
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    args = (
+        meta(lanes, d),
+        meta(n_pages, page_size, d),
+        meta(n_pages, page_size, d),
+        meta(lanes, pps, dtype=torch.int32),
+        meta(lanes, dtype=torch.int32),
+    )
+    return {
+        "name": f"decode.step[lanes={lanes},page={page_size}]",
+        "fn": lambda q, kp, vp, pt, ln: paged_decode_attention(q, kp, vp, pt, ln, n_heads=n_heads),
+        "args": args,
+    }
+
+
+def deep_compile_profile(decode_cfg: dict) -> dict:
+    """Predicted distinct dispatch geometries of the decode plane
+    (analysis.deep, PWL018), with the reference's arithmetic: the step
+    always runs at the padded (lanes, pages_per_seq) width — one geometry
+    regardless of live sequences — plus one prefill geometry per seq
+    bucket up to ``max_seq``."""
+    from ..models.batching import DEFAULT_SEQ_BUCKETS, bucket
+
+    max_seq = int(decode_cfg.get("max_seq") or 512)
+    cap = bucket(max_seq, DEFAULT_SEQ_BUCKETS)
+    prefill = [s for s in DEFAULT_SEQ_BUCKETS if s <= cap] or [cap]
+    detail: dict = {"prefill_seq_buckets": prefill, "step_programs": 1}
+    compiles = 1 + len(prefill)
+    if decode_cfg.get("spec_tokens"):
+        # speculative serving swaps the step for a draft pass plus a
+        # verify pass — two geometries regardless of spec_tokens
+        detail["spec_programs"] = 2
+        compiles += 2
+    if decode_cfg.get("prefix_cache") or decode_cfg.get("prefill_chunk"):
+        # chunked prefill runs one geometry per chunk bucket, capped by the
+        # configured chunk size (or max_seq when only the cache is on)
+        chunk_cap = bucket(int(decode_cfg.get("prefill_chunk") or max_seq), DEFAULT_SEQ_BUCKETS)
+        chunks = [s for s in DEFAULT_SEQ_BUCKETS if s <= chunk_cap] or [chunk_cap]
+        detail["chunk_buckets"] = chunks
+        compiles += len(chunks)
+    return {"compiles": compiles, "detail": detail, "unbucketed": []}
+
+
 def decode_split_plan(pages_per_seq: int, page_size: int) -> tuple[int, int]:
     """(positions per split, splits) of the kernel's context split: whole
     pages, as many as fit in 64 positions (64 positions when a page is

@@ -126,6 +126,25 @@ class TierConfig:
         }
 
 
+def deep_tier_profile(cfg) -> dict | None:
+    """Static tier-plane metadata for the deep verifier (analysis.deep,
+    PWL018), the reference's: the dispatch-relevant knobs of the two-tier
+    index. The cold tier adds two families on top of the hot-tier search —
+    the cluster-probe gather and the cold rescore — each keyed on the
+    (n_clusters, n_probe, cold_dtype) geometry, so the bucket space is one
+    entry per configured geometry, not per corpus size."""
+    if cfg is None:
+        return None
+    d = cfg if isinstance(cfg, dict) else cfg.as_dict()
+    return {
+        "n_clusters": int(d.get("n_clusters") or 64),
+        "n_probe": int(d.get("n_probe") or 8),
+        "hot_dtype": d.get("hot_dtype", "f32"),
+        "cold_dtype": d.get("cold_dtype", "int8"),
+        "extra_kernel_families": 2,
+    }
+
+
 _SPEC_KEYS = {
     "hot": "hot_rows",
     "hot_rows": "hot_rows",

@@ -85,7 +85,7 @@ _SIGNALS = {"kill": signal.SIGKILL, "term": signal.SIGTERM}
 
 # --- static site registry -------------------------------------------------
 # Every production inject()/channel() call site declares itself here (the
-# reference's deep verifier reads it; ROADMAP Queue A item 10). Keys are
+# deep verifier's PWL020 reads it). Keys are
 # exact site names; values name the commit plane the site covers.
 
 SITE_REGISTRY: dict[str, str] = {}

@@ -140,8 +140,8 @@ class BaseChat(udfs.UDF):
         return self.kwargs.get("model")
 
     def __call__(self, messages: ColumnExpression, **kwargs) -> ColumnExpression:
-        # the graph's record of its HTTP LLM stages (the deep verifier's
-        # PWL013 reads it, ROADMAP Queue A item 10)
+        # the graph's record of its HTTP LLM stages (the verifier's PWL013
+        # reads it)
         from ...internals.parse_graph import G
 
         G.llm_endpoints.append({"kind": "llm_chat", "model": self.model})

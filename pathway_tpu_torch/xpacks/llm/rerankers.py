@@ -93,8 +93,8 @@ class LLMReranker(udfs.UDF):
     def __call__(
         self, doc: ColumnExpression, query: ColumnExpression, **kwargs
     ) -> ColumnExpression:
-        # the graph's record of its HTTP LLM stages (the deep verifier's
-        # PWL013 reads it, ROADMAP Queue A item 10)
+        # the graph's record of its HTTP LLM stages (the verifier's PWL013
+        # reads it)
         from ...internals.parse_graph import G
 
         G.llm_endpoints.append(

@@ -211,10 +211,10 @@ def test_profile_and_doctor_run_the_program(tmp_path):
 
 
 def test_unported_commands_name_their_items(tmp_path):
-    """``analyze`` still names the ROADMAP item that brings it. ``spawn
-    --processes 2`` runs the program in two processes of one cluster, and
-    ``spawn-from-env`` without ``PATHWAY_SPAWN_ARGS`` fails as the
-    reference's does."""
+    """``analyze`` of a missing program exits 3 as the reference's does
+    (the command came with the verifier). ``spawn --processes 2`` runs the
+    program in two processes of one cluster, and ``spawn-from-env`` without
+    ``PATHWAY_SPAWN_ARGS`` fails as the reference's does."""
     import socket
 
     prog, seen = _program(tmp_path)
@@ -224,7 +224,8 @@ def test_unported_commands_name_their_items(tmp_path):
     s.close()
     got = _port([["analyze", "x.py"], ["spawn-from-env"], ["spawn", "--processes", "2", "--first-port", str(port), prog]],
                 env={"PATHWAY_SPAWN_ARGS": ""})
-    assert got[0]["rc"] == 1 and "ROADMAP Queue A item 10" in got[0]["stderr"]
+    _same(got[0], _ref(["analyze", "x.py"]))
+    assert got[0]["rc"] == 3 and "failed while building its graph" in got[0]["stderr"]
     _same(got[1], _ref(["spawn-from-env"], env={"PATHWAY_SPAWN_ARGS": ""}))
     assert got[1]["rc"] == 2 and "PATHWAY_SPAWN_ARGS is not set" in got[1]["stderr"]
     assert got[2]["rc"] == 0, got[2]

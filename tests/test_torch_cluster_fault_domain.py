@@ -379,8 +379,11 @@ def _cluster(cwd, prog: str, processes: int, extra_env: dict, tries: int = 3):
     for attempt in range(tries):
         env = _env({"PATHWAY_THREADS": 1, "PATHWAY_PROCESSES": processes, "PATHWAY_FIRST_PORT": _free_port(),
                     **extra_env})
+        # each process leads its own session, so the workers process 0
+        # respawns (which share its stderr pipe) are killed with it
         procs = [subprocess.Popen([sys.executable, prog], env={**env, "PATHWAY_PROCESS_ID": str(pid)},
-                                  cwd=str(cwd), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                                  cwd=str(cwd), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                                  start_new_session=True)
                  for pid in range(processes)]
         try:
             _, err0 = procs[0].communicate(timeout=PROC_TIMEOUT)
@@ -388,8 +391,11 @@ def _cluster(cwd, prog: str, processes: int, extra_env: dict, tries: int = 3):
                 p.communicate(timeout=30)
         finally:
             for p in procs:
-                if p.poll() is None:
-                    p.kill()
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    pass
+                if p.returncode is None:
                     p.communicate()
         if attempt + 1 < tries and "Address already in use" in err0:
             continue

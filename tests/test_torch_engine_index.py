@@ -14,10 +14,9 @@ package, on the CPU (the port on ``device="cpu"``):
   (vocab 2048, float32 encoders on both sides so scores are comparable):
   device-resident ingest through ``add_batch_device``, queries through
   the fused text path; hits equal, scores within 1e-5;
-* every unported ``pw.run`` option and index placement raises
-  ``NotImplementedError``; ``mesh=`` (the run's, ``PATHWAY_MESH`` or an
-  index's) runs on a CPU mesh, except ``"auto"``, which arms the elastic
-  plane and raises.
+* every unported index placement raises ``NotImplementedError``;
+  ``mesh=`` (the run's, ``PATHWAY_MESH`` or an index's) runs on a CPU
+  mesh, except ``"auto"``, which arms the elastic plane and raises.
 """
 
 from __future__ import annotations
@@ -38,7 +37,6 @@ from pathway_tpu.models import sentence_encoder as jse
 from pathway_tpu.models.encoder import EncoderConfig as JCfg
 from pathway_tpu.models.tokenizer import WordPieceTokenizer as JTok
 from pathway_tpu.stdlib.ml.index import KNNIndex as JKNNIndex
-from pathway_tpu_torch.internals import run as trun
 from pathway_tpu_torch.internals.graph_runner import GraphRunner as TRunner
 from pathway_tpu_torch.models import sentence_encoder as tse
 from pathway_tpu_torch.models.encoder import EncoderConfig as TCfg
@@ -261,24 +259,6 @@ def test_embedder_batched_udf_and_dimension(embedders):
     assert isinstance(dev, torch.Tensor) and dev.shape == (8, F32["hidden_size"]) and (dev[3:] == 0).all()
 
 
-# -------------------------------------------------- unported options raise
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(analysis="strict")],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_unported_run_options_raise(kwargs):
-    t = tpw.debug.table_from_markdown("""
-      | a
-    1 | 1
-    """)
-    tpw.io.subscribe(t, lambda **_: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        tpw.run(**kwargs)
-
-
 @pytest.mark.parametrize(
     "kwargs,key,want",
     [(dict(index_tiers="hot=64"), "index_tiers", 64), (dict(tenancy=True), "tenancy", 0),
@@ -318,9 +298,12 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
         handle = elastic.register_handle(tknn.DeviceKnnIndex(4, reserved_space=8, device="cpu"))
         handle.add("x", np.ones(4, np.float32))
 
+    armed = []
+
     def on_change(key, row, time, is_addition):
         seen.append(row["a"])
         meshes.append(tmesh.active_mesh())
+        armed.append(elastic.active_elastic())
         deadline = _time.monotonic() + 30.0
         while "elastic" in kwargs and handle.index.n_shards != 2 and _time.monotonic() < deadline:
             _time.sleep(0.01)  # the run's controller reshards toward its target
@@ -346,28 +329,21 @@ def test_ported_run_options_run(tmp_path, monkeypatch, kwargs, key, want):
     elif key == "tenancy":
         got = got["demote_every"]
     elif key == "elastic":
-        got = (got["auto"], got["shards"])
         if "mesh" in kwargs:  # the run's mesh: the data axis over the pool
+            # the run context holds no elastic= spec, as the reference's; the
+            # run armed the default watermark envelope all the same
+            assert got is None
+            got = armed[0].as_dict()
             assert meshes[0].shape == {"data": 2, "model": 1} and ctx["mesh_axes"]["auto"]
         else:
             assert handle.index.n_shards == 2 and elastic.ELASTIC_METRICS.snapshot()["reshards"] == {"target": 1}
+        got = (got["auto"], got["shards"])
         assert elastic.active_elastic() is None and tmesh.active_mesh() is None
         elastic.reset_registry()
         elastic.ELASTIC_METRICS.reset()
     assert seen == [1] and got == want
     if "profile" in kwargs:
         assert json.loads((tmp_path / "p.json").read_text())["traceEvents"]
-
-
-@pytest.mark.parametrize(
-    "var,value",
-    [("PATHWAY_ANALYSIS", "strict")],
-)
-def test_unported_env_options_raise(monkeypatch, var, value):
-    monkeypatch.setenv(var, value)
-    assert trun.unported_options({}) and var in trun.unported_options({})[0]
-    with pytest.raises(NotImplementedError, match=var):
-        tpw.run()
 
 
 @pytest.mark.parametrize(
@@ -385,12 +361,12 @@ def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
     reference's does)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(var, value)
-    assert not trun.unported_options({})
     t = tpw.debug.table_from_markdown("""
       | a
     1 | 1
     """)
-    tpw.io.subscribe(t, lambda **_: None)
+    armed = []
+    tpw.io.subscribe(t, lambda **_: armed.append(tpw.elastic.active_elastic()))
     tpw.run()
     written = {"PATHWAY_PROFILE": "p.json", "PATHWAY_JOURNAL_DIR": "journal",
                "PATHWAY_TELEMETRY_SERVER": "telemetry.jsonl", "PATHWAY_REPLAY_STORAGE": "replay"}.get(var)
@@ -402,7 +378,9 @@ def test_ported_env_options_run(tmp_path, monkeypatch, var, value):
     if var in ("PATHWAY_MESH", "PATHWAY_ELASTIC"):
         from pathway_tpu_torch.internals.parse_graph import G
 
-        assert G.run_context["elastic"]["auto"] == (var == "PATHWAY_MESH")
+        # the run context records PATHWAY_ELASTIC alone, as the reference's
+        assert (G.run_context["elastic"] is None) == (var == "PATHWAY_MESH")
+        assert armed[0].auto == (var == "PATHWAY_MESH")
 
 
 def _plane_run(tmp_path, monkeypatch, **kwargs):
@@ -470,7 +448,6 @@ def test_plane_env_options_run(tmp_path, monkeypatch, var, value, key, want):
     from pathway_tpu_torch.internals.parse_graph import G as TG
 
     monkeypatch.setenv(var, value)
-    assert not trun.unported_options({})
     result = _plane_run(tmp_path, monkeypatch)
     assert TG.run_context[key] == want
     if key == "watchdog":

@@ -650,6 +650,52 @@ def test_port_stdlib_rest_and_demos_import_no_jax_flax_or_reference():
     _run_probe(_STDLIB_REST_PROBE)
 
 
+_ANALYSIS_PROBE = r"""
+import io, os, sys, tempfile
+before = set(sys.modules)
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import analysis
+from pathway_tpu_torch.analysis import diagnostics, engine_rules, graph_view, program, rules
+from pathway_tpu_torch.analysis.deep import exactly_once, host_sync, recompile, resharding, targets
+from pathway_tpu_torch.internals.graph_runner import GraphRunner
+SRC = '''
+import torch
+import pathway_tpu_torch as pw
+def embed(x, y):
+    return tuple(torch.tensor([x, y]).cpu().tolist())
+docs = pw.debug.table_from_rows(pw.schema_from_types(x=float, y=float), [(1.0, 0.0)])
+docs = docs.select(emb=pw.apply_with_type(embed, pw.ANY, docs.x, docs.y))
+index = pw.stdlib.ml.index.KNNIndex(docs.emb, docs, n_dimensions=2, reserved_space=16)
+pw.io.null.write(index.get_nearest_items(docs.emb, k=2))
+pw.run(decode="pages=64,page=16", recovery=True)
+'''
+path = os.path.join(tempfile.mkdtemp(), "prog.py")
+with open(path, "w") as f:
+    f.write(SRC)
+out = io.StringIO()
+assert program.analyze_program(path, as_json=True, deep=True, out=out) == 0
+assert "PWL017" in out.getvalue() and "PWL023" in out.getvalue(), out.getvalue()
+pw.clear_graph()
+t = pw.debug.table_from_rows(pw.schema_from_types(x=int), [(1,)])
+runner = GraphRunner(n_workers=1)
+runner.lower(t.select(y=pw.this.x + 1))
+runner.capture(t.select(pw.this.x))
+assert any(d.rule == "PWL006" for d in analysis.analyze(engine=runner.engine))
+pw.clear_graph()
+added = set(sys.modules) - before
+bad = sorted(m for m in added if m.split(".")[0] in FORBIDDEN)
+print("BAD", bad)
+"""
+
+
+def test_port_verifier_imports_no_jax_flax_or_reference():
+    """Every module of ``analysis/`` imported, then ``analyze_program``
+    with the deep pass over a program with a device index, a torch staging
+    UDF and the decode plane, and the engine-level rule over a lowered
+    graph: nothing of JAX, flax or the reference is imported."""
+    _run_probe(_ANALYSIS_PROBE)
+
+
 _NO_PANDAS_PROBE = r"""
 import importlib, re, sys
 import numpy as np
@@ -943,12 +989,6 @@ def test_spawned_cluster_processes_import_no_jax_flax_reference_or_click(tmp_pat
         assert got == {"bad": [], "cluster": True}, (pid, got)
 
 
-# the reference's public names whose modules wait in a ROADMAP Queue A item
-_WAITING_NAMES = {
-    "ROADMAP Queue A item 10 (the deep verifier)": ("analysis",),
-}
-
-
 def _kind(obj) -> str:
     import inspect
     import types
@@ -998,8 +1038,7 @@ def _check_public_names():
     import pathway_tpu_torch.xpacks.llm.openparse_utils as topenparse
     import pathway_tpu_torch.xpacks.llm.parsers as tparsers
 
-    waiting = {name for names in _WAITING_NAMES.values() for name in names}
-    assert not waiting & set(tpw.__all__), "a waiting name is exported: take it off the list"
+    assert set(tpw.__all__) >= set(jpw.__all__)
     assert tio.__all__ == jio.__all__
     for sub in ("stdlib", "ml", "indexing"):
         assert getattr(tpw, sub).__all__ == getattr(jpw, sub).__all__, sub
@@ -1012,18 +1051,13 @@ def _check_public_names():
     for jmod, tmod in ((jpw, tpw), (jmodels, tmodels), (jserving, tserving), (jhttp, thttp), (jio, tio),
                        (jxpacks, txpacks), (jconnectors, tconnectors), (jsharepoint, tsharepoint),
                        (jparsers, tparsers)):
-        skip = waiting if jmod is jpw else ()
-        missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__ and n not in skip)
+        missing = sorted(n for n in jmod.__all__ if n not in tmod.__all__)
         assert not missing, (tmod.__name__, missing)
         for name in jmod.__all__:
-            if name in skip:
-                continue
             assert hasattr(tmod, name), (tmod.__name__, name)
             assert _kind(getattr(tmod, name)) == _kind(getattr(jmod, name)), (tmod.__name__, name)
     for name in _LAZY_MODEL_NAMES:
         assert name in tmodels.__all__ and _kind(getattr(tmodels, name)) == _kind(getattr(jmodels, name)), name
-    assert all(hasattr(jpw, n) for n in waiting)
-    assert not any(hasattr(tpw, n) for n in waiting)
     # Python binds an imported subpackage on its parent; the port's host
     # helpers (``pathway_tpu_torch/utils/``) load before the stdlib ``utils``
     # that the name exports, so importing them later does not rebind it
@@ -1032,8 +1066,7 @@ def _check_public_names():
 
 def test_public_names_match_the_reference():
     """Every name of the reference's ``__all__`` is in the port's, of the
-    same kind (module, class, function or value), but for the names whose
-    modules wait in a ROADMAP item, which the port does not bind; the
+    same kind (module, class, function or value), ``analysis`` included; the
     ``models``, ``serving``, ``io``, ``io.http``, ``xpacks``,
     ``xpacks.connectors`` (``sharepoint.read``) and ``xpacks.llm.parsers``
     packages export what the reference's do (``io`` exactly, the object
